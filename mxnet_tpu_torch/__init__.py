@@ -3,11 +3,20 @@
 A second package beside the JAX one: the same public names and semantics,
 on ``torch`` tensors on ``cuda`` devices, with every Pallas kernel of the
 reference rewritten by hand for Hopper (``csrc/``). The port goes slice by
-slice; this one serves a causal TransformerLM through the paged-KV decode
+slice. It serves a causal TransformerLM through the paged-KV decode
 engine:
 
     DecodeScheduler -> DecodeEngine -> lm_prefill / paged decode step
     -> ops.flash_attention.decode_attention -> csrc/paged_decode_attention.cu
+
+and trains it:
+
+    parallel.ShardedTrainer.step -> TransformerLM.forward
+    -> TransformerEncoderCell -> multi_head_attention
+    -> ops.attention.fused_attention -> ops.flash_attention.flash_attention
+    -> csrc/flash_attention_fwd.cu (forward), csrc/flash_attention_bwd.cu
+       (backward, through torch.autograd)
+    -> gluon.loss.SoftmaxCrossEntropyLoss, optimizer.fused.lower_update
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise (``context.py``).
@@ -31,7 +40,7 @@ _torch.set_float32_matmul_precision("highest")
 from .base import MXNetError, get_env  # noqa: E402,F401
 from .context import cpu, default_device, gpu  # noqa: E402,F401
 
-_SUBMODULES = ("models", "ops", "serve")
+_SUBMODULES = ("gluon", "models", "ops", "optimizer", "parallel", "serve")
 
 
 def __getattr__(name):

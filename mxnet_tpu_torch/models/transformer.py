@@ -1,14 +1,18 @@
-"""Decoder-only causal TransformerLM and its decode interface.
+"""Decoder-only causal TransformerLM: training forward and decode interface.
 
-Counterpart of ``mxnet_tpu/models/transformer.py``: ``TransformerLM`` and
-the pure functions of its causal-LM decode interface (``decode_config``,
-``decode_params``, ``prefill_layer``, ``decode_layer``, ``lm_prefill``,
-``lm_decode_step``, ``sample_token``), on torch tensors. The layout is the
-reference's: post-LN blocks, one fused QKV projection, gluon ``Dense``
-weights kept ``(out, in)`` so ``y = x @ w.T + b``, learned positions, and a
-flat parameter dict (top-level embed/pos/final-LN/decoder plus one dict per
-layer under ``"layers"``). The encoder family (BERT) and the training path
-with dropout belong to the training slice of the port.
+Counterpart of ``mxnet_tpu/models/transformer.py``: ``TransformerLM``,
+whose ``forward`` is the training path (``TransformerEncoderCell`` ->
+``multi_head_attention`` -> ``ops.attention.fused_attention``, the flash
+kernels at long sequences), and the pure functions of its causal-LM
+decode interface (``decode_config``, ``decode_params``, ``prefill_layer``,
+``decode_layer``, ``lm_prefill``, ``lm_decode_step``, ``sample_token``),
+on torch tensors. ``lm_prefill`` keeps its dense masked attention, as the
+reference's does. The layout is the reference's: post-LN blocks, one
+fused QKV projection, gluon ``Dense`` weights kept ``(out, in)`` so
+``y = x @ w.T + b``, learned positions, and a flat parameter dict
+(top-level embed/pos/final-LN/decoder plus one dict per layer under
+``"layers"``). Dropout and the encoder family (BERT) belong to a later
+slice.
 
 Weights carry across packages: :func:`from_numpy_params` builds the port's
 module from the numpy dict the JAX package's ``decode_params`` returns, and
@@ -24,8 +28,10 @@ import torch
 from torch import nn
 
 from ..context import as_device
+from ..ops.attention import fused_attention
 
-__all__ = ["TransformerLM", "transformer_lm", "from_numpy_params",
+__all__ = ["TransformerLM", "TransformerEncoderCell", "transformer_lm",
+           "multi_head_attention", "positionwise_ffn", "from_numpy_params",
            "decode_config", "decode_params", "prefill_layer", "decode_layer",
            "lm_prefill", "lm_decode_step", "sample_token"]
 
@@ -33,15 +39,38 @@ _LN_EPS = 1e-5  # gluon nn.LayerNorm default
 _INIT_SCALE = 0.07  # gluon's default Uniform(0.07) weight initializer
 
 
-class _Layer(nn.Module):
-    """One post-LN block's parameters, named as in ``decode_params``."""
+def multi_head_attention(x, qkv_w, qkv_b, proj_w, proj_b, heads,
+                         causal=False):
+    """The reference's ``MultiHeadAttention`` forward: the fused QKV
+    projection, q/k/v as (B, H, S, D) views of it (no copies), attention
+    through :func:`fused_attention` (``MXNET_ATTENTION_IMPL``), then the
+    output projection. x (B, S, U)."""
+    b, s, u = x.shape
+    q, k, v = (t.transpose(1, 2) for t in
+               _split_heads(_dense(x, qkv_w, qkv_b), heads, u // heads))
+    out = fused_attention(q, k, v, causal=causal)
+    return _dense(out.transpose(1, 2).reshape(b, s, u), proj_w, proj_b)
 
-    def __init__(self, units, hidden_size, device):
+
+def positionwise_ffn(x, ffn1_w, ffn1_b, ffn2_w, ffn2_b):
+    """The reference's ``PositionwiseFFN`` forward (gelu, tanh form)."""
+    return _dense(_gelu(_dense(x, ffn1_w, ffn1_b)), ffn2_w, ffn2_b)
+
+
+class TransformerEncoderCell(nn.Module):
+    """Post-LN transformer block (the reference's ``TransformerEncoderCell``
+    with its ``MultiHeadAttention`` and ``PositionwiseFFN``). Its
+    parameters are named as in ``decode_params``, so the cell holds them
+    itself instead of in sub-blocks."""
+
+    def __init__(self, units, hidden_size, num_heads, causal=False,
+                 device=None):
         super().__init__()
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, device=device))
 
+        self._heads, self._causal = int(num_heads), bool(causal)
         self.qkv_w, self.qkv_b = p(3 * units, units), p(3 * units)
         self.proj_w, self.proj_b = p(units, units), p(units)
         self.ln1_g, self.ln1_b = p(units), p(units)
@@ -49,12 +78,20 @@ class _Layer(nn.Module):
         self.ffn2_w, self.ffn2_b = p(units, hidden_size), p(units)
         self.ln2_g, self.ln2_b = p(units), p(units)
 
+    def forward(self, x):
+        att = multi_head_attention(x, self.qkv_w, self.qkv_b, self.proj_w,
+                                   self.proj_b, self._heads, self._causal)
+        x = _ln(x + att, self.ln1_g, self.ln1_b)
+        out = positionwise_ffn(x, self.ffn1_w, self.ffn1_b, self.ffn2_w,
+                               self.ffn2_b)
+        return _ln(x + out, self.ln2_g, self.ln2_b)
+
 
 class TransformerLM(nn.Module):
     """Decoder-only causal LM (GPT-style), the reference's flagship.
 
     ``forward(tokens)`` (B, S) returns the training-path logits
-    (B, S, vocab), which are :func:`lm_prefill`'s. Parameters are
+    (B, S, vocab), equal to :func:`lm_prefill`'s. Parameters are
     initialized from ``seed`` as gluon does by default (weights and
     embeddings Uniform(±0.07), biases and LN betas 0, LN gammas 1), except
     that positions are drawn like the weights instead of zeroed, so that a
@@ -71,7 +108,7 @@ class TransformerLM(nn.Module):
                              f"num_heads={num_heads}")
         if dropout:
             raise NotImplementedError(
-                "dropout belongs to the training slice of the port")
+                "dropout belongs to a later slice of the port")
         device = as_device(device)
         self._units, self._heads = int(units), int(num_heads)
         self._max_length = int(max_length)
@@ -80,7 +117,9 @@ class TransformerLM(nn.Module):
                                               device=device))
         self.pos = nn.Parameter(torch.empty(max_length, units, device=device))
         self.layers = nn.ModuleList(
-            _Layer(units, hidden_size, device) for _ in range(num_layers))
+            TransformerEncoderCell(units, hidden_size, num_heads,
+                                   causal=True, device=device)
+            for _ in range(num_layers))
         self.final_g = nn.Parameter(torch.empty(units, device=device))
         self.final_b = nn.Parameter(torch.empty(units, device=device))
         self.dec_w = nn.Parameter(torch.empty(vocab_size, units,
@@ -115,10 +154,18 @@ class TransformerLM(nn.Module):
         }
 
     def forward(self, tokens):
-        tokens = torch.as_tensor(tokens, device=self.device)
-        logits, _k, _v = lm_prefill(decode_config(self), self._param_dict(),
-                                    tokens)
-        return logits
+        """The training path (the reference's ``hybrid_forward`` through
+        ``BERTEncoder``): embedding plus positions, the causal cells, the
+        final LN and the decoder. tokens (B, S) -> logits (B, S, vocab).
+        Token ids are clamped to the vocabulary, as gluon's Embedding
+        does."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        s = tokens.shape[1]
+        x = self.embed[tokens.clamp(0, self._vocab - 1)] + self.pos[:s]
+        for cell in self.layers:
+            x = cell(x)
+        x = _ln(x, self.final_g, self.final_b)
+        return _dense(x, self.dec_w, self.dec_b)
 
 
 def transformer_lm(vocab_size=32000, **kw) -> TransformerLM:

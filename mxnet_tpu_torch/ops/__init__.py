@@ -1,4 +1,10 @@
-"""Operators of the port. This slice holds the paged decode attention of
-``flash_attention.py`` and the build of its CUDA kernel (``_kernels.py``);
-the operator registry belongs to the training slice."""
-from .flash_attention import decode_attention, flash_decode_attention  # noqa: F401
+"""Operators of the port: attention dispatch (``attention.py``), flash and
+paged decode attention (``flash_attention.py``), the optimizer updates
+(``optimizer_ops.py``) and the build of the CUDA kernels
+(``_kernels.py``). The operator registry belongs to a later slice. (The
+function ``flash_attention`` is not re-exported here: the name is the
+submodule's.)"""
+from .attention import fused_attention, plain_attention  # noqa: F401
+from .flash_attention import (decode_attention,  # noqa: F401
+                              flash_attention_with_lse,
+                              flash_decode_attention)

@@ -30,6 +30,7 @@ BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 
 # kernel name -> (source file, C argtypes); every entry returns a
 # cudaError_t as int
@@ -40,6 +41,18 @@ KERNELS: Dict[str, tuple] = {
          _I, _I, _I, _I, _I, _I, _I,        # dtype B H D page max_pages P
          _LL, _LL, _LL, _LL, _LL,           # q_sb q_sh kv_sp kv_ss kv_sh
          _F, _P]),                          # s2_scale stream
+    "flash_attention_fwd": (
+        "flash_attention_fwd.cu",
+        [_P, _P, _P, _P, _P,                # q k v out lse
+         _I, _I, _I, _I, _I,                # dtype B H S D
+         _LLP, _I, _I, _F, _P]),            # strides causal offset scale stream
+    "flash_attention_bwd": (
+        "flash_attention_bwd.cu",
+        [_P, _P, _P, _P, _P, _P,            # q k v dout lse dl
+         _P, _P, _P,                        # dq dk dv
+         _I, _I, _I, _I, _I,                # dtype B H S D
+         _LLP, _I, _I, _F, _P]),            # strides causal offset scale stream
+    "copy_probe": ("copy_probe.cu", [_P, _P, _I, _P]),  # x y n stream
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,8 +76,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers
+        text += header.read_bytes()
+    digest = hashlib.sha256(text).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,9 +1,44 @@
-"""Decode-shape attention over a paged KV cache (``serve/decode.py``).
+"""Flash attention (training) and paged decode attention (serving).
 
-Counterpart of the paged-decode part of ``mxnet_tpu/ops/flash_attention.py``
-(``_decode_attention_xla``, ``flash_decode_attention``,
-``decode_attention``). The flash forward/backward kernels of that file
-belong to the training slice of the port.
+Counterpart of ``mxnet_tpu/ops/flash_attention.py``. Each function that
+reached a Pallas kernel there reaches a hand-written CUDA kernel here
+(``csrc/``), with a plain PyTorch version beside it: the CPU path and the
+yardstick the kernel is held to on the card. A wrapper computes the plain
+version only for a tensor on the CPU; on a CUDA tensor it launches its
+kernel, counts the launch in its ``.launches`` and never falls back.
+
+Flash attention
+---------------
+
+``flash_attention_with_lse(q, k, v, causal, scale, offset, block_q,
+block_k)`` -> (out, lse) and ``flash_attention`` -> out, on (B, H, S, D)
+tensors, with the reference's semantics: causal visibility is
+``row + offset >= col``; a row that sees nothing gets out 0 and lse -1e30.
+``_Flash`` (a ``torch.autograd.Function``, the reference's ``custom_vjp``)
+runs :func:`flash_attention_fwd` forward and :func:`flash_attention_bwd`
+backward; it takes a cotangent for lse too, or none.
+
+``block_q``/``block_k`` and ``MXNET_FLASH_BLOCK_Q/K`` (argument first,
+then the environment) set the plain version's tiles, shrunk to divide S
+as the reference's ``_pick_block`` does; its default is the reference's
+512. The CUDA kernels have their own 64 x 64 tiles
+(``csrc/flash_common.cuh``; the TPU's ``_BLOCK_TABLE`` does not carry
+over): on a CUDA tensor, a requested tile other than 64 raises.
+
+Backward path, ``MXNET_FLASH_BWD`` (the reference reads
+``pallas|auto|else``, ``flash_attention.py:486-488``):
+
+============  ==========================  =================================
+value         reference meaning           here
+============  ==========================  =================================
+``auto``      Pallas on TPU, blocked      kernel on a CUDA tensor, plain
+              scan else                   version on a CPU tensor
+``kernel``    ``pallas``                  kernel; a CPU tensor raises
+``plain``     anything else: blocked      plain version on any device
+============  ==========================  =================================
+
+Paged decode attention
+----------------------
 
 One query position per sequence against its page table. The CUDA kernel
 (``csrc/paged_decode_attention.cu``) never gathers: it reads page
@@ -33,6 +68,7 @@ discard these rows.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 
@@ -40,11 +76,344 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["decode_attention", "flash_decode_attention"]
+__all__ = ["flash_attention", "flash_attention_with_lse",
+           "flash_attention_fwd", "flash_attention_bwd",
+           "decode_attention", "flash_decode_attention"]
 
 _NEG_INF = -1e30  # avoids -inf NaN propagation for fully-masked rows
 _LOG2E = math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_PLAIN_BLOCK = 512        # the plain version's default tile (reference's)
+_KERNEL_BLOCK = 64        # the CUDA kernels' tile (csrc/flash_common.cuh)
+_KERNEL_DIMS = (16, 32, 64, 128)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: tiles
+# ---------------------------------------------------------------------------
+
+def _pick_block(s, target):
+    blk = min(s, target)
+    while s % blk:
+        blk //= 2
+    return max(blk, 1)
+
+
+def _block_request(block_q, block_k):
+    """The tiles asked for: explicit argument, else ``MXNET_FLASH_BLOCK_Q/K``,
+    else None."""
+    if block_q is None:
+        env_q = os.environ.get("MXNET_FLASH_BLOCK_Q")
+        block_q = int(env_q) if env_q else None
+    if block_k is None:
+        env_k = os.environ.get("MXNET_FLASH_BLOCK_K")
+        block_k = int(env_k) if env_k else None
+    return block_q, block_k
+
+
+def _resolve_blocks(s, d, block_q, block_k):
+    """The plain version's (block_q, block_k) for sequence length ``s``."""
+    block_q, block_k = _block_request(block_q, block_k)
+    return (_pick_block(s, block_q or _PLAIN_BLOCK),
+            _pick_block(s, block_k or _PLAIN_BLOCK))
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _flash_attention_plain(q, k, v, causal=False, scale=None, offset=0,
+                           block_q=None, block_k=None):
+    """Blocked online-softmax forward (the reference's ``_fwd_core`` over
+    all Q blocks at once). Scores are f32 products of the inputs; P is
+    rounded to v's dtype before P V, as the reference casts it. Returns
+    (out in q's dtype, lse f32 (B, H, S))."""
+    b, h, s, d = q.shape
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    offset = int(offset)
+    bq, bk = _resolve_blocks(s, d, block_q, block_k)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    c = scale * _LOG2E
+    nk = s // bk
+    out = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, bq):
+        if causal:
+            nk_full = min(max((q0 + offset - bk + 1) // bk + 1, 0), nk)
+            nk_run = min(max((q0 + bq + offset + bk - 1) // bk, 0), nk)
+        else:
+            nk_full = nk_run = nk
+        qb = qf[:, :, q0:q0 + bq]
+        acc = torch.zeros((b, h, bq, d), dtype=torch.float32, device=q.device)
+        m = torch.full((b, h, bq), _NEG_INF, device=q.device)
+        l = torch.zeros((b, h, bq), device=q.device)
+        rows = torch.arange(q0, q0 + bq, device=q.device)[:, None]
+        for j in range(nk_run):
+            sc = qb @ kf[:, :, j * bk:(j + 1) * bk].transpose(-1, -2)
+            if j >= nk_full:
+                cols = torch.arange(j * bk, (j + 1) * bk, device=q.device)
+                sc = torch.where(rows + offset >= cols[None, :], sc,
+                                 torch.full_like(sc, _NEG_INF))
+            new_m = torch.maximum(m, sc.amax(dim=-1))
+            corr = torch.exp2((m - new_m) * c)
+            p = torch.exp2((sc - new_m[..., None]) * c)
+            acc = acc * corr[..., None] + \
+                p.to(v.dtype).float() @ vf[:, :, j * bk:(j + 1) * bk]
+            l = l * corr + p.sum(dim=-1)
+            m = new_m
+        # rows that never saw a visible column: one per-row repair
+        row_ok = m > _NEG_INF / 2
+        safe_l = l.clamp_min(1e-30)
+        out[:, :, q0:q0 + bq] = torch.where(row_ok[..., None],
+                                            acc / safe_l[..., None], 0.0)
+        lse[:, :, q0:q0 + bq] = torch.where(row_ok & (l > 0),
+                                            m * scale + torch.log(safe_l),
+                                            _NEG_INF)
+    return out.to(q.dtype), lse
+
+
+def _flash_bwd_plain(q, k, v, out, lse, dout, g_lse=None, causal=False,
+                     scale=None, offset=0, block_k=None):
+    """Blocked backward, the counterpart of the reference's
+    ``_bwd_blocked``: dS = P * (dP - delta + dlse) * scale with
+    delta = rowsum(dO * O). Memory O(S * block_k). Returns (dq, dk, dv) in
+    the inputs' dtypes."""
+    b, h, s, d = q.shape
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    offset = int(offset)
+    _bq, bk = _resolve_blocks(s, d, None, block_k)
+    dt = q.dtype  # products take operands rounded to the storage dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = dout.to(dt).float()
+    dl = (dout.float() * out.float()).sum(dim=-1)  # delta - dlse
+    if g_lse is not None:
+        dl = dl - g_lse.float()
+    lse = lse.float()
+    dq = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
+    rows = torch.arange(s, device=q.device)[:, None]
+    for j in range(s // bk):
+        blk = slice(j * bk, (j + 1) * bk)
+        kb, vb = kf[:, :, blk], vf[:, :, blk]
+        sc = (qf @ kb.transpose(-1, -2)) * scale
+        if causal:
+            cols = torch.arange(j * bk, (j + 1) * bk, device=q.device)
+            sc = torch.where(rows + offset >= cols[None, :], sc,
+                             torch.full_like(sc, _NEG_INF))
+        p = torch.exp(sc - lse[..., None])
+        p = torch.where(sc <= _NEG_INF / 2, torch.zeros_like(p), p)
+        dv[:, :, blk] = p.to(dt).float().transpose(-1, -2) @ dof
+        dp = dof @ vb.transpose(-1, -2)
+        ds = (p * (dp - dl[..., None]) * scale).to(dt).float()
+        dq += ds @ kb
+        dk[:, :, blk] = ds.transpose(-1, -2) @ qf
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_flash(name, q, others, block_q, block_k):
+    """Raise unless the CUDA kernels take these (B, H, S, D) tensors."""
+    if q.dim() != 4:
+        raise MXNetError(f"{name}: q must be (B, H, S, D); got "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise MXNetError(f"{name}: dtype {q.dtype} not in "
+                         "float32/bfloat16/float16")
+    if q.shape[-1] not in _KERNEL_DIMS:
+        raise MXNetError(f"{name}: head dim {q.shape[-1]} not in "
+                         f"{_KERNEL_DIMS}")
+    for t in others:
+        if t.shape != q.shape:
+            raise MXNetError(f"{name}: shapes {tuple(t.shape)} and "
+                             f"{tuple(q.shape)} differ (self-attention "
+                             "over one length only)")
+        if t.dtype != q.dtype:
+            raise MXNetError(f"{name}: q, k and v dtypes differ")
+        if t.device != q.device:
+            raise MXNetError(f"{name}: all inputs must be on {q.device}")
+    if any(t.stride(-1) != 1 for t in (q, *others)):
+        raise MXNetError(f"{name}: inputs need a contiguous last dim")
+    for blk in _block_request(block_q, block_k):
+        if blk not in (None, _KERNEL_BLOCK):
+            raise MXNetError(f"{name}: the CUDA kernel's tiles are "
+                             f"{_KERNEL_BLOCK}; block {blk} was requested")
+    if q.shape[0] * q.shape[1] > 65535:
+        raise MXNetError(f"{name}: B * H = {q.shape[0] * q.shape[1]} "
+                         "exceeds the grid's 65535")
+
+
+def _strides(*tensors):
+    vals = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _empty_bshd(q):
+    """A (B, H, S, D) output whose memory is (B, S, H, D): the model's
+    transpose back to (B, S, H*D) is then free."""
+    b, h, s, d = q.shape
+    return torch.empty((b, s, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None, offset=0,
+                        block_q=None, block_k=None):
+    """Flash-attention forward -> (out, lse), q/k/v (B, H, S, D).
+
+    On CUDA tensors this launches ``csrc/flash_attention_fwd.cu`` and adds
+    one to ``flash_attention_fwd.launches``; q/k/v may be strided views
+    with a contiguous last dim. On CPU tensors it computes
+    :func:`_flash_attention_plain` and counts nothing."""
+    d = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return _flash_attention_plain(q, k, v, causal, scale, offset,
+                                      block_q, block_k)
+    if q.device.type != "cuda":
+        raise MXNetError(f"flash_attention_fwd: unsupported device "
+                         f"{q.device}")
+    _check_flash("flash_attention_fwd", q, (k, v), block_q, block_k)
+    from ._kernels import load
+
+    b, h, s, _ = q.shape
+    out = _empty_bshd(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = load("flash_attention_fwd").flash_attention_fwd
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
+             _strides(q, k, v, out), int(bool(causal)), int(offset), scale,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise MXNetError(f"flash_attention_fwd launch failed: cudaError "
+                         f"{err}")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
+                        scale=None, offset=0, block_q=None, block_k=None):
+    """Flash-attention backward -> (dq, dk, dv).
+
+    ``lse`` is the forward's, ``dout`` the cotangent of out and ``g_lse``
+    that of lse (None: zero). On CUDA tensors this forms
+    dl = rowsum(dout * out) - g_lse, launches ``csrc/flash_attention_bwd.cu``
+    (its dK/dV and dQ passes) and adds one to
+    ``flash_attention_bwd.launches``. On CPU tensors it computes
+    :func:`_flash_bwd_plain` and counts nothing."""
+    d = q.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, out, lse, dout, g_lse, causal,
+                                scale, offset, block_k)
+    if q.device.type != "cuda":
+        raise MXNetError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    dout = dout.to(q.dtype)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    _check_flash("flash_attention_bwd", q, (k, v, out, dout), block_q,
+                 block_k)
+    b, h, s, _ = q.shape
+    if lse.shape != (b, h, s) or lse.device != q.device:
+        raise MXNetError("flash_attention_bwd: lse must be (B, H, S) on "
+                         f"{q.device}")
+    from ._kernels import load
+
+    # delta - dlse, one f32 vector per row (the reference's :333-334)
+    dl = (dout.float() * out.float()).sum(dim=-1)
+    if g_lse is not None:
+        dl = dl - g_lse.float()
+    dl = dl.contiguous()
+    lse = lse.float().contiguous()
+    dq, dk, dv = _empty_bshd(q), _empty_bshd(q), _empty_bshd(q)
+    fn = load("flash_attention_bwd").flash_attention_bwd
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), dl.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
+             _strides(q, k, v, dout, dq, dk, dv), int(bool(causal)),
+             int(offset), scale,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise MXNetError(f"flash_attention_bwd launch failed: cudaError "
+                         f"{err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: autograd and public API
+# ---------------------------------------------------------------------------
+
+class _Flash(torch.autograd.Function):
+    """(out, lse) with a kernel forward and a kernel backward (the
+    reference's ``_flash`` ``custom_vjp``). Saves q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, offset, block_q, block_k):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, offset,
+                                       block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, scale, offset, block_q, block_k)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, offset, block_q, block_k = ctx.cfg
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        impl = os.environ.get("MXNET_FLASH_BWD", "auto")
+        if impl == "plain":
+            grads = _flash_bwd_plain(q, k, v, out, lse, g_out, g_lse,
+                                     causal, scale, offset, block_k)
+        elif impl in ("auto", "kernel"):
+            if impl == "kernel" and q.device.type != "cuda":
+                raise MXNetError("MXNET_FLASH_BWD=kernel needs CUDA "
+                                 f"tensors; got q on {q.device}")
+            grads = flash_attention_bwd(q, k, v, out, lse, g_out, g_lse,
+                                        causal, scale, offset, block_q,
+                                        block_k)
+        else:
+            raise MXNetError(f"MXNET_FLASH_BWD={impl!r}: expected "
+                             "auto|kernel|plain")
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention_with_lse(q, k, v, causal=False, scale=None, offset=0,
+                             block_q=None, block_k=None):
+    """(out, lse); lse feeds ring attention's cross-device block combine.
+
+    ``offset`` (int): causal visibility is ``row + offset >= col``;
+    ignored when causal=False. Differentiable in q, k, v (through out and
+    lse)."""
+    scale = float(scale) if scale is not None else \
+        1.0 / math.sqrt(q.shape[-1])
+    return _Flash.apply(q, k, v, bool(causal), scale, int(offset), block_q,
+                        block_k)
+
+
+def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
+                    block_k=None):
+    """Flash attention. q, k, v: (B, H, S, D) -> (B, H, S, D)."""
+    out, _ = flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
+                                      block_q=block_q, block_k=block_k)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention
+# ---------------------------------------------------------------------------
 
 
 def _decode_attention_plain(q, k_pages, v_pages, page_table, lengths,

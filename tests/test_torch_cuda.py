@@ -1,4 +1,5 @@
-"""The port's CUDA kernel and its decode path on a CUDA card.
+"""The port's CUDA kernels, its decode path and its training path on a CUDA
+card.
 
 Every test here needs the card: it is marked ``cuda`` and skips without
 one. This file imports neither JAX nor the JAX package, so that it runs on
@@ -7,9 +8,9 @@ conftest (which configures JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The kernel is held to its plain PyTorch version (f32 to 2e-5, the
-reference's tolerance; bf16/f16 to 2e-2 against the plain version in f32),
-and the engine on the card to the same engine on the CPU.
+Each kernel is held to its plain PyTorch version (f32 to the reference's
+2e-5, flash gradients to its 5e-4; bf16/f16 to 2e-2), the engine and the
+trainer on the card to the same on the CPU.
 """
 import math
 
@@ -118,3 +119,128 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
         launched = tfa.flash_decode_attention.launches - before
         assert launched == (2 * steps if eng.device.type == "cuda" else 0)
     assert streams["cpu"] == streams[str(cuda_device)]
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training slice)
+# ---------------------------------------------------------------------------
+
+def _qkv(dev, dtype, b, h, s, d, seed):
+    """q/k/v as the model makes them: transposed views of one (B, S, 3, H, D)
+    projection output."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)] + [do]
+
+
+def _assert_near(got, want, tol):
+    """|got - want| <= tol * max(1, |want|): absolute below 1, relative
+    above, so bf16/f16 results that the output rounding moves by one ulp of
+    a large value still pass."""
+    got, want = got.float(), want.float()
+    bound = tol * want.abs().clamp_min(1.0)
+    assert bool(((got - want).abs() <= bound).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 2e-5, 5e-4),
+                                            (torch.bfloat16, 2e-2, 2e-2),
+                                            (torch.float16, 2e-2, 2e-2)])
+@pytest.mark.parametrize("causal,offset", [(True, 0), (True, -8), (True, 4),
+                                           (False, 0)])
+@pytest.mark.parametrize("s,d", [(40, 16), (256, 64), (200, 128)])
+def test_flash_kernels_match_plain(cuda_device, dtype, tol, gtol, causal,
+                                   offset, s, d):
+    q, k, v, do = _qkv(cuda_device, dtype, 2, 3, s, d, seed=s + d)
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd.launches)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, None, offset)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, out, lse, do, None, causal,
+                                         None, offset)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref_o, ref_l = tfa._flash_attention_plain(q, k, v, causal, None, offset)
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_near(out, ref_o, tol)
+    dead = ref_l <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    _assert_near(lse[~dead], ref_l[~dead], 2e-5)
+    refs = tfa._flash_bwd_plain(q, k, v, out, lse, do, None, causal, None,
+                                offset)
+    for g, r in zip((dq, dk, dv), refs):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        _assert_near(g, r, gtol)
+
+
+def test_flash_autograd_launches_kernels(cuda_device, monkeypatch):
+    q, k, v, do = _qkv(cuda_device, torch.bfloat16, 2, 2, 128, 64, seed=1)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    fwd, bwd = tfa.flash_attention_fwd, tfa.flash_attention_bwd
+    before = (fwd.launches, bwd.launches)
+    out = tfa.flash_attention(q, k, v, causal=True)
+    (out.float() * do.float()).sum().backward()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    grads = [t.grad.clone() for t in (q, k, v)]
+    monkeypatch.setenv("MXNET_FLASH_BWD", "plain")
+    for t in (q, k, v):
+        t.grad = None
+    out = tfa.flash_attention(q, k, v, causal=True)
+    (out.float() * do.float()).sum().backward()
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 1)
+    for g, t in zip(grads, (q, k, v)):
+        _assert_near(t.grad, g, 2e-2)
+
+
+def test_flash_rejects_what_it_cannot_take(cuda_device):
+    q, k, v, _ = _qkv(cuda_device, torch.float32, 1, 2, 64, 64, seed=2)
+    with pytest.raises(MXNetError, match="tiles"):
+        tfa.flash_attention_fwd(q, k, v, block_q=128)
+    with pytest.raises(MXNetError, match="dtypes differ"):
+        tfa.flash_attention_fwd(q, k.half(), v)
+    with pytest.raises(MXNetError, match="head dim"):
+        tfa.flash_attention_fwd(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(MXNetError, match="contiguous last dim"):
+        tfa.flash_attention_fwd(q.transpose(2, 3), k.transpose(2, 3),
+                                v.transpose(2, 3))
+    with pytest.raises(MXNetError, match="shapes"):
+        tfa.flash_attention_fwd(q, k[:, :, :32], v[:, :, :32])
+    with pytest.raises(MXNetError, match="on cuda"):
+        tfa.flash_attention_fwd(q, k.cpu(), v)
+
+
+def test_trainer_on_card_matches_trainer_on_cpu(cuda_device, monkeypatch):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    monkeypatch.setenv("MXNET_ATTENTION_IMPL", "flash")
+    small = dict(vocab_size=97, units=64, hidden_size=128, num_layers=2,
+                 num_heads=2, max_length=128, seed=3)
+    x = np.random.RandomState(0).randint(0, 97, (2, 128))
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        lm = tt.transformer_lm(device="cpu", **small).to(dev)
+        tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-3})
+        before = tfa.flash_attention_bwd.launches
+        losses[str(dev)] = [float(tr.step(x, x)) for _ in range(3)]
+        launched = tfa.flash_attention_bwd.launches - before
+        assert launched == (6 if tr.device.type == "cuda" else 0)
+    np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"],
+                               rtol=1e-4)
+
+
+def test_copy_probe_on_card(cuda_device):
+    from mxnet_tpu_torch.tools.launch_cost_probe import copy_probe
+
+    x = torch.randn((8, 128), device=cuda_device)
+    before = copy_probe.launches
+    y = copy_probe(x)
+    torch.cuda.synchronize()
+    assert copy_probe.launches == before + 1
+    torch.testing.assert_close(y, x + 1.0, rtol=0, atol=0)
+    with pytest.raises(MXNetError, match="float32"):
+        copy_probe(x.half())

@@ -24,7 +24,10 @@ def _sources():
 
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
-            "mxnet_tpu_torch.models, mxnet_tpu_torch.ops\n"
+            "mxnet_tpu_torch.models, mxnet_tpu_torch.ops, "
+            "mxnet_tpu_torch.parallel, mxnet_tpu_torch.optimizer, "
+            "mxnet_tpu_torch.gluon, "
+            "mxnet_tpu_torch.tools.launch_cost_probe\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.'))\n"
