@@ -11,7 +11,8 @@ H100): ``python3 chip_smoke.py``. It
    ``build/mxnet_tpu_torch/``);
 3. holds each kernel against its plain PyTorch version at the main paths'
    full-width shapes and times kernel, plain version, the bound and one
-   library call (CUDA events, L2 flushed between calls, median):
+   library call (CUDA events, L2 flushed between calls, median; flash rows
+   add the share of the tensor cores' or FFMA peak and the design):
    paged decode attention, then flash-attention forward and backward on
    the strided q/k/v views the model makes (B 4, H 12, S 2048, D 64;
    causal with offsets 0 and -8, and non-causal; f32, bf16, f16);
@@ -307,6 +308,14 @@ FA_CASES = [(True, 0), (True, -8), (False, 0)]
 # a gradient of magnitude 4 is already 0.03 in bf16
 FA_TOL = {"float32": (2e-5, 5e-4), "bfloat16": (2e-2, 2e-2),
           "float16": (2e-2, 2e-2)}
+# how each flash kernel computes its products and copies its tiles at the
+# timed shapes (D 64; csrc/flash_attention_{fwd,bwd}.cu: other head dims
+# take mma.sync instead of wgmma)
+_FFMA = {"products": "ffma", "copies": "ld.global"}
+_WGMMA = {"products": "wgmma", "copies": "cp.async"}
+FA_DESIGN = {"float32": {"fwd": _FFMA, "bwd": _FFMA},
+             "bfloat16": {"fwd": _WGMMA, "bwd": _WGMMA},
+             "float16": {"fwd": _WGMMA, "bwd": _WGMMA}}
 TRAIN_BATCH, TRAIN_STEPS = 4, 8
 # flash vs plain attention on one step's loss and gradients, bf16
 # compute: the two round scores, probabilities and outputs at other
@@ -417,7 +426,9 @@ def phase_flash_kernels(torch, dev):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": timed_ms(torch, lib, flush, n=20, warmup=3),
                 "bytes": nbytes, "flops": flops,
-                "tflops": flops / ms / 1e9}
+                "tflops": flops / ms / 1e9,
+                "share_of_peak": flops / (ms / 1e3) / peak,
+                "design": FA_DESIGN[dname][which]}
             emit({"phase": "kernel", "kernel": f"flash_attention_{which}",
                   "dtype": dname, "case": "causal offset 0",
                   "library": "scaled_dot_product_attention(is_causal=True)"

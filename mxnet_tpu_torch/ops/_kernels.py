@@ -48,7 +48,8 @@ KERNELS: Dict[str, tuple] = {
          _LLP, _I, _I, _F, _P]),            # strides causal offset scale stream
     "flash_attention_bwd": (
         "flash_attention_bwd.cu",
-        [_P, _P, _P, _P, _P, _P,            # q k v dout lse dl
+        [_P, _P, _P, _P, _P,                # q k v out dout
+         _P, _P, _P, _P,                    # lse g_lse dl dq_acc
          _P, _P, _P,                        # dq dk dv
          _I, _I, _I, _I, _I,                # dtype B H S D
          _LLP, _I, _I, _F, _P]),            # strides causal offset scale stream

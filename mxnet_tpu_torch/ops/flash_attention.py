@@ -21,9 +21,14 @@ backward; it takes a cotangent for lse too, or none.
 ``block_q``/``block_k`` and ``MXNET_FLASH_BLOCK_Q/K`` (argument first,
 then the environment) set the plain version's tiles, shrunk to divide S
 as the reference's ``_pick_block`` does; its default is the reference's
-512. The CUDA kernels have their own 64 x 64 tiles
-(``csrc/flash_common.cuh``; the TPU's ``_BLOCK_TABLE`` does not carry
-over): on a CUDA tensor, a requested tile other than 64 raises.
+512. The CUDA kernels have their own tiles (the TPU's ``_BLOCK_TABLE``
+does not carry over), per kernel, type and head dim
+(:func:`_kernel_tiles`): the bf16/f16 forward 128 query rows by 64 keys;
+the bf16/f16 backward 128 by 64 at D 64, 64 by 128 at D 16, else 64 by
+64; the f32 kernels 64 by 64. On a CUDA tensor, a requested tile that a
+kernel the call reaches was not built for raises: the wrappers check
+their own kernel, ``_Flash`` the backward's too before it returns from
+the forward.
 
 Backward path, ``MXNET_FLASH_BWD`` (the reference reads
 ``pallas|auto|else``, ``flash_attention.py:486-488``):
@@ -85,8 +90,20 @@ _LOG2E = math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _PLAIN_BLOCK = 512        # the plain version's default tile (reference's)
-_KERNEL_BLOCK = 64        # the CUDA kernels' tile (csrc/flash_common.cuh)
 _KERNEL_DIMS = (16, 32, 64, 128)
+
+
+def _kernel_tiles(which, dtype, d):
+    """(block_q, block_k) of the CUDA kernel ``which`` ("fwd" or "bwd") for
+    ``dtype`` and head dim ``d``: kFwdBM/kFwdBN of
+    ``csrc/flash_attention_fwd.cu``, kWgBM/kWgBN (D 64) or
+    kBwdBM/BwdLayout::BN of ``csrc/flash_attention_bwd.cu``, kBQ/kBK of
+    ``csrc/flash_common.cuh`` for f32."""
+    if dtype == torch.float32:
+        return 64, 64
+    if which == "fwd":
+        return 128, 64
+    return {16: (64, 128), 64: (128, 64)}.get(d, (64, 64))
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +233,20 @@ def _flash_bwd_plain(q, k, v, out, lse, dout, g_lse=None, causal=False,
 # Flash attention: kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_flash(name, q, others, block_q, block_k):
-    """Raise unless the CUDA kernels take these (B, H, S, D) tensors."""
+def _check_tiles(name, which, q, block_q, block_k):
+    """Raise unless the CUDA kernel ``which`` ("fwd" or "bwd") was built
+    for the requested tiles (argument, else ``MXNET_FLASH_BLOCK_Q/K``)."""
+    tiles = _kernel_tiles(which, q.dtype, q.shape[-1])
+    for blk, tile in zip(_block_request(block_q, block_k), tiles):
+        if blk not in (None, tile):
+            raise MXNetError(f"{name}: the CUDA {which} kernel's tiles are "
+                             f"{tiles[0]} x {tiles[1]} (block_q x block_k) "
+                             f"for {q.dtype}; {blk} was requested")
+
+
+def _check_flash(name, which, q, others, block_q, block_k):
+    """Raise unless the CUDA kernel ``which`` ("fwd" or "bwd") takes these
+    (B, H, S, D) tensors and the requested tiles."""
     if q.dim() != 4:
         raise MXNetError(f"{name}: q must be (B, H, S, D); got "
                          f"{tuple(q.shape)}")
@@ -238,10 +267,7 @@ def _check_flash(name, q, others, block_q, block_k):
             raise MXNetError(f"{name}: all inputs must be on {q.device}")
     if any(t.stride(-1) != 1 for t in (q, *others)):
         raise MXNetError(f"{name}: inputs need a contiguous last dim")
-    for blk in _block_request(block_q, block_k):
-        if blk not in (None, _KERNEL_BLOCK):
-            raise MXNetError(f"{name}: the CUDA kernel's tiles are "
-                             f"{_KERNEL_BLOCK}; block {blk} was requested")
+    _check_tiles(name, which, q, block_q, block_k)
     if q.shape[0] * q.shape[1] > 65535:
         raise MXNetError(f"{name}: B * H = {q.shape[0] * q.shape[1]} "
                          "exceeds the grid's 65535")
@@ -276,7 +302,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, offset=0,
     if q.device.type != "cuda":
         raise MXNetError(f"flash_attention_fwd: unsupported device "
                          f"{q.device}")
-    _check_flash("flash_attention_fwd", q, (k, v), block_q, block_k)
+    _check_flash("flash_attention_fwd", "fwd", q, (k, v), block_q, block_k)
     from ._kernels import load
 
     b, h, s, _ = q.shape
@@ -302,10 +328,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
     """Flash-attention backward -> (dq, dk, dv).
 
     ``lse`` is the forward's, ``dout`` the cotangent of out and ``g_lse``
-    that of lse (None: zero). On CUDA tensors this forms
-    dl = rowsum(dout * out) - g_lse, launches ``csrc/flash_attention_bwd.cu``
-    (its dK/dV and dQ passes) and adds one to
-    ``flash_attention_bwd.launches``. On CPU tensors it computes
+    that of lse (None: zero). On CUDA tensors this launches
+    ``csrc/flash_attention_bwd.cu`` (its preprocess kernel, which forms
+    dl = rowsum(dout * out) - g_lse, then its main pass and, for bf16/f16,
+    the dQ conversion from an f32 accumulator allocated here) and adds one
+    to ``flash_attention_bwd.launches``. On CPU tensors it computes
     :func:`_flash_bwd_plain` and counts nothing."""
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -318,26 +345,31 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
     dout = dout.to(q.dtype)
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    _check_flash("flash_attention_bwd", q, (k, v, out, dout), block_q,
-                 block_k)
+    _check_flash("flash_attention_bwd", "bwd", q, (k, v, out, dout),
+                 block_q, block_k)
     b, h, s, _ = q.shape
-    if lse.shape != (b, h, s) or lse.device != q.device:
-        raise MXNetError("flash_attention_bwd: lse must be (B, H, S) on "
-                         f"{q.device}")
+    for name, t in (("lse", lse), ("g_lse", g_lse)):
+        if t is not None and (t.shape != (b, h, s) or t.device != q.device):
+            raise MXNetError(f"flash_attention_bwd: {name} must be "
+                             f"(B, H, S) on {q.device}")
     from ._kernels import load
 
-    # delta - dlse, one f32 vector per row (the reference's :333-334)
-    dl = (dout.float() * out.float()).sum(dim=-1)
-    if g_lse is not None:
-        dl = dl - g_lse.float()
-    dl = dl.contiguous()
     lse = lse.float().contiguous()
+    if g_lse is not None:
+        g_lse = g_lse.float().contiguous()
+    # f32 scratch: dl (delta - dlse, the reference's :333-334) per row and,
+    # for bf16/f16, the dQ accumulator the kernel's atomics add into
+    dl = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    dq_acc = None if q.dtype == torch.float32 else torch.empty(
+        (b, h, s, d), dtype=torch.float32, device=q.device)
     dq, dk, dv = _empty_bshd(q), _empty_bshd(q), _empty_bshd(q)
     fn = load("flash_attention_bwd").flash_attention_bwd
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), dl.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
-             _strides(q, k, v, dout, dq, dk, dv), int(bool(causal)),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(),
+             None if g_lse is None else g_lse.data_ptr(), dl.data_ptr(),
+             None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
+             _strides(q, k, v, out, dout, dq, dk, dv), int(bool(causal)),
              int(offset), scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -362,6 +394,11 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale, offset, block_q, block_k):
         out, lse = flash_attention_fwd(q, k, v, causal, scale, offset,
                                        block_q, block_k)
+        if (q.device.type == "cuda" and any(ctx.needs_input_grad[:3])
+                and os.environ.get("MXNET_FLASH_BWD", "auto") != "plain"):
+            # the backward kernel's tiles differ from the forward's at some
+            # head dims: refuse now rather than in the backward
+            _check_tiles("flash_attention", "bwd", q, block_q, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.cfg = (causal, scale, offset, block_q, block_k)
         ctx.set_materialize_grads(False)

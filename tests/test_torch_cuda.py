@@ -150,7 +150,10 @@ def _assert_near(got, want, tol):
                                             (torch.float16, 2e-2, 2e-2)])
 @pytest.mark.parametrize("causal,offset", [(True, 0), (True, -8), (True, 4),
                                            (False, 0)])
-@pytest.mark.parametrize("s,d", [(40, 16), (256, 64), (200, 128)])
+# S 40: ragged, below one tile; 130, 200, 384, 1000 straddle the 128-row
+# forward tiles and 64/128-key backward tiles; D 16 is one k-step of 16
+@pytest.mark.parametrize("s,d", [(40, 16), (256, 64), (200, 128), (130, 32),
+                                 (384, 64), (1000, 128)])
 def test_flash_kernels_match_plain(cuda_device, dtype, tol, gtol, causal,
                                    offset, s, d):
     q, k, v, do = _qkv(cuda_device, dtype, 2, 3, s, d, seed=s + d)
@@ -176,6 +179,50 @@ def test_flash_kernels_match_plain(cuda_device, dtype, tol, gtol, causal,
         _assert_near(g, r, gtol)
 
 
+@pytest.mark.parametrize("causal,offset", [(True, 0), (True, -8),
+                                           (False, 0)])
+def test_flash_unaligned_views_match_plain(cuda_device, causal, offset):
+    """q/k/v/dO whose rows do not start on 16-byte boundaries take the
+    kernels' plain-load path, never the plain version."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    b, h, s, d = 1, 2, 200, 64
+    flat = torch.randn((b * s * 3 * h * d + 1,), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    qkv = flat[1:].view(b, s, 3, h, d)  # 2 bytes past an aligned start
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = flat[1:1 + b * h * s * d].view(b, h, s, d)
+    before = tfa.flash_attention_fwd.launches
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, None, offset)
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, None, causal,
+                                    None, offset)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1
+    ref_o, ref_l = tfa._flash_attention_plain(q, k, v, causal, None, offset)
+    _assert_near(out, ref_o, 2e-2)
+    dead = ref_l <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    _assert_near(lse[~dead], ref_l[~dead], 2e-5)
+    refs = tfa._flash_bwd_plain(q, k, v, out, lse, do, None, causal, None,
+                                offset)
+    for g, r in zip(grads, refs):
+        _assert_near(g, r, 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_repeats(cuda_device, dtype):
+    """Two backward runs on the same inputs: dK and dV are the same bits;
+    dQ, summed by atomics in an order that changes from run to run, agrees
+    within the 16-bit tolerance."""
+    q, k, v, do = _qkv(cuda_device, dtype, 2, 3, 384, 64, seed=7)
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    first = tfa.flash_attention_bwd(q, k, v, out, lse, do, None, True)
+    second = tfa.flash_attention_bwd(q, k, v, out, lse, do, None, True)
+    torch.cuda.synchronize()
+    _assert_near(second[0], first[0], 2e-2)
+    assert torch.equal(second[1], first[1]) and torch.equal(second[2], first[2])
+
+
 def test_flash_autograd_launches_kernels(cuda_device, monkeypatch):
     q, k, v, do = _qkv(cuda_device, torch.bfloat16, 2, 2, 128, 64, seed=1)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
@@ -198,7 +245,7 @@ def test_flash_autograd_launches_kernels(cuda_device, monkeypatch):
 def test_flash_rejects_what_it_cannot_take(cuda_device):
     q, k, v, _ = _qkv(cuda_device, torch.float32, 1, 2, 64, 64, seed=2)
     with pytest.raises(MXNetError, match="tiles"):
-        tfa.flash_attention_fwd(q, k, v, block_q=128)
+        tfa.flash_attention_fwd(q, k, v, block_q=32)  # no kernel's tile
     with pytest.raises(MXNetError, match="dtypes differ"):
         tfa.flash_attention_fwd(q, k.half(), v)
     with pytest.raises(MXNetError, match="head dim"):
@@ -210,6 +257,12 @@ def test_flash_rejects_what_it_cannot_take(cuda_device):
         tfa.flash_attention_fwd(q, k[:, :, :32], v[:, :, :32])
     with pytest.raises(MXNetError, match="on cuda"):
         tfa.flash_attention_fwd(q, k.cpu(), v)
+    # bf16 at D 32: the forward takes 128-row tiles, the backward 64; with
+    # gradients wanted the request is refused before the backward
+    q, k, v, _ = _qkv(cuda_device, torch.bfloat16, 1, 2, 256, 32, seed=2)
+    tfa.flash_attention(q, k, v, block_q=128)
+    with pytest.raises(MXNetError, match="bwd kernel's tiles"):
+        tfa.flash_attention(q.detach().requires_grad_(), k, v, block_q=128)
 
 
 def test_trainer_on_card_matches_trainer_on_cpu(cuda_device, monkeypatch):

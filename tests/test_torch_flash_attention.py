@@ -9,6 +9,9 @@ inputs go to both packages. Tolerances are the reference's own
 (tests/test_flash_attention.py): 2e-5 for out and lse, 5e-4 for
 gradients.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -273,3 +276,33 @@ def test_cpu_wrappers_count_nothing_and_bwd_env(monkeypatch):
         out = tfa.flash_attention(q, k, v, causal=True)
         with pytest.raises(MXNetError, match=match):
             out.sum().backward()
+
+
+def _cuda_constants(source):
+    """The ``constexpr int`` constants of ``mxnet_tpu_torch/csrc/<source>``."""
+    text = (Path(tfa.__file__).resolve().parents[1] / "csrc" / source
+            ).read_text()
+    return {name: int(val) for name, val in
+            re.findall(r"constexpr int (\w+) = (\d+);", text)}, text
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_kernel_tiles_match_cuda_sources(d):
+    """The tiles the wrappers accept on a CUDA tensor are those the kernels
+    were written for."""
+    fwd, _ = _cuda_constants("flash_attention_fwd.cu")
+    bwd, bwd_text = _cuda_constants("flash_attention_bwd.cu")
+    common, _ = _cuda_constants("flash_common.cuh")
+    d16_keys = int(re.search(r"BN = D == 16 \? (\d+) : kBwdBN;",
+                             bwd_text).group(1))
+    if d == 64:
+        want_bwd = (bwd["kWgBM"], bwd["kWgBN"])
+    else:
+        want_bwd = (bwd["kBwdBM"], d16_keys if d == 16 else bwd["kBwdBN"])
+    for dt in (torch.bfloat16, torch.float16):
+        assert tfa._kernel_tiles("fwd", dt, d) == (fwd["kFwdBM"],
+                                                   fwd["kFwdBN"])
+        assert tfa._kernel_tiles("bwd", dt, d) == want_bwd
+    for which in ("fwd", "bwd"):
+        assert tfa._kernel_tiles(which, torch.float32, d) == (common["kBQ"],
+                                                              common["kBK"])
