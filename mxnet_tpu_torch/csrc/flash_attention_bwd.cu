@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), plain C entry point bound
-// with ctypes by mxnet_tpu_torch/ops/_kernels.py.
+// Flash-attention backward for Hopper (sm_90a): a plain C launcher and its
+// CPython entry point (pyentry.cuh), built and imported by
+// mxnet_tpu_torch/ops/_kernels.py.
 //
 // Replaces the Pallas kernel _bwd_kernel of
 // mxnet_tpu/ops/flash_attention.py:298 (launched by _bwd_pallas, :324; the
@@ -67,6 +68,8 @@
 // deterministic two-pass design in true fp32 (FFMA), after the same
 // preprocess kernel: 1. dK/dV per K tile over the Q tiles that see it;
 // 2. dQ per Q tile over the K tiles it sees, P and dS recomputed.
+
+#include "pyentry.cuh"
 
 #include "flash_common.cuh"
 
@@ -926,3 +929,36 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+namespace {
+
+PyObject* py_launch(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  using namespace mxt_py;
+  if (!nargs(n, 22, "flash_attention_bwd")) return nullptr;
+  const void *q = ptr(a[0]), *k = ptr(a[1]), *v = ptr(a[2]),
+             *out = ptr(a[3]), *dout = ptr(a[4]);
+  const float* lse = static_cast<const float*>(ptr(a[5]));
+  const float* g_lse = static_cast<const float*>(ptr(a[6]));
+  float* dl = static_cast<float*>(ptr(a[7]));
+  float* dq_acc = static_cast<float*>(ptr(a[8]));
+  void *dq = ptr(a[9]), *dk = ptr(a[10]), *dv = ptr(a[11]);
+  const int dtype = i32(a[12]), B = i32(a[13]), H = i32(a[14]),
+            S = i32(a[15]), D = i32(a[16]);
+  long long strides[24];
+  if (!i64s(a[17], strides, 24)) return nullptr;
+  const int causal = i32(a[18]), offset = i32(a[19]);
+  const float scale = f32(a[20]);
+  void* stream = ptr(a[21]);
+  if (PyErr_Occurred()) return nullptr;
+  int err;
+  Py_BEGIN_ALLOW_THREADS
+  err = flash_attention_bwd(q, k, v, out, dout, lse, g_lse, dl, dq_acc, dq,
+                            dk, dv, dtype, B, H, S, D, strides, causal,
+                            offset, scale, stream);
+  Py_END_ALLOW_THREADS
+  return PyLong_FromLong(err);
+}
+
+}  // namespace
+
+MXT_PY_MODULE(flash_attention_bwd, py_launch)

@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), plain C entry point bound
-// with ctypes by mxnet_tpu_torch/ops/_kernels.py.
+// Flash-attention forward for Hopper (sm_90a): a plain C launcher and its
+// CPython entry point (pyentry.cuh), built and imported by
+// mxnet_tpu_torch/ops/_kernels.py.
 //
 // Replaces the Pallas kernel _fwd_kernel of
 // mxnet_tpu/ops/flash_attention.py:143 (launched by _fwd_pallas, :191; the
@@ -59,6 +60,8 @@
 // memory, FFMA products through mm() (the reference's HIGHEST precision),
 // four threads per row for the softmax. In f32 the 67 TFLOP/s of FFMA
 // bound it at 385 us.
+
+#include "pyentry.cuh"
 
 #include "flash_common.cuh"
 
@@ -502,3 +505,31 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+namespace {
+
+PyObject* py_launch(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  using namespace mxt_py;
+  if (!nargs(n, 15, "flash_attention_fwd")) return nullptr;
+  const void *q = ptr(a[0]), *k = ptr(a[1]), *v = ptr(a[2]);
+  void* out = ptr(a[3]);
+  float* lse = static_cast<float*>(ptr(a[4]));
+  const int dtype = i32(a[5]), B = i32(a[6]), H = i32(a[7]), S = i32(a[8]),
+            D = i32(a[9]);
+  long long strides[12];
+  if (!i64s(a[10], strides, 12)) return nullptr;
+  const int causal = i32(a[11]), offset = i32(a[12]);
+  const float scale = f32(a[13]);
+  void* stream = ptr(a[14]);
+  if (PyErr_Occurred()) return nullptr;
+  int err;
+  Py_BEGIN_ALLOW_THREADS
+  err = flash_attention_fwd(q, k, v, out, lse, dtype, B, H, S, D, strides,
+                            causal, offset, scale, stream);
+  Py_END_ALLOW_THREADS
+  return PyLong_FromLong(err);
+}
+
+}  // namespace
+
+MXT_PY_MODULE(flash_attention_fwd, py_launch)

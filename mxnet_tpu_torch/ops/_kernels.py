@@ -1,66 +1,60 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each source in ``mxnet_tpu_torch/csrc/`` has a plain C entry point. At its
-first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/mxnet_tpu_torch/`` at the root of the checkout (listed in
-``.gitignore``), named by the hash of its source so that an edited source
-is rebuilt, and loaded with ``ctypes``. Nothing is built at import time,
-and no CPU tensor reaches a build. A build failure raises; nothing falls
-back.
+Each source in ``mxnet_tpu_torch/csrc/`` holds its kernels, a plain C
+launcher and a CPython entry point (``csrc/pyentry.cuh``): an extension
+module ``_mxt_<name>`` whose one function, ``launch``, takes the
+launcher's arguments as Python ints and floats. At its first use a source
+is compiled by ``nvcc`` for ``sm_90a`` against the running Python's
+headers into ``build/mxnet_tpu_torch/`` at the root of the checkout
+(listed in ``.gitignore``), named by the hash of its source, the shared
+headers and the flags, so that an edited source is rebuilt, and imported
+once.
+
+Every wrapper takes the same two host steps per launch: :func:`entry`
+returns the bound ``launch`` function (a dict lookup after the first
+call) and :func:`stream` the raw handle of the current CUDA stream of a
+tensor's device. Nothing is built at import time, and no CPU tensor
+reaches a build. A build failure (no ``nvcc``, no ``Python.h``, a compile
+error) raises; nothing falls back.
 """
 from __future__ import annotations
 
-import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
+
+import torch
 
 from ..base import MXNetError
 
-__all__ = ["KERNELS", "load", "build_all", "BUILD_DIR"]
+__all__ = ["KERNELS", "load", "entry", "stream", "build_all", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
-_LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
-
-# kernel name -> (source file, C argtypes); every entry returns a
-# cudaError_t as int
-KERNELS: Dict[str, tuple] = {
-    "paged_decode_attention": (
-        "paged_decode_attention.cu",
-        [_P, _P, _P, _P, _P, _P,            # q k v table lengths out
-         _I, _I, _I, _I, _I, _I, _I,        # dtype B H D page max_pages P
-         _LL, _LL, _LL, _LL, _LL,           # q_sb q_sh kv_sp kv_ss kv_sh
-         _F, _P]),                          # s2_scale stream
-    "flash_attention_fwd": (
-        "flash_attention_fwd.cu",
-        [_P, _P, _P, _P, _P,                # q k v out lse
-         _I, _I, _I, _I, _I,                # dtype B H S D
-         _LLP, _I, _I, _F, _P]),            # strides causal offset scale stream
-    "flash_attention_bwd": (
-        "flash_attention_bwd.cu",
-        [_P, _P, _P, _P, _P,                # q k v out dout
-         _P, _P, _P, _P,                    # lse g_lse dl dq_acc
-         _P, _P, _P,                        # dq dk dv
-         _I, _I, _I, _I, _I,                # dtype B H S D
-         _LLP, _I, _I, _F, _P]),            # strides causal offset scale stream
-    "copy_probe": ("copy_probe.cu", [_P, _P, _I, _P]),  # x y n stream
+# kernel name -> source file; module _mxt_<name> in each
+KERNELS: Dict[str, str] = {
+    "paged_decode_attention": "paged_decode_attention.cu",
+    "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
+    "copy_probe": "copy_probe.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, object] = {}
+_entries: Dict[str, Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -75,9 +69,18 @@ def _nvcc() -> str:
     return path
 
 
+def _flags() -> list:
+    """nvcc flags, with the running Python's headers."""
+    include = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(include, "Python.h")):
+        raise MXNetError(f"Python.h not found in {include}; the kernels' "
+                         "Python entry points cannot be built")
+    return [*NVCC_FLAGS, "-I" + include]
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    text = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    src = CSRC / KERNELS[name]
+    text = src.read_bytes() + " ".join(_flags()).encode()
     for header in sorted(CSRC.glob("*.cuh")):  # the shared headers
         text += header.read_bytes()
     digest = hashlib.sha256(text).hexdigest()
@@ -89,7 +92,7 @@ def _start_build(name: str):
     out = _lib_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+    cmd = [_nvcc(), *_flags(), "-o", str(tmp), str(CSRC / KERNELS[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -120,20 +123,39 @@ def build_all() -> Dict[str, float]:
         return secs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
+def load(name: str):
+    """The imported extension module of kernel ``name``, built first if
+    needed."""
+    mod = _loaded.get(name)
+    if mod is not None:
+        return mod
     with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
+        mod = _loaded.get(name)
+        if mod is None:
             path = _lib_path(name)
             if not path.exists():
                 _finish_build(name, _start_build(name))
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, name)
-            fn.argtypes = KERNELS[name][1]
-            fn.restype = ctypes.c_int
-            _loaded[name] = lib
-        return lib
+            mod_name = f"_mxt_{name}"
+            loader = importlib.machinery.ExtensionFileLoader(mod_name,
+                                                             str(path))
+            spec = importlib.util.spec_from_file_location(
+                mod_name, str(path), loader=loader)
+            mod = importlib.util.module_from_spec(spec)
+            loader.exec_module(mod)
+            _loaded[name] = mod
+        return mod
+
+
+def entry(name: str) -> Callable[..., int]:
+    """The ``launch`` function of kernel ``name``: its launcher's arguments
+    in, its cudaError_t out."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries.setdefault(name, load(name).launch)
+    return fn
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw ``cudaStream_t`` of the current stream of CUDA tensor
+    ``t``'s device, without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

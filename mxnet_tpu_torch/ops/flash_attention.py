@@ -49,8 +49,14 @@ One query position per sequence against its page table. The CUDA kernel
 (``csrc/paged_decode_attention.cu``) never gathers: it reads page
 ``table[b, j]`` straight from the pool through the strides of the view it
 is given, so the engine passes ``kv[:, layer, 0]`` of its 6-d pool without
-a copy. :func:`_decode_attention_plain` materializes the gather instead;
-it is the CPU path and the yardstick the kernel is held to.
+a copy. It splits every row into chunks of :func:`_decode_chunk`
+positions (picked from the static shapes and the SM count, never from the
+lengths, which live on the device), one block per chunk, head and
+sequence, and merges a long row's per-chunk partials in chunk order, so
+repeated calls are bitwise equal. :func:`_decode_attention_plain`
+materializes the gather instead; it is the CPU path and the yardstick the
+kernel is held to, and with ``chunk`` it computes the kernel's per-chunk
+partials and merge.
 
 Path selection, ``MXNET_DECODE_ATTN`` (the reference's ``auto|pallas|xla``):
 
@@ -66,20 +72,21 @@ value         reference meaning           here
 There is no fallback: a kernel that fails to build or launch raises.
 
 Length-0 rows (inactive decode slots): the output is finite, never NaN,
-and otherwise unspecified. The kernel writes 0 there; the plain version,
-like the reference's XLA path, averages whatever the padded page table
-points at; the reference's Pallas kernel gives yet another value. Callers
-discard these rows.
+and otherwise unspecified. The kernel (and the plain version with
+``chunk``) writes 0 there; the plain version, like the reference's XLA
+path, averages whatever the padded page table points at; the reference's
+Pallas kernel gives yet another value. Callers discard these rows.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 import math
 import os
 
 import torch
 
 from ..base import MXNetError
+from . import _kernels
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd", "flash_attention_bwd",
@@ -274,8 +281,8 @@ def _check_flash(name, which, q, others, block_q, block_k):
 
 
 def _strides(*tensors):
-    vals = [st for t in tensors for st in t.stride()[:3]]
-    return (ctypes.c_longlong * len(vals))(*vals)
+    """The (b, h, s) element strides of each tensor, in one tuple."""
+    return tuple(st for t in tensors for st in t.stride()[:3])
 
 
 def _empty_bshd(q):
@@ -296,23 +303,21 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, offset=0,
     :func:`_flash_attention_plain` and counts nothing."""
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return _flash_attention_plain(q, k, v, causal, scale, offset,
-                                      block_q, block_k)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return _flash_attention_plain(q, k, v, causal, scale, offset,
+                                          block_q, block_k)
         raise MXNetError(f"flash_attention_fwd: unsupported device "
                          f"{q.device}")
     _check_flash("flash_attention_fwd", "fwd", q, (k, v), block_q, block_k)
-    from ._kernels import load
-
     b, h, s, _ = q.shape
     out = _empty_bshd(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn = load("flash_attention_fwd").flash_attention_fwd
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
-             _strides(q, k, v, out), int(bool(causal)), int(offset), scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = _kernels.entry("flash_attention_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
+        _strides(q, k, v, out), int(bool(causal)), int(offset), scale,
+        _kernels.stream(q))
     if err != 0:
         raise MXNetError(f"flash_attention_fwd launch failed: cudaError "
                          f"{err}")
@@ -336,10 +341,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
     :func:`_flash_bwd_plain` and counts nothing."""
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, out, lse, dout, g_lse, causal,
-                                scale, offset, block_k)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return _flash_bwd_plain(q, k, v, out, lse, dout, g_lse, causal,
+                                    scale, offset, block_k)
         raise MXNetError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     dout = dout.to(q.dtype)
@@ -352,8 +357,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
         if t is not None and (t.shape != (b, h, s) or t.device != q.device):
             raise MXNetError(f"flash_attention_bwd: {name} must be "
                              f"(B, H, S) on {q.device}")
-    from ._kernels import load
-
     lse = lse.float().contiguous()
     if g_lse is not None:
         g_lse = g_lse.float().contiguous()
@@ -363,15 +366,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
     dq_acc = None if q.dtype == torch.float32 else torch.empty(
         (b, h, s, d), dtype=torch.float32, device=q.device)
     dq, dk, dv = _empty_bshd(q), _empty_bshd(q), _empty_bshd(q)
-    fn = load("flash_attention_bwd").flash_attention_bwd
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), lse.data_ptr(),
-             None if g_lse is None else g_lse.data_ptr(), dl.data_ptr(),
-             None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
-             _strides(q, k, v, out, dout, dq, dk, dv), int(bool(causal)),
-             int(offset), scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = _kernels.entry("flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(),
+        None if g_lse is None else g_lse.data_ptr(), dl.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
+        _strides(q, k, v, out, dout, dq, dk, dv), int(bool(causal)),
+        int(offset), scale, _kernels.stream(q))
     if err != 0:
         raise MXNetError(f"flash_attention_bwd launch failed: cudaError "
                          f"{err}")
@@ -453,11 +455,42 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
 # ---------------------------------------------------------------------------
 
 
+# positions per block of the paged kernel, largest first (rounded down to
+# whole pages), and the blocks (of 8 warps) an SM the split aims for when
+# every row is full: _decode_chunk
+_DECODE_CHUNKS = (512, 256, 128, 64)
+_DECODE_BLOCKS_PER_SM = 4
+
+
+def _decode_chunk(batch, heads, max_len, page, sms):
+    """Positions per block of the paged-decode kernel, from static shapes
+    only (the lengths live on the device): the largest of
+    ``_DECODE_CHUNKS``, in whole pages and at least one page, whose split
+    of full rows of ``max_len`` positions gives each of ``sms`` SMs
+    ``_DECODE_BLOCKS_PER_SM`` blocks; else the smallest."""
+    for c in _DECODE_CHUNKS:
+        chunk = max(page, c // page * page)
+        if batch * heads * -(-max_len // chunk) >= _DECODE_BLOCKS_PER_SM * sms:
+            break
+    return chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
-                            scale):
+                            scale, chunk=None):
     """Gather-then-attend reference in f32. q (B, H, D); k/v_pages
     (P, page, H, D); page_table (B, max_pages) int; lengths (B,) int.
-    Returns (B, H, D) in q's dtype."""
+    Returns (B, H, D) in q's dtype.
+
+    ``chunk`` (positions) computes it the paged kernel's way instead: per
+    chunk of the row, a log2-domain partial (max m, denominator l,
+    unnormalised output o; an empty chunk is m = -1e30, l = 0, o = 0),
+    merged in chunk order with the denominator clamped at 1e-30, so a
+    length-0 row gives 0. The main path never passes it."""
     b, h, d = q.shape
     page = k_pages.shape[1]
     table = page_table.long()
@@ -471,15 +504,35 @@ def _decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
             < lengths.to(q.device).long()[:, None])  # (B, S)
     scores = torch.where(live[:, None], scores,
                          torch.full_like(scores, _NEG_INF))
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
+    if chunk is None:
+        p = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    s2 = torch.nn.functional.pad(scores * _LOG2E, (0, pad), value=_NEG_INF)
+    s2 = s2.reshape(b, h, nc, chunk)
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    m = s2.amax(dim=-1)  # (B, H, nc)
+    p = torch.exp2(s2 - m[..., None])
+    p = torch.where(s2 <= _NEG_INF / 2, torch.zeros_like(p), p)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhcs,bcshd->bhcd", p, v.reshape(b, nc, chunk, h, d))
+    big = m.amax(dim=-1)  # (B, H)
+    den = torch.zeros_like(big)
+    acc = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    for c in range(nc):  # the kernel's merge order
+        w = torch.exp2(m[..., c] - big)
+        den = den + l[..., c] * w
+        acc = acc + o[:, :, c] * w[..., None]
+    return (acc / den.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def flash_decode_attention(q, k_pages, v_pages, page_table, lengths,
                            scale=None):
     """Paged decode attention; shapes as :func:`decode_attention`.
 
-    On CUDA tensors this launches the hand-written kernel and adds one to
+    On CUDA tensors this launches the hand-written kernel, its sequences
+    split into chunks of :func:`_decode_chunk` positions, and adds one to
     ``flash_decode_attention.launches``; on CPU tensors it computes the
     plain version and counts nothing. ``k_pages``/``v_pages`` may be
     strided views (last dimension contiguous, same strides); q may be a
@@ -488,12 +541,29 @@ def flash_decode_attention(q, k_pages, v_pages, page_table, lengths,
     """
     b, h, d = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return _decode_attention_plain(q, k_pages, v_pages, page_table,
-                                       lengths, scale)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return _decode_attention_plain(q, k_pages, v_pages, page_table,
+                                           lengths, scale)
         raise MXNetError(f"flash_decode_attention: unsupported device "
                          f"{q.device}")
+    page = k_pages.shape[1]
+    chunk = _decode_chunk(b, h, page_table.shape[1] * page, page,
+                          _sm_count(q.get_device()))
+    return _paged_decode_launch(q, k_pages, v_pages, page_table, lengths,
+                                scale, chunk)
+
+
+flash_decode_attention.launches = 0
+
+
+def _paged_decode_launch(q, k_pages, v_pages, page_table, lengths, scale,
+                         chunk):
+    """Check the CUDA inputs and launch the paged kernel with chunks of
+    ``chunk`` positions (a multiple of the page); counts the launch on
+    ``flash_decode_attention.launches``. ``tools/decode_chunks.py`` calls
+    it with each chunk it times."""
+    b, h, d = q.shape
     n_pages, page = k_pages.shape[:2]
     max_pages = page_table.shape[1]
     dtype = _DTYPE_CODE.get(q.dtype)
@@ -523,26 +593,32 @@ def flash_decode_attention(q, k_pages, v_pages, page_table, lengths,
         if t.device != q.device:
             raise MXNetError("flash_decode_attention: all inputs must be "
                              f"on {q.device}")
-
-    from ._kernels import load
-
-    fn = load("paged_decode_attention").paged_decode_attention
+    if not (0 < d <= 256 and 0 < b <= 65535 and 0 < h <= 65535
+            and 0 < max_pages * page < 2 ** 31 and n_pages > 0):
+        raise MXNetError(f"flash_decode_attention: the kernel takes D <= "
+                         f"256, B and H <= 65535 and fewer than 2**31 "
+                         f"positions; got q {tuple(q.shape)}, "
+                         f"{max_pages} x {page} positions")
+    if chunk <= 0 or chunk % page or chunk // page > 512:
+        raise MXNetError(f"flash_decode_attention: chunk {chunk} is not a "
+                         f"whole number (at most 512) of pages of {page}")
+    n_chunks = -(-max_pages * page // chunk)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             dtype, b, h, d, page, max_pages, n_pages,
-             q.stride(0), q.stride(1),
-             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-             scale * _LOG2E, stream)
+    # the partials (o[D], then m and l) of rows longer than one chunk
+    ws = torch.empty(b * h * n_chunks * (d + 2), dtype=torch.float32,
+                     device=q.device) if n_chunks > 1 else None
+    err = _kernels.entry("paged_decode_attention")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), dtype, b, h, d, page,
+        max_pages, n_pages, chunk, q.stride(0), q.stride(1),
+        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        scale * _LOG2E, _kernels.stream(q))
     if err != 0:
         raise MXNetError(f"paged_decode_attention launch failed: "
                          f"cudaError {err}")
     flash_decode_attention.launches += 1
     return out
-
-
-flash_decode_attention.launches = 0
 
 
 def decode_attention(q, k_pages, v_pages, page_table, lengths, scale=None):

@@ -4,9 +4,11 @@
 
 Counterpart of ``tools/tunnel_cost_probe.py`` (its ``copy_kern`` Pallas
 kernel). ``copy_probe`` launches ``csrc/copy_probe.cu``, y = x + 1 on one
-(8, 128) f32 block: no work, so its time is the fixed cost. The probe
-times chains of 1, 20 and 100 launches three ways and prints one JSON
-line with the card's name and power limit:
+(8, 128) f32 block, through the launch path every kernel wrapper of the
+port takes (``ops/_kernels.py``: ``entry`` and ``stream``): no work, so its
+time is the fixed cost. The probe times chains of 1, 20 and 100 launches
+of ``copy_probe`` and of the one PyTorch call ``x + 1`` three ways and
+prints one JSON line with the card's name and power limit:
 
 - ``device_ms``: CUDA events around the chain (the device's view, launch
   gaps included);
@@ -16,7 +18,11 @@ line with the card's name and power limit:
   an eager step pays for every host read.
 
 Each is the median over ``--reps`` repetitions; ``*_per_launch_us`` are
-the slopes between the 20- and 100-launch chains. The output is checked
+the slopes between the 20- and 100-launch chains. ``host_us`` splits the
+launch path's host cost into its steps, each timed alone on the host
+clock (median of ``--reps`` loops of 2000 calls): the raw stream handle,
+the entry point's lookup and its call (returning before a launch), the
+output's allocation and the wrapper's checks. The output is checked
 against ``x + 1``. With no CUDA device it exits non-zero.
 """
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..ops import _kernels
 
 CHAINS = (1, 20, 100)
 
@@ -44,19 +51,16 @@ def copy_probe(x):
     launches ``csrc/copy_probe.cu`` and adds one to
     ``copy_probe.launches``; on a CPU tensor it computes the plain
     version."""
-    if x.device.type == "cpu":
-        return _copy_probe_plain(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return _copy_probe_plain(x)
         raise MXNetError(f"copy_probe: unsupported device {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() == 0:
         raise MXNetError("copy_probe: x must be a non-empty contiguous "
                          "float32 tensor")
-    from ..ops._kernels import load
-
     y = torch.empty_like(x)
-    err = load("copy_probe").copy_probe(
-        x.data_ptr(), y.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    err = _kernels.entry("copy_probe")(x.data_ptr(), y.data_ptr(), x.numel(),
+                                       _kernels.stream(x))
     if err != 0:
         raise MXNetError(f"copy_probe launch failed: cudaError {err}")
     copy_probe.launches += 1
@@ -98,6 +102,38 @@ def _slope_us(by_n):
         * 1e3
 
 
+def _host_us(fn, reps, n=2000):
+    """Median host microseconds of one ``fn()`` over ``reps`` loops."""
+    fn()
+    per = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per.append((time.perf_counter() - t0) / n * 1e6)
+    return float(np.median(per))
+
+
+def host_parts(x, reps: int = 5) -> dict:
+    """Host microseconds of each step of ``copy_probe``'s launch path, on
+    CUDA tensor ``x``. The entry point is given an empty problem (n = 0),
+    on which the launcher returns an error before launching."""
+    ptr, st = x.data_ptr(), _kernels.stream(x)
+    launch = _kernels.entry("copy_probe")
+    return {
+        "loop_and_call": _host_us(lambda: None, reps),
+        "raw_stream": _host_us(lambda: _kernels.stream(x), reps),
+        "entry_lookup": _host_us(lambda: _kernels.entry("copy_probe"),
+                                 reps),
+        "entry_call": _host_us(lambda: launch(ptr, ptr, 0, st), reps),
+        "empty_like": _host_us(lambda: torch.empty_like(x), reps),
+        "checks": _host_us(
+            lambda: (not x.is_cuda or x.dtype != torch.float32
+                     or not x.is_contiguous() or x.numel() == 0), reps),
+        "data_ptr": _host_us(lambda: x.data_ptr(), reps),
+    }
+
+
 def run(reps: int = 5) -> dict:
     """Probe the current CUDA device; returns the JSON-able result."""
     if not torch.cuda.is_available():
@@ -127,6 +163,7 @@ def run(reps: int = 5) -> dict:
             "launch_plus_sync_us": _slope_us({n: r[2] for n, r in
                                               res.items()}),
         }
+    out["host_us"] = host_parts(x, reps)
     out["device"] = torch.cuda.get_device_name(dev)
     out["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -95,6 +95,132 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         tfa.flash_decode_attention(q, pages, pages, table.cpu(), lengths)
 
 
+def _long_case(dev, dtype, dim, seed, chunk):
+    """Rows longer than one chunk: lengths 0, 1, chunk - 1, chunk,
+    chunk + 1, 2 * chunk + 3 and the full row of max_pages * page, on a
+    strided pool view."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    page, heads, n_pages, max_pages = 16, 3, 97, 64
+    full = max_pages * page
+    pool = torch.randn((n_pages, 2, 2, page, heads, dim), generator=gen,
+                       device=dev).to(dtype)
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, min(2 * chunk + 3, full),
+               full]
+    q = torch.randn((len(lengths), heads, dim), generator=gen,
+                    device=dev).to(dtype)
+    table = torch.randint(1, n_pages, (len(lengths), max_pages),
+                          generator=gen, device=dev, dtype=torch.int32)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, pool[:, 0, 0], pool[:, 0, 1], table, lengths
+
+
+def _assert_rows_close(out, ref, dtype, tol):
+    """Rows from 1 on: f32 within ``tol``; bf16/f16 within ``tol`` times
+    the row's largest |ref|, since a long row averages to values far below
+    1, where an absolute 2e-2 would hide a 16-bit fault."""
+    got, want = out[1:].float(), ref[1:]
+    limit = torch.full((want.shape[0],), tol, device=want.device)
+    if dtype != torch.float32:
+        limit = limit * want.abs().flatten(1).amax(1)
+    err = (got - want).abs().flatten(1).amax(1)
+    assert bool((err <= limit).all()), (err.tolist(), limit.tolist())
+
+
+def _chosen_chunk(q, k, table):
+    return tfa._decode_chunk(q.shape[0], q.shape[1],
+                             table.shape[1] * k.shape[1], k.shape[1],
+                             torch.cuda.get_device_properties(q.device)
+                             .multi_processor_count)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
+@pytest.mark.parametrize("dim", [8, 64, 96, 256])
+def test_kernel_long_rows_match_plain(cuda_device, dtype, tol, dim):
+    probe = _long_case(cuda_device, dtype, dim, seed=dim, chunk=64)
+    chunk = _chosen_chunk(*probe[:2], probe[3])
+    q, k, v, table, lengths = _long_case(cuda_device, dtype, dim, seed=dim,
+                                         chunk=chunk)
+    before = tfa.flash_decode_attention.launches
+    out = tfa.flash_decode_attention(q, k, v, table, lengths)
+    torch.cuda.synchronize()
+    assert tfa.flash_decode_attention.launches == before + 1
+    ref = tfa._decode_attention_plain(q.float(), k, v, table, lengths,
+                                      1.0 / math.sqrt(dim))
+    _assert_rows_close(out, ref, dtype, tol)
+    assert torch.count_nonzero(out[0]) == 0  # length 0 writes 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("chunk", [16, 64, 128, 256, 512, 1024])
+def test_kernel_every_chunk_matches_plain(cuda_device, dtype, tol, chunk):
+    q, k, v, table, lengths = _long_case(cuda_device, dtype, 64, seed=2,
+                                         chunk=min(chunk, 500))
+    scale = 1.0 / math.sqrt(64)
+    out = tfa._paged_decode_launch(q, k, v, table, lengths, scale, chunk)
+    ref = tfa._decode_attention_plain(q.float(), k, v, table, lengths, scale)
+    _assert_rows_close(out, ref, dtype, tol)
+    assert torch.count_nonzero(out[0]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_repeats_bitwise(cuda_device, dtype):
+    q, k, v, table, lengths = _long_case(cuda_device, dtype, 64, seed=3,
+                                         chunk=64)
+    outs = [tfa.flash_decode_attention(q, k, v, table, lengths)
+            for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_kernel_unaligned_views_match_plain(cuda_device):
+    """Views whose pointers are not on 16 bytes take element loads."""
+    q, k, v, table, lengths = _long_case(cuda_device, torch.float32, 64,
+                                         seed=4, chunk=64)
+    flat = torch.empty(k.numel() * 4 + 1, device=cuda_device)
+    pool = flat[1:1 + k.shape[0] * 2 * k[0].numel()].view(
+        k.shape[0], 2, *k.shape[1:])
+    pool[:, 0], pool[:, 1] = k, v
+    ku, vu = pool[:, 0], pool[:, 1]
+    assert ku.data_ptr() % 16 != 0
+    out = tfa.flash_decode_attention(q, ku, vu, table, lengths)
+    ref = tfa._decode_attention_plain(q, k, v, table, lengths,
+                                      1.0 / math.sqrt(64))
+    torch.testing.assert_close(out[1:], ref[1:], rtol=0, atol=2e-5)
+
+
+def test_launch_path_raises_and_counts(cuda_device):
+    """Every wrapper on the shared launch path still checks its inputs and
+    counts exactly its launches."""
+    from mxnet_tpu_torch.tools.launch_cost_probe import copy_probe
+
+    x = torch.randn((8, 128), device=cuda_device)
+    q, k, v, table, lengths = _case(cuda_device, torch.float32, 64, seed=5)
+    fq, fk, fv, _ = _qkv(cuda_device, torch.bfloat16, 1, 2, 128, 64, seed=5)
+    counts = lambda: (copy_probe.launches,  # noqa: E731
+                      tfa.flash_decode_attention.launches,
+                      tfa.flash_attention_fwd.launches)
+    before = counts()
+    for bad in (lambda: copy_probe(x.double()),
+                lambda: copy_probe(x.t()),
+                lambda: tfa.flash_decode_attention(q.half(), k, v, table,
+                                                   lengths),
+                lambda: tfa.flash_decode_attention(q, k, v, table.cpu(),
+                                                   lengths),
+                lambda: tfa.flash_attention_fwd(fq, fk.float(), fv),
+                lambda: tfa.flash_attention_fwd(fq, fk.cpu(), fv)):
+        with pytest.raises(MXNetError):
+            bad()
+    assert counts() == before
+    copy_probe(x)
+    tfa.flash_decode_attention(q, k, v, table, lengths)
+    tfa.flash_attention_fwd(fq, fk, fv, True)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+
+
 def test_engine_on_card_matches_engine_on_cpu(cuda_device):
     small = dict(vocab_size=97, units=32, hidden_size=64, num_layers=2,
                  num_heads=4, max_length=64, seed=3)

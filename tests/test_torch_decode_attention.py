@@ -134,3 +134,84 @@ def test_plain_version_casts_to_query_dtype():
     assert out.dtype == torch.bfloat16
     want = _port(q, k, v, table, lengths)
     np.testing.assert_allclose(out.float().numpy()[:2], want[:2], atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel's split: the plain version's chunked form and the rule
+# that picks the chunk
+# ---------------------------------------------------------------------------
+
+_FULL = 192  # 12 pages of 16 per table row
+
+
+def _chunk_case(chunk, seed=7):
+    """A 6-d pool (pages, layers, 2, page, H, D) and rows of lengths 0, 1,
+    chunk - 1, chunk, chunk + 1 (at most the full row) and the full row: the
+    later chunks of every short row are empty."""
+    rng = np.random.RandomState(seed)
+    n_pages, layers, page, heads, dim = 80, 2, 16, 2, 8
+    max_pages = _FULL // page
+    lengths = np.array([0, 1, chunk - 1, chunk, min(chunk + 1, _FULL),
+                        _FULL], np.int32)
+    pool = rng.randn(n_pages, layers, 2, page, heads, dim).astype(np.float32)
+    q = rng.randn(len(lengths), heads, dim).astype(np.float32)
+    table = np.zeros((len(lengths), max_pages), np.int32)  # padding: page 0
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    for b, n in enumerate(lengths):
+        live = -(-int(n) // page)
+        table[b, :live] = [free.pop() for _ in range(live)]
+    return pool, q, table, lengths
+
+
+@pytest.mark.parametrize("ref", sorted(REFERENCES))
+@pytest.mark.parametrize("chunk", [16, 48, 128, _FULL])
+def test_chunked_plain_version_matches_reference(ref, chunk):
+    pool, q, table, lengths = _chunk_case(chunk)
+    tpool = torch.from_numpy(pool)
+    k, v = tpool[:, 1, 0], tpool[:, 1, 1]  # the engine's strided view
+    assert not k.is_contiguous()
+    out = tfa._decode_attention_plain(
+        torch.from_numpy(q), k, v, torch.from_numpy(table),
+        torch.from_numpy(lengths), 1.0 / math.sqrt(q.shape[-1]),
+        chunk=chunk).numpy()
+    want = np.asarray(REFERENCES[ref](q, pool[:, 1, 0], pool[:, 1, 1], table,
+                                      lengths))
+    live = lengths > 0
+    np.testing.assert_allclose(out[live], want[live], rtol=TOL, atol=TOL)
+    # the kernel's merge of empty partials: a length-0 row is exactly 0
+    assert not out[~live].any()
+
+
+def test_chunked_plain_version_is_the_unchunked_one():
+    pool, q, table, lengths = _chunk_case(48)
+    tpool = torch.from_numpy(pool)
+    args = (torch.from_numpy(q), tpool[:, 0, 0], tpool[:, 0, 1],
+            torch.from_numpy(table), torch.from_numpy(lengths), 0.3)
+    whole = tfa._decode_attention_plain(*args)
+    live = torch.from_numpy(lengths > 0)
+    for chunk in (16, 32, 64, 160, 1024):
+        split = tfa._decode_attention_plain(*args, chunk=chunk)
+        torch.testing.assert_close(split[live], whole[live], rtol=TOL,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 12, 2048, 16, 132), 256),  # the serving path: 8 chunks a row
+    ((1, 12, 2048, 16, 132), 64),   # too few rows for 4 blocks an SM
+    ((64, 32, 2048, 16, 132), 512),  # enough blocks at the largest
+    ((8, 12, 2048, 48, 132), 240),  # rounded down to whole pages
+    ((8, 12, 4096, 1024, 132), 1024),  # pages longer than any chunk
+    ((5, 3, 128, 16, 132), 64),     # rows shorter than the chunks
+])
+def test_decode_chunk_from_static_shapes(shape, want):
+    batch, heads, max_len, page, sms = shape
+    chunk = tfa._decode_chunk(*shape)
+    assert chunk == want
+    assert chunk % page == 0 and chunk // page <= 512
+
+
+def test_decode_chunk_shrinks_as_the_card_grows():
+    chunks = [tfa._decode_chunk(8, 12, 2048, 16, sms)
+              for sms in (1, 16, 66, 132, 264, 1024)]
+    assert chunks == sorted(chunks, reverse=True)
+    assert chunks[0] == 512 and chunks[-1] == 64
