@@ -67,15 +67,32 @@
 // (mxnet_tpu_torch/tools/flash_variants.py): mma.sync at D 64, with 64-
 // and 128-key tiles.
 //
-// f32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel) keeps the first,
-// deterministic two-pass design in true fp32 (FFMA), after the same
-// preprocess kernel: 1. dK/dV per K tile over the Q tiles that see it;
-// 2. dQ per Q tile over the K tiles it sees, P and dS recomputed. Tiles
-// are 64 x 64, 32 x 32 at D 256 (Smem in flash_common.cuh).
+// FFMA design (f32 at every head dim, in true fp32 as the reference's
+// HIGHEST precision, no TF32; bf16/f16 above D 256, converted to f32 as
+// they are loaded): one pass, five tile products, three kernels:
+//   1. flash_bwd_rows_kernel: dl per row and a zeroed f32 dQ accumulator
+//      of whole 64-column slabs, one warp a row, for any head dim;
+//   2. flash_bwd_ffma_kernel: one block of 256 threads per (64-key tile,
+//      batch*head, 64-column slab), 2 blocks an SM (108 KB of shared
+//      memory), register tiles read as float4 (flash_common.cuh). Per Q
+//      tile it recomputes S and dP over the whole head dim in chunks of
+//      64 (its own slab's chunk last, so that it stays for the products),
+//      stores P and dS transposed to shared memory, accumulates its slab of
+//      dV and dK in registers and adds its slab of dQ = dS K into the
+//      accumulator by red.global.add, the next Q tile's copies in flight
+//      meanwhile. At D 64 there is one slab; wider heads run d / 64 slabs,
+//      each recomputing S and dP;
+//   3. flash_bwd_dq_store_kernel: dQ from the accumulator, for any head dim.
+//   The first f32 design made two passes (dK/dV, then dQ, each recomputing
+//   S and dP: seven tile products for five) with one thread per output
+//   element of shared-memory products, bound by shared memory.
+//   Determinism: dK and dV are summed in one order; f32 dQ, like the 16-bit
+//   one, is summed by reductions in the order the blocks reach them, so two
+//   runs may differ in its last bits.
 //
-// Head dims between the built ones (16, 32, 64, 128, 256) run at the next
-// built D with the columns past the true d zero (flash_common.cuh); the
-// f32 dQ accumulator of the 16-bit kernels is (B, H, S, D) at that D.
+// Head dims to 256 of the 16-bit kernels run at the next built D (16, 32,
+// 64, 128, 256) with the columns past the true d zero (flash_common.cuh);
+// their f32 dQ accumulator is (B, H, S, D) at that D.
 
 #include "pyentry.cuh"
 
@@ -88,12 +105,13 @@ using namespace mxt_flash;
 struct Args {
   const void *q, *k, *v, *out, *dout;
   const float *lse, *g_lse;  // g_lse: the cotangent of lse, or null
-  float *dl, *dq_acc;        // dq_acc: f32 (B, H, S, D), 16-bit types only
+  float *dl, *dq_acc;        // dq_acc: f32 (B, H, S, acc_w)
   void *dq, *dk, *dv;
   View vq, vk, vv, vo, vdo, vdq, vdk, vdv;
   int B, H, S, d, causal, offset;  // d: the true head dim, <= the kernel's
   float scale;
-  bool vec;  // every row of every 16-bit view starts on a 16-byte boundary
+  bool vec;   // every row of every view starts on a 16-byte boundary
+  int acc_w;  // row width of dq_acc: the padded D, or whole FFMA slabs
 };
 
 // ---------------------------------------------------------------------------
@@ -103,6 +121,7 @@ struct Args {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_preprocess_kernel(Args a) {
+  static_assert(sizeof(T) == 2, "16-bit only: the FFMA pass has its own");
   constexpr int kLanes = D / 8;  // threads per row, 8 elements each
   const int64_t rows = (int64_t)a.B * a.H * a.S;
   const int64_t gid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -115,26 +134,20 @@ flash_bwd_preprocess_kernel(Args a) {
                  s * a.vo.ss + c;
     const T* d = static_cast<const T*>(a.dout) + b * a.vdo.sb +
                  h * a.vdo.sh + s * a.vdo.ss + c;
-    if constexpr (sizeof(T) == 2) {
-      if (a.vec && c + 8 <= a.d) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(o);
-        const uint4 dv = *reinterpret_cast<const uint4*>(d);
-        const T* op = reinterpret_cast<const T*>(&ov);
-        const T* dp = reinterpret_cast<const T*>(&dv);
+    if (a.vec && c + 8 <= a.d) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o);
+      const uint4 dv = *reinterpret_cast<const uint4*>(d);
+      const T* op = reinterpret_cast<const T*>(&ov);
+      const T* dp = reinterpret_cast<const T*>(&dv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc += to_f32(op[e]) * to_f32(dp[e]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (c + e < a.d) acc += to_f32(o[e]) * to_f32(d[e]);
-      }
-      float4* z = reinterpret_cast<float4*>(a.dq_acc + r * D + c);
-      z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int e = 0; e < 8; ++e) acc += to_f32(op[e]) * to_f32(dp[e]);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        if (c + e < a.d) acc += o[e] * d[e];
+        if (c + e < a.d) acc += to_f32(o[e]) * to_f32(d[e]);
     }
+    float4* z = reinterpret_cast<float4*>(a.dq_acc + r * D + c);
+    z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   // the kLanes threads of a row are neighbours in one warp
 #pragma unroll
@@ -633,203 +646,320 @@ flash_bwd_dq_convert_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: two FFMA passes
+// FFMA: f32 at every head dim, bf16/f16 above 256, one pass
 // ---------------------------------------------------------------------------
 
-// From the scores S (in sf) and dP = dO V^T (in sg) of the (q0, k0) tile
-// of R x R: P = exp(S * scale - lse) into sp (skipped when null) and
-// dS = P * (dP - dl) * scale into sds.
-template <int R, int kLdF, int kLdP>
-__device__ __forceinline__ void probs_dscores(float* sp, float* sds,
-                                              const float* sf,
-                                              const float* sg,
-                                              const float* s_lse,
-                                              const float* s_dl, int q0,
-                                              int k0, const Args& a) {
-  constexpr int kElems = R * R / kThreads;  // score elements per thread
-  const float c = a.scale * kLog2e;
-  const bool masked = (a.causal && k0 + R - 1 > q0 + a.offset) ||
-                      k0 + R > a.S || q0 + R > a.S;
-#pragma unroll 4
-  for (int e = 0; e < kElems; ++e) {
-    const int idx = threadIdx.x + e * kThreads;
-    const int r = idx / R, cc = idx % R;
-    const float x = sf[r * kLdF + cc] * c - s_lse[r] * kLog2e;
-    float p;
-    if (!masked) {
-      p = exp2f(x);  // every pair visible, so the row's lse is finite
-    } else {
-      const int qr = q0 + r, kc = k0 + cc;
-      const bool vis = qr < a.S && kc < a.S &&
-                       (!a.causal || qr + a.offset >= kc) &&
-                       s_lse[r] > 0.5f * kNegInf;
-      p = vis ? exp2f(fminf(x, 0.f)) : 0.f;
-    }
-    if (sp != nullptr) sp[r * kLdP + cc] = p;
-    sds[r * kLdP + cc] = p * (sg[r * kLdF + cc] - s_dl[r]) * a.scale;
-  }
-}
-
-// lse and dl of rows row0 .. row0 + R - 1 (rows past S: -1e30 and 0).
-template <int R>
-__device__ __forceinline__ void load_row_stats(float* s_lse, float* s_dl,
-                                               const float* lse,
-                                               const float* dl, int64_t base,
-                                               int row0, int S) {
-  if (threadIdx.x < R) {
-    const int s = row0 + threadIdx.x;
-    s_lse[threadIdx.x] = s < S ? lse[base + s] : kNegInf;
-    s_dl[threadIdx.x] = s < S ? dl[base + s] : 0.f;
-  }
-}
-
-// Rows row0 .. row0 + R - 1 (those below S), columns below d, of the
-// per-thread accumulator `acc` (element e: idx = tid + e * kThreads).
-template <int R, int D>
-__device__ __forceinline__ void store_tile(float* dst, int64_t ss,
-                                           const float* acc, int row0, int S,
-                                           int d) {
-  constexpr int kAcc = R * D / kThreads;
+// dl = rowsum(dO * out) - dlse per row and a zeroed row of the dQ
+// accumulator (acc_w wide), for any head dim: one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_rows_kernel(Args a) {
+  const int64_t rows = (int64_t)a.B * a.H * a.S;
+  const int64_t r = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;  // the whole warp
+  const int bh = r / a.S, s = r % a.S, b = bh / a.H, h = bh % a.H;
+  const T* o = static_cast<const T*>(a.out) + b * a.vo.sb + h * a.vo.sh +
+               s * a.vo.ss;
+  const T* g = static_cast<const T*>(a.dout) + b * a.vdo.sb + h * a.vdo.sh +
+               s * a.vdo.ss;
+  float acc = 0.f;
+  for (int c = lane; c < a.d; c += 32) acc += to_f32(o[c]) * to_f32(g[c]);
 #pragma unroll
-  for (int e = 0; e < kAcc; ++e) {
-    const int idx = threadIdx.x + e * kThreads;
-    const int r = idx / D, c = idx % D;
-    if (row0 + r < S && c < d) dst[(int64_t)(row0 + r) * ss + c] = acc[e];
-  }
+  for (int w = 16; w > 0; w >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  float4* z = reinterpret_cast<float4*>(a.dq_acc + r * a.acc_w);
+  for (int c = lane; c < a.acc_w / 4; c += 32)
+    z[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (lane == 0) a.dl[r] = acc - (a.g_lse != nullptr ? a.g_lse[r] : 0.f);
 }
 
-template <int R, int D, int kLdF>
-__device__ __forceinline__ void accumulate(float* acc, const float* sf) {
-  constexpr int kAcc = R * D / kThreads;
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) {
-    const int idx = threadIdx.x + e * kThreads;
-    acc[e] += sf[(idx / D) * kLdF + idx % D];
-  }
+// dQ (input type, strided) from the f32 accumulator, 4 columns a thread,
+// for any head dim.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_store_kernel(Args a) {
+  const int groups = (a.d + 3) / 4;
+  const int64_t rows = (int64_t)a.B * a.H * a.S;
+  const int64_t gid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t r = gid / groups;
+  if (r >= rows) return;
+  const int c = (gid % groups) * 4;
+  const int bh = r / a.S, s = r % a.S, b = bh / a.H, h = bh % a.H;
+  const float4 x =
+      *reinterpret_cast<const float4*>(a.dq_acc + r * a.acc_w + c);
+  store4<T>(static_cast<T*>(a.dq) + b * a.vdq.sb + h * a.vdq.sh +
+                s * a.vdq.ss + c,
+            x, a.d - c, a.vec);
 }
 
-// Pass 1: dK and dV of one K tile. Per Q tile: S and dP, then P and dS,
-// then P^T dO and dS^T Q; four barriers.
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_kernel(Args a) {
-  using L = Smem<D>;
-  constexpr int kLdT = L::kLdT, kLdP = L::kLdP, kLdF = L::kLdF;
-  constexpr int R = L::kR;
-  constexpr int kAcc = R * D / kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sq = at<float>(smem, L::kA);
-  float* sdo = at<float>(smem, L::kB);
-  float* sk = at<float>(smem, L::kC);
-  float* sv = at<float>(smem, L::kD);
-  float* sp = at<float>(smem, L::kP);
-  float* sds = at<float>(smem, L::kDS);
-  float* sf = at<float>(smem, L::kF);
-  float* sg = at<float>(smem, L::kG);
-  float* s_lse = at<float>(smem, L::kRow0);
-  float* s_dl = at<float>(smem, L::kRow1);
+// One block of 256 threads per (64-key tile, batch*head, slab of 64
+// columns), the first key tiles (which the most rows of a causal head see)
+// first. The block loops over the Q tiles that see its keys; per Q tile:
+//   1. S = Q K^T and dP = dO V^T over the whole head dim, in chunks of 64
+//      columns, the block's own slab last, so that after the loop the
+//      chunk buffers hold the slab of Q, dO and K that steps 3-4 read;
+//   2. P and dS (rounded to the input type, as the reference casts them)
+//      to shared memory, stored transposed (key-major);
+//   3. dV += P^T dO and dK += dS^T Q for the slab, in registers for the
+//      whole loop;
+//   4. dQ = dS K for the slab, added into the f32 accumulator by vector
+//      reductions; the next Q tile's first chunk is copied meanwhile.
+// A thread owns keys ty + 16 i and rows tx + 16 j of S and dP, keys
+// ty + 16 i and columns 4 tx .. + 3 of dK and dV, and rows 4 ty .. + 3 and
+// columns 4 tx .. + 3 of dQ.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_ffma_kernel(Args a) {
+  constexpr int BM = kFfmaBM, BN = kFfmaBN, CW = kFfmaBwdSlab;
+  constexpr int LD = CW + 4;     // chunk rows: 4 words apart mod 32 banks
+  constexpr int LDT = BM + 16;   // P^T/dS^T rows: a warp's two on other banks
+  static_assert(BM == 64 && BN == 64 && CW == 64, "the 16 x 16 thread grid");
+  extern __shared__ __align__(16) float fsm[];
+  float* sq = fsm;
+  float* sdo = sq + BM * LD;
+  float* sk = sdo + BM * LD;
+  float* sv = sk + BN * LD;
+  float* spt = sv + BN * LD;     // P^T: BN x LDT
+  float* sdst = spt + BN * LDT;  // dS^T
 
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, S = a.S;
-  const int k0 = blockIdx.x * R;  // the first K tiles see the most rows
-  const float* qb = static_cast<const float*>(a.q) + b * a.vq.sb + h * a.vq.sh;
-  const float* dob =
-      static_cast<const float*>(a.dout) + b * a.vdo.sb + h * a.vdo.sh;
-  const float* kb = static_cast<const float*>(a.k) + b * a.vk.sb + h * a.vk.sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.vv.sb + h * a.vv.sh;
-  load_tile<R, D, kLdT>(sk, kb, a.vk.ss, k0, S, a.d);
-  load_tile<R, D, kLdT>(sv, vb, a.vv.ss, k0, S, a.d);
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, S = a.S;
+  const int k0 = blockIdx.y * BN;
+  const int z = blockIdx.z, nc = gridDim.z;  // the slab; chunks = slabs
+  const T* qb = static_cast<const T*>(a.q) + b * a.vq.sb + h * a.vq.sh;
+  const T* dob = static_cast<const T*>(a.dout) + b * a.vdo.sb + h * a.vdo.sh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.vk.sb + h * a.vk.sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vv.sb + h * a.vv.sh;
+  const float* lse_b = a.lse + (int64_t)bh * S;
+  const float* dl_b = a.dl + (int64_t)bh * S;
+  float* dqa = a.dq_acc + (int64_t)bh * S * a.acc_w + z * CW;
 
-  const int nq = (S + R - 1) / R;
+  const int nq = (S + BM - 1) / BM;
   int i_start = 0;
   if (a.causal) {
     // the first Q tile with a row r that sees column k0: r + offset >= k0
     const int first_row = k0 - a.offset;
-    i_start = first_row <= 0 ? 0 : min(nq, first_row / R);
+    i_start = first_row <= 0 ? 0 : min(nq, first_row / BM);
   }
-  float dk[kAcc], dv[kAcc];
+  const int cfirst = (z + 1) % nc;  // chunk order: z + 1, ..., z
+  auto load_qdo = [&](int q0, int c) {
+    load_f32_tile<T, BM, CW>(sq, LD, qb, a.vq.ss, q0, S, c * CW, a.d, a.vec);
+    load_f32_tile<T, BM, CW>(sdo, LD, dob, a.vdo.ss, q0, S, c * CW, a.d,
+                             a.vec);
+  };
+  auto load_kv = [&](int c) {
+    load_f32_tile<T, BN, CW>(sk, LD, kb, a.vk.ss, k0, S, c * CW, a.d, a.vec);
+    load_f32_tile<T, BN, CW>(sv, LD, vb, a.vv.ss, k0, S, c * CW, a.d, a.vec);
+  };
+  if (i_start < nq) {
+    load_qdo(i_start * BM, cfirst);
+    load_kv(cfirst);
+  }
+  cp_async_commit();
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float cl = a.scale * kLog2e;
+  float dk[4][4], dv[4][4];
 #pragma unroll
-  for (int e = 0; e < kAcc; ++e) dk[e] = dv[e] = 0.f;
-
-  for (int i = i_start; i < nq; ++i) {
-    const int q0 = i * R;
-    load_tile<R, D, kLdT>(sq, qb, a.vq.ss, q0, S, a.d);
-    load_tile<R, D, kLdT>(sdo, dob, a.vdo.ss, q0, S, a.d);
-    load_row_stats<R>(s_lse, s_dl, a.lse, a.dl, (int64_t)bh * S, q0, S);
-    __syncthreads();
-    mm<true, false, R, R, D>(sf, kLdF, sq, kLdT, sk, kLdT);   // Q K^T
-    mm<true, false, R, R, D>(sg, kLdF, sdo, kLdT, sv, kLdT);  // dO V^T
-    __syncthreads();
-    probs_dscores<R, kLdF, kLdP>(sp, sds, sf, sg, s_lse, s_dl, q0, k0, a);
-    __syncthreads();
-    mm<false, true, R, D, R>(sf, kLdF, sp, kLdP, sdo, kLdT);  // P^T dO
-    mm<false, true, R, D, R>(sg, kLdF, sds, kLdP, sq, kLdT);  // dS^T Q
-    __syncthreads();
-    accumulate<R, D, kLdF>(dv, sf);
-    accumulate<R, D, kLdF>(dk, sg);
-  }
-  float* dkb = static_cast<float*>(a.dk) + b * a.vdk.sb + h * a.vdk.sh;
-  float* dvb = static_cast<float*>(a.dv) + b * a.vdv.sb + h * a.vdv.sh;
-  store_tile<R, D>(dkb, a.vdk.ss, dk, k0, S, a.d);
-  store_tile<R, D>(dvb, a.vdv.ss, dv, k0, S, a.d);
-}
-
-// Pass 2: dQ of one Q tile. Per K tile: S and dP, then dS, then dS K.
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(Args a) {
-  using L = Smem<D>;
-  constexpr int kLdT = L::kLdT, kLdP = L::kLdP, kLdF = L::kLdF;
-  constexpr int R = L::kR;
-  constexpr int kAcc = R * D / kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sq = at<float>(smem, L::kA);
-  float* sdo = at<float>(smem, L::kB);
-  float* sk = at<float>(smem, L::kC);
-  float* sv = at<float>(smem, L::kD);
-  float* sds = at<float>(smem, L::kDS);
-  float* sf = at<float>(smem, L::kF);
-  float* sg = at<float>(smem, L::kG);
-  float* s_lse = at<float>(smem, L::kRow0);
-  float* s_dl = at<float>(smem, L::kRow1);
-
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, S = a.S;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;  // heaviest first
-  const float* qb = static_cast<const float*>(a.q) + b * a.vq.sb + h * a.vq.sh;
-  const float* dob =
-      static_cast<const float*>(a.dout) + b * a.vdo.sb + h * a.vdo.sh;
-  const float* kb = static_cast<const float*>(a.k) + b * a.vk.sb + h * a.vk.sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.vv.sb + h * a.vv.sh;
-  load_tile<R, D, kLdT>(sq, qb, a.vq.ss, q0, S, a.d);
-  load_tile<R, D, kLdT>(sdo, dob, a.vdo.ss, q0, S, a.d);
-  load_row_stats<R>(s_lse, s_dl, a.lse, a.dl, (int64_t)bh * S, q0, S);
-
-  const int nk = (S + R - 1) / R;
-  int nk_run = nk;
-  if (a.causal) {
-    const int last_col = min(q0 + R, S) - 1 + a.offset;
-    nk_run = last_col < 0 ? 0 : min(nk, last_col / R + 1);
-  }
-  float dq[kAcc];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-  for (int e = 0; e < kAcc; ++e) dq[e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
 
-  for (int j = 0; j < nk_run; ++j) {
-    const int k0 = j * R;
-    load_tile<R, D, kLdT>(sk, kb, a.vk.ss, k0, S, a.d);
-    load_tile<R, D, kLdT>(sv, vb, a.vv.ss, k0, S, a.d);
+  for (int qi = i_start; qi < nq; ++qi) {
+    const int q0 = qi * BM;
+    // 1. S and dP, [key i][row j]
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+    for (int st = 0; st < nc; ++st) {
+      if (st > 0) {
+        const int c = (cfirst + st) % nc;
+        load_qdo(q0, c);
+        load_kv(c);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      const float* qa = sq + tx * LD;
+      const float* ga = sdo + tx * LD;
+      const float* ka = sk + ty * LD;
+      const float* va = sv + ty * LD;
+#pragma unroll 4
+      for (int kk = 0; kk < CW; kk += 4) {
+        {
+          float4 x[4], y[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            x[j] = *reinterpret_cast<const float4*>(qa + 16 * j * LD + kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            y[i] = *reinterpret_cast<const float4*>(ka + 16 * i * LD + kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              sc[i][j] = fmaf(y[i].x, x[j].x, sc[i][j]);
+              sc[i][j] = fmaf(y[i].y, x[j].y, sc[i][j]);
+              sc[i][j] = fmaf(y[i].z, x[j].z, sc[i][j]);
+              sc[i][j] = fmaf(y[i].w, x[j].w, sc[i][j]);
+            }
+        }
+        {
+          float4 x[4], y[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            x[j] = *reinterpret_cast<const float4*>(ga + 16 * j * LD + kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            y[i] = *reinterpret_cast<const float4*>(va + 16 * i * LD + kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              dp[i][j] = fmaf(y[i].x, x[j].x, dp[i][j]);
+              dp[i][j] = fmaf(y[i].y, x[j].y, dp[i][j]);
+              dp[i][j] = fmaf(y[i].z, x[j].z, dp[i][j]);
+              dp[i][j] = fmaf(y[i].w, x[j].w, dp[i][j]);
+            }
+        }
+      }
+      if (st + 1 < nc) __syncthreads();  // before the next chunk's copies
+    }
+
+    // 2. P = exp(S * scale - lse) and dS = P * (dP - dl) * scale. Tiles
+    // that need the mask clamp the exponent at 0 and zero the rows whose
+    // lse is -1e30 (the reference's :268-277)
+    {
+      const bool masked = (a.causal && k0 + BN - 1 > q0 + a.offset) ||
+                          k0 + BN > S || q0 + BM > S;
+      float lr[4], dlr[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = q0 + tx + 16 * j;
+        lr[j] = row < S ? lse_b[row] : kNegInf;
+        dlr[j] = row < S ? dl_b[row] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = q0 + tx + 16 * j;
+          const float x = sc[i][j] * cl - lr[j] * kLog2e;
+          float p;
+          if (!masked) {
+            p = exp2f(x);  // every pair visible, so the row's lse is finite
+          } else {
+            const bool vis = row < S && key < S &&
+                             (!a.causal || row + a.offset >= key) &&
+                             lr[j] > 0.5f * kNegInf;
+            p = vis ? exp2f(fminf(x, 0.f)) : 0.f;
+          }
+          const int at = (ty + 16 * i) * LDT + tx + 16 * j;
+          spt[at] = round_to<T>(p);
+          sdst[at] = round_to<T>(p * (dp[i][j] - dlr[j]) * a.scale);
+        }
+      }
+    }
     __syncthreads();
-    mm<true, false, R, R, D>(sf, kLdF, sq, kLdT, sk, kLdT);   // Q K^T
-    mm<true, false, R, R, D>(sg, kLdF, sdo, kLdT, sv, kLdT);  // dO V^T
-    __syncthreads();
-    probs_dscores<R, kLdF, kLdP>(nullptr, sds, sf, sg, s_lse, s_dl, q0, k0,
-                                 a);
-    __syncthreads();
-    mm<true, true, R, D, R>(sf, kLdF, sds, kLdP, sk, kLdT);  // dS K
-    __syncthreads();
-    accumulate<R, D, kLdF>(dq, sf);
+
+    // 3. dV += P^T dO and dK += dS^T Q for the slab
+    {
+      const float* pa = spt + ty * LDT;
+      const float* da = sdst + ty * LDT;
+#pragma unroll 2
+      for (int r = 0; r < BM; r += 4) {
+        float4 pp[4], dd[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pp[i] = *reinterpret_cast<const float4*>(pa + 16 * i * LDT + r);
+          dd[i] = *reinterpret_cast<const float4*>(da + 16 * i * LDT + r);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 g4 =
+              *reinterpret_cast<const float4*>(sdo + (r + e) * LD + 4 * tx);
+          const float4 q4 =
+              *reinterpret_cast<const float4*>(sq + (r + e) * LD + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pe = comp(pp[i], e), de = comp(dd[i], e);
+            dv[i][0] = fmaf(pe, g4.x, dv[i][0]);
+            dv[i][1] = fmaf(pe, g4.y, dv[i][1]);
+            dv[i][2] = fmaf(pe, g4.z, dv[i][2]);
+            dv[i][3] = fmaf(pe, g4.w, dv[i][3]);
+            dk[i][0] = fmaf(de, q4.x, dk[i][0]);
+            dk[i][1] = fmaf(de, q4.y, dk[i][1]);
+            dk[i][2] = fmaf(de, q4.z, dk[i][2]);
+            dk[i][3] = fmaf(de, q4.w, dk[i][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // Q and dO are read; the next tile's may come in
+    if (qi + 1 < nq) {
+      load_qdo(q0 + BM, cfirst);
+      cp_async_commit();
+    }
+
+    // 4. dQ += dS K for the slab, rows 4 ty .. + 3
+    {
+      float dq[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+      const float* da = sdst + 4 * ty;
+#pragma unroll 4
+      for (int kk = 0; kk < BN; ++kk) {
+        const float4 d4 = *reinterpret_cast<const float4*>(da + kk * LDT);
+        const float4 k4 =
+            *reinterpret_cast<const float4*>(sk + kk * LD + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float de = comp(d4, i);
+          dq[i][0] = fmaf(de, k4.x, dq[i][0]);
+          dq[i][1] = fmaf(de, k4.y, dq[i][1]);
+          dq[i][2] = fmaf(de, k4.z, dq[i][2]);
+          dq[i][3] = fmaf(de, k4.w, dq[i][3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + 4 * ty + i;
+        if (row < S) {
+          float* p = dqa + (int64_t)row * a.acc_w + 4 * tx;
+          red_add2(p, dq[i][0], dq[i][1]);
+          red_add2(p + 2, dq[i][2], dq[i][3]);
+        }
+      }
+    }
+    if (nc > 1 && qi + 1 < nq) {
+      __syncthreads();  // K is read; the next tile's first chunk may come
+      load_kv(cfirst);
+      cp_async_commit();
+    }
   }
-  float* dqb = static_cast<float*>(a.dq) + b * a.vdq.sb + h * a.vdq.sh;
-  store_tile<R, D>(dqb, a.vdq.ss, dq, q0, S, a.d);
+  cp_async_wait<0>();
+
+  // dK and dV of the slab
+  T* dkb = static_cast<T*>(a.dk) + b * a.vdk.sb + h * a.vdk.sh;
+  T* dvb = static_cast<T*>(a.dv) + b * a.vdv.sb + h * a.vdv.sh;
+  const int col = z * CW + 4 * tx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key < S && col < a.d) {
+      store4<T>(dkb + (int64_t)key * a.vdk.ss + col,
+                make_float4(dk[i][0], dk[i][1], dk[i][2], dk[i][3]),
+                a.d - col, a.vec);
+      store4<T>(dvb + (int64_t)key * a.vdv.ss + col,
+                make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]),
+                a.d - col, a.vec);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -842,24 +972,32 @@ inline dim3 row_grid(const Args& a, int D) {
   return dim3((unsigned)((threads + kThreads - 1) / kThreads));
 }
 
-template <int D>
-cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
-  using L = Smem<D>;
-  auto dkdv = flash_bwd_dkdv_kernel<D>;
-  auto dq = flash_bwd_dq_kernel<D>;
-  cudaError_t err = prepare(dkdv, L::kBytes, a.B, a.H);
-  if (err == cudaSuccess) err = prepare(dq, L::kBytes, a.B, a.H);
+// The three kernels of the FFMA pass: rows (dl, zeroed accumulator), the
+// main pass on slabs of kFfmaBwdSlab columns, the dQ store.
+template <typename T>
+cudaError_t launch_ffma(const Args& a, cudaStream_t stream) {
+  if (a.dq_acc == nullptr) return cudaErrorInvalidValue;
+  auto fn = flash_bwd_ffma_kernel<T>;
+  const size_t bytes =
+      sizeof(float) * (4 * 64 * (kFfmaBwdSlab + 4) + 2 * 64 * (kFfmaBM + 16));
+  const int tiles = (a.S + kFfmaBN - 1) / kFfmaBN;
+  const int slabs = a.acc_w / kFfmaBwdSlab;
+  if (tiles > 65535 || slabs > 65535) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_preprocess_kernel<float, D><<<row_grid(a, D), kThreads, 0,
-                                          stream>>>(a);
+  const int64_t rows = (int64_t)a.B * a.H * a.S;
+  flash_bwd_rows_kernel<T><<<(unsigned)((rows + 7) / 8), kThreads, 0,
+                              stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k((a.S + L::kR - 1) / L::kR, a.B * a.H);
-  dkdv<<<grid_k, kThreads, L::kBytes, stream>>>(a);
+  fn<<<dim3(a.B * a.H, tiles, slabs), kThreads, bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_q((a.S + L::kR - 1) / L::kR, a.B * a.H);
-  dq<<<grid_q, kThreads, L::kBytes, stream>>>(a);
+  const int64_t threads = rows * ((a.d + 3) / 4);
+  flash_bwd_dq_store_kernel<T><<<(unsigned)((threads + kThreads - 1) /
+                                            kThreads),
+                                 kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -897,8 +1035,6 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   switch (dtype) {
-    case 0:
-      return launch_f32<D>(a, stream);
     case 1:
       return launch_mma<__nv_bfloat16, D>(a, stream);
     case 2:
@@ -914,11 +1050,12 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 // dk and dv share it). strides: 24 element strides, (b, h, s) of q, k, v,
 // out, dout, dq, dk and dv in that order, each with a contiguous last
 // dimension. lse, g_lse (the cotangent of lse, or null) and dl (scratch
-// for dl): contiguous (B, H, S) float32. D is the head dim, 1 to 256 (the
-// kernels built for the next of 16, 32, 64, 128 and 256 run it). dq_acc:
-// contiguous (B, H, S, that padded D) float32 scratch for the 16-bit
-// types, ignored for float32. Launches every kernel on `stream`; returns
-// the first cudaError_t.
+// for dl): contiguous (B, H, S) float32. D is the head dim, any D >= 1:
+// f32, and bf16/f16 above 256, run the FFMA pass; bf16/f16 to 256 the
+// tensor-core kernels built for the next of 16, 32, 64, 128 and 256.
+// dq_acc: contiguous (B, H, S, W) float32 scratch, W that padded D for the
+// tensor-core kernels and D rounded up to whole slabs of 64 for the FFMA
+// pass. Launches every kernel on `stream`; returns the first cudaError_t.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const float* lse,
@@ -928,19 +1065,31 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int D, const long long* strides,
                                    int causal, int offset, float scale,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  const bool ffma = ffma_route(dtype, D);
   Args a{q, k, v, out, dout, lse, g_lse, dl, dq_acc, dq, dk, dv,
          view(strides), view(strides + 3), view(strides + 6),
          view(strides + 9), view(strides + 12), view(strides + 15),
          view(strides + 18), view(strides + 21),
-         B, H, S, D, causal, offset, scale, false};
-  if (dtype != 0) {
-    const void* ptrs[8] = {q, k, v, out, dout, dq, dk, dv};
-    const View views[8] = {a.vq, a.vk, a.vv, a.vo, a.vdo, a.vdq, a.vdk, a.vdv};
-    a.vec = true;
-    for (int i = 0; i < 8; ++i) a.vec = a.vec && vec_ok(ptrs[i], views[i], 2);
-  }
+         B, H, S, D, causal, offset, scale, true,
+         ffma ? (D + kFfmaBwdSlab - 1) / kFfmaBwdSlab * kFfmaBwdSlab
+              : padded_dim(D)};
+  const void* ptrs[8] = {q, k, v, out, dout, dq, dk, dv};
+  const View views[8] = {a.vq, a.vk, a.vv, a.vo, a.vdo, a.vdq, a.vdk, a.vdv};
+  for (int i = 0; i < 8; ++i)
+    a.vec = a.vec && vec_ok(ptrs[i], views[i], dtype == 0 ? 4 : 2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ffma) {
+    switch (dtype) {
+      case 0:
+        return (int)launch_ffma<float>(a, st);
+      case 1:
+        return (int)launch_ffma<__nv_bfloat16>(a, st);
+      default:
+        return (int)launch_ffma<__half>(a, st);
+    }
+  }
   switch (padded_dim(D)) {
     case 16:
       return (int)launch<16>(dtype, a, st);

@@ -64,10 +64,35 @@
 // Measured alternatives (mxnet_tpu_torch/tools/flash_variants.py): mma.sync at D 64, K/V
 // tiles of 128 keys, a three-stage ring with one barrier a tile.
 //
-// f32 (flash_fwd_kernel) keeps the first design: square tiles in shared
-// memory (64 x 64; 32 x 32 at D 256, for shared memory), FFMA products
-// through mm() (the reference's HIGHEST precision), 256 / tile threads per
-// row for the softmax. In f32 the 67 TFLOP/s of FFMA bound it at 385 us.
+// FFMA design (flash_fwd_ffma_kernel: f32 at every head dim, in true fp32
+// as the reference's HIGHEST precision, no TF32; bf16/f16 above D 256,
+// converted to f32 as they are loaded). In f32 the 67 TFLOP/s of FFMA
+// bound it at 385 us at the model's shapes. The first f32 kernel gave each
+// output element to one thread, which made two shared-memory loads per FMA
+// and was bound by shared memory; this one is an SGEMM micro-kernel
+// (flash_common.cuh):
+//   - one block of 256 threads per (Q tile, batch*head, output slab), 2
+//     blocks an SM; a thread owns rows ty + 16 i of S, O and the softmax
+//     statistics, keys tx + 16 j (j < 4) of S and 4 (8) columns of O, so
+//     the softmax runs on registers (row max by shuffles within a
+//     half-warp, the row sum a per-thread partial until the end) and O is
+//     rescaled in place. To D 64 (the model's) a Q tile is 128 rows, 8 a
+//     thread (110 KB of shared memory; nvcc -Xptxas -v: 128 registers,
+//     144 B of spills in f32), so that each 16-byte read of a K or V row
+//     feeds twice the FFMA of 64-row tiles: 8 shared-memory wavefronts per
+//     64 FFMA instead of 12. Wider heads take 64-row tiles, 4 rows a
+//     thread (88 KB), for O's registers;
+//   - the head dim is a run-time argument: S = Q K^T loops over it in
+//     chunks of 32 columns (Q and K chunks, zero past d, through a
+//     two-stage cp.async ring), so one build takes every d; O's columns
+//     form slabs of 64 (d <= 64) or 128 on the grid's z dimension, each
+//     recomputing S (none at the model's D 64);
+//   - per K tile: the chunks of S, the softmax, P (rounded to the input
+//     type) to shared memory, O += P V for the slab; each step's tiles are
+//     copied while the step before it computes;
+//   - the epilogue divides by the row sum; the first slab writes lse.
+// Measured alternatives (tools/flash_variants.py --dtype float32): 64-row
+// tiles with S in one 64-column chunk or in two of 32.
 
 #include "pyentry.cuh"
 
@@ -301,133 +326,216 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// f32: FFMA kernel
+// FFMA kernel: f32 at every head dim, bf16/f16 above 256
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int H, int S, int d, View vq,
-                 View vk, View vv, View vo, int causal, int offset,
-                 float scale) {
-  using L = Smem<D>;
-  constexpr int kLdT = L::kLdT, kLdP = L::kLdP, kLdF = L::kLdF;
-  constexpr int R = L::kR;              // query rows and keys per tile
-  constexpr int kTPR = kThreads / R;    // threads per row in the softmax
-  constexpr int kAcc = R * D / kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sq = at<float>(smem, L::kA);
-  float* sk = at<float>(smem, L::kB);
-  float* sv = at<float>(smem, L::kC);
-  float* sp = at<float>(smem, L::kP);
-  float* sf = at<float>(smem, L::kF);
-  float* s_alpha = at<float>(smem, L::kRow0);  // later: row max
-  float* s_l = at<float>(smem, L::kRow1);
+// One block of 256 threads per (16 MI-row Q tile, batch*head, output slab
+// of 64 NH columns), Q tiles heaviest first. Per K tile of 64 keys:
+// S = Q K^T over the head dim in chunks of DK columns (Q and K chunks
+// through a two-stage ring), the online softmax on S in registers, P to
+// shared memory, O += P V for the slab (V through its own buffer). Every
+// step's tiles are copied while the step before it computes.
+template <typename T, int MI, int NH, int DK>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ lse, int H, int S, int d, View vq,
+                      View vk, View vv, View vo, int causal, int offset,
+                      float scale, bool vec) {
+  constexpr int BM = 16 * MI, BN = kFfmaBN;
+  constexpr int SW = 64 * NH;  // slab width
+  constexpr int LDC = DK + 4;  // Q/K chunk rows: 4 words apart mod 32 banks
+  constexpr int LDP = BN + 16;  // P rows: a warp's two rows on other banks
+  static_assert(BN == 64, "the 16 x 16 thread grid's 4 keys a thread");
+  extern __shared__ __align__(16) float fsm[];
+  float* ring = fsm;                       // stage s: Q chunk, then K chunk
+  float* sv = ring + 2 * (BM + BN) * LDC;  // V: BN x SW
+  float* sp = sv + BN * SW;                // P: BM x LDP
 
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;  // heaviest first
-  const float* qb = q + b * vq.sb + h * vq.sh;
-  const float* kb = k + b * vk.sb + h * vk.sh;
-  const float* vb = v + b * vv.sb + h * vv.sh;
-  float* ob = out + b * vo.sb + h * vo.sh;
-  load_tile<R, D, kLdT>(sq, qb, vq.ss, q0, S, d);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
+  const int c0 = blockIdx.z * SW;                    // the slab's first column
+  const T* qb = q + b * vq.sb + h * vq.sh;
+  const T* kb = k + b * vk.sb + h * vk.sh;
+  const T* vb = v + b * vv.sb + h * vv.sh;
+  T* ob = out + b * vo.sb + h * vo.sh;
 
-  const float c = scale * kLog2e;  // raw score -> log2 domain
-  const int nk = (S + R - 1) / R;
+  const int nk = (S + BN - 1) / BN;
   int nk_run = nk;
   if (causal) {
     // the largest column any row of this tile sees
-    const int last_col = min(q0 + R, S) - 1 + offset;
-    nk_run = last_col < 0 ? 0 : min(nk, last_col / R + 1);
+    const int last_col = min(q0 + BM, S) - 1 + offset;
+    nk_run = last_col < 0 ? 0 : min(nk, last_col / BN + 1);
   }
-  const int row = threadIdx.x / kTPR, part = threadIdx.x % kTPR;
-  const int qrow = q0 + row;
-  float m = kNegInf, l = 0.f;
-  float acc[kAcc];
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) acc[e] = 0.f;
+  const int nc = (d + DK - 1) / DK;  // chunks of S
+  const int per = nc + 1;            // steps a K tile: the chunks, then P V
+  const int steps = nk_run * per;
 
-  for (int j = 0; j < nk_run; ++j) {
-    const int k0 = j * R;
-    load_tile<R, D, kLdT>(sk, kb, vk.ss, k0, S, d);
-    load_tile<R, D, kLdT>(sv, vb, vv.ss, k0, S, d);
-    __syncthreads();
-    mm<true, false, R, R, D>(sf, kLdF, sq, kLdT, sk, kLdT);  // Q K^T
-    __syncthreads();
-    // a tile needs the mask only where some pair is hidden or ragged
-    const bool masked = (causal && k0 + R - 1 > q0 + offset) ||
-                        k0 + R > S || q0 + R > S;
-    float t[R / kTPR];
-    float mx = kNegInf;
+  // copies step t's tiles: a Q and a K chunk into ring stage (chunk count)
+  // % 2, or the slab of V
+  auto issue = [&](int t) {
+    const int j = t / per, c = t % per;
+    if (c < nc) {
+      float* st = ring + ((j * nc + c) & 1) * (BM + BN) * LDC;
+      load_f32_tile<T, BM, DK>(st, LDC, qb, vq.ss, q0, S, c * DK, d, vec);
+      load_f32_tile<T, BN, DK>(st + BM * LDC, LDC, kb, vk.ss, j * BN, S,
+                               c * DK, d, vec);
+    } else {
+      load_f32_tile<T, BN, SW>(sv, SW, vb, vv.ss, j * BN, S, c0, d, vec);
+    }
+  };
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float cl = scale * kLog2e;  // raw score -> log2 domain
+  // rows ty + 16 i of S, O, m and l; keys tx + 16 j of S; columns
+  // c0 + 64 hh + 4 tx .. + 3 of O
+  float s[MI][4], o[MI][4 * NH], m[MI], l[MI];
 #pragma unroll
-    for (int i = 0; i < R / kTPR; ++i) {
-      const int col = part + kTPR * i;
-      t[i] = sf[row * kLdF + col] * c;
-      if (masked) {
-        const int kc = k0 + col;
-        if (kc >= S || qrow >= S || (causal && qrow + offset < kc))
-          t[i] = kNegInf;
+  for (int i = 0; i < MI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * NH; ++e) o[i][e] = 0.f;
+  }
+
+  if (steps > 0) issue(0);
+  cp_async_commit();
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) issue(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int j = t / per, c = t % per, k0 = j * BN;
+    if (c < nc) {
+      // S += Q K^T over this chunk: the thread's four keys' float4 first,
+      // then one row's at a time
+      const float* sq = ring + ((j * nc + c) & 1) * (BM + BN) * LDC;
+      const float* qa = sq + ty * LDC;
+      const float* ka = sq + BM * LDC + tx * LDC;
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
       }
-      mx = fmaxf(mx, t[i]);
+#pragma unroll
+      for (int kk = 0; kk < DK; kk += 4) {
+        float4 bk[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          bk[jj] = *reinterpret_cast<const float4*>(ka + 16 * jj * LDC + kk);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(qa + 16 * i * LDC + kk);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            s[i][jj] = fmaf(a.x, bk[jj].x, s[i][jj]);
+            s[i][jj] = fmaf(a.y, bk[jj].y, s[i][jj]);
+            s[i][jj] = fmaf(a.z, bk[jj].z, s[i][jj]);
+            s[i][jj] = fmaf(a.w, bk[jj].w, s[i][jj]);
+          }
+        }
+      }
+      if (c == nc - 1) {
+        // the online softmax; the mask only where some pair of the tile is
+        // hidden or ragged
+        const bool masked = (causal && k0 + BN - 1 > q0 + offset) ||
+                            k0 + BN > S || q0 + BM > S;
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int row = q0 + ty + 16 * i;
+          float mx = kNegInf;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int col = k0 + tx + 16 * jj;
+            float x = s[i][jj] * cl;
+            if (masked &&
+                (col >= S || row >= S || (causal && row + offset < col)))
+              x = kNegInf;
+            s[i][jj] = x;
+            mx = fmaxf(mx, x);
+          }
+          // the 16 threads of a row are one half-warp
+#pragma unroll
+          for (int w = 8; w > 0; w >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+          const float mn = fmaxf(m[i], mx);
+          const float alpha = exp2f(m[i] - mn);
+          m[i] = mn;
+          float sum = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            // a hidden pair contributes exactly 0, also while the row has
+            // seen nothing yet (its max still -1e30)
+            const float p =
+                s[i][jj] > 0.5f * kNegInf ? exp2f(s[i][jj] - mn) : 0.f;
+            sum += p;
+            // P rounded to the input type, as the reference casts p to v's
+            sp[(ty + 16 * i) * LDP + tx + 16 * jj] = round_to<T>(p);
+          }
+          l[i] = l[i] * alpha + sum;  // this thread's part of the row sum
+#pragma unroll
+          for (int e = 0; e < 4 * NH; ++e) o[i][e] *= alpha;
+        }
+      }
+    } else {
+      // O += P V for the slab: four keys' V float4 first, then one row's P
+      const float* pa = sp + ty * LDP;
+#pragma unroll 2
+      for (int kk = 0; kk < BN; kk += 4) {
+        float4 vr[4][NH];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+            vr[e][hh] = *reinterpret_cast<const float4*>(
+                sv + (kk + e) * SW + 64 * hh + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const float4 pr =
+              *reinterpret_cast<const float4*>(pa + 16 * i * LDP + kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe = comp(pr, e);
+#pragma unroll
+            for (int hh = 0; hh < NH; ++hh) {
+              o[i][4 * hh] = fmaf(pe, vr[e][hh].x, o[i][4 * hh]);
+              o[i][4 * hh + 1] = fmaf(pe, vr[e][hh].y, o[i][4 * hh + 1]);
+              o[i][4 * hh + 2] = fmaf(pe, vr[e][hh].z, o[i][4 * hh + 2]);
+              o[i][4 * hh + 3] = fmaf(pe, vr[e][hh].w, o[i][4 * hh + 3]);
+            }
+          }
+        }
+      }
     }
-    // the kTPR threads of a row are neighbours in one warp
-#pragma unroll
-    for (int w = kTPR / 2; w > 0; w >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-    const float mn = fmaxf(m, mx);
-    const float alpha = exp2f(m - mn);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < R / kTPR; ++i) {
-      // a hidden pair contributes exactly 0, also while the row has seen
-      // nothing yet (mn still -1e30)
-      const float p = t[i] > 0.5f * kNegInf ? exp2f(t[i] - mn) : 0.f;
-      sum += p;
-      sp[row * kLdP + part + kTPR * i] = p;
-    }
-#pragma unroll
-    for (int w = kTPR / 2; w > 0; w >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, w);
-    l = l * alpha + sum;
-    m = mn;
-    if (part == 0) s_alpha[row] = alpha;
-    __syncthreads();
-    mm<true, true, R, D, R>(sf, kLdF, sp, kLdP, sv, kLdT);  // P V
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kAcc; ++e) {
-      const int idx = threadIdx.x + e * kThreads;
-      const int r = idx / D, dd = idx % D;
-      acc[e] = acc[e] * s_alpha[r] + sf[r * kLdF + dd];
-    }
+    __syncthreads();  // before the next copies overwrite what was read
   }
+  cp_async_wait<0>();
 
-  __syncthreads();  // s_alpha is read above until the last tile ends
-  if (part == 0) {
-    s_alpha[row] = m;
-    s_l[row] = l;
-  }
-  __syncthreads();
+  // epilogue: the full row sums, then out (and lse, from the first slab)
 #pragma unroll
-  for (int e = 0; e < kAcc; ++e) {
-    const int idx = threadIdx.x + e * kThreads;
-    const int r = idx / D, dd = idx % D;
-    const int qr = q0 + r;
-    if (qr < S && dd < d) {
-      const float lr = s_l[r];
-      // a row with no visible column has l == 0: out 0, never NaN
-      ob[(int64_t)qr * vo.ss + dd] = lr > 0.f ? acc[e] / lr : 0.f;
+  for (int i = 0; i < MI; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int w = 8; w > 0; w >>= 1)
+      li += __shfl_xor_sync(0xffffffffu, li, w);
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+    // a row with no visible column has l == 0: out 0, never NaN
+    const float inv = li > 0.f ? 1.f / li : 0.f;
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      const int col = c0 + 64 * hh + 4 * tx;
+      if (col < d)
+        store4<T>(ob + (int64_t)row * vo.ss + col,
+                  make_float4(o[i][4 * hh] * inv, o[i][4 * hh + 1] * inv,
+                              o[i][4 * hh + 2] * inv, o[i][4 * hh + 3] * inv),
+                  d - col, vec);
     }
-  }
-  if (threadIdx.x < R) {
-    const int r = threadIdx.x, qr = q0 + r;
-    if (qr < S) {
-      const float lr = s_l[r];
-      lse[(int64_t)bh * S + qr] =
-          lr > 0.f ? s_alpha[r] * kLn2 + logf(lr) : kNegInf;
-    }
+    if (blockIdx.z == 0 && tx == 0)
+      lse[(int64_t)bh * S + row] =
+          li > 0.f ? m[i] * kLn2 + logf(li) : kNegInf;
   }
 }
 
@@ -445,19 +553,44 @@ struct Args {
   float scale;
 };
 
-template <int D>
-cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
-  using L = Smem<D>;
-  auto fn = flash_fwd_kernel<D>;
-  cudaError_t err = prepare(fn, L::kBytes, a.B, a.H);
+// The FFMA kernel on Q tiles of 16 MI rows and slabs of 64 NH columns, S
+// in chunks of DK.
+template <typename T, int MI, int NH, int DK>
+cudaError_t launch_ffma_slabs(const Args& a, cudaStream_t stream) {
+  auto fn = flash_fwd_ffma_kernel<T, MI, NH, DK>;
+  constexpr int kBM = 16 * MI, kSW = 64 * NH;
+  const size_t bytes =
+      sizeof(float) * (2 * (kBM + kFfmaBN) * (DK + 4) + kFfmaBN * kSW +
+                       kBM * (kFfmaBN + 16));
+  const int tiles = (a.S + kBM - 1) / kBM;
+  const int slabs = (a.d + kSW - 1) / kSW;
+  if (tiles > 65535 || slabs > 65535) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + L::kR - 1) / L::kR, a.B * a.H);
-  fn<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.H,
-      a.S, a.d, view(a.st), view(a.st + 3), view(a.st + 6), view(a.st + 9),
-      a.causal, a.offset, a.scale);
+  const View vq = view(a.st), vk = view(a.st + 3), vv = view(a.st + 6),
+             vo = view(a.st + 9);
+  const int eb = sizeof(T);
+  const bool vec = vec_ok(a.q, vq, eb) && vec_ok(a.k, vk, eb) &&
+                   vec_ok(a.v, vv, eb) && vec_ok(a.out, vo, eb);
+  const dim3 grid(a.B * a.H, tiles, slabs);
+  fn<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.H, a.S,
+      a.d, vq, vk, vv, vo, a.causal, a.offset, a.scale, vec);
   return cudaGetLastError();
+}
+
+// Head dims to 64: Q tiles of kFfmaFwdBM rows (8 a thread), one slab of 64
+// columns, S in chunks of kFfmaFwdChunk (110 KB of shared memory). Wider
+// ones: Q tiles of kFfmaBM rows (4 a thread, for registers), slabs of
+// kFfmaFwdSlab each recomputing S (88 KB).
+template <typename T>
+cudaError_t launch_ffma(const Args& a, cudaStream_t stream) {
+  static_assert(kFfmaFwdSlab == 128, "slabs of one or two 64-column halves");
+  if (a.d <= 64)
+    return launch_ffma_slabs<T, kFfmaFwdBM / 16, 1, kFfmaFwdChunk>(a, stream);
+  return launch_ffma_slabs<T, kFfmaBM / 16, 2, kFfmaFwdChunk>(a, stream);
 }
 
 template <typename T, int D>
@@ -481,8 +614,6 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   switch (dtype) {
-    case 0:
-      return launch_f32<D>(a, stream);
     case 1:
       return launch_mma<__nv_bfloat16, D>(a, stream);
     case 2:
@@ -497,16 +628,28 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and out share
 // it). strides: 12 element strides, (b, h, s) of q, k, v and out, each
 // with a contiguous last dimension. lse: contiguous (B, H, S) float32.
-// D is the head dim, 1 to 256 (the kernels built for the next of 16, 32,
-// 64, 128 and 256 run it). Returns the cudaError_t of the launch.
+// D is the head dim, any D >= 1: f32, and bf16/f16 above 256, run the FFMA
+// kernel; bf16/f16 to 256 the tensor-core kernels built for the next of
+// 16, 32, 64, 128 and 256. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int dtype, int B, int H, int S, int D,
                                    const long long* strides, int causal,
                                    int offset, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, out, lse, B, H, S, D, strides, causal, offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ffma_route(dtype, D)) {
+    switch (dtype) {
+      case 0:
+        return (int)launch_ffma<float>(a, st);
+      case 1:
+        return (int)launch_ffma<__nv_bfloat16>(a, st);
+      default:
+        return (int)launch_ffma<__half>(a, st);
+    }
+  }
   switch (padded_dim(D)) {
     case 16:
       return (int)launch<16>(dtype, a, st);

@@ -35,16 +35,17 @@
 //      wgmma reads), so ldmatrix's and cp.async's eight rows fall in eight
 //      bank groups without padding.
 //
-// f32 (the reference's HIGHEST precision): the first kernels. Square
-// tiles in shared memory (64 x 64, 32 x 32 above D 128), products by mm()
-// in true fp32 (FFMA, no TF32), one thread per output element.
+// FFMA (f32 at every head dim, the reference's HIGHEST precision; bf16/f16
+// above the tensor-core kernels' 256): register-tiled kernels that take the
+// head dim at run time, built once for all of them (below).
 //
-// Head dims: every kernel is built for a padded D of 16, 32, 64, 128 or
-// 256 and takes the true head dim d (1 <= d <= D) at run time. Tiles are
-// loaded with columns d .. D - 1 zero-filled (cp.async with src-size 0 for
-// whole 16-byte chunks past d, element loads for a chunk that d cuts), so
-// every product over D equals the product over d; stores write columns
-// below d only. The scale is the caller's (1/sqrt(d) by default).
+// Head dims of the tensor-core kernels: each is built for a padded D of 16,
+// 32, 64, 128 or 256 and takes the true head dim d (1 <= d <= D) at run
+// time. Tiles are loaded with columns d .. D - 1 zero-filled (cp.async with
+// src-size 0 for whole 16-byte chunks past d, element loads for a chunk
+// that d cuts), so every product over D equals the product over d; stores
+// write columns below d only. The scale is the caller's (1/sqrt(d) by
+// default).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,73 +87,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half(x);
-}
-
-// ---------------------------------------------------------------------------
-// f32 kernels: FFMA tiles in shared memory
-// ---------------------------------------------------------------------------
-
-// dst[r][c] = src row (row0 + r), r < R, c < D; rows at or past S and
-// columns at or past d are zero.
-template <int R, int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t ss, int row0, int S,
-                                          int d) {
-  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int s = row0 + r;
-    dst[r * LD + c] = s < S && c < d ? src[(int64_t)s * ss + c] : 0.f;
-  }
-}
-
-// C (M x N, row stride ldc) = A (M x K) * B (K x N), all f32 in shared
-// memory. A is row-major (A[m*lda + k]) or column-major (A[m + k*lda]);
-// B row-major (B[k*ldb + n]) or column-major (B[k + n*ldb]). Callers
-// synchronise around it.
-template <bool kARow, bool kBRow, int M, int N, int K>
-__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
-                                   const float* B, int ldb) {
-  for (int idx = threadIdx.x; idx < M * N; idx += kThreads) {
-    const int m = idx / N, n = idx % N;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int k = 0; k < K; ++k) {
-      const float a = kARow ? A[m * lda + k] : A[m + k * lda];
-      const float b = kBRow ? B[k * ldb + n] : B[k + n * ldb];
-      acc = fmaf(a, b, acc);
-    }
-    C[m * ldc + n] = acc;
-  }
-}
-
-// Shared-memory layout of the f32 kernels, whose tiles are kR query rows
-// by kR keys: four kR x D operand tiles, two kR x kR tiles (P and dS), two
-// scratch tiles (the forward uses one) and two per-row vectors. Rows have
-// an odd length, so that threads reading one column of consecutive rows
-// hit distinct banks. kR is 64 up to D 128 (231,936 bytes at D 128 in the
-// backward, of the 232,448 a block may have) and 32 at D 256 (206,080).
-template <int D>
-struct Smem {
-  static constexpr int kR = D > 128 ? 32 : 64;
-  static constexpr int kLdT = D + 1;
-  static constexpr int kLdP = kR + 1;
-  static constexpr int kLdF = (D > kR ? D : kR) + 1;
-  static constexpr size_t kTile = kR * kLdT * sizeof(float);
-  static constexpr size_t kPTile = kR * kLdP * sizeof(float);
-  static constexpr size_t kA = 0, kB = kTile, kC = 2 * kTile, kD = 3 * kTile;
-  static constexpr size_t kP = 4 * kTile, kDS = kP + kPTile;
-  static constexpr size_t kF = kDS + kPTile;
-  static constexpr size_t kG = kF + kR * kLdF * sizeof(float);
-  static constexpr size_t kRow0 = kG + kR * kLdF * sizeof(float);
-  static constexpr size_t kRow1 = kRow0 + kR * sizeof(float);
-  static constexpr size_t kBytes = kRow1 + kR * sizeof(float);
-  static_assert(kBytes <= 232448, "more shared memory than a block has");
-  static_assert(kThreads % kR == 0, "threads per row");
-};
-
-template <typename T>
-__device__ __forceinline__ T* at(unsigned char* base, size_t off) {
-  return reinterpret_cast<T*>(base + off);
 }
 
 // ---------------------------------------------------------------------------
@@ -437,6 +371,95 @@ __device__ __forceinline__ uint32_t pack2(float x, float y) {
     __half2 v = __floats2half2_rn(x, y);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+}
+
+// ---------------------------------------------------------------------------
+// FFMA kernels: f32 register tiles, head dim at run time
+// ---------------------------------------------------------------------------
+//
+// A block of 256 threads is a 16 x 16 grid (tx = tid % 16, ty = tid / 16).
+// Each product is an SGEMM micro-kernel: a thread owns a 4 x 4 (8 x 4,
+// 4 x 8) tile of the result in registers and reads its operands from
+// shared memory as float4, four values of the contraction at a time, so
+// one 16-byte load feeds four FFMA per row or column of its tile. The
+// operand that the 16 threads of a half-warp share is read by all of them
+// at once (a broadcast); the one they split is read at 16 consecutive rows
+// whose strides are 4 words apart modulo the 32 banks (rows of 32 + 4 or
+// 64 + 4 floats), or at 16 consecutive float4 of one row, so no read
+// conflicts. Tiles written by scalar stores from registers (P, dS) have
+// rows of 64 + 16 floats, so a warp's two rows fall on the two halves of
+// the banks. Tiles are f32 in shared memory whatever the input type:
+// 16-bit inputs are converted as they are loaded.
+
+constexpr int kFfmaBM = 64;        // query rows per tile (the forward's
+                                   // above D 64)
+constexpr int kFfmaFwdBM = 128;    // query rows per forward tile to D 64
+constexpr int kFfmaBN = 64;        // keys per tile
+constexpr int kFfmaFwdChunk = 32;  // head-dim columns of Q and K a forward step
+constexpr int kFfmaFwdSlab = 128;  // output columns of a forward block, at most
+constexpr int kFfmaBwdSlab = 64;   // head-dim columns of a backward step and
+                                   // dK/dV/dQ columns of a backward block
+
+// Which head dims and types the FFMA kernels take: f32 always, 16-bit above
+// the tensor-core kernels' 256.
+inline bool ffma_route(int dtype, int d) { return dtype == 0 || d > 256; }
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));  // identity for f32
+}
+
+// Component e (0..3, known at compile time after unrolling) of a float4.
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Rows row0 .. row0 + R - 1, columns col0 .. col0 + W - 1 of a strided view
+// (row stride ss, d columns) into dst[r * ld + c] as f32; rows at or past S
+// and columns at or past d are zero. f32 rows that start on 16-byte
+// boundaries (`vec`) go by cp.async, 16 bytes a thread, to be waited for
+// with the group they are committed in (a group of four columns that d
+// cuts by plain loads); the rest, and 16-bit inputs (converted), by plain
+// loads, complete on return.
+template <typename T, int R, int W>
+__device__ __forceinline__ void load_f32_tile(float* dst, int ld, const T* src,
+                                              int64_t ss, int row0, int S,
+                                              int col0, int d, bool vec) {
+  constexpr int kC = W / 4;  // groups of four columns a row
+  for (int idx = threadIdx.x; idx < R * kC; idx += kThreads) {
+    const int r = idx / kC, c = (idx % kC) * 4;
+    const int s = row0 + r, col = col0 + c;
+    float* out = dst + r * ld + c;
+    // a row past S or a group past d is not read; its address only has to
+    // be valid
+    const T* p = src + (int64_t)(s < S ? s : 0) * ss + (col < d ? col : 0);
+    if constexpr (std::is_same<T, float>::value) {
+      if (vec && (col + 4 <= d || col >= d || s >= S)) {
+        cp_async16(out, p, s < S && col < d);
+        continue;
+      }
+    }
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = s < S && col + e < d ? to_f32(p[e]) : 0.f;
+    *reinterpret_cast<float4*>(out) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+// p[0 .. min(n, 4) - 1] = x, rounded to T: one 16-byte store for four f32
+// values on a 16-byte boundary (`vec`), else one element at a time.
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 x, int n, bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec && n >= 4) {
+      *reinterpret_cast<float4*>(p) = x;
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < n) p[e] = from_f32<T>(comp(x, e));
 }
 
 // ---------------------------------------------------------------------------

@@ -25,15 +25,23 @@ as the reference's ``_pick_block`` does; its default is the reference's
 does not carry over), per kernel, type and head dim
 (:func:`_kernel_tiles`): the bf16/f16 forward 128 query rows by 64 keys;
 the bf16/f16 backward 128 by 64 at D 64, 64 by 128 at D 16, 64 by 32 at
-D 256, else 64 by 64; the f32 kernels 64 by 64, 32 by 32 at D 256. On a
-CUDA tensor, a requested tile that a kernel the call reaches was not
-built for raises: the wrappers check their own kernel, ``_Flash`` the
-backward's too before it returns from the forward.
+D 256, else 64 by 64; the FFMA kernels 64 by 64, the FFMA forward 128 by
+64 up to D 64. On a CUDA tensor, a requested tile that a kernel the call
+reaches was not built for raises: the wrappers check their own kernel,
+``_Flash`` the backward's too before it returns from the forward.
 
-The kernels take any head dim from 1 to 256: one built for the next power
-of two from 16 (:func:`_kernel_dim`) runs it, reading the columns past
-the true head dim as zeros and writing none of them. The tensors are
-passed as they are.
+The kernels take every head dim d >= 1. f32 at any d, and bf16/f16 above
+256, go to the FFMA kernels (:func:`_ffma_route`), which take d at run
+time: they loop over it in chunks and spread wide output columns over
+slabs of the grid. bf16/f16 up to 256 go to the tensor-core kernels, one
+built for the next power of two from 16 (:func:`_kernel_dim`), which read
+the columns past the true head dim as zeros and write none of them. The
+tensors are passed as they are.
+
+Determinism: the backward kernels sum dK and dV in one order, but add dQ
+into an f32 accumulator by atomic reductions in the order the blocks reach
+them, so two calls on the same inputs may differ in dQ's last bits (f32
+included); the forward is bitwise repeatable.
 
 Backward path, ``MXNET_FLASH_BWD`` (the reference reads
 ``pallas|auto|else``, ``flash_attention.py:486-488``):
@@ -102,28 +110,51 @@ _LOG2E = math.log2(math.e)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _PLAIN_BLOCK = 512        # the plain version's default tile (reference's)
-_MAX_KERNEL_DIM = 256
+_MAX_TC_DIM = 256         # the widest head dim of the tensor-core kernels
+# the FFMA kernels' tiles and slabs (csrc/flash_common.cuh): kFfmaBM x
+# kFfmaBN, the forward's kFfmaFwdBM rows to D 64, kFfmaBwdSlab
+_FFMA_TILES = (64, 64)
+_FFMA_FWD_BM = 128
+_FFMA_BWD_SLAB = 64
+
+
+def _ffma_route(dtype, d):
+    """Whether head dim ``d`` in ``dtype`` runs on the FFMA kernels
+    (``ffma_route`` of ``csrc/flash_common.cuh``): f32 always, bf16/f16
+    above the tensor-core kernels' 256."""
+    return dtype == torch.float32 or d > _MAX_TC_DIM
 
 
 def _kernel_dim(d):
-    """The head dim the CUDA kernels that run head dim ``d`` are built for
-    (``padded_dim`` of ``csrc/flash_common.cuh``): the least power of two
-    of at least 16 that holds d."""
+    """The head dim the bf16/f16 tensor-core kernels that run head dim
+    ``d`` (at most 256) are built for (``padded_dim`` of
+    ``csrc/flash_common.cuh``): the least power of two of at least 16 that
+    holds d."""
     return max(16, 1 << (int(d) - 1).bit_length())
 
 
 def _kernel_tiles(which, dtype, d):
     """(block_q, block_k) of the CUDA kernel ``which`` ("fwd" or "bwd") for
-    ``dtype`` and head dim ``d``: kFwdBM/kFwdBN of
+    ``dtype`` and head dim ``d``: kFfmaBM/kFfmaBN of
+    ``csrc/flash_common.cuh`` on the FFMA route; else kFwdBM/kFwdBN of
     ``csrc/flash_attention_fwd.cu``, kWgBM/kWgBN (D 64) or
-    kBwdBM/BwdLayout::BN of ``csrc/flash_attention_bwd.cu``, Smem::kR of
-    ``csrc/flash_common.cuh`` for f32."""
-    kd = _kernel_dim(d)
-    if dtype == torch.float32:
-        return (32, 32) if kd > 128 else (64, 64)
+    kBwdBM/BwdLayout::BN of ``csrc/flash_attention_bwd.cu``."""
+    if _ffma_route(dtype, d):
+        if which == "fwd" and d <= 64:
+            return _FFMA_FWD_BM, _FFMA_TILES[1]
+        return _FFMA_TILES
     if which == "fwd":
         return 128, 64
+    kd = _kernel_dim(d)
     return {16: (64, 128), 64: (128, 64), 256: (64, 32)}.get(kd, (64, 64))
+
+
+def _dq_acc_width(dtype, d):
+    """Row width of the backward's f32 dQ accumulator: whole slabs of
+    ``_FFMA_BWD_SLAB`` on the FFMA route, the built head dim else."""
+    if _ffma_route(dtype, d):
+        return -(-int(d) // _FFMA_BWD_SLAB) * _FFMA_BWD_SLAB
+    return _kernel_dim(d)
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +304,9 @@ def _check_flash(name, which, q, others, block_q, block_k):
     if q.dtype not in _DTYPE_CODE:
         raise MXNetError(f"{name}: dtype {q.dtype} not in "
                          "float32/bfloat16/float16")
-    if not 1 <= q.shape[-1] <= _MAX_KERNEL_DIM:
-        raise MXNetError(f"{name}: head dim {q.shape[-1]} outside the "
-                         f"kernels' 1 .. {_MAX_KERNEL_DIM}")
+    if q.shape[-1] < 1:
+        raise MXNetError(f"{name}: head dim {q.shape[-1]}; the kernels "
+                         "take any head dim of at least 1")
     for t in others:
         if t.shape != q.shape:
             raise MXNetError(f"{name}: shapes {tuple(t.shape)} and "
@@ -288,9 +319,15 @@ def _check_flash(name, which, q, others, block_q, block_k):
     if any(t.stride(-1) != 1 for t in (q, *others)):
         raise MXNetError(f"{name}: inputs need a contiguous last dim")
     _check_tiles(name, which, q, block_q, block_k)
-    if q.shape[0] * q.shape[1] > 65535:
-        raise MXNetError(f"{name}: B * H = {q.shape[0] * q.shape[1]} "
-                         "exceeds the grid's 65535")
+    b, h, s, d = q.shape
+    if b * h > 65535:
+        raise MXNetError(f"{name}: B * H = {b * h} exceeds the grid's "
+                         "65535")
+    # the grid's other dimensions: row tiles (y) and column slabs (z)
+    if -(-s // min(_kernel_tiles(which, q.dtype, d))) > 65535 or \
+            -(-d // _FFMA_BWD_SLAB) > 65535:
+        raise MXNetError(f"{name}: S {s} or head dim {d} needs more than "
+                         "the grid's 65535 tiles or slabs")
 
 
 def _strides(*tensors):
@@ -348,9 +385,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
     ``lse`` is the forward's, ``dout`` the cotangent of out and ``g_lse``
     that of lse (None: zero). On CUDA tensors this launches
     ``csrc/flash_attention_bwd.cu`` (its preprocess kernel, which forms
-    dl = rowsum(dout * out) - g_lse, then its main pass and, for bf16/f16,
-    the dQ conversion from an f32 accumulator allocated here) and adds one
-    to ``flash_attention_bwd.launches``. On CPU tensors it computes
+    dl = rowsum(dout * out) - g_lse, then its main pass and the dQ store
+    from an f32 accumulator allocated here) and adds one to
+    ``flash_attention_bwd.launches``. On CPU tensors it computes
     :func:`_flash_bwd_plain` and counts nothing."""
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -373,18 +410,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
     lse = lse.float().contiguous()
     if g_lse is not None:
         g_lse = g_lse.float().contiguous()
-    # f32 scratch: dl (delta - dlse, the reference's :333-334) per row and,
-    # for bf16/f16, the dQ accumulator the kernel's atomics add into, as
-    # wide as the head dim the kernel is built for
+    # f32 scratch: dl (delta - dlse, the reference's :333-334) per row and
+    # the dQ accumulator the kernel's atomics add into (_dq_acc_width)
     dl = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    dq_acc = None if q.dtype == torch.float32 else torch.empty(
-        (b, h, s, _kernel_dim(d)), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((b, h, s, _dq_acc_width(q.dtype, d)),
+                         dtype=torch.float32, device=q.device)
     dq, dk, dv = _empty_bshd(q), _empty_bshd(q), _empty_bshd(q)
     err = _kernels.entry("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(),
         None if g_lse is None else g_lse.data_ptr(), dl.data_ptr(),
-        None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
+        dq_acc.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
         _strides(q, k, v, out, dout, dq, dk, dv), int(bool(causal)),
         int(offset), scale, _kernels.stream(q))

@@ -1,19 +1,24 @@
-"""Time design variants of the bf16 flash-attention kernels on a CUDA card.
+"""Time design variants of the flash-attention kernels on a CUDA card.
 
     python -m mxnet_tpu_torch.tools.flash_variants [--only NAME ...]
-        [--repeats 2]
+        [--repeats 2] [--dtype bfloat16|float32] [--against DIR]
 
 Each variant is a copy of this package under ``build/flash_variants/NAME``
 with one design choice of ``csrc/flash_attention_{fwd,bwd}.cu`` undone or
 changed (``VARIANTS``; "chosen" is the package as it is). The tool builds
 every copy's two flash kernels (one ``nvcc`` per source, all started
 together), then times each copy in a process of its own, the variants
-taking turns ``--repeats`` times: bf16 forward and backward at the
-training path's shapes (B 4, H 12, S 2048, D 64, q/k/v strided views of one
-QKV projection), causal and full, median device ms of 30 calls with the L2
-flushed before each, and the largest error against the plain versions
-(absolute for out, relative to max(1, |plain|) for the gradients). Prints
-the card's name and power limit, then one JSON line per run.
+taking turns ``--repeats`` times, in reverse order every other round:
+forward and backward in ``--dtype`` (bf16: the tensor-core kernels; f32:
+the FFMA kernels) at the training path's shapes (B 4, H 12, S 2048, D 64,
+q/k/v strided views of one QKV projection), causal and full, median
+device ms of 30 calls with the L2 flushed before each, and the largest
+error against the plain versions (absolute for out, relative to
+max(1, |plain|) for the gradients).
+``--against DIR`` times the kernels of the checkout at DIR (for example
+the parent commit unpacked by ``git archive``) as one more entry,
+"against", taking turns with the variants. Prints the card's name and
+power limit, then one JSON line per run.
 """
 from __future__ import annotations
 
@@ -56,6 +61,19 @@ VARIANTS = {
         (_BWD, "  if constexpr (D == 64)\n    return launch_pass",
          "  if constexpr (false)\n    return launch_pass"),
         (_BWD, "constexpr int kBwdBN = 64;", "constexpr int kBwdBN = 128;")],
+    # f32 (FFMA) forward at D <= 64 on 64-row Q tiles (4 rows a thread),
+    # S in one chunk of 64 (104 KB of shared memory) or two of 32 (72 KB),
+    # instead of 128-row tiles (8 rows a thread)
+    "fwd_ffma_rows64": [
+        (_FWD, "launch_ffma_slabs<T, kFfmaFwdBM / 16, 1, kFfmaFwdChunk>",
+         "launch_ffma_slabs<T, 4, 1, 64>")],
+    "fwd_ffma_rows64_chunk32": [
+        (_FWD, "launch_ffma_slabs<T, kFfmaFwdBM / 16, 1, kFfmaFwdChunk>",
+         "launch_ffma_slabs<T, 4, 1, kFfmaFwdChunk>")],
+    # f32 (FFMA) backward with one block an SM, so no register spills
+    "bwd_ffma_one_block": [
+        (_BWD, "__launch_bounds__(kThreads, 2)\nflash_bwd_ffma_kernel",
+         "__launch_bounds__(kThreads, 1)\nflash_bwd_ffma_kernel")],
 }
 
 
@@ -74,16 +92,17 @@ def make(name):
     return root
 
 
-def time_here():
-    """Times the flash kernels of the package this module was imported
-    from; prints one JSON line."""
+def time_here(label, dtype_name):
+    """Times the flash kernels of the package that ``mxnet_tpu_torch``
+    imports (the timing process's PYTHONPATH) in ``dtype_name``; prints one
+    JSON line."""
     import numpy as np
     import torch
 
-    from ..ops import _kernels
-    from ..ops.flash_attention import (_flash_attention_plain,
-                                       _flash_bwd_plain, flash_attention_bwd,
-                                       flash_attention_fwd)
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.ops.flash_attention import (
+        _flash_attention_plain, _flash_bwd_plain, flash_attention_bwd,
+        flash_attention_fwd)
 
     dev = torch.device("cuda", 0)
     flush = torch.empty(128 * 2 ** 20, device=dev)
@@ -102,14 +121,14 @@ def time_here():
         return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
     b, h, s, d = 4, 12, 2048, 64
+    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    qkv = torch.randn((b, s, 3, h, d), generator=gen,
-                      device=dev).to(torch.bfloat16)
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(dtype)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    do = torch.randn((b, h, s, d), generator=gen,
-                     device=dev).to(torch.bfloat16)
-    res = {"variant": _PKG.parent.name, "package": str(_PKG)}
+    do = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+    res = {"variant": label, "package": str(_kernels.CSRC.parent),
+           "dtype": dtype_name}
     for causal in (True, False):
         out, lse = flash_attention_fwd(q, k, v, causal)
         grads = flash_attention_bwd(q, k, v, out, lse, do, None, causal)
@@ -136,11 +155,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", nargs="*", choices=sorted(VARIANTS))
     ap.add_argument("--repeats", type=int, default=2)
-    ap.add_argument("--time-here", action="store_true",
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--against", default=None,
+                    help="root of another checkout to time beside these")
+    ap.add_argument("--time-here", metavar="LABEL",
                     help=argparse.SUPPRESS)  # one timing process
     args = ap.parse_args(argv)
     if args.time_here:
-        time_here()
+        time_here(args.time_here, args.dtype)
         return 0
     import torch
 
@@ -153,6 +176,8 @@ def main(argv=None) -> int:
           flush=True)
     names = args.only or list(VARIANTS)
     roots = {n: make(n) for n in names}
+    if args.against:
+        roots["against"] = Path(args.against).resolve()
     build = ("from mxnet_tpu_torch.ops import _kernels as k\n"
              "names = ('flash_attention_fwd', 'flash_attention_bwd')\n"
              "procs = [k._start_build(n) for n in names]\n"
@@ -161,12 +186,16 @@ def main(argv=None) -> int:
              for root in roots.values()]
     if any(p.wait() for p in procs):
         return 1
-    for _ in range(args.repeats):
-        for root in roots.values():
+    # each timing process runs this file, importing the package under its
+    # root (the other checkout's own copy of this tool may be older); the
+    # order reverses every other round (a, b, b, a)
+    items = list(roots.items())
+    for i in range(args.repeats):
+        for name, root in (items if i % 2 == 0 else items[::-1]):
             env = dict(os.environ, PYTHONPATH=str(root))
-            subprocess.run([sys.executable, "-m",
-                            "mxnet_tpu_torch.tools.flash_variants",
-                            "--time-here"], cwd=root, env=env, check=True)
+            subprocess.run([sys.executable, __file__, "--time-here", name,
+                            "--dtype", args.dtype], cwd=root, env=env,
+                           check=True)
     return 0
 
 

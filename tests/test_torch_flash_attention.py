@@ -286,33 +286,83 @@ def _cuda_constants(source):
             re.findall(r"constexpr int (\w+) = (\d+);", text)}, text
 
 
-# head dims between the built ones (16, 32, 64, 128, 256) run at the
-# next built one
+# bf16/f16 head dims between the built ones (16, 32, 64, 128, 256) run at
+# the next built one; above 256 (built None), and f32 at every head dim, on
+# the FFMA kernels, which take the head dim at run time
 @pytest.mark.parametrize("d,built", [
-    pytest.param(d, b, id=str(d) if d == b else f"{d}-at-{b}")
+    pytest.param(d, b, id=str(d) if d == b or b is None else f"{d}-at-{b}")
     for d, b in [(16, 16), (32, 32), (64, 64), (128, 128), (8, 16), (48, 64),
-                 (96, 128), (256, 256)]])
+                 (96, 128), (256, 256), (264, None), (320, None),
+                 (512, None)]])
 def test_kernel_tiles_match_cuda_sources(d, built):
-    """The tiles the wrappers accept on a CUDA tensor are those the kernels
-    were written for, at the head dim each kernel is built for."""
-    fwd, _ = _cuda_constants("flash_attention_fwd.cu")
+    """The tiles the wrappers accept on a CUDA tensor, and the width of the
+    backward's dQ accumulator, are those the kernels were written for, at
+    the head dim each kernel is built for (the FFMA kernels: any)."""
+    fwd, fwd_text = _cuda_constants("flash_attention_fwd.cu")
     bwd, bwd_text = _cuda_constants("flash_attention_bwd.cu")
-    _, common_text = _cuda_constants("flash_common.cuh")
+    common, common_text = _cuda_constants("flash_common.cuh")
+    tc_max = int(re.search(r"ffma_route\(int dtype, int d\) \{ return "
+                           r"dtype == 0 \|\| d > (\d+); \}",
+                           common_text).group(1))
+    assert tc_max == tfa._MAX_TC_DIM
+    ffma = (common["kFfmaBM"], common["kFfmaBN"])
+    slab = common["kFfmaBwdSlab"]
+    assert (ffma, slab) == (tfa._FFMA_TILES, tfa._FFMA_BWD_SLAB)
+    # the forward's Q tiles to D 64 (launch_ffma of the forward source)
+    narrow = re.search(r"if \(a\.d <= (\d+)\)\s+return launch_ffma_slabs<T, "
+                       r"kFfmaFwdBM / 16,", fwd_text)
+    ffma_fwd = ((common["kFfmaFwdBM"], common["kFfmaBN"])
+                if d <= int(narrow.group(1)) else ffma)
+    ffma_acc = -(-d // slab) * slab
+    assert tfa._kernel_tiles("fwd", torch.float32, d) == ffma_fwd
+    assert tfa._kernel_tiles("bwd", torch.float32, d) == ffma
+    assert tfa._dq_acc_width(torch.float32, d) == ffma_acc
+    if built is None:  # past the tensor-core kernels: FFMA for every dtype
+        assert d > tc_max
+        for dt in (torch.bfloat16, torch.float16):
+            assert tfa._ffma_route(dt, d)
+            assert tfa._kernel_tiles("fwd", dt, d) == ffma_fwd
+            assert tfa._kernel_tiles("bwd", dt, d) == ffma
+            assert tfa._dq_acc_width(dt, d) == ffma_acc
+        return
     assert tfa._kernel_dim(d) == built
     d16_keys, d256_keys = (int(k) for k in re.search(
         r"BN = D == 16 \? (\d+) : D == 256 \? (\d+) : kBwdBN;",
         bwd_text).groups())
-    f32_wide, f32_rows = (int(k) for k in re.search(
-        r"kR = D > (\d+) \? (\d+) : 64;", common_text).groups())
     if built == 64:
         want_bwd = (bwd["kWgBM"], bwd["kWgBN"])
     else:
         want_bwd = (bwd["kBwdBM"], {16: d16_keys, 256: d256_keys}.get(
             built, bwd["kBwdBN"]))
     for dt in (torch.bfloat16, torch.float16):
+        assert not tfa._ffma_route(dt, d)
         assert tfa._kernel_tiles("fwd", dt, d) == (fwd["kFwdBM"],
                                                    fwd["kFwdBN"])
         assert tfa._kernel_tiles("bwd", dt, d) == want_bwd
-    f32 = (f32_rows,) * 2 if built > f32_wide else (64, 64)
-    for which in ("fwd", "bwd"):
-        assert tfa._kernel_tiles(which, torch.float32, d) == f32
+        assert tfa._dq_acc_width(dt, d) == built
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_320_matches_interpreted_pallas(causal, monkeypatch):
+    """A head dim past the tensor-core kernels' 256 (the FFMA route on a
+    card): the port's public flash_attention, its output and its q/k/v
+    gradients, against the reference's interpreted Pallas forward and
+    jax.grad through its interpreted Pallas backward."""
+    arrs = _inputs((1, 2, 64, 320), seed=5)
+    scale = 1.0 / np.sqrt(320)
+    out, _ = jfa._fwd_pallas(*map(jnp.asarray, arrs), 0, scale, causal,
+                             64, 64, True)
+    monkeypatch.setenv("MXNET_FLASH_BWD", "pallas")
+
+    def loss(q, k, v):
+        return (jfa.flash_attention(q, k, v, causal=causal, block_q=32,
+                                    block_k=32) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    monkeypatch.setenv("MXNET_FLASH_BWD", "auto")  # the port's CPU path
+    q, k, v = _t(arrs, grad=True)
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    _close(got.detach().numpy(), out, OUT_TOL)
+    (got ** 2).sum().backward()
+    for t, w in zip((q, k, v), want):
+        _close(t.grad.numpy(), w, GRAD_TOL)
