@@ -46,7 +46,22 @@ H100): ``python3 chip_smoke.py``. It
    TransformerLM forward + torch.autograd, the bf16 step against it within
    AGREE_TOL, falling finite losses and the flash launch counts
    (12 layers x steps run, each way);
-8. prints the ``kernels`` JSON line and, last, the ``ok`` line.
+8. drives the Gluon path (``gluon_path``): ``transformer_lm()`` as a
+   ``HybridBlock``, ``initialize()``, ``hybridize()``, ``gluon.Trainer``
+   with Adam (lr 1e-4) and ``SoftmaxCrossEntropyLoss``, batch 4 x 2048,
+   f32: the first step's loss and every gradient against the module path
+   (the nd path's limits), 2 warmup and 6 timed hybridized steps, 2 plain
+   steps, one profiled step, the update alone (fused and
+   ``MXNET_FUSED_UPDATE=0``), falling finite losses and 12 flash launches
+   a step each way; two bf16 steps after ``amp.convert_hybrid_block``
+   (Adam ``multi_precision``), the first within AGREE_TOL of the f32
+   loss, with
+   attention on bf16 q/k/v (the ``wgmma`` kernels), falling losses and a
+   changed f32 master copy; before the steps, ``DecodeEngine(net)``
+   greedy tokens for 2 prompts on the seeded weights, each held against
+   the Gluon forward's logits (plain attention) and the streams against
+   the module built from the same weights;
+9. prints the ``kernels`` JSON line and, last, the ``ok`` line.
 
 Between 3 and 4 it also holds the flash kernels against their plain
 versions at other head dims (D 8, 48, 80, 96, 256, 320, 512; f32 and bf16;
@@ -262,14 +277,14 @@ def phase_kernel(torch, dev):
 
 
 def phase_main_path(torch, dev):
-    from mxnet_tpu_torch.models.transformer import (decode_config,
+    from mxnet_tpu_torch.models.transformer import (TransformerLMModule,
+                                                    decode_config,
                                                     decode_params,
-                                                    lm_prefill,
-                                                    transformer_lm)
+                                                    lm_prefill)
     from mxnet_tpu_torch.ops.flash_attention import flash_decode_attention
     from mxnet_tpu_torch.serve import DecodeEngine, DecodeScheduler
 
-    lm = transformer_lm(device=dev, seed=0)  # the repo's defaults
+    lm = TransformerLMModule(device=dev, seed=0)  # the repo's defaults
     cfg = decode_config(lm)
     n_params = sum(p.numel() for p in lm.parameters())
     eng = DecodeEngine(lm, slots=SLOTS, page_size=PAGE, num_pages=NUM_PAGES,
@@ -650,13 +665,13 @@ def _train_steps(torch, trainer, x, steps):
 
 def phase_train_path(torch, dev):
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-    from mxnet_tpu_torch.models.transformer import (decode_config,
-                                                    transformer_lm)
+    from mxnet_tpu_torch.models.transformer import (TransformerLMModule,
+                                                    decode_config)
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     from mxnet_tpu_torch.parallel import ShardedTrainer
 
-    lm = transformer_lm(device=dev, seed=0)  # the repo's defaults
+    lm = TransformerLMModule(device=dev, seed=0)  # the repo's defaults
     cfg = decode_config(lm)
     seq, batch = cfg["max_length"], TRAIN_BATCH
     rng = np.random.RandomState(0)
@@ -768,8 +783,9 @@ def _nd_params(nd, params, dtype=None):
 def _device_profile(torch, step):
     """One call of ``step`` under torch.profiler: (wall ms, share of the
     wall the card ran no kernel, device ms by class: the flash kernels,
-    matrix products, the rest). The share and classes are None when the
-    profiler recorded no device time."""
+    matrix products, the multi-tensor (``foreach``) update kernels, the
+    rest). The share and classes are None when the profiler recorded no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -779,7 +795,8 @@ def _device_profile(torch, step):
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    classes = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    classes = {"flash_attention": 0.0, "matmul": 0.0, "optimizer": 0.0,
+               "other": 0.0}
     for e in prof.key_averages():
         us = e.self_device_time_total
         if us <= 0 or not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -789,6 +806,8 @@ def _device_profile(torch, step):
             classes["flash_attention"] += us / 1e3
         elif any(k in name for k in ("gemm", "xmma", "cutlass")):
             classes["matmul"] += us / 1e3
+        elif any(k in name for k in ("multi_tensor", "foreach")):
+            classes["optimizer"] += us / 1e3
         else:
             classes["other"] += us / 1e3
     busy_ms = sum(classes.values())
@@ -808,9 +827,9 @@ def phase_nd_path(torch, dev, smi):
     policy (S 2048) on the autograd tape."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, nd
-    from mxnet_tpu_torch.models.transformer import (decode_config,
-                                                    decode_params,
-                                                    transformer_lm)
+    from mxnet_tpu_torch.models.transformer import (TransformerLMModule,
+                                                    decode_config,
+                                                    decode_params)
     from mxnet_tpu_torch.ndarray.ndarray import invoke, invoke_fn
     from mxnet_tpu_torch.ops.attention import fused_attention
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
@@ -820,7 +839,7 @@ def phase_nd_path(torch, dev, smi):
     os.environ.pop("MXNET_ATTENTION_IMPL", None)  # the auto policy
     check(mx.current_context() == mx.gpu(0),
           f"default context {mx.current_context()}, want gpu(0)")
-    lm = transformer_lm(device=dev, seed=0)  # the repo's defaults
+    lm = TransformerLMModule(device=dev, seed=0)  # the repo's defaults
     cfg = decode_config(lm)
     seq, batch, heads = cfg["max_length"], TRAIN_BATCH, cfg["heads"]
     tokens = np.random.RandomState(0).randint(0, cfg["vocab"], (batch, seq))
@@ -950,6 +969,297 @@ def phase_nd_path(torch, dev, smi):
     return launches
 
 
+GLUON_SEED = 0
+GLUON_WARMUP, GLUON_STEPS = 2, 6   # hybridized f32 steps
+GLUON_PLAIN_STEPS = 2              # the same loop, not hybridized
+GLUON_UPDATE_REPS = 3              # Trainer.step alone, fused and eager
+GLUON_BF16_STEPS = 2               # the first unwarmed, the second warm
+GLUON_LR = 1e-4
+GLUON_PROMPTS, GLUON_NEW_TOKENS = (17, 300), 8
+GREEDY_TOL = 1e-4  # a greedy token's forward logit below the top, at most
+#                   (f32 logits of order 1-10 from two attention paths)
+
+
+def _gluon_step(autograd, loss_fn, net, trainer, x, batch):
+    """The user's loop: record, backward, Trainer.step(batch). Returns the
+    mean loss (a read of the card)."""
+    with autograd.record():
+        loss = loss_fn(net(x), x)
+    loss.backward()
+    trainer.step(batch)
+    return float(loss.mean().asscalar())
+
+
+def phase_gluon_path(torch, dev, smi):
+    """The Gluon path at full width: ``transformer_lm()``,
+    ``initialize()``, ``hybridize()``, ``gluon.Trainer(..., "adam")`` and
+    ``SoftmaxCrossEntropyLoss``, batch 4 x 2048, f32: the first step's
+    loss and every gradient against the module path (TransformerLMModule
+    + torch.autograd, same weights and batch), GLUON_WARMUP + GLUON_STEPS
+    hybridized and GLUON_PLAIN_STEPS plain steps, one profiled step, the
+    update alone (fused and MXNET_FUSED_UPDATE=0); then GLUON_BF16_STEPS
+    bf16 steps after amp.convert_hybrid_block with Adam multi_precision
+    from the starting weights. Before the steps, DecodeEngine(net) on the
+    seeded weights: each greedy token against the Gluon forward, and the
+    stream against the module's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, gluon, nd
+    from mxnet_tpu_torch.models.transformer import (decode_config,
+                                                    decode_params,
+                                                    from_numpy_params,
+                                                    gluon_parameters,
+                                                    transformer_lm)
+    from mxnet_tpu_torch.ndarray.ndarray import invoke
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     flash_decode_attention)
+    from mxnet_tpu_torch.serve import DecodeEngine, DecodeScheduler
+    from mxnet_tpu_torch.tools import nd_lm
+
+    os.environ.pop("MXNET_ATTENTION_IMPL", None)  # the auto policy
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mx.random.seed(GLUON_SEED)
+    net = transformer_lm()  # the repo's defaults
+    net.initialize()  # on the default context, cuda:0
+    cfg = decode_config(net)
+    check(net.word_embed.weight.data().context == mx.gpu(0),
+          "gluon parameters not on cuda:0")
+    seq, batch = cfg["max_length"], TRAIN_BATCH
+    tokens = np.random.RandomState(0).randint(0, cfg["vocab"], (batch, seq))
+    embed_sum0 = float(net.word_embed.weight.data().astorch().detach().sum())
+
+    # DecodeEngine(net) on the seeded weights (whose greedy tokens vary):
+    # each token against the Gluon forward's logits on the prompt and the
+    # stream so far (plain attention, another code path), and the stream
+    # against the module built from the same weights
+    module = from_numpy_params(cfg, decode_params(net), device=dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg["vocab"], size=n) for n in GLUON_PROMPTS]
+    streams = []
+    flash_decode_attention.launches = 0
+    for lm in (net, module):
+        eng = DecodeEngine(lm, slots=2, page_size=PAGE, num_pages=64,
+                           prompt_buckets=sorted({-(-n // PAGE) * PAGE
+                                                  for n in GLUON_PROMPTS}),
+                           device=dev)
+        sched = DecodeScheduler(eng, max_new_tokens=GLUON_NEW_TOKENS,
+                                default_timeout=600.0)
+        try:
+            streams.append([[int(t) for t in sched.generate(p)]
+                            for p in prompts])
+        finally:
+            sched.close()
+        del eng
+    decode_launches = flash_decode_attention.launches
+    del module
+    check(all(len(s) == GLUON_NEW_TOKENS for s in streams[0]),
+          f"gluon stream lengths {[len(s) for s in streams[0]]}")
+    check(streams[0] == streams[1],
+          f"gluon LM stream {streams[0]} != module stream {streams[1]}")
+    shortfall, margin, argmax_hits = 0.0, math.inf, 0
+    os.environ["MXNET_ATTENTION_IMPL"] = "plain"
+    for p, toks in zip(prompts, streams[0]):
+        seq_in = np.concatenate([p, toks[:-1]])[None].astype(np.int32)
+        fwd = net(nd.array(seq_in, dtype="int32")).astorch()[0, len(p) - 1:]
+        got = fwd.gather(-1, torch.tensor(toks, device=dev)[:, None])[:, 0]
+        shortfall = max(shortfall, float((fwd.max(-1).values - got).max()))
+        top2 = fwd.topk(2, -1).values
+        margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
+        argmax_hits += int((fwd.argmax(-1).cpu() == torch.tensor(toks)).sum())
+        del fwd
+    os.environ.pop("MXNET_ATTENTION_IMPL")
+    distinct = len({t for s in streams[0] for t in s})
+    check(shortfall <= GREEDY_TOL,
+          f"gluon greedy tokens {streams[0]} fall {shortfall} below the "
+          f"forward's top logit (tolerance {GREEDY_TOL})")
+    check(margin > GREEDY_TOL, f"the forward's top-1 margin {margin} is "
+          f"within the tolerance {GREEDY_TOL}: the greedy check is ambiguous")
+    check(distinct > 1, f"gluon greedy tokens do not vary: {streams[0]}")
+    decode = {"prompts": list(GLUON_PROMPTS), "new_tokens": GLUON_NEW_TOKENS,
+              "weights": "seeded, before training", "streams": streams[0],
+              "distinct_tokens": distinct, "equal_to_module": True,
+              "forward_argmax_hits": argmax_hits,
+              "max_shortfall_vs_forward_top_logit": shortfall,
+              "min_forward_top1_margin": margin,
+              "tolerance": GREEDY_TOL, "paged_launches": decode_launches}
+    torch.cuda.empty_cache()
+
+    # the module path's loss and gradients on the same weights and batch
+    module = from_numpy_params(cfg, decode_params(net), device=dev)
+    xt = torch.from_numpy(tokens).to(dev)
+    logits = module(xt)
+    ref = -torch.log_softmax(logits, -1).gather(-1, xt[..., None]).mean()
+    ref.backward()
+    ref_loss = ref.item()
+    ref_grads = {n: p.grad.detach().clone()
+                 for n, p in nd_lm.flat_params(module._param_dict())}
+    del module, logits, ref
+    torch.cuda.empty_cache()
+
+    net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": GLUON_LR})
+    x = nd.array(tokens, dtype="int32")
+    flat = nd_lm.flat_params(gluon_parameters(net))
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    losses, times, ops, agreement = [], {"hybrid": [], "plain": []}, {
+        "hybrid": [], "plain": []}, None
+    n_hybrid = GLUON_WARMUP + GLUON_STEPS
+    for i in range(n_hybrid + GLUON_PLAIN_STEPS):
+        kind = "hybrid" if i < n_hybrid else "plain"
+        if i == n_hybrid:
+            check(len(net._cached_op._cache) == 1, "the hybridized LM ran "
+                  f"{len(net._cached_op._cache)} cached entries, want 1")
+            net.hybridize(False)
+        calls0 = invoke.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(x), x)
+        loss.backward()
+        if i == 0:  # the first step's gradients, before any update
+            lval = float(loss.mean().asscalar())
+            err = {}
+            for name, p in flat:
+                g, r = p.grad().astorch() / batch, ref_grads[name]
+                err[name] = float((g - r).abs().max()
+                                  / r.abs().max().clamp_min(1e-30))
+            worst = max(err, key=err.get)
+            agreement = {"loss_gluon": lval, "loss_module": ref_loss,
+                         "loss_rel_diff": abs(lval - ref_loss) / ref_loss,
+                         "grad_err_of_max_worst": err[worst],
+                         "worst_param": worst, "tolerance":
+                         {"grad_of_max": ND_GRAD_TOL,
+                          "loss_rel": ND_LOSS_TOL}}
+            check(agreement["loss_rel_diff"] <= ND_LOSS_TOL,
+                  f"gluon f32 loss {lval} vs module path {ref_loss}")
+            check(err[worst] <= ND_GRAD_TOL,
+                  f"gluon f32 gradient {worst} err {err[worst]} of its max")
+        trainer.step(batch)
+        losses.append(float(loss.mean().asscalar()))
+        torch.cuda.synchronize()
+        if i >= GLUON_WARMUP:
+            times[kind].append(1e3 * (time.perf_counter() - t0))
+            ops[kind].append(invoke.calls - calls0)
+    net.hybridize()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof_ms, idle, device_ms = _device_profile(
+        torch, lambda: _gluon_step(autograd, loss_fn, net, trainer, x,
+                                   batch))
+    f32_steps = n_hybrid + GLUON_PLAIN_STEPS + 1
+    check(all(math.isfinite(v) for v in losses), f"gluon losses {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"gluon f32 losses do not fall: {losses}")
+    want = cfg["layers"] * f32_steps
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    check(launches == {"flash_attention_fwd": want,
+                       "flash_attention_bwd": want},
+          f"gluon flash launches {launches}, want {want} = "
+          f"{cfg['layers']} layers x {f32_steps} steps")
+
+    # the update alone, on the last step's gradients: fused and eager
+    update_ms = {}
+    for mode in ("1", "0"):
+        os.environ["MXNET_FUSED_UPDATE"] = mode
+        reps = []
+        for _ in range(GLUON_UPDATE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.step(batch)
+            torch.cuda.synchronize()
+            reps.append(1e3 * (time.perf_counter() - t0))
+        update_ms["fused" if mode == "1" else "eager"] = reps
+    os.environ.pop("MXNET_FUSED_UPDATE", None)
+
+    del trainer, net, flat, ref_grads
+    torch.cuda.empty_cache()
+
+    # bf16: the starting weights (the same seed), cast by amp
+    amp.init("bfloat16")
+    mx.random.seed(GLUON_SEED)
+    net16 = transformer_lm()
+    net16.initialize()
+    check(float(net16.word_embed.weight.data().astorch().detach().sum())
+          == embed_sum0, "bf16 leg: the seeded weights differ")
+    amp.convert_hybrid_block(net16)
+    net16.hybridize()
+    tr16 = gluon.Trainer(net16.collect_params(), "adam",
+                         {"learning_rate": GLUON_LR, "multi_precision": True})
+    check(amp.init_trainer(tr16) is None, "bf16 attached a loss scaler")
+    q_dtypes = []
+    for cell in net16.encoder.cells:
+        cell.attention.qkv.register_forward_hook(
+            lambda blk, args, out: q_dtypes.append(out._data.dtype))
+    p0 = tr16._params[0].data()._data
+    start16 = p0.detach().clone()
+    losses16, bf16_ms = [], []
+    for _ in range(GLUON_BF16_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses16.append(_gluon_step(autograd, loss_fn, net16, tr16, x,
+                                    batch))
+        torch.cuda.synchronize()
+        bf16_ms.append(1e3 * (time.perf_counter() - t0))
+    loss16 = losses16[0]
+    n_bf16 = sum(dt == torch.bfloat16
+                 for dt in q_dtypes) // GLUON_BF16_STEPS
+    check(abs(loss16 - ref_loss) <= AGREE_TOL,
+          f"gluon bf16 loss {loss16} vs f32 {ref_loss}")
+    check(n_bf16 >= 1, "gluon bf16: no attention ran on bf16 q/k/v (the "
+          "wgmma kernels)")
+    check(all(math.isfinite(v) for v in losses16), f"bf16 losses {losses16}")
+    check(all(b < a for a, b in zip(losses16, losses16[1:])),
+          f"gluon bf16 losses do not fall: {losses16}")
+    master = tr16._updaters[0].states[0][-1]._data
+    w16 = tr16._params[0].data()._data
+    check(master.dtype == torch.float32, "bf16: no f32 master copy")
+    check(not torch.equal(master, start16.float()),
+          "bf16: the f32 master copy did not change")
+    check(w16.dtype == torch.bfloat16 and torch.equal(w16, master.bfloat16()),
+          "bf16: the weight is not its master copy rounded to bf16")
+    del start16, p0
+    want += cfg["layers"] * GLUON_BF16_STEPS
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    check(launches == {"flash_attention_fwd": want,
+                       "flash_attention_bwd": want},
+          f"gluon flash launches {launches} after the bf16 steps, want "
+          f"{want}")
+    amp._TARGET["dtype"] = None
+    del net16, tr16, x
+    torch.cuda.empty_cache()
+
+    emit({"phase": "gluon_path", "model": "transformer_lm", "config": cfg,
+          "card": smi, "batch": batch, "seq_len": seq, "optimizer": "adam",
+          "learning_rate": GLUON_LR, "losses_f32": losses,
+          "agreement_f32": agreement,
+          "step_ms_hybridized_median": float(np.median(times["hybrid"])),
+          "step_ms_hybridized_all": times["hybrid"],
+          "step_ms_plain_median": float(np.median(times["plain"])),
+          "step_ms_plain_all": times["plain"],
+          "eager_ops_per_step": ops,
+          "profiled_step_ms": prof_ms, "device_idle_share": idle,
+          "device_ms_by_class": device_ms,
+          "flash_f32_device_ms_per_step":
+              device_ms["flash_attention"] if device_ms else None,
+          "update_device_ms_per_step":
+              device_ms["optimizer"] if device_ms else None,
+          "update_ms_fused_vs_eager": update_ms,
+          "peak_mem_gb": peak_gb,
+          "bf16": {"losses": losses16, "loss_abs_diff_vs_f32":
+                   abs(loss16 - ref_loss), "tolerance": AGREE_TOL,
+                   "attention_layers_on_bf16": int(n_bf16),
+                   "step_ms": bf16_ms},
+          "decode": decode,
+          "kernel_launches": launches,
+          "steps_run": f32_steps + GLUON_BF16_STEPS})
+    return launches, decode_launches
+
+
 _ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
 
@@ -984,19 +1294,22 @@ def main() -> int:
     serve_launches = phase_main_path(torch, dev)
     train_launches = phase_train_path(torch, dev)
     nd_launches = phase_nd_path(torch, dev, smi)
+    gluon_launches, gluon_decode = phase_gluon_path(torch, dev, smi)
     flash_launches = {k: train_launches[k] + nd_launches[k]
-                      for k in train_launches}
+                      + gluon_launches[k] for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
         _kernel_entry("paged_decode_attention",
                       src + "paged_decode_attention.cu",
                       "mxnet_tpu/ops/flash_attention.py:559",
-                      serve_launches, kern, design=PAGED_DESIGN,
+                      serve_launches + gluon_decode, kern,
+                      design=PAGED_DESIGN,
                       chunk=kern["chunk"]),
-        # launches: the training path's (bf16) and the nd path's (f32 and
-        # bf16); the main fields are the bf16 kernels', the f32_* fields
-        # the FFMA kernels' (the nd path's default dtype)
+        # launches: the training path's (bf16), the nd path's and the
+        # gluon path's (f32 and bf16); the main fields are the bf16
+        # kernels', the f32_* fields the FFMA kernels' (the default dtype
+        # of the nd and gluon paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",
                       "mxnet_tpu/ops/flash_attention.py:143",
                       flash_launches["flash_attention_fwd"],

@@ -11,14 +11,14 @@ engine:
 
 and trains it:
 
-    parallel.ShardedTrainer.step -> TransformerLM.forward
-    -> TransformerEncoderCell -> multi_head_attention
+    parallel.ShardedTrainer.step -> TransformerLMModule.forward
+    -> TransformerEncoderCellModule -> multi_head_attention
     -> ops.attention.fused_attention -> ops.flash_attention.flash_attention
     -> csrc/flash_attention_fwd.cu (forward), csrc/flash_attention_bwd.cu
        (backward, through torch.autograd)
     -> gluon.loss.SoftmaxCrossEntropyLoss, optimizer.fused.lower_update
 
-and trains it imperatively, the reference's way:
+and trains it imperatively, the reference's way, and as a Gluon block:
 
     from mxnet_tpu_torch import autograd, nd
     with autograd.record(): loss = ...; loss.backward()
@@ -26,6 +26,14 @@ and trains it imperatively, the reference's way:
        the torch.autograd tape; attention through
        invoke_fn(ops.attention.fused_attention) -> the flash kernels
     -> nd.sgd_update(w, g, out=w)
+
+    net = models.transformer_lm(); net.initialize(); net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam", {...})
+    with autograd.record(): loss = loss_fn(net(x), y)
+    loss.backward(); trainer.step(batch)
+    -> gluon.HybridBlock / CachedOp -> the same registered ops and
+       attention (models/transformer.py MultiHeadAttention)
+    -> optimizer.Updater.update_batch -> optimizer.fused (multi-tensor)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``ctx=mx.cpu()``, ``with mx.cpu():`` for ``nd``); with no card and no
@@ -51,14 +59,15 @@ from .base import MXNetError, get_env  # noqa: E402,F401
 from .context import (Context, cpu, current_context,  # noqa: E402,F401
                       default_device, gpu)
 
-_SUBMODULES = ("autograd", "gluon", "models", "ndarray", "ops", "optimizer",
-               "parallel", "random", "serve")
+_SUBMODULES = ("amp", "autograd", "gluon", "initializer", "models",
+               "ndarray", "ops", "optimizer", "parallel", "random", "serve")
+# the reference's short names
+_ALIASES = {"nd": "ndarray", "init": "initializer"}
 
 
 def __getattr__(name):
-    # lazy submodules keep `import mxnet_tpu_torch` light and cycle-free;
-    # `nd` is the reference's short name of `ndarray`
-    if name in _SUBMODULES or name == "nd":
-        return _importlib.import_module(
-            ".ndarray" if name == "nd" else f".{name}", __name__)
+    # lazy submodules keep `import mxnet_tpu_torch` light and cycle-free
+    if name in _SUBMODULES or name in _ALIASES:
+        return _importlib.import_module(f".{_ALIASES.get(name, name)}",
+                                        __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,22 +1,35 @@
-"""Decoder-only causal TransformerLM: training forward and decode interface.
+"""Decoder-only causal TransformerLM: the Gluon model, the training-path
+module and the decode interface.
 
-Counterpart of ``mxnet_tpu/models/transformer.py``: ``TransformerLM``,
-whose ``forward`` is the training path (``TransformerEncoderCell`` ->
-``multi_head_attention`` -> ``ops.attention.fused_attention``, the flash
-kernels at long sequences), and the pure functions of its causal-LM
-decode interface (``decode_config``, ``decode_params``, ``prefill_layer``,
-``decode_layer``, ``lm_prefill``, ``lm_decode_step``, ``sample_token``),
-on torch tensors. ``lm_prefill`` keeps its dense masked attention, as the
-reference's does. The layout is the reference's: post-LN blocks, one
-fused QKV projection, gluon ``Dense`` weights kept ``(out, in)`` so
-``y = x @ w.T + b``, learned positions, and a flat parameter dict
-(top-level embed/pos/final-LN/decoder plus one dict per layer under
-``"layers"``). Dropout and the encoder family (BERT) belong to a later
-slice.
+Counterpart of ``mxnet_tpu/models/transformer.py``. The reference's Gluon
+classes under its names: ``MultiHeadAttention`` (one fused QKV projection,
+``F.split``, attention through ``invoke_fn(fused_attention)``, so the
+flash kernels at long sequences), ``PositionwiseFFN``,
+``TransformerEncoderCell``, ``BERTEncoder`` (zero-initialized positions)
+and ``TransformerLM``, built from ``gluon.nn`` layers, so that
+``collect_params()`` holds the reference's names and shapes.
 
-Weights carry across packages: :func:`from_numpy_params` builds the port's
-module from the numpy dict the JAX package's ``decode_params`` returns, and
-:func:`decode_params` gives the same layout back as tensors.
+Beside them, ``TransformerLMModule``: the same network as a
+``torch.nn.Module`` whose ``forward`` runs on plain tensors
+(``TransformerEncoderCellModule`` -> ``multi_head_attention`` ->
+``ops.attention.fused_attention``), the backbone of
+``parallel.ShardedTrainer`` (``torch.func.functional_call``) and of
+:func:`from_numpy_params`.
+
+And the pure functions of the causal-LM decode interface
+(``decode_config``, ``decode_params``, ``prefill_layer``, ``decode_layer``,
+``lm_prefill``, ``lm_decode_step``, ``sample_token``), on torch tensors;
+``decode_config``/``decode_params`` read either form of the LM.
+``lm_prefill`` keeps its dense masked attention, as the reference's does.
+The layout is the reference's: post-LN blocks, gluon ``Dense`` weights
+kept ``(out, in)`` so ``y = x @ w.T + b``, learned positions, and a flat
+parameter dict (top-level embed/pos/final-LN/decoder plus one dict per
+layer under ``"layers"``). Dropout and BERT's MLM model wait for queue
+item A6.
+
+Weights carry across packages: by name, through ``Parameter.set_data``
+(the reference's ``collect_params()``), or as the numpy dict the JAX
+package's ``decode_params`` returns (:func:`from_numpy_params`).
 """
 from __future__ import annotations
 
@@ -28,15 +41,175 @@ import torch
 from torch import nn
 
 from ..context import as_device
+from ..gluon import nn as gnn
+from ..gluon.block import HybridBlock
+from ..ndarray.ndarray import invoke_fn
 from ..ops.attention import fused_attention
 
-__all__ = ["TransformerLM", "TransformerEncoderCell", "transformer_lm",
-           "multi_head_attention", "positionwise_ffn", "from_numpy_params",
-           "decode_config", "decode_params", "prefill_layer", "decode_layer",
-           "embed_ids", "lm_prefill", "lm_decode_step", "sample_token"]
+__all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
+           "BERTEncoder", "TransformerLM", "transformer_lm",
+           "TransformerLMModule", "TransformerEncoderCellModule",
+           "gluon_parameters", "multi_head_attention", "positionwise_ffn",
+           "from_numpy_params", "decode_config", "decode_params",
+           "prefill_layer", "decode_layer", "embed_ids", "lm_prefill",
+           "lm_decode_step", "sample_token"]
 
 _LN_EPS = 1e-5  # gluon nn.LayerNorm default
 _INIT_SCALE = 0.07  # gluon's default Uniform(0.07) weight initializer
+
+
+# ---------------------------------------------------------------------------
+# The Gluon model (the reference's classes)
+# ---------------------------------------------------------------------------
+
+class MultiHeadAttention(HybridBlock):
+    """Fused-QKV multi-head self-attention."""
+
+    def __init__(self, units, num_heads, dropout=0.0, causal=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        assert units % num_heads == 0
+        self._units = units
+        self._heads = num_heads
+        self._causal = causal
+        self.qkv = gnn.Dense(3 * units, flatten=False, use_bias=True,
+                             in_units=units, prefix=self.prefix + "qkv_")
+        self.proj = gnn.Dense(units, flatten=False, use_bias=True,
+                              in_units=units, prefix=self.prefix + "proj_")
+        self._dropout = dropout
+
+    def hybrid_forward(self, F, x, mask=None):
+        b, s, u = x.shape  # (B, S, U)
+        h, d = self._heads, self._units // self._heads
+        qkv = self.qkv(x).reshape((b, s, 3, h, d))
+        q, k, v = F.split(qkv, num_outputs=3, axis=2, squeeze_axis=True)
+        q = q.transpose((0, 2, 1, 3))  # (B, H, S, D)
+        k = k.transpose((0, 2, 1, 3))
+        v = v.transpose((0, 2, 1, 3))
+        causal = self._causal
+
+        def attn(qq, kk, vv, mm=None):
+            return fused_attention(qq, kk, vv, mask=mm, causal=causal)
+
+        out = invoke_fn(attn, [q, k, v] + ([mask] if mask is not None
+                                           else []))
+        out = out.transpose((0, 2, 1, 3)).reshape((b, s, u))
+        out = self.proj(out)
+        if self._dropout:
+            out = F.Dropout(out, p=self._dropout)
+        return out
+
+
+class PositionwiseFFN(HybridBlock):
+    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.ffn_1 = gnn.Dense(hidden_size, flatten=False, in_units=units,
+                               prefix=self.prefix + "ffn1_")
+        self.ffn_2 = gnn.Dense(units, flatten=False, in_units=hidden_size,
+                               prefix=self.prefix + "ffn2_")
+        self._act = activation
+        self._dropout = dropout
+
+    def hybrid_forward(self, F, x):
+        out = self.ffn_1(x)
+        out = F.Activation(out, act_type=self._act) if self._act != "gelu" \
+            else F.gelu(out, approximation="tanh")
+        out = self.ffn_2(out)
+        if self._dropout:
+            out = F.Dropout(out, p=self._dropout)
+        return out
+
+
+class TransformerEncoderCell(HybridBlock):
+    """Post-LN transformer block (BERT layout)."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 causal=False, **kwargs):
+        super().__init__(**kwargs)
+        self.attention = MultiHeadAttention(units, num_heads, dropout=dropout,
+                                            causal=causal,
+                                            prefix=self.prefix + "attn_")
+        self.ln1 = gnn.LayerNorm(in_channels=units)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout,
+                                   prefix=self.prefix + "ffn_")
+        self.ln2 = gnn.LayerNorm(in_channels=units)
+        self._dropout = dropout
+
+    def hybrid_forward(self, F, x, mask=None):
+        att = self.attention(x, mask)
+        x = self.ln1(x + att)
+        out = self.ffn(x)
+        return self.ln2(x + out)
+
+
+class BERTEncoder(HybridBlock):
+    def __init__(self, units=768, hidden_size=3072, num_layers=12,
+                 num_heads=12, max_length=512, dropout=0.1, causal=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._units = units
+        self._max_length = max_length
+        self.position_weight = self.params.get(
+            "position_weight", shape=(max_length, units), init="zeros")
+        self.cells = []
+        for i in range(num_layers):
+            cell = TransformerEncoderCell(units, hidden_size, num_heads,
+                                          dropout=dropout, causal=causal,
+                                          prefix=f"{self.prefix}layer{i}_")
+            self.register_child(cell, f"layer{i}")
+            self.cells.append(cell)
+        self._dropout = dropout
+
+    def hybrid_forward(self, F, x, position_weight, mask=None):
+        b, s, u = x.shape
+        pos = F.slice_axis(position_weight, axis=0, begin=0,
+                           end=s).reshape((1, s, u))
+        x = x + pos
+        if self._dropout:
+            x = F.Dropout(x, p=self._dropout)
+        for cell in self.cells:
+            x = cell(x, mask)
+        return x
+
+
+class TransformerLM(HybridBlock):
+    """Decoder-only causal LM (GPT-style), the reference's flagship: token
+    embedding, a causal ``BERTEncoder``, the final LayerNorm and the
+    decoder. ``dropout`` > 0 raises: dropout on this path waits for queue
+    item A6."""
+
+    def __init__(self, vocab_size=32000, units=768, hidden_size=3072,
+                 num_layers=12, num_heads=12, max_length=2048, dropout=0.0,
+                 **kwargs):
+        if dropout:
+            raise NotImplementedError(
+                "TransformerLM dropout belongs to a later slice of the port "
+                "(queue item A6)")
+        super().__init__(**kwargs)
+        self.word_embed = gnn.Embedding(vocab_size, units,
+                                        prefix=self.prefix + "word_embed_")
+        self.encoder = BERTEncoder(units, hidden_size, num_layers, num_heads,
+                                   max_length, dropout, causal=True,
+                                   prefix=self.prefix + "enc_")
+        self.final_ln = gnn.LayerNorm(in_channels=units)
+        self.decoder = gnn.Dense(vocab_size, flatten=False, in_units=units,
+                                 prefix=self.prefix + "decoder_")
+
+    def hybrid_forward(self, F, inputs):
+        x = self.word_embed(inputs)
+        x = self.encoder(x)
+        x = self.final_ln(x)
+        return self.decoder(x)
+
+
+def transformer_lm(vocab_size=32000, **kw) -> TransformerLM:
+    return TransformerLM(vocab_size=vocab_size, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The same network as a torch.nn.Module (ShardedTrainer's backbone)
+# ---------------------------------------------------------------------------
 
 
 def multi_head_attention(x, qkv_w, qkv_b, proj_w, proj_b, heads,
@@ -57,7 +230,7 @@ def positionwise_ffn(x, ffn1_w, ffn1_b, ffn2_w, ffn2_b):
     return _dense(_gelu(_dense(x, ffn1_w, ffn1_b)), ffn2_w, ffn2_b)
 
 
-class TransformerEncoderCell(nn.Module):
+class TransformerEncoderCellModule(nn.Module):
     """Post-LN transformer block (the reference's ``TransformerEncoderCell``
     with its ``MultiHeadAttention`` and ``PositionwiseFFN``). Its
     parameters are named as in ``decode_params``, so the cell holds them
@@ -87,7 +260,7 @@ class TransformerEncoderCell(nn.Module):
         return _ln(x + out, self.ln2_g, self.ln2_b)
 
 
-class TransformerLM(nn.Module):
+class TransformerLMModule(nn.Module):
     """Decoder-only causal LM (GPT-style), the reference's flagship.
 
     ``forward(tokens)`` (B, S) returns the training-path logits
@@ -117,8 +290,8 @@ class TransformerLM(nn.Module):
                                               device=device))
         self.pos = nn.Parameter(torch.empty(max_length, units, device=device))
         self.layers = nn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads,
-                                   causal=True, device=device)
+            TransformerEncoderCellModule(units, hidden_size, num_heads,
+                                         causal=True, device=device)
             for _ in range(num_layers))
         self.final_g = nn.Parameter(torch.empty(units, device=device))
         self.final_b = nn.Parameter(torch.empty(units, device=device))
@@ -168,16 +341,41 @@ class TransformerLM(nn.Module):
         return _dense(x, self.dec_w, self.dec_b)
 
 
-def transformer_lm(vocab_size=32000, **kw) -> TransformerLM:
-    return TransformerLM(vocab_size=vocab_size, **kw)
 
 
 # ---------------------------------------------------------------------------
 # Weights across packages
 # ---------------------------------------------------------------------------
 
-def decode_config(lm: TransformerLM) -> dict:
-    """Static shape/config facts of an LM, for building decode programs."""
+def gluon_parameters(lm: "TransformerLM") -> dict:
+    """The Gluon LM's ``Parameter``s in the layout of ``decode_params``
+    (top-level embed/pos/final-LN/decoder, one dict per layer under
+    ``"layers"``)."""
+    def layer(cell):
+        att, ffn = cell.attention, cell.ffn
+        return {"qkv_w": att.qkv.weight, "qkv_b": att.qkv.bias,
+                "proj_w": att.proj.weight, "proj_b": att.proj.bias,
+                "ln1_g": cell.ln1.gamma, "ln1_b": cell.ln1.beta,
+                "ffn1_w": ffn.ffn_1.weight, "ffn1_b": ffn.ffn_1.bias,
+                "ffn2_w": ffn.ffn_2.weight, "ffn2_b": ffn.ffn_2.bias,
+                "ln2_g": cell.ln2.gamma, "ln2_b": cell.ln2.beta}
+
+    return {"embed": lm.word_embed.weight,
+            "pos": lm.encoder.position_weight,
+            "final_g": lm.final_ln.gamma, "final_b": lm.final_ln.beta,
+            "dec_w": lm.decoder.weight, "dec_b": lm.decoder.bias,
+            "layers": [layer(c) for c in lm.encoder.cells]}
+
+
+def decode_config(lm) -> dict:
+    """Static shape/config facts of an LM (the Gluon block or the module),
+    for building decode programs."""
+    if isinstance(lm, TransformerLM):
+        att = lm.encoder.cells[0].attention
+        return {"vocab": lm.decoder._units, "units": att._units,
+                "heads": att._heads, "head_dim": att._units // att._heads,
+                "layers": len(lm.encoder.cells),
+                "max_length": lm.encoder._max_length}
     return {
         "vocab": lm._vocab,
         "units": lm._units,
@@ -188,9 +386,17 @@ def decode_config(lm: TransformerLM) -> dict:
     }
 
 
-def decode_params(lm: TransformerLM) -> dict:
+def decode_params(lm) -> dict:
     """The LM's parameters as a flat dict of (detached) tensors, in the
-    layout of the reference's ``decode_params``."""
+    layout of the reference's ``decode_params``. A Gluon block must have
+    been initialized (its shapes are all declared)."""
+    if isinstance(lm, TransformerLM):
+        gp = gluon_parameters(lm)
+        out = {k: p.data()._data.detach() for k, p in gp.items()
+               if k != "layers"}
+        out["layers"] = [{k: p.data()._data.detach() for k, p in lp.items()}
+                         for lp in gp["layers"]]
+        return out
     d = lm._param_dict()
     out = {k: v.detach() for k, v in d.items() if k != "layers"}
     out["layers"] = [{k: v.detach() for k, v in lp.items()}
@@ -199,21 +405,25 @@ def decode_params(lm: TransformerLM) -> dict:
 
 
 @torch.no_grad()
-def from_numpy_params(cfg: dict, params: dict, device=None) -> TransformerLM:
-    """Build a :class:`TransformerLM` holding ``params`` — the dict of numpy
-    arrays the JAX package's ``decode_params(lm)`` returns — for the
-    config ``cfg`` (its ``decode_config``)."""
+def from_numpy_params(cfg: dict, params: dict,
+                      device=None) -> TransformerLMModule:
+    """Build a :class:`TransformerLMModule` holding ``params`` (the dict of
+    numpy arrays the JAX package's ``decode_params(lm)`` returns, or
+    tensors in that layout) for the config ``cfg`` (its
+    ``decode_config``)."""
     hidden = int(np.shape(params["layers"][0]["ffn1_w"])[0])
-    lm = TransformerLM(vocab_size=cfg["vocab"], units=cfg["units"],
-                       hidden_size=hidden, num_layers=cfg["layers"],
-                       num_heads=cfg["heads"], max_length=cfg["max_length"],
-                       device=device)
+    lm = TransformerLMModule(vocab_size=cfg["vocab"], units=cfg["units"],
+                             hidden_size=hidden, num_layers=cfg["layers"],
+                             num_heads=cfg["heads"],
+                             max_length=cfg["max_length"], device=device)
     mine = lm._param_dict()
     pairs = [(mine[k], params[k]) for k in mine if k != "layers"]
     for lp_mine, lp in zip(mine["layers"], params["layers"], strict=True):
         pairs += [(lp_mine[k], lp[k]) for k in lp_mine]
     for dst, src in pairs:
-        src = torch.as_tensor(np.array(src), dtype=dst.dtype)
+        src = (src.detach().to(dst.dtype)
+               if isinstance(src, torch.Tensor)
+               else torch.as_tensor(np.array(src), dtype=dst.dtype))
         if src.shape != dst.shape:
             raise ValueError(f"parameter shape {tuple(src.shape)} does not "
                              f"match {tuple(dst.shape)}")

@@ -26,6 +26,9 @@ def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
                      flatten=True):
     x = data.reshape(data.shape[0], -1) if flatten and data.ndim > 2 \
         else data
+    if x.dtype != weight.dtype:  # promote, as jnp.matmul does
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight = x.to(dt), weight.to(dt)
     out = torch.matmul(x, weight.T)
     if bias is not None and not no_bias:
         out = out + bias

@@ -11,7 +11,8 @@ Typical use::
     from mxnet_tpu_torch.models import transformer_lm
     from mxnet_tpu_torch.serve import DecodeEngine, DecodeScheduler
 
-    lm = transformer_lm()                       # on cuda:0
+    lm = transformer_lm()
+    lm.initialize()                             # on cuda:0
     engine = DecodeEngine(lm, slots=8, page_size=16, num_pages=1025)
     engine.warmup()
     sched = DecodeScheduler(engine)

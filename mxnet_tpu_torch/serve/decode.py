@@ -75,14 +75,14 @@ def _device_scope(device: torch.device):
 
 
 class DecodeEngine:
-    """Paged-KV generation engine around a :class:`TransformerLM`.
+    """Paged-KV generation engine around a TransformerLM.
 
     Parameters
     ----------
-    lm : TransformerLM or dict
-        The port's LM (config/params taken via ``decode_config`` /
-        ``decode_params``), or the config dict itself when ``params`` is
-        given.
+    lm : TransformerLM, TransformerLMModule or dict
+        The port's LM, the initialized Gluon block or the module
+        (config/params taken via ``decode_config`` / ``decode_params``),
+        or the config dict itself when ``params`` is given.
     params : dict, optional
         Parameter dict when ``lm`` is a config: numpy arrays (the JAX
         package's ``decode_params``) or tensors, same layout.

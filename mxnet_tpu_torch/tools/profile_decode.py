@@ -54,7 +54,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from mxnet_tpu_torch.models import transformer_lm
+    from mxnet_tpu_torch.models import TransformerLMModule
     from mxnet_tpu_torch.serve import DecodeEngine
     from mxnet_tpu_torch.serve.kvcache import pages_for
 
@@ -65,7 +65,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    lm = transformer_lm(device=dev, seed=0)
+    lm = TransformerLMModule(device=dev, seed=0)
     eng = DecodeEngine(lm, slots=8, page_size=16, num_pages=1025,
                        device=dev)
     eng.warmup()

@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-    from mxnet_tpu_torch.models import transformer_lm
+    from mxnet_tpu_torch.models import TransformerLMModule
     from mxnet_tpu_torch.parallel import ShardedTrainer
 
     if not torch.cuda.is_available():
@@ -70,7 +70,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    lm = transformer_lm(device=dev, seed=0)
+    lm = TransformerLMModule(device=dev, seed=0)
     tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer="adam",
                         optimizer_params={"learning_rate": 1e-4},
                         compute_dtype="bfloat16")

@@ -227,7 +227,7 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
                  num_heads=4, max_length=64, seed=3)
     engine = dict(slots=4, page_size=8, num_pages=16, prompt_buckets=[8, 16])
     # one set of weights: a CPU and a CUDA generator draw different numbers
-    lm = tt.transformer_lm(device="cpu", **small)
+    lm = tt.TransformerLMModule(device="cpu", **small)
     cfg, params = tt.decode_config(lm), tt.decode_params(lm)
     streams = {}
     for dev in ("cpu", cuda_device):
@@ -453,7 +453,7 @@ def test_trainer_on_card_matches_trainer_on_cpu(cuda_device, monkeypatch):
     x = np.random.RandomState(0).randint(0, 97, (2, 128))
     losses = {}
     for dev in ("cpu", cuda_device):
-        lm = tt.transformer_lm(device="cpu", **small).to(dev)
+        lm = tt.TransformerLMModule(device="cpu", **small).to(dev)
         tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer="adam",
                             optimizer_params={"learning_rate": 1e-3})
         before = tfa.flash_attention_bwd.launches
@@ -477,9 +477,9 @@ def test_nd_path_on_card_matches_nd_path_on_cpu(cuda_device, monkeypatch):
     from mxnet_tpu_torch.tools import nd_lm
 
     monkeypatch.setenv("MXNET_ATTENTION_IMPL", "flash")
-    lm = tt.transformer_lm(vocab_size=97, units=64, hidden_size=128,
-                           num_layers=2, num_heads=2, max_length=128,
-                           device="cpu", seed=3)
+    lm = tt.TransformerLMModule(vocab_size=97, units=64, hidden_size=128,
+                                num_layers=2, num_heads=2, max_length=128,
+                                device="cpu", seed=3)
     params = tt.decode_params(lm)
     x = np.random.RandomState(0).randint(0, 97, (2, 128))
     assert nd.zeros((1,)).context == mx.gpu(0)  # no scope: the card
@@ -524,3 +524,111 @@ def test_copy_probe_on_card(cuda_device):
     torch.testing.assert_close(y, x + 1.0, rtol=0, atol=0)
     with pytest.raises(MXNetError, match="float32"):
         copy_probe(x.half())
+
+
+# ---------------------------------------------------------------------------
+# the Gluon slice on the card
+# ---------------------------------------------------------------------------
+
+def _gluon_lm(ctx, hybrid, seed=3):
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(seed)
+    net = tt.transformer_lm(vocab_size=97, units=64, hidden_size=128,
+                            num_layers=2, num_heads=2, max_length=128)
+    net.initialize(ctx=ctx)
+    if hybrid:
+        net.hybridize()
+    return net
+
+
+def test_gluon_lm_on_card_hybridized_equals_plain(cuda_device, monkeypatch):
+    """The Gluon LM on the card: the hybridized forward and backward equal
+    the plain ones bit for bit, and each step launches one flash forward
+    and one flash backward per layer."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    monkeypatch.setenv("MXNET_ATTENTION_IMPL", "flash")
+    x = np.random.RandomState(0).randint(0, 97, (2, 128))
+    runs = []
+    for hybrid in (False, True):
+        net = _gluon_lm(mx.gpu(0), hybrid)  # seeded: the same weights
+        xs = nd.array(x, dtype="int32", ctx=mx.gpu(0))
+        before = (tfa.flash_attention_fwd.launches,
+                  tfa.flash_attention_bwd.launches)
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(xs), xs)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (tfa.flash_attention_fwd.launches - before[0],
+                    tfa.flash_attention_bwd.launches - before[1])
+        assert launched == (2, 2)
+        runs.append((loss.astorch().cpu(),
+                     [p.grad().astorch().cpu()
+                      for p in net.collect_params().values()]))
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=0, atol=0)
+    for a, b in zip(runs[0][1], runs[1][1], strict=True):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+
+
+_CARD_OPTS = ["sgd", "nag", "adam", "adamw", "lamb", "rmsprop", "adagrad",
+              "adadelta", "ftrl", "ftml", "signum", "adamax", "nadam",
+              "sgld", "dcasgd", "lars"]
+
+
+@pytest.mark.parametrize("name", _CARD_OPTS)
+def test_fused_update_equals_eager_on_card(cuda_device, name, monkeypatch):
+    """The multi-tensor engine against MXNET_FUSED_UPDATE=0 on CUDA
+    tensors, three steps, to 1e-6."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    shapes = [(64, 33), (7,), (3, 5, 2)]
+    kw = {"sgd": {"momentum": 0.9, "wd": 0.01},
+          "rmsprop": {"centered": True}, "dcasgd": {"momentum": 0.5},
+          "signum": {"wd_lh": 0.001}}.get(name, {})
+    results = []
+    for fused in ("1", "0"):
+        monkeypatch.setenv("MXNET_FUSED_UPDATE", fused)
+        mx.random.seed(7)
+        up = opt_mod.Updater(opt_mod.create(name, rescale_grad=0.5, **kw))
+        rng = np.random.RandomState(1)
+        ws = [NDArray(rng.randn(*s).astype(np.float32), ctx=mx.gpu(0))
+              for s in shapes]
+        for _ in range(3):
+            gs = [NDArray(rng.randn(*s).astype(np.float32), ctx=mx.gpu(0))
+                  for s in shapes]
+            up.update_batch(list(range(len(ws))), gs, ws)
+        assert (up._engine is not None) == (fused == "1")
+        results.append([w.astorch().cpu() for w in ws])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_trainer_step_makes_no_host_sync_with_loss_scaler(cuda_device):
+    """Trainer.step with a LossScaler attached (unscale, found-inf, skip,
+    scale update, global-norm clip) reads nothing back from the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, gluon, nd
+
+    net = gluon.nn.Dense(8, in_units=16)
+    net.initialize(ctx=mx.gpu(0))
+    tr = gluon.Trainer(net.collect_params(), "adam",
+                       {"learning_rate": 1e-3}, clip_global_norm=1.0)
+    scaler = amp.init_trainer(tr, amp.LossScaler())
+    x = nd.ones((4, 16), ctx=mx.gpu(0))
+    for step in range(3):
+        with autograd.record():
+            loss = amp.scale_loss((net(x) ** 2).sum(), scaler)
+        loss.backward()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tr.step(4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(scaler.last_overflow) is False
+    assert np.isfinite(net.weight.data().asnumpy()).all()

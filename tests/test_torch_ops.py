@@ -367,6 +367,75 @@ OPTIMIZER = [
     case("adamw_update", [U(), U(), U(), U(0.1, 1)],
          {"lr": 0.01, "wd": 0.01, "eta": 0.5, "clip_gradient": 0.3},
          grad=False),
+    # the rest of the reference's updates (slice 4)
+    case("nag_mom_update", [U(), U(), U()], {"lr": 0.1, "momentum": 0.9,
+                                             "wd": 0.01}, grad=False),
+    case("mp_sgd_update", [U(), U(), U()], {"lr": 0.1, "wd": 0.01},
+         grad=False),
+    case("mp_sgd_mom_update", [U(), U(), U(), U()],
+         {"lr": 0.1, "momentum": 0.9}, grad=False),
+    case("rmsprop_update", [U(), U(), U(0.1, 1)],
+         {"lr": 0.01, "clip_weights": 0.5}, grad=False),
+    case("rmspropalex_update", [U(), U(), U(1, 2), U(-0.1, 0.1), U()],
+         {"lr": 0.01}, grad=False),
+    case("ftrl_update", [U(), U(), U(), U(0.1, 1)],
+         {"lr": 0.1, "lamda1": 0.3}, grad=False),
+    case("signsgd_update", [U(), U()], {"lr": 0.1, "wd": 0.01}, grad=False),
+    case("signum_update", [U(), U(), U()],
+         {"lr": 0.1, "momentum": 0.9, "wd_lh": 0.01}, grad=False),
+    case("lamb_update_phase1", [U(), U(), U(), U(0.1, 1)],
+         {"t": 3, "wd": 0.01}, grad=False),
+    case("lamb_update_phase2", [U(), U(), U(1, 2, (1,)), U(0.5, 1, (1,))],
+         {"lr": 0.1, "lower_bound": 0.1, "upper_bound": 1.5}, grad=False),
+    case("adagrad_update", [U(), U(), U(0.1, 1)], {"lr": 0.1}, grad=False),
+    case("adadelta_update", [U(), U(), U(0.1, 1), U(0.1, 1)],
+         {"rho": 0.8}, grad=False),
+    case("ftml_update", [U(), U(), U(0.1, 1), U(0.1, 1), U()],
+         {"lr": 0.01, "t": 2}, grad=False),
+    case("adamax_update", [U(), U(), U(), U(0.1, 1)], {"lr": 0.01, "t": 2},
+         grad=False),
+    case("nadam_update", [U(), U(), U(), U(0.1, 1)],
+         {"lr": 0.01, "t": 2, "m_schedule": 0.8}, grad=False),
+    case("sgld_update", [U(), U()], {"lr": 0.0, "wd": 0.01}, grad=False,
+         id="sgld_update-no-noise"),
+    case("lars_update", [U(), U(), U()], {"lr": 0.1, "eta": 0.01},
+         grad=False),
+    case("dcasgd_update", [U(), U(), U(), U()],
+         {"lr": 0.1, "momentum": 0.5}, grad=False),
+    case("multi_sgd_update", [U(), U(), U(), U()],
+         {"lrs": [0.1, 0.2], "wds": [0.0, 0.1], "num_weights": 2},
+         grad=False),
+    case("multi_sgd_mom_update", [U()] * 6,
+         {"lrs": [0.1, 0.2], "momentum": 0.9, "num_weights": 2},
+         grad=False),
+    case("multi_mp_sgd_update", [U()] * 6,
+         {"lrs": [0.1, 0.2], "num_weights": 2}, grad=False),
+    case("multi_mp_sgd_mom_update", [U()] * 8,
+         {"lrs": [0.1, 0.2], "momentum": 0.9, "num_weights": 2},
+         grad=False),
+    case("preloaded_multi_sgd_update",
+         [U()] * 4 + [U(0.1, 0.2, (2,)), U(0, 0.1, (2,))],
+         {"num_weights": 2}, grad=False),
+    case("preloaded_multi_sgd_mom_update",
+         [U()] * 6 + [U(0.1, 0.2, (2,)), U(0, 0.1, (2,))],
+         {"momentum": 0.9, "num_weights": 2}, grad=False),
+    case("preloaded_multi_mp_sgd_update",
+         [U()] * 6 + [U(0.1, 0.2, (2,)), U(0, 0.1, (2,))],
+         {"num_weights": 2}, grad=False),
+    case("preloaded_multi_mp_sgd_mom_update",
+         [U()] * 8 + [U(0.1, 0.2, (2,)), U(0, 0.1, (2,))],
+         {"momentum": 0.9, "num_weights": 2}, grad=False),
+    case("multi_lamb_update_phase1",
+         [U(), U(), U(), U(0.1, 1)] * 2,
+         {"wds": [0.0, 0.1], "t": [1, 3], "num_weights": 2}, grad=False),
+    case("multi_lamb_update_phase2",
+         [U(), U(), U(1, 2, (1,)), U(0.5, 1, (1,))] * 2,
+         {"lrs": [0.1, 0.2], "num_weights": 2}, grad=False),
+    case("multi_adamw_update", [U(), U(), U(), U(0.1, 1)] * 2,
+         {"lrs": [0.1, 0.2], "wds": [0.0, 0.1], "etas": [1.0, 0.5],
+          "num_weights": 2}, grad=False),
+    case("multi_mp_adamw_update", [U(), U(), U(), U(0.1, 1), U()] * 2,
+         {"lrs": [0.1, 0.2], "num_weights": 2}, grad=False),
 ]
 
 FAMILIES = {"elemwise": ELEMWISE, "reduce": REDUCE, "matrix": MATRIX,

@@ -195,7 +195,7 @@ def test_optimizer_registry():
     opt.set_learning_rate(0.25)
     assert opt.learning_rate == 0.25
     with pytest.raises(ValueError, match="unknown optimizer"):
-        tcreate("lamb")
+        tcreate("lbfgs")
 
 
 # ---------------------------------------------------------------------------
@@ -307,14 +307,14 @@ def test_grad_accum_matches_reference(monkeypatch):
 
 
 def test_grad_accum_rejects_indivisible_batch():
-    lm = tt.transformer_lm(device="cpu", seed=1, **SMALL)
+    lm = tt.TransformerLMModule(device="cpu", seed=1, **SMALL)
     tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), grad_accum=3)
     with pytest.raises(ValueError, match="does not divide"):
         tr.step(_batch(11, batch=4), _batch(11, batch=4))
 
 
 def test_net_changes_only_at_sync_to_net():
-    lm = tt.transformer_lm(device="cpu", seed=2, **SMALL)
+    lm = tt.TransformerLMModule(device="cpu", seed=2, **SMALL)
     before = {n: p.detach().clone() for n, p in lm.named_parameters()}
     tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer="adam",
                         optimizer_params={"learning_rate": 1e-2})
@@ -338,7 +338,7 @@ def test_preprocess_runs_on_inputs_only():
     x = _batch(13)
     runs = []
     for pre, data in ((None, x), (lambda t: t % vocab, x + vocab)):
-        lm = tt.transformer_lm(device="cpu", seed=3, **SMALL)
+        lm = tt.TransformerLMModule(device="cpu", seed=3, **SMALL)
         tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), preprocess=pre,
                             optimizer_params={"learning_rate": 0.1})
         runs.append([float(tr.step(data, x)) for _ in range(2)])
@@ -346,7 +346,7 @@ def test_preprocess_runs_on_inputs_only():
 
 
 def test_trainer_settings_and_rejections():
-    lm = tt.transformer_lm(device="cpu", seed=4, **SMALL)
+    lm = tt.TransformerLMModule(device="cpu", seed=4, **SMALL)
     loss = SoftmaxCrossEntropyLoss()
     tr = ShardedTrainer(lm, loss, optimizer_params={"lr": 0.3})
     assert tr.learning_rate == 0.3
@@ -366,7 +366,7 @@ def test_trainer_settings_and_rejections():
 
 def test_value_and_grad_matches_autograd():
     """The step's gradients are those of the loss of the net's forward."""
-    lm = tt.transformer_lm(device="cpu", seed=5, **SMALL)
+    lm = tt.TransformerLMModule(device="cpu", seed=5, **SMALL)
     x = torch.from_numpy(_batch(14)).long()
     loss_fn = SoftmaxCrossEntropyLoss()
     tr = ShardedTrainer(lm, loss_fn)

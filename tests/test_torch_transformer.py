@@ -135,11 +135,11 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists: the default is valid here")
     with pytest.raises(MXNetError, match="no CUDA device"):
-        tt.transformer_lm(**SMALL)
+        tt.TransformerLMModule(**SMALL)
     from mxnet_tpu_torch.context import default_device
     with pytest.raises(MXNetError):
         default_device()
-    assert tt.transformer_lm(device="cpu", **SMALL).device.type == "cpu"
+    assert tt.TransformerLMModule(device="cpu", **SMALL).device.type == "cpu"
 
 
 def _random_params(cfg, hidden, seed):
