@@ -9,13 +9,19 @@ engine:
     DecodeScheduler -> DecodeEngine -> lm_prefill / paged decode step
     -> ops.flash_attention.decode_attention -> csrc/paged_decode_attention.cu
 
-and trains it:
+and trains it, with the vision model zoo and BERT, the reference's
+benchmark way:
 
-    parallel.ShardedTrainer.step -> TransformerLMModule.forward
-    -> TransformerEncoderCellModule -> multi_head_attention
-    -> ops.attention.fused_attention -> ops.flash_attention.flash_attention
-    -> csrc/flash_attention_fwd.cu (forward), csrc/flash_attention_bwd.cu
-       (backward, through torch.autograd)
+    mesh = parallel.make_mesh({"dp": 1})
+    trainer = parallel.ShardedTrainer(net, loss_fn, mesh, ...)
+    -> parallel.functionalize(net) -> the Gluon block's forward over the
+       trainer's parameter values (gluon.block.run_bound)
+    -> models.transformer.MultiHeadAttention
+       -> ops.attention.fused_attention -> ops.flash_attention
+       -> csrc/flash_attention_fwd.cu (forward), csrc/flash_attention_bwd.cu
+          (backward, through torch.autograd)
+    -> gluon.nn conv/BN/pool layers -> ops.nn Convolution (cuDNN),
+       BatchNorm, Pooling (gluon.model_zoo.vision)
     -> gluon.loss.SoftmaxCrossEntropyLoss, optimizer.fused.lower_update
 
 and trains it imperatively, the reference's way, and as a Gluon block:

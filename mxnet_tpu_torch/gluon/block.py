@@ -374,34 +374,50 @@ class CachedOp:
 
         def fn(*vals):
             pvals, ivals = vals[:n_params], vals[n_params:]
-            param_nds = [p.data() for p in params]
-            saved = [nd_._data for nd_ in param_nds]
-            try:
-                for nd_, v in zip(param_nds, pvals):
-                    nd_._data = v
+
+            def forward():
                 in_nds = _unflatten_nds(iter([NDArray(v) for v in ivals]),
                                         in_fmt)
                 _IN_CACHED_OP.active = True
                 try:
-                    out = block._forward_eager(*in_nds)
+                    return block._forward_eager(*in_nds)
                 finally:
                     _IN_CACHED_OP.active = False
-                outs = list(out) if isinstance(out, tuple) else [out]
-                flat_out, fmt = _flatten_nds(outs)
-                out_fmt[:] = fmt
-                aux_param_idx[:] = [i for i, nd_ in enumerate(param_nds)
-                                    if nd_._data is not pvals[i]]
-                aux = [param_nds[i]._data for i in aux_param_idx]
-                return tuple([o._data for o in flat_out] + aux)
-            finally:
-                for nd_, old in zip(param_nds, saved):
-                    nd_._data = old
+
+            out, aux = run_bound(params, pvals, forward)
+            outs = list(out) if isinstance(out, tuple) else [out]
+            flat_out, fmt = _flatten_nds(outs)
+            out_fmt[:] = fmt
+            aux_param_idx[:] = list(aux)
+            return tuple([o._data for o in flat_out] + list(aux.values()))
 
         opdef = OpDef(f"CachedOp_{block.name}", fn,
                       num_outputs=lambda kw: len(out_fmt)
                       + len(aux_param_idx))
         return {"opdef": opdef, "aux_param_idx": aux_param_idx,
                 "out_fmt": out_fmt}
+
+
+def run_bound(params, values, forward):
+    """Run ``forward()`` with the tensors ``values`` bound to the arrays of
+    ``params`` (a list of initialized ``Parameter``s), then restore the
+    arrays' own tensors. Returns (``forward()``'s result, {index in
+    ``params``: tensor} for each parameter the forward rebound: its aux
+    state, such as BatchNorm's running statistics). A hybridized block's
+    cached op and ``parallel.functionalize`` both run a block over given
+    parameter values this way."""
+    nds = [p.data() for p in params]
+    saved = [a._data for a in nds]
+    try:
+        for a, v in zip(nds, values):
+            a._data = v
+        out = forward()
+        aux = {i: a._data for i, (a, v) in enumerate(zip(nds, values))
+               if a._data is not v}
+        return out, aux
+    finally:
+        for a, old in zip(nds, saved):
+            a._data = old
 
 
 class SymbolBlock(HybridBlock):

@@ -1,0 +1,51 @@
+"""Vision model zoo (counterpart of
+``mxnet_tpu/gluon/model_zoo/vision/``): ``get_model(name)`` over the
+reference's ``_models`` table. Pretrained weights are not downloaded:
+``pretrained=True`` raises; carry weights in with
+``gluon.utils.set_params_from_numpy``.
+"""
+from .resnet import (ResNetV1, ResNetV2, BasicBlockV1, BasicBlockV2,  # noqa: F401
+                     BottleneckV1, BottleneckV2, resnet18_v1, resnet34_v1,
+                     resnet50_v1, resnet101_v1, resnet152_v1, resnet18_v2,
+                     resnet34_v2, resnet50_v2, resnet101_v2, resnet152_v2,
+                     get_resnet)
+from .vgg import (VGG, vgg11, vgg13, vgg16, vgg19, vgg11_bn, vgg13_bn,  # noqa: F401
+                  vgg16_bn, vgg19_bn, get_vgg)
+from .alexnet import AlexNet, alexnet  # noqa: F401
+from .squeezenet import SqueezeNet, squeezenet1_0, squeezenet1_1  # noqa: F401
+from .densenet import (DenseNet, densenet121, densenet161, densenet169,  # noqa: F401
+                       densenet201)
+from .mobilenet import (MobileNet, MobileNetV2, mobilenet1_0, mobilenet0_75,  # noqa: F401
+                        mobilenet0_5, mobilenet0_25, mobilenet_v2_1_0,
+                        mobilenet_v2_0_75, mobilenet_v2_0_5, mobilenet_v2_0_25,
+                        get_mobilenet, get_mobilenet_v2)
+from .inception import Inception3, inception_v3  # noqa: F401
+
+_models = {
+    "resnet18_v1": resnet18_v1, "resnet34_v1": resnet34_v1,
+    "resnet50_v1": resnet50_v1, "resnet101_v1": resnet101_v1,
+    "resnet152_v1": resnet152_v1,
+    "resnet18_v2": resnet18_v2, "resnet34_v2": resnet34_v2,
+    "resnet50_v2": resnet50_v2, "resnet101_v2": resnet101_v2,
+    "resnet152_v2": resnet152_v2,
+    "vgg11": vgg11, "vgg13": vgg13, "vgg16": vgg16, "vgg19": vgg19,
+    "vgg11_bn": vgg11_bn, "vgg13_bn": vgg13_bn, "vgg16_bn": vgg16_bn,
+    "vgg19_bn": vgg19_bn,
+    "alexnet": alexnet,
+    "squeezenet1.0": squeezenet1_0, "squeezenet1.1": squeezenet1_1,
+    "densenet121": densenet121, "densenet161": densenet161,
+    "densenet169": densenet169, "densenet201": densenet201,
+    "mobilenet1.0": mobilenet1_0, "mobilenet0.75": mobilenet0_75,
+    "mobilenet0.5": mobilenet0_5, "mobilenet0.25": mobilenet0_25,
+    "mobilenetv2_1.0": mobilenet_v2_1_0, "mobilenetv2_0.75": mobilenet_v2_0_75,
+    "mobilenetv2_0.5": mobilenet_v2_0_5, "mobilenetv2_0.25": mobilenet_v2_0_25,
+    "inceptionv3": inception_v3,
+}
+
+
+def get_model(name, **kwargs):
+    """Fetch a model by name (reference model_zoo.vision.get_model)."""
+    name = name.lower()
+    if name not in _models:
+        raise ValueError(f"model {name!r} not in zoo; options: {sorted(_models)}")
+    return _models[name](**kwargs)

@@ -1,7 +1,7 @@
 """gluon.nn: neural-network layers (counterpart of
-``mxnet_tpu/gluon/nn/``). The convolution and batch/instance/group norm
-layers wait for their ops (queue item A9)."""
+``mxnet_tpu/gluon/nn/``)."""
 from .basic_layers import *  # noqa: F401,F403
-from . import basic_layers
+from .conv_layers import *  # noqa: F401,F403
+from . import basic_layers, conv_layers
 
-__all__ = basic_layers.__all__
+__all__ = basic_layers.__all__ + conv_layers.__all__

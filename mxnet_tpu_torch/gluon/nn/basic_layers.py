@@ -1,20 +1,21 @@
 """Gluon basic layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): the containers, ``Dense``,
 the activations, ``Dropout``, ``Flatten``, ``Lambda``/``HybridLambda``,
-``Embedding`` and ``LayerNorm``, each over the registered op the
-reference's layer calls. ``BatchNorm``, ``InstanceNorm`` and ``GroupNorm``
-wait for their ops (queue item A9).
+``Embedding`` and the norms (``BatchNorm``, ``LayerNorm``,
+``InstanceNorm``, ``GroupNorm``), each over the registered op the
+reference's layer calls.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ... import autograd
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "Dropout", "LayerNorm", "Embedding", "Flatten", "Lambda",
-           "HybridLambda", "ELU", "SELU", "PReLU", "GELU", "Swish", "SiLU",
-           "LeakyReLU"]
+           "Dropout", "BatchNorm", "LayerNorm", "InstanceNorm", "GroupNorm",
+           "Embedding", "Flatten", "Lambda", "HybridLambda", "ELU", "SELU",
+           "PReLU", "GELU", "Swish", "SiLU", "LeakyReLU"]
 
 
 class Sequential(Block):
@@ -226,6 +227,66 @@ class Embedding(HybridBlock):
                            output_dim=self._output_dim)
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization with moving-average running statistics. In
+    training the op returns the batch mean and variance
+    (``output_mean_var``) and the layer folds them into the running
+    statistics by rebinding them (a hybridized or functionalized forward
+    returns the rebound values as aux outputs); ``in_channels`` 0 defers
+    the shapes to the first input."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        sh = (in_channels,)
+        self.gamma = self.params.get("gamma", shape=sh,
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True,
+                                     differentiable=scale)
+        self.beta = self.params.get("beta", shape=sh, init=beta_initializer,
+                                    allow_deferred_init=True,
+                                    differentiable=center)
+        self.running_mean = self.params.get(
+            "running_mean", shape=sh, init=running_mean_initializer,
+            allow_deferred_init=True, differentiable=False)
+        self.running_var = self.params.get(
+            "running_var", shape=sh, init=running_variance_initializer,
+            allow_deferred_init=True, differentiable=False)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p.shape_inferred((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        kw = dict(eps=self._eps, momentum=self._momentum,
+                  fix_gamma=not self._scale, axis=self._axis)
+        if autograd.is_training() and not self._use_global_stats:
+            out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,
+                                         running_var, use_global_stats=False,
+                                         output_mean_var=True, **kw)
+            m = self._momentum
+            with autograd.pause():
+                self.running_mean.data()._set_data(
+                    (m * running_mean + (1 - m) * mean.detach())._data)
+                self.running_var.data()._set_data(
+                    (m * running_var + (1 - m) * var.detach())._data)
+            return out
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           use_global_stats=True, output_mean_var=False,
+                           **kw)
+
+
 class LayerNorm(HybridBlock):
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
@@ -247,3 +308,49 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
+
+
+class InstanceNorm(HybridBlock):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._eps = epsilon
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape_inferred((c,))
+        self.beta.shape_inferred((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
+
+
+class GroupNorm(HybridBlock):
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._ngroups = num_groups
+        self._eps = epsilon
+        self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta", shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape_inferred((c,))
+        self.beta.shape_inferred((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._ngroups,
+                           eps=self._eps)

@@ -1,7 +1,9 @@
 """Gluon utilities (counterpart of ``mxnet_tpu/gluon/utils.py``):
 ``split_data``, ``split_and_load``, ``clip_global_norm`` and
 ``check_sha1``. ``download`` raises: the port fetches nothing, and data
-loading is queue item A11."""
+loading is queue item A11. ``set_params_from_numpy`` carries a block's
+weights in from numpy arrays, as long as the reference's ``.params``
+format (queue item A10) is not ported."""
 from __future__ import annotations
 
 import hashlib
@@ -12,7 +14,7 @@ from ..base import MXNetError
 from ..ndarray import NDArray, array
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
-           "download"]
+           "download", "set_params_from_numpy"]
 
 
 def split_data(data: NDArray, num_slice: int, batch_axis=0, even_split=True):
@@ -68,3 +70,31 @@ def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
              verify_ssl=True):
     raise MXNetError("download: the port fetches nothing over the network; "
                      "place files locally (data loading is queue item A11)")
+
+
+def set_params_from_numpy(block, arrays) -> None:
+    """Set every parameter of ``block`` from ``arrays``, a dict of numpy
+    arrays (or tensors) keyed by the structural names of
+    ``block._collect_params_with_prefix()`` (``features.0.weight``): the
+    names the reference's ``save_parameters`` writes, and the keys of
+    ``{k: p.data().asnumpy() for k, p in
+    net._collect_params_with_prefix().items()}`` on the reference's side.
+    ``Parameter.name`` is not used: its prefix counters depend on how many
+    blocks a process built before. The block must be initialized; a
+    parameter whose shape is still deferred takes the array's. Every
+    parameter must be given, and nothing else."""
+    from ..initializer import _fill
+
+    own = block._collect_params_with_prefix()
+    missing, extra = set(own) - set(arrays), set(arrays) - set(own)
+    if missing or extra:
+        raise ValueError(f"set_params_from_numpy: missing {sorted(missing)}"
+                         f", unexpected {sorted(extra)}")
+    for name, p in own.items():
+        shape = tuple(arrays[name].shape)
+        if p._data is None:
+            p._finish_deferred_init(shape)
+        elif tuple(p.shape) != shape:
+            raise ValueError(f"set_params_from_numpy: {name} has shape "
+                             f"{tuple(p.shape)}, the array {shape}")
+        _fill(p._data, arrays[name])

@@ -1,34 +1,30 @@
-"""Decoder-only causal TransformerLM: the Gluon model, the training-path
-module and the decode interface.
+"""The transformer family: BERT and the decoder-only causal
+TransformerLM as Gluon blocks, and the LM's decode interface.
 
 Counterpart of ``mxnet_tpu/models/transformer.py``. The reference's Gluon
 classes under its names: ``MultiHeadAttention`` (one fused QKV projection,
 ``F.split``, attention through ``invoke_fn(fused_attention)``, so the
-flash kernels at long sequences), ``PositionwiseFFN``,
-``TransformerEncoderCell``, ``BERTEncoder`` (zero-initialized positions)
-and ``TransformerLM``, built from ``gluon.nn`` layers, so that
-``collect_params()`` holds the reference's names and shapes.
-
-Beside them, ``TransformerLMModule``: the same network as a
-``torch.nn.Module`` whose ``forward`` runs on plain tensors
-(``TransformerEncoderCellModule`` -> ``multi_head_attention`` ->
-``ops.attention.fused_attention``), the backbone of
-``parallel.ShardedTrainer`` (``torch.func.functional_call``) and of
-:func:`from_numpy_params`.
+flash kernels at long sequences and plain attention below
+``_FLASH_MIN_SEQ``), ``PositionwiseFFN``, ``TransformerEncoderCell``,
+``BERTEncoder`` (zero-initialized positions), ``BERTModel`` (the MLM
+head), ``TransformerLM``, the constructors ``bert_tiny``/``bert_base``/
+``bert_large``/``transformer_lm`` and ``bert_sharding_rules``, built from
+``gluon.nn`` layers, so that ``collect_params()`` holds the reference's
+names and shapes. Dropout draws from the framework's random stream
+(``mxnet_tpu_torch.random``) in training mode.
 
 And the pure functions of the causal-LM decode interface
 (``decode_config``, ``decode_params``, ``prefill_layer``, ``decode_layer``,
-``lm_prefill``, ``lm_decode_step``, ``sample_token``), on torch tensors;
-``decode_config``/``decode_params`` read either form of the LM.
-``lm_prefill`` keeps its dense masked attention, as the reference's does.
-The layout is the reference's: post-LN blocks, gluon ``Dense`` weights
-kept ``(out, in)`` so ``y = x @ w.T + b``, learned positions, and a flat
+``lm_prefill``, ``lm_decode_step``, ``sample_token``), on torch tensors.
+``lm_prefill`` keeps its dense masked attention, as the reference's does:
+it is also the plain-tensor oracle of the training forward. The layout is
+the reference's: post-LN blocks, gluon ``Dense`` weights kept
+``(out, in)`` so ``y = x @ w.T + b``, learned positions, and a flat
 parameter dict (top-level embed/pos/final-LN/decoder plus one dict per
-layer under ``"layers"``). Dropout and BERT's MLM model wait for queue
-item A6.
+layer under ``"layers"``).
 
-Weights carry across packages: by name, through ``Parameter.set_data``
-(the reference's ``collect_params()``), or as the numpy dict the JAX
+Weights carry across packages: by structural name
+(``gluon.utils.set_params_from_numpy``), or as the numpy dict the JAX
 package's ``decode_params`` returns (:func:`from_numpy_params`).
 """
 from __future__ import annotations
@@ -38,24 +34,22 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
-from ..context import as_device
+from ..context import Context, as_device
 from ..gluon import nn as gnn
 from ..gluon.block import HybridBlock
 from ..ndarray.ndarray import invoke_fn
 from ..ops.attention import fused_attention
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
-           "BERTEncoder", "TransformerLM", "transformer_lm",
-           "TransformerLMModule", "TransformerEncoderCellModule",
-           "gluon_parameters", "multi_head_attention", "positionwise_ffn",
-           "from_numpy_params", "decode_config", "decode_params",
-           "prefill_layer", "decode_layer", "embed_ids", "lm_prefill",
-           "lm_decode_step", "sample_token"]
+           "BERTEncoder", "BERTModel", "TransformerLM", "bert_base",
+           "bert_large", "bert_tiny", "transformer_lm",
+           "bert_sharding_rules", "gluon_parameters", "from_numpy_params",
+           "decode_config", "decode_params", "prefill_layer",
+           "decode_layer", "embed_ids", "lm_prefill", "lm_decode_step",
+           "sample_token"]
 
 _LN_EPS = 1e-5  # gluon nn.LayerNorm default
-_INIT_SCALE = 0.07  # gluon's default Uniform(0.07) weight initializer
 
 
 # ---------------------------------------------------------------------------
@@ -173,19 +167,51 @@ class BERTEncoder(HybridBlock):
         return x
 
 
+class BERTModel(HybridBlock):
+    """BERT with the MLM head (gluon-nlp's ``BERTModel``): word and
+    token-type embeddings, their LayerNorm, a bidirectional
+    ``BERTEncoder``, then dense, gelu, LayerNorm and the decoder."""
+
+    def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
+                 num_layers=12, num_heads=12, max_length=512, dropout=0.1,
+                 num_token_types=2, **kwargs):
+        super().__init__(**kwargs)
+        self._units = units
+        self.word_embed = gnn.Embedding(vocab_size, units,
+                                        prefix=self.prefix + "word_embed_")
+        self.token_type_embed = gnn.Embedding(
+            num_token_types, units, prefix=self.prefix + "type_embed_")
+        self.embed_ln = gnn.LayerNorm(in_channels=units)
+        self.encoder = BERTEncoder(units, hidden_size, num_layers, num_heads,
+                                   max_length, dropout,
+                                   prefix=self.prefix + "enc_")
+        self.mlm_dense = gnn.Dense(units, flatten=False, in_units=units,
+                                   prefix=self.prefix + "mlm_dense_")
+        self.mlm_ln = gnn.LayerNorm(in_channels=units)
+        self.mlm_decoder = gnn.Dense(vocab_size, flatten=False,
+                                     in_units=units,
+                                     prefix=self.prefix + "mlm_decoder_")
+
+    def hybrid_forward(self, F, inputs, token_types=None):
+        x = self.word_embed(inputs)
+        if token_types is not None:
+            x = x + self.token_type_embed(token_types)
+        x = self.embed_ln(x)
+        seq = self.encoder(x)
+        h = self.mlm_dense(seq)
+        h = F.gelu(h, approximation="tanh")
+        h = self.mlm_ln(h)
+        return self.mlm_decoder(h)
+
+
 class TransformerLM(HybridBlock):
     """Decoder-only causal LM (GPT-style), the reference's flagship: token
     embedding, a causal ``BERTEncoder``, the final LayerNorm and the
-    decoder. ``dropout`` > 0 raises: dropout on this path waits for queue
-    item A6."""
+    decoder."""
 
     def __init__(self, vocab_size=32000, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=2048, dropout=0.0,
                  **kwargs):
-        if dropout:
-            raise NotImplementedError(
-                "TransformerLM dropout belongs to a later slice of the port "
-                "(queue item A6)")
         super().__init__(**kwargs)
         self.word_embed = gnn.Embedding(vocab_size, units,
                                         prefix=self.prefix + "word_embed_")
@@ -203,144 +229,45 @@ class TransformerLM(HybridBlock):
         return self.decoder(x)
 
 
+def bert_sharding_rules():
+    """Megatron-style tensor-parallel rules for BERT/TransformerLM
+    parameters: QKV and FFN-in sharded over ``tp`` on the output dim,
+    out-projection and FFN-out on the input dim. On a mesh without ``tp``
+    (every mesh of the port) they collapse to replicated."""
+    from ..parallel import P, ShardingRules
+
+    return ShardingRules([
+        (r"qkv_weight$", P("tp", None)),        # column parallel
+        (r"ffn1_weight$", P("tp", None)),
+        (r"qkv_bias$", P("tp")),
+        (r"ffn1_bias$", P("tp")),
+        (r"proj_weight$", P(None, "tp")),       # row parallel
+        (r"ffn2_weight$", P(None, "tp")),
+        (r"(word_embed|mlm_decoder|decoder)\d*_weight$", P("tp", None)),
+    ], default=P())
+
+
+def bert_tiny(vocab_size=1000, **kw):
+    kw.setdefault("units", 64)
+    kw.setdefault("hidden_size", 128)
+    kw.setdefault("num_layers", 2)
+    kw.setdefault("num_heads", 4)
+    kw.setdefault("max_length", 128)
+    return BERTModel(vocab_size=vocab_size, **kw)
+
+
+def bert_base(vocab_size=30522, **kw):
+    return BERTModel(vocab_size=vocab_size, units=768, hidden_size=3072,
+                     num_layers=12, num_heads=12, **kw)
+
+
+def bert_large(vocab_size=30522, **kw):
+    return BERTModel(vocab_size=vocab_size, units=1024, hidden_size=4096,
+                     num_layers=24, num_heads=16, **kw)
+
+
 def transformer_lm(vocab_size=32000, **kw) -> TransformerLM:
     return TransformerLM(vocab_size=vocab_size, **kw)
-
-
-# ---------------------------------------------------------------------------
-# The same network as a torch.nn.Module (ShardedTrainer's backbone)
-# ---------------------------------------------------------------------------
-
-
-def multi_head_attention(x, qkv_w, qkv_b, proj_w, proj_b, heads,
-                         causal=False):
-    """The reference's ``MultiHeadAttention`` forward: the fused QKV
-    projection, q/k/v as (B, H, S, D) views of it (no copies), attention
-    through :func:`fused_attention` (``MXNET_ATTENTION_IMPL``), then the
-    output projection. x (B, S, U)."""
-    b, s, u = x.shape
-    q, k, v = (t.transpose(1, 2) for t in
-               _split_heads(_dense(x, qkv_w, qkv_b), heads, u // heads))
-    out = fused_attention(q, k, v, causal=causal)
-    return _dense(out.transpose(1, 2).reshape(b, s, u), proj_w, proj_b)
-
-
-def positionwise_ffn(x, ffn1_w, ffn1_b, ffn2_w, ffn2_b):
-    """The reference's ``PositionwiseFFN`` forward (gelu, tanh form)."""
-    return _dense(_gelu(_dense(x, ffn1_w, ffn1_b)), ffn2_w, ffn2_b)
-
-
-class TransformerEncoderCellModule(nn.Module):
-    """Post-LN transformer block (the reference's ``TransformerEncoderCell``
-    with its ``MultiHeadAttention`` and ``PositionwiseFFN``). Its
-    parameters are named as in ``decode_params``, so the cell holds them
-    itself instead of in sub-blocks."""
-
-    def __init__(self, units, hidden_size, num_heads, causal=False,
-                 device=None):
-        super().__init__()
-
-        def p(*shape):
-            return nn.Parameter(torch.empty(shape, device=device))
-
-        self._heads, self._causal = int(num_heads), bool(causal)
-        self.qkv_w, self.qkv_b = p(3 * units, units), p(3 * units)
-        self.proj_w, self.proj_b = p(units, units), p(units)
-        self.ln1_g, self.ln1_b = p(units), p(units)
-        self.ffn1_w, self.ffn1_b = p(hidden_size, units), p(hidden_size)
-        self.ffn2_w, self.ffn2_b = p(units, hidden_size), p(units)
-        self.ln2_g, self.ln2_b = p(units), p(units)
-
-    def forward(self, x):
-        att = multi_head_attention(x, self.qkv_w, self.qkv_b, self.proj_w,
-                                   self.proj_b, self._heads, self._causal)
-        x = _ln(x + att, self.ln1_g, self.ln1_b)
-        out = positionwise_ffn(x, self.ffn1_w, self.ffn1_b, self.ffn2_w,
-                               self.ffn2_b)
-        return _ln(x + out, self.ln2_g, self.ln2_b)
-
-
-class TransformerLMModule(nn.Module):
-    """Decoder-only causal LM (GPT-style), the reference's flagship.
-
-    ``forward(tokens)`` (B, S) returns the training-path logits
-    (B, S, vocab), equal to :func:`lm_prefill`'s. Parameters are
-    initialized from ``seed`` as gluon does by default (weights and
-    embeddings Uniform(±0.07), biases and LN betas 0, LN gammas 1), except
-    that positions are drawn like the weights instead of zeroed, so that a
-    randomly initialized model depends on position. Runs on ``cuda`` unless
-    ``device`` names another device; with no card it raises.
-    """
-
-    def __init__(self, vocab_size=32000, units=768, hidden_size=3072,
-                 num_layers=12, num_heads=12, max_length=2048, dropout=0.0,
-                 *, device=None, seed: int = 0):
-        super().__init__()
-        if units % num_heads:
-            raise ValueError(f"units={units} not divisible by "
-                             f"num_heads={num_heads}")
-        if dropout:
-            raise NotImplementedError(
-                "dropout belongs to a later slice of the port")
-        device = as_device(device)
-        self._units, self._heads = int(units), int(num_heads)
-        self._max_length = int(max_length)
-        self._vocab = int(vocab_size)
-        self.embed = nn.Parameter(torch.empty(vocab_size, units,
-                                              device=device))
-        self.pos = nn.Parameter(torch.empty(max_length, units, device=device))
-        self.layers = nn.ModuleList(
-            TransformerEncoderCellModule(units, hidden_size, num_heads,
-                                         causal=True, device=device)
-            for _ in range(num_layers))
-        self.final_g = nn.Parameter(torch.empty(units, device=device))
-        self.final_b = nn.Parameter(torch.empty(units, device=device))
-        self.dec_w = nn.Parameter(torch.empty(vocab_size, units,
-                                              device=device))
-        self.dec_b = nn.Parameter(torch.empty(vocab_size, device=device))
-        self.reset_parameters(seed)
-
-    @torch.no_grad()
-    def reset_parameters(self, seed: int = 0) -> None:
-        gen = torch.Generator(device=self.embed.device)
-        gen.manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf.endswith("_g"):
-                p.fill_(1.0)
-            elif leaf.endswith("_b"):
-                p.zero_()
-            else:
-                p.uniform_(-_INIT_SCALE, _INIT_SCALE, generator=gen)
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
-
-    def _param_dict(self) -> dict:
-        return {
-            "embed": self.embed, "pos": self.pos,
-            "final_g": self.final_g, "final_b": self.final_b,
-            "dec_w": self.dec_w, "dec_b": self.dec_b,
-            "layers": [dict(layer.named_parameters())
-                       for layer in self.layers],
-        }
-
-    def forward(self, tokens):
-        """The training path (the reference's ``hybrid_forward`` through
-        ``BERTEncoder``): embedding plus positions, the causal cells, the
-        final LN and the decoder. tokens (B, S) -> logits (B, S, vocab).
-        Token ids are clamped to the vocabulary, as gluon's Embedding
-        does."""
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        s = tokens.shape[1]
-        x = self.embed[tokens.clamp(0, self._vocab - 1)] + self.pos[:s]
-        for cell in self.layers:
-            x = cell(x)
-        x = _ln(x, self.final_g, self.final_b)
-        return _dense(x, self.dec_w, self.dec_b)
-
-
 
 
 # ---------------------------------------------------------------------------
@@ -367,67 +294,48 @@ def gluon_parameters(lm: "TransformerLM") -> dict:
             "layers": [layer(c) for c in lm.encoder.cells]}
 
 
-def decode_config(lm) -> dict:
-    """Static shape/config facts of an LM (the Gluon block or the module),
-    for building decode programs."""
-    if isinstance(lm, TransformerLM):
-        att = lm.encoder.cells[0].attention
-        return {"vocab": lm.decoder._units, "units": att._units,
-                "heads": att._heads, "head_dim": att._units // att._heads,
-                "layers": len(lm.encoder.cells),
-                "max_length": lm.encoder._max_length}
-    return {
-        "vocab": lm._vocab,
-        "units": lm._units,
-        "heads": lm._heads,
-        "head_dim": lm._units // lm._heads,
-        "layers": len(lm.layers),
-        "max_length": lm._max_length,
-    }
+def decode_config(lm: TransformerLM) -> dict:
+    """Static shape/config facts of an LM, for building decode
+    programs."""
+    att = lm.encoder.cells[0].attention
+    return {"vocab": lm.decoder._units, "units": att._units,
+            "heads": att._heads, "head_dim": att._units // att._heads,
+            "layers": len(lm.encoder.cells),
+            "max_length": lm.encoder._max_length}
 
 
-def decode_params(lm) -> dict:
+def decode_params(lm: TransformerLM) -> dict:
     """The LM's parameters as a flat dict of (detached) tensors, in the
-    layout of the reference's ``decode_params``. A Gluon block must have
-    been initialized (its shapes are all declared)."""
-    if isinstance(lm, TransformerLM):
-        gp = gluon_parameters(lm)
-        out = {k: p.data()._data.detach() for k, p in gp.items()
-               if k != "layers"}
-        out["layers"] = [{k: p.data()._data.detach() for k, p in lp.items()}
-                         for lp in gp["layers"]]
-        return out
-    d = lm._param_dict()
-    out = {k: v.detach() for k, v in d.items() if k != "layers"}
-    out["layers"] = [{k: v.detach() for k, v in lp.items()}
-                     for lp in d["layers"]]
+    layout of the reference's ``decode_params``. The block must have been
+    initialized (its shapes are all declared)."""
+    gp = gluon_parameters(lm)
+    out = {k: p.data()._data.detach() for k, p in gp.items()
+           if k != "layers"}
+    out["layers"] = [{k: p.data()._data.detach() for k, p in lp.items()}
+                     for lp in gp["layers"]]
     return out
 
 
 @torch.no_grad()
-def from_numpy_params(cfg: dict, params: dict,
-                      device=None) -> TransformerLMModule:
-    """Build a :class:`TransformerLMModule` holding ``params`` (the dict of
-    numpy arrays the JAX package's ``decode_params(lm)`` returns, or
-    tensors in that layout) for the config ``cfg`` (its
-    ``decode_config``)."""
+def from_numpy_params(cfg: dict, params: dict, device=None) -> TransformerLM:
+    """Build an initialized Gluon :class:`TransformerLM` holding ``params``
+    (the dict of numpy arrays the JAX package's ``decode_params(lm)``
+    returns, or tensors in that layout) for the config ``cfg`` (its
+    ``decode_config``), on ``device`` (the card unless named)."""
     hidden = int(np.shape(params["layers"][0]["ffn1_w"])[0])
-    lm = TransformerLMModule(vocab_size=cfg["vocab"], units=cfg["units"],
-                             hidden_size=hidden, num_layers=cfg["layers"],
-                             num_heads=cfg["heads"],
-                             max_length=cfg["max_length"], device=device)
-    mine = lm._param_dict()
+    lm = TransformerLM(vocab_size=cfg["vocab"], units=cfg["units"],
+                       hidden_size=hidden, num_layers=cfg["layers"],
+                       num_heads=cfg["heads"], max_length=cfg["max_length"])
+    lm.initialize(ctx=Context(as_device(device)))
+    mine = gluon_parameters(lm)
     pairs = [(mine[k], params[k]) for k in mine if k != "layers"]
     for lp_mine, lp in zip(mine["layers"], params["layers"], strict=True):
         pairs += [(lp_mine[k], lp[k]) for k in lp_mine]
     for dst, src in pairs:
-        src = (src.detach().to(dst.dtype)
-               if isinstance(src, torch.Tensor)
-               else torch.as_tensor(np.array(src), dtype=dst.dtype))
-        if src.shape != dst.shape:
-            raise ValueError(f"parameter shape {tuple(src.shape)} does not "
-                             f"match {tuple(dst.shape)}")
-        dst.copy_(src)
+        if tuple(np.shape(src)) != dst.shape:
+            raise ValueError(f"parameter shape {tuple(np.shape(src))} does "
+                             f"not match {dst.shape} of {dst.name}")
+        dst.set_data(src)
     return lm
 
 

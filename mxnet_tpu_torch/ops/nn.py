@@ -1,15 +1,21 @@
-"""Neural-net operators of the main path (counterpart of the
-``FullyConnected``, activation, softmax, ``SoftmaxOutput``,
-``softmax_cross_entropy``, ``LayerNorm``, ``RMSNorm`` and ``Dropout`` part
-of ``mxnet_tpu/ops/nn.py``). Products go to cuBLAS through
-``torch.matmul``; normalisations and softmax are open-coded as the
-reference writes them. Train/test behaviour (``Dropout``) is read from
-autograd's train-mode scope at call time. Convolution, pooling and batch
-normalisation are not ported yet.
+"""Neural-net operators (counterpart of the ``FullyConnected``,
+activation, softmax, ``SoftmaxOutput``, ``softmax_cross_entropy``,
+normalisation, ``Dropout``, convolution and pooling part of
+``mxnet_tpu/ops/nn.py``). Products go to cuBLAS through ``torch.matmul``
+and convolutions to cuDNN through ``torch.nn.functional.conv*d`` /
+``conv_transpose*d`` (no TF32: the package's precision policy);
+normalisations and softmax are open-coded as the reference writes them,
+with explicit statistics. Pooling pads explicitly where torch's
+``ceil_mode`` and padding rules differ from the reference's ``full``
+convention. Train/test behaviour (``Dropout``, ``BatchNorm``) is read
+from autograd's train-mode scope at call time.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ..base import dtype_torch
 from .registry import register
@@ -234,6 +240,64 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     return (data - mean) * inv * gamma.reshape(bshape) + beta.reshape(bshape)
 
 
+def _bn_n_out(kw):
+    return 3 if kw.get("output_mean_var") else 1
+
+
+@register("BatchNorm", num_outputs=_bn_n_out,
+          ndarray_inputs=["data", "gamma", "beta", "moving_mean",
+                          "moving_var"])
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False,
+                min_calib_range=None, max_calib_range=None, _train=None):
+    """out, or (out, batch mean, batch variance) with ``output_mean_var``.
+    The batch statistics are computed in at least f32 and the variance is
+    the biased one; the caller (the Gluon layer) folds them into the
+    moving averages, as the reference does. Normalisation runs in the
+    data's dtype, so f32 statistics do not promote a bf16 activation."""
+    ax = int(axis) % data.ndim
+    red = tuple(i for i in range(data.ndim) if i != ax)
+    train = _is_training() if _train is None else _train
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    bshape = _bshape(data, ax)
+    if train and not use_global_stats:
+        stat_t = torch.promote_types(data.dtype, torch.float32)
+        var, mean = torch.var_mean(data.to(stat_t), dim=red, correction=0)
+    else:
+        mean, var = moving_mean, moving_var
+    dt = data.dtype
+    scale = torch.rsqrt(var + eps).to(dt) * gamma.to(dt)
+    out = torch.addcmul(beta.to(dt).reshape(bshape),
+                        data - mean.to(dt).reshape(bshape),
+                        scale.reshape(bshape))
+    if output_mean_var:
+        return out, mean, var
+    return out
+
+
+@register("InstanceNorm", ndarray_inputs=["data", "gamma", "beta"])
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    red = tuple(range(2, data.ndim))
+    var, mean = torch.var_mean(data, dim=red, correction=0, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape)
+            + beta.reshape(bshape))
+
+
+@register("GroupNorm", ndarray_inputs=["data", "gamma", "beta"])
+def _group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    n, c = data.shape[0], data.shape[1]
+    g = int(num_groups)
+    x = data.reshape((n, g, c // g) + tuple(data.shape[2:]))
+    red = tuple(range(2, x.ndim))
+    var, mean = torch.var_mean(x, dim=red, correction=0, keepdim=True)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    bshape = (1, c) + (1,) * (data.ndim - 2)
+    return x * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
 @register("RMSNorm", ndarray_inputs=["data", "gamma"])
 def _rms_norm(data, gamma, axis=-1, eps=1e-6):
     ax = int(axis) % data.ndim
@@ -263,3 +327,125 @@ def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
     return torch.where(keep, data / (1.0 - p),
                        torch.zeros((), dtype=data.dtype,
                                    device=data.device)).to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Convolution / Deconvolution / Pooling
+# ---------------------------------------------------------------------------
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _spatial(v, nsp, default):
+    return tuple(int(x) for x in v) if v else (default,) * nsp
+
+
+@register("Convolution", ndarray_inputs=["data", "weight", "bias"])
+def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                 pad=(), num_filter=0, num_group=1, workspace=1024,
+                 no_bias=False, cudnn_tune=None, cudnn_off=False,
+                 layout=None):
+    """N-d convolution, NC + spatial layout, weight (out, in/g, *k)."""
+    nsp = data.ndim - 2
+    return _CONV[nsp](data, weight, None if no_bias else bias,
+                      stride=_spatial(stride, nsp, 1),
+                      padding=_spatial(pad, nsp, 0),
+                      dilation=_spatial(dilate, nsp, 1),
+                      groups=int(num_group))
+
+
+@register("Deconvolution", ndarray_inputs=["data", "weight", "bias"])
+def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), target_shape=(), num_filter=0,
+                   num_group=1, workspace=512, no_bias=True, cudnn_tune=None,
+                   cudnn_off=False, layout=None):
+    """Transposed convolution (the gradient of Convolution with respect to
+    its input); weight (in, out/g, *k), the reference's layout and
+    torch's; ``adj`` adds to the output's trailing edge."""
+    nsp = data.ndim - 2
+    return _DECONV[nsp](data, weight, None if no_bias else bias,
+                        stride=_spatial(stride, nsp, 1),
+                        padding=_spatial(pad, nsp, 0),
+                        output_padding=_spatial(adj, nsp, 0),
+                        groups=int(num_group),
+                        dilation=_spatial(dilate, nsp, 1))
+
+
+def _sum_pool(x, kernel, stride):
+    """Window sums without padding. ``divisor_override`` exists for 2-D
+    and 3-D pooling only, so 1-D runs as 2-D over a unit height."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(-2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+@register("Pooling", ndarray_inputs=["data"])
+def _pooling(data, kernel=(), stride=(), pad=(), pool_type="max",
+             global_pool=False, pooling_convention="valid", cudnn_off=False,
+             p_value=2, count_include_pad=True, layout=None):
+    """max, avg, sum and lp pooling over 1-3 spatial dims. ``valid``
+    windows fit the symmetrically padded input; ``full`` (ceil) windows
+    may run past it, the right edge padded to fit, as in the reference.
+    Torch's own padding is used where it means the same (``valid``, pad
+    at most half the window); otherwise the input is padded explicitly
+    (``-inf`` for max), so every window and divisor is the reference's."""
+    nsp = data.ndim - 2
+    if global_pool:
+        red = tuple(range(2, data.ndim))
+        if pool_type == "max":
+            return torch.amax(data, dim=red, keepdim=True)
+        if pool_type in ("avg", "sum"):
+            r = torch.sum(data, dim=red, keepdim=True)
+            if pool_type == "avg":
+                r = r / (data.numel() // (data.shape[0] * data.shape[1]))
+            return r
+        if pool_type == "lp":
+            return torch.pow(torch.sum(torch.pow(torch.abs(data), p_value),
+                                       dim=red, keepdim=True),
+                             1.0 / p_value)
+        raise ValueError(f"unknown pool_type {pool_type!r}")
+    kernel = tuple(int(k) for k in kernel)
+    stride = _spatial(stride, nsp, 1)
+    pad = _spatial(pad, nsp, 0)
+    if pooling_convention == "full":
+        right = tuple(
+            (int(math.ceil((x + 2 * p - k) / s))) * s + k - x - p
+            for x, p, k, s in zip(data.shape[2:], pad, kernel, stride))
+    else:
+        right = pad
+    native = (pooling_convention != "full"
+              and all(2 * p <= k for p, k in zip(pad, kernel)))
+    if pool_type == "max" and native:
+        return (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nsp - 1](
+            data, kernel, stride, pad)
+    if pool_type == "avg" and native:
+        return (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[nsp - 1](
+            data, kernel, stride, pad,
+            count_include_pad=bool(count_include_pad))
+    widths = []  # F.pad's order: (before, after) from the last dim
+    for p, r in zip(reversed(pad), reversed(right)):
+        widths += [p, r]
+    if pool_type == "max":
+        low = (float("-inf") if data.is_floating_point()
+               else torch.iinfo(data.dtype).min)
+        return (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nsp - 1](
+            F.pad(data, widths, value=low), kernel, stride)
+    if pool_type in ("avg", "sum"):
+        s = _sum_pool(F.pad(data, widths), kernel, stride)
+        if pool_type == "sum":
+            return s
+        if count_include_pad:
+            return s / math.prod(kernel)
+        ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                          device=data.device)
+        return s / _sum_pool(F.pad(ones, widths), kernel, stride)
+    if pool_type == "lp":
+        s = _sum_pool(F.pad(torch.pow(torch.abs(data), p_value), widths),
+                      kernel, stride)
+        return torch.pow(s, 1.0 / p_value)
+    raise ValueError(f"unknown pool_type {pool_type!r}")
+

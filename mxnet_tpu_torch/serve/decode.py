@@ -79,10 +79,10 @@ class DecodeEngine:
 
     Parameters
     ----------
-    lm : TransformerLM, TransformerLMModule or dict
-        The port's LM, the initialized Gluon block or the module
-        (config/params taken via ``decode_config`` / ``decode_params``),
-        or the config dict itself when ``params`` is given.
+    lm : TransformerLM or dict
+        The port's LM, an initialized Gluon block (config/params taken
+        via ``decode_config`` / ``decode_params``), or the config dict
+        itself when ``params`` is given.
     params : dict, optional
         Parameter dict when ``lm`` is a config: numpy arrays (the JAX
         package's ``decode_params``) or tensors, same layout.

@@ -54,7 +54,8 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from mxnet_tpu_torch.models import TransformerLMModule
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import transformer_lm
     from mxnet_tpu_torch.serve import DecodeEngine
     from mxnet_tpu_torch.serve.kvcache import pages_for
 
@@ -65,7 +66,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    lm = TransformerLMModule(device=dev, seed=0)
+    mx.random.seed(0)
+    lm = transformer_lm()
+    lm.initialize()
     eng = DecodeEngine(lm, slots=8, page_size=16, num_pages=1025,
                        device=dev)
     eng.warmup()

@@ -3,8 +3,9 @@
     python -m mxnet_tpu_torch.tools.profile_train [--impl flash]
         [--steps 3] [--trace build/profile_train.json]
 
-Builds the repo's full-width TransformerLM (seeded random weights) and a
-``ShardedTrainer`` in ``bench.py::bench_lm_long``'s configuration (batch
+Builds the repo's full-width Gluon TransformerLM (seeded random weights,
+on the card) and a ``ShardedTrainer`` on a one-device mesh in
+``bench.py::bench_lm_long``'s configuration (batch
 4 x 2048 tokens, Adam lr 1e-4, bf16 compute, labels = inputs), runs two
 warmup steps, then ``--steps`` steps under ``torch.profiler`` with the
 attention of ``--impl`` (``MXNET_ATTENTION_IMPL``). Prints one JSON line:
@@ -58,9 +59,10 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
-    from mxnet_tpu_torch.models import TransformerLMModule
-    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.models import transformer_lm
+    from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
 
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device available", file=sys.stderr)
@@ -70,8 +72,12 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    lm = TransformerLMModule(device=dev, seed=0)
-    tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer="adam",
+    mx.random.seed(0)
+    lm = transformer_lm()
+    lm.initialize()
+    tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(),
+                        make_mesh({"dp": 1}, devices=[dev]),
+                        optimizer="adam",
                         optimizer_params={"learning_rate": 1e-4},
                         compute_dtype="bfloat16")
     x = torch.from_numpy(np.random.RandomState(0).randint(

@@ -11,7 +11,9 @@ conftest (which configures JAX):
 Each kernel is held to its plain PyTorch version (f32 to the reference's
 2e-5, flash gradients to its 5e-4; bf16/f16 to 2e-2), the engine and the
 trainer on the card to the same on the CPU, the imperative ``nd`` path on
-the card to the same on the CPU.
+the card to the same on the CPU, and the convolution, BatchNorm and
+pooling ops (cuDNN and the card's elementwise kernels) to the same ops on
+the CPU.
 """
 import math
 
@@ -222,13 +224,23 @@ def test_launch_path_raises_and_counts(cuda_device):
     assert counts() == tuple(c + 1 for c in before)
 
 
+def _seeded_lm(seed=3, **small):
+    """(config, parameter dict) of a Gluon LM initialized on the CPU from
+    ``seed``: one set of weights for both devices, since a CPU and a CUDA
+    generator draw different numbers."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(seed)
+    lm = tt.transformer_lm(**small)
+    lm.initialize(ctx=mx.cpu())
+    return tt.decode_config(lm), tt.decode_params(lm)
+
+
 def test_engine_on_card_matches_engine_on_cpu(cuda_device):
     small = dict(vocab_size=97, units=32, hidden_size=64, num_layers=2,
-                 num_heads=4, max_length=64, seed=3)
+                 num_heads=4, max_length=64)
     engine = dict(slots=4, page_size=8, num_pages=16, prompt_buckets=[8, 16])
-    # one set of weights: a CPU and a CUDA generator draw different numbers
-    lm = tt.TransformerLMModule(device="cpu", **small)
-    cfg, params = tt.decode_config(lm), tt.decode_params(lm)
+    cfg, params = _seeded_lm(**small)
     streams = {}
     for dev in ("cpu", cuda_device):
         eng = DecodeEngine(cfg, params, device=dev, **engine)
@@ -448,16 +460,17 @@ def test_trainer_on_card_matches_trainer_on_cpu(cuda_device, monkeypatch):
     from mxnet_tpu_torch.parallel import ShardedTrainer
 
     monkeypatch.setenv("MXNET_ATTENTION_IMPL", "flash")
-    small = dict(vocab_size=97, units=64, hidden_size=128, num_layers=2,
-                 num_heads=2, max_length=128, seed=3)
+    cfg, params = _seeded_lm(vocab_size=97, units=64, hidden_size=128,
+                             num_layers=2, num_heads=2, max_length=128)
     x = np.random.RandomState(0).randint(0, 97, (2, 128))
     losses = {}
     for dev in ("cpu", cuda_device):
-        lm = tt.TransformerLMModule(device="cpu", **small).to(dev)
+        lm = tt.from_numpy_params(cfg, params, device=dev)
         tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer="adam",
                             optimizer_params={"learning_rate": 1e-3})
         before = tfa.flash_attention_bwd.launches
-        losses[str(dev)] = [float(tr.step(x, x)) for _ in range(3)]
+        losses[str(dev)] = [float(tr.step(x, x).asnumpy())
+                            for _ in range(3)]
         launched = tfa.flash_attention_bwd.launches - before
         assert launched == (6 if tr.device.type == "cuda" else 0)
     np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"],
@@ -477,10 +490,8 @@ def test_nd_path_on_card_matches_nd_path_on_cpu(cuda_device, monkeypatch):
     from mxnet_tpu_torch.tools import nd_lm
 
     monkeypatch.setenv("MXNET_ATTENTION_IMPL", "flash")
-    lm = tt.TransformerLMModule(vocab_size=97, units=64, hidden_size=128,
-                                num_layers=2, num_heads=2, max_length=128,
-                                device="cpu", seed=3)
-    params = tt.decode_params(lm)
+    _cfg, params = _seeded_lm(vocab_size=97, units=64, hidden_size=128,
+                              num_layers=2, num_heads=2, max_length=128)
     x = np.random.RandomState(0).randint(0, 97, (2, 128))
     assert nd.zeros((1,)).context == mx.gpu(0)  # no scope: the card
     runs = {}
@@ -632,3 +643,119 @@ def test_trainer_step_makes_no_host_sync_with_loss_scaler(cuda_device):
     torch.cuda.synchronize()
     assert bool(scaler.last_overflow) is False
     assert np.isfinite(net.weight.data().asnumpy()).all()
+
+
+_CONV_CASES = [
+    ("Convolution", [(4, 8, 17, 17), (16, 4, 3, 3), (16,)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "num_filter": 16,
+      "num_group": 2}),
+    ("Deconvolution", [(2, 8, 9, 9), (8, 4, 3, 3)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (1, 1),
+      "num_filter": 4}),
+    ("BatchNorm", [(8, 16, 7, 7), (16,), (16,), (16,), (16,)],
+     {"fix_gamma": False, "output_mean_var": True, "_train": True}),
+    ("Pooling", [(4, 8, 15, 15)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+      "pool_type": "max"}),
+    ("Pooling", [(4, 8, 16, 16)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "pool_type": "avg",
+      "pooling_convention": "full", "count_include_pad": False}),
+    ("Pooling", [(4, 8, 7, 7)], {"pool_type": "avg", "global_pool": True}),
+]
+
+
+@pytest.mark.parametrize("name,shapes,kwargs", _CONV_CASES,
+                         ids=["conv", "deconv", "batchnorm", "maxpool",
+                              "avgpool_full", "global_avgpool"])
+def test_conv_ops_on_card_match_cpu(cuda_device, name, shapes, kwargs):
+    """The convolution stack on the card (cuDNN with TF32 off, the card's
+    reductions) against the same op on the CPU, forward and input
+    gradients under seeded head gradients: f32 within 1e-4 of
+    max(1, |cpu|) (sums in other orders)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    rng = np.random.RandomState(0)
+    arrays = [rng.uniform(0.5, 1.5, s).astype(np.float32) for s in shapes]
+    runs = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with ctx:
+            xs = [nd.array(a) for a in arrays]
+            for x in xs:
+                x.attach_grad()
+            with autograd.record():
+                out = getattr(nd, name)(*xs, **kwargs)
+            outs = list(out) if isinstance(out, tuple) else [out]
+            seeds = [nd.array(np.random.RandomState(7 + i).randn(*o.shape)
+                              .astype(np.float32))
+                     for i, o in enumerate(outs)]
+            autograd.backward(outs, seeds)
+            runs[ctx.device_type] = ([o.astorch().cpu() for o in outs],
+                                     [x.grad.astorch().cpu() for x in xs])
+            assert all(o.astorch().device == ctx.torch_device()
+                       for o in outs)
+    for got, want in zip(runs["gpu"][0] + runs["gpu"][1],
+                         runs["cpu"][0] + runs["cpu"][1]):
+        _assert_near(got, want, 1e-4)
+
+
+def test_conv_bn_trainer_on_card_matches_trainer_on_cpu(cuda_device):
+    """A conv + BatchNorm net (the reference's ResNet-shaped regression
+    net, tests/test_parallel.py:185, its convolutions without the bias
+    whose gradient before BatchNorm is rounding noise, as in ResNet's)
+    through the Gluon ShardedTrainer on
+    a one-device mesh, SGD momentum as bench.py's, from the same weights
+    on the card and on the CPU: the first step's loss, every gradient and
+    the running statistics within 1e-4 of their largest element (sums in
+    other orders), and three steps of finite, falling losses. (Through a
+    ResNet-18 thumbnail at a random start the first layer's gradients of
+    an H100 and the CPU differ by 3.5e-3 of their largest element: each
+    of 18 BatchNorm backwards cancels most of its input gradient.)"""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, parallel
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.utils import set_params_from_numpy
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(8, 3, 8, 8).astype(np.float32)
+    y = rng.randint(0, 4, 8).astype(np.int32)
+    weights, runs = None, {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with ctx:
+            mx.random.seed(0)
+            net = nn.HybridSequential()
+            net.add(nn.Conv2D(8, 3, padding=1, in_channels=3,
+                              use_bias=False),
+                    nn.BatchNorm(), nn.Activation("relu"),
+                    nn.Conv2D(8, 3, padding=1, in_channels=8,
+                              use_bias=False),
+                    nn.BatchNorm(), nn.Flatten(), nn.Dense(4))
+            net.initialize()
+            net(nd.array(x))
+            if weights is None:
+                weights = {k: p.data().asnumpy() for k, p in
+                           net._collect_params_with_prefix().items()}
+            set_params_from_numpy(net, weights)
+            tr = parallel.ShardedTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                parallel.make_mesh({"dp": 1}), optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                                  "wd": 1e-4})
+            assert tr.device.type == ("cuda" if ctx == mx.gpu(0) else "cpu")
+            loss, grads, aux = tr.value_and_grad(nd.array(x), nd.array(y))
+            by_name = {p.name: k for k, p in
+                       net._collect_params_with_prefix().items()}
+            first = {by_name[n]: g.cpu() for n, g in {**grads, **aux}
+                     .items()}
+            losses = [float(tr.step(nd.array(x), nd.array(y)).asnumpy())
+                      for _ in range(3)]
+            runs[ctx.device_type] = (float(loss), first, losses)
+    cpu_loss, cpu_first, _ = runs["cpu"]
+    gpu_loss, gpu_first, gpu_losses = runs["gpu"]
+    _assert_near(torch.tensor(gpu_loss), torch.tensor(cpu_loss), 1e-4)
+    assert set(gpu_first) == set(cpu_first) and any(
+        "running_mean" in k for k in gpu_first)
+    for k, want in cpu_first.items():
+        err = float((gpu_first[k] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-12, (k, err)
+    assert np.isfinite(gpu_losses).all() and gpu_losses[-1] < gpu_losses[0]

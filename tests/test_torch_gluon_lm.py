@@ -179,45 +179,62 @@ def test_decode_params_equal_reference():
 
 def test_gluon_lm_serves_as_the_module_does():
     """DecodeEngine takes the Gluon LM: its greedy stream equals the one
-    from the module built on the same weights."""
+    from the LM that ``from_numpy_params`` builds on the same weights and
+    the one from the engine fed the config and parameter dict."""
     _, port = _nets(9)
-    module = tt.from_numpy_params(tt.decode_config(port),
-                                  tt.decode_params(port), device="cpu")
+    cfg, params = tt.decode_config(port), tt.decode_params(port)
+    copy = tt.from_numpy_params(cfg, params, device="cpu")
     engine = dict(slots=2, page_size=8, num_pages=20, prompt_buckets=[8, 16],
                   device="cpu")
     streams = []
-    for lm in (port, module):
-        eng = DecodeEngine(lm, **engine)
+    for args in ((port,), (copy,), (cfg, params)):
+        eng = DecodeEngine(*args, **engine)
         sched = DecodeScheduler(eng, max_new_tokens=6)
         try:
             streams.append([list(sched.generate(np.arange(1, n + 1) % 90
                                                 + 1)) for n in (3, 11)])
         finally:
             sched.close()
-    assert streams[0] == streams[1] and len(streams[0][0]) == 6
+    assert streams[0] == streams[1] == streams[2]
+    assert len(streams[0][0]) == 6
+
+
+def _oracle_loss_and_grads(lm, x):
+    """The plain-tensor oracle of chip_smoke.py: ``lm_prefill`` (the
+    training forward with dense attention) on leaf copies of the LM's
+    parameters, the mean cross-entropy, ``torch.autograd``. Returns (loss,
+    {Parameter.name: gradient})."""
+    cfg = tt.decode_config(lm)
+    named = tt.gluon_parameters(lm)
+    leaves = {k: p.data()._data.detach().clone().requires_grad_()
+              for k, p in named.items() if k != "layers"}
+    leaves["layers"] = [{k: p.data()._data.detach().clone()
+                         .requires_grad_() for k, p in lp.items()}
+                        for lp in named["layers"]]
+    xt = torch.from_numpy(x)
+    logits, _k, _v = tt.lm_prefill(cfg, leaves, xt)
+    loss = -torch.log_softmax(logits, -1).gather(-1, xt[..., None]).mean()
+    loss.backward()
+    grads = {p.name: leaves[k].grad.numpy() for k, p in named.items()
+             if k != "layers"}
+    for lp, ll in zip(named["layers"], leaves["layers"]):
+        grads.update({p.name: ll[k].grad.numpy() for k, p in lp.items()})
+    return loss.item(), grads
 
 
 def test_module_path_equals_gluon_path():
     """The check chip_smoke.py's gluon_path makes at full width: the
-    Gluon LM's loss and gradients equal the module's (TransformerLMModule
-    + torch.autograd) on the same weights and batch."""
+    Gluon LM's loss and every gradient equal the plain-tensor oracle's
+    (``lm_prefill`` + torch.autograd on leaf tensors) on the same weights
+    and batch."""
     _, port = _nets(10)
     x = _tokens(11)
     loss, grads = _loss_and_grads(tmx, tnd, tag, port, x)
-    module = tt.from_numpy_params(tt.decode_config(port),
-                                  tt.decode_params(port), device="cpu")
-    xt = torch.from_numpy(x)
-    logits = module(xt)
-    ref = -torch.log_softmax(logits, -1).gather(-1, xt[..., None]).mean()
-    ref.backward()
-    np.testing.assert_allclose(loss, ref.item(), rtol=1e-6)
-    mine = dict(module.named_parameters())
-    pairs = {"transformerlm0_word_embed_weight": "embed",
-             "transformerlm0_enc_position_weight": "pos",
-             "transformerlm0_decoder_weight": "dec_w"}
-    for gname, mname in pairs.items():
-        r = mine[mname].grad.numpy()
-        assert np.abs(grads[gname] - r).max() <= 1e-5 * np.abs(r).max()
+    ref_loss, ref_grads = _oracle_loss_and_grads(port, x)
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-6)
+    assert set(grads) == set(ref_grads)
+    for name, r in ref_grads.items():
+        assert np.abs(grads[name] - r).max() <= 1e-5 * np.abs(r).max(), name
 
 
 def test_amp_bf16_lm_trains_near_f32():
@@ -268,5 +285,18 @@ def test_amp_bf16_lm_matches_reference():
 
 
 def test_dropout_raises():
-    with pytest.raises(NotImplementedError, match="A6"):
-        tt.transformer_lm(dropout=0.1, **{k: v for k, v in SMALL.items()})
+    """Dropout on the LM path is ported: ``transformer_lm(dropout=0.1)``
+    no longer raises. On the same weights its predict-mode logits equal
+    the dropout-free LM's, and its training-mode logits differ."""
+    _ref, port = _nets(16)
+    tmx.random.seed(0)
+    drop = tt.transformer_lm(dropout=0.1, **SMALL)
+    drop.initialize()
+    for p, q in zip(port.collect_params().values(),
+                    drop.collect_params().values()):
+        q.set_data(p.data().asnumpy())
+    x = tnd.array(_tokens(17), dtype="int32")
+    want = port(x).asnumpy()
+    np.testing.assert_array_equal(drop(x).asnumpy(), want)
+    with tag.train_mode():
+        assert not np.array_equal(drop(x).asnumpy(), want)

@@ -101,19 +101,24 @@ def test_nd_lm_step_matches_reference(impl, monkeypatch):
 
 
 def test_nd_lm_matches_the_module_path(monkeypatch):
-    """The imperative path and the port's TransformerLM (forward plus
-    torch.autograd) agree on the same weights: the check chip_smoke.py's
+    """The imperative path and the plain-tensor oracle (``lm_prefill``,
+    the training forward with dense attention, plus torch.autograd on
+    leaf tensors) agree on the same weights: the check chip_smoke.py's
     nd_path phase makes at full width on the card."""
     monkeypatch.setenv("MXNET_ATTENTION_IMPL", "flash")
     params, tokens = _params(2), _tokens(3)
-    lm = tt.from_numpy_params(CFG, params, device="cpu")
+    leaves = {k: torch.from_numpy(v).requires_grad_()
+              for k, v in params.items() if k != "layers"}
+    leaves["layers"] = [{k: torch.from_numpy(v).requires_grad_()
+                         for k, v in lp.items()} for lp in params["layers"]]
     x = torch.from_numpy(tokens)
-    logits = lm(x)
+    logits, _k, _v = tt.lm_prefill(CFG, leaves, x)
     ref = -torch.log_softmax(logits, -1).gather(-1, x[..., None]).mean()
     ref.backward()
     got_loss, got = _port_step(params, tokens)
     np.testing.assert_allclose(got_loss, ref.item(), rtol=1e-6)
-    mine = dict(nd_lm.flat_params(lm._param_dict()))
+    mine = dict(nd_lm.flat_params(leaves))
+    assert set(got) == set(mine)
     for name, g in got.items():
         r = mine[name].grad.numpy()
         assert np.abs(g - r).max() <= 1e-5 * np.abs(r).max() + 1e-8, name

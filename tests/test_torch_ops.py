@@ -481,8 +481,13 @@ def test_optimizer_ops(name, inputs, kwargs, grad, rtol, atol, cmp):
 
 def test_every_registered_op_has_a_case():
     """Each op the port registers (once per definition, aliases aside) is
-    held to the reference here, and each exists in the reference."""
-    covered = {p.values[0] for cases in FAMILIES.values() for p in cases}
+    held to the reference here or in ``test_torch_conv_ops.py`` (the
+    convolution, pooling and batch/instance/group norm ops), and each
+    exists in the reference."""
+    from test_torch_conv_ops import CASES as CONV_CASES
+
+    covered = {p.values[0] for cases in [*FAMILIES.values(), CONV_CASES]
+               for p in cases}
     ops = {op.name for op in tregistry._REGISTRY.values()}
     assert ops - covered == set()
     from mxnet_tpu.ops import has_op
@@ -541,8 +546,11 @@ def test_registry_api_matches_reference():
             assert mine.n_out(kw) == ref.n_out(kw)
     assert tregistry.get_op("elemwise_add") is tregistry.get_op(
         "broadcast_add")
-    with pytest.raises(NotImplementedError, match="'Convolution'"):
-        tregistry.get_op("Convolution")
+    for kw in ({}, {"output_mean_var": True}):
+        assert tregistry.get_op("BatchNorm").n_out(kw) == \
+            jregistry.get_op("BatchNorm").n_out(kw)
+    with pytest.raises(NotImplementedError, match="'UpSampling'"):
+        tregistry.get_op("UpSampling")
     raw = {"a": "(3, 3)", "b": "True", "c": "2", "d": "none", "e": "relu",
            "f": 1.5}
     assert tregistry.coerce_kwargs(raw) == jregistry.coerce_kwargs(raw)

@@ -1,6 +1,6 @@
-"""The port's training path (mxnet_tpu_torch.parallel.ShardedTrainer,
-optimizer, gluon.loss, TransformerLM.forward) against the JAX package, on
-the CPU.
+"""The port's training path (mxnet_tpu_torch.parallel.ShardedTrainer on
+the Gluon TransformerLM, optimizer, gluon.loss) against the JAX package,
+on the CPU.
 
 Inputs come from numpy seeds and go to both packages; the LM's weights
 are the reference's own, carried across with ``from_numpy_params``. In
@@ -22,13 +22,15 @@ from mxnet_tpu import parallel as jpar
 from mxnet_tpu.models import transformer as jt
 from mxnet_tpu.optimizer import create as jcreate
 from mxnet_tpu.optimizer.fused import lower_update as jlower
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.models import transformer as tt
 from mxnet_tpu_torch.ops import flash_attention as tfa
 from mxnet_tpu_torch.optimizer import create as tcreate
 from mxnet_tpu_torch.optimizer.fused import lower_update as tlower
-from mxnet_tpu_torch.parallel import ShardedTrainer
+from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
 
 torch.set_num_threads(1)
 
@@ -79,9 +81,17 @@ def _port_run(opt, opt_params, steps, x, **kw):
     lm = _port_lm(_ref_net())
     tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer=opt,
                         optimizer_params=dict(opt_params), **kw)
-    losses = [float(tr.step(x, x)) for _ in range(steps)]
+    losses = [float(tr.step(x, x).asnumpy()) for _ in range(steps)]
     tr.sync_to_net()
     return losses, _flat(tt.decode_params(lm)), tr
+
+
+def _small_lm(seed):
+    """A seeded port LM of the SMALL config, on the CPU."""
+    tmx.random.seed(seed)
+    lm = tt.transformer_lm(**SMALL)
+    lm.initialize(ctx=tmx.cpu())
+    return lm
 
 
 # ---------------------------------------------------------------------------
@@ -210,15 +220,14 @@ def test_training_forward_matches_reference(impl, monkeypatch):
     x = _batch(5)
     want = net(nd.array(x)).asnumpy()
     before = tfa.flash_attention_fwd.launches
-    with torch.no_grad():
-        got = lm(torch.from_numpy(x))
-        prefill, _k, _v = tt.lm_prefill(tt.decode_config(lm),
-                                        tt.decode_params(lm),
-                                        torch.from_numpy(x))
+    with tmx.cpu():
+        got = lm(tnd.array(x)).asnumpy()
+    prefill, _k, _v = tt.lm_prefill(tt.decode_config(lm),
+                                    tt.decode_params(lm),
+                                    torch.from_numpy(x))
     assert tfa.flash_attention_fwd.launches == before  # CPU: plain version
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got.numpy(), prefill.numpy(), rtol=1e-5,
-                               atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, prefill.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -307,30 +316,33 @@ def test_grad_accum_matches_reference(monkeypatch):
 
 
 def test_grad_accum_rejects_indivisible_batch():
-    lm = tt.TransformerLMModule(device="cpu", seed=1, **SMALL)
+    lm = _small_lm(1)
     tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), grad_accum=3)
     with pytest.raises(ValueError, match="does not divide"):
         tr.step(_batch(11, batch=4), _batch(11, batch=4))
 
 
 def test_net_changes_only_at_sync_to_net():
-    lm = tt.TransformerLMModule(device="cpu", seed=2, **SMALL)
-    before = {n: p.detach().clone() for n, p in lm.named_parameters()}
+    lm = _small_lm(2)
+    params = {p.name: p for p in lm.collect_params().values()}
+    before = {n: p.data()._data.detach().clone() for n, p in params.items()}
     tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer="adam",
                         optimizer_params={"learning_rate": 1e-2})
     x = _batch(12)
     for _ in range(2):
         loss = tr.step(x, x)
-    assert loss.dim() == 0 and loss.device.type == "cpu"
-    for n, p in lm.named_parameters():
-        torch.testing.assert_close(p.detach(), before[n], rtol=0, atol=0)
+    assert loss.shape == () and loss.context == tmx.cpu()
+    for n, p in params.items():
+        torch.testing.assert_close(p.data()._data.detach(), before[n],
+                                   rtol=0, atol=0)
     tr.sync_to_net()
-    changed = [n for n, p in lm.named_parameters()
-               if not torch.equal(p.detach(), before[n])]
-    assert "embed" in changed and len(changed) > len(before) // 2
-    for n, p in lm.named_parameters():
-        torch.testing.assert_close(p.detach(), tr.param_vals[n], rtol=0,
-                                   atol=0)
+    changed = [n for n, p in params.items()
+               if not torch.equal(p.data()._data.detach(), before[n])]
+    assert lm.word_embed.weight.name in changed
+    assert len(changed) > len(before) // 2
+    for n, p in params.items():
+        torch.testing.assert_close(p.data()._data.detach(), tr.param_vals[n],
+                                   rtol=0, atol=0)
 
 
 def test_preprocess_runs_on_inputs_only():
@@ -338,15 +350,15 @@ def test_preprocess_runs_on_inputs_only():
     x = _batch(13)
     runs = []
     for pre, data in ((None, x), (lambda t: t % vocab, x + vocab)):
-        lm = tt.TransformerLMModule(device="cpu", seed=3, **SMALL)
+        lm = _small_lm(3)
         tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), preprocess=pre,
                             optimizer_params={"learning_rate": 0.1})
-        runs.append([float(tr.step(data, x)) for _ in range(2)])
+        runs.append([float(tr.step(data, x).asnumpy()) for _ in range(2)])
     np.testing.assert_allclose(runs[1], runs[0], rtol=0, atol=0)
 
 
 def test_trainer_settings_and_rejections():
-    lm = tt.TransformerLMModule(device="cpu", seed=4, **SMALL)
+    lm = _small_lm(4)
     loss = SoftmaxCrossEntropyLoss()
     tr = ShardedTrainer(lm, loss, optimizer_params={"lr": 0.3})
     assert tr.learning_rate == 0.3
@@ -355,24 +367,36 @@ def test_trainer_settings_and_rejections():
     tr.block_until_ready()
     with pytest.raises(ValueError, match="not in"):
         ShardedTrainer(lm, loss, optimizer="lamb")
-    with pytest.raises(MXNetError, match="mesh must be None"):
-        ShardedTrainer(lm, loss, jpar.make_mesh({"dp": 1},
-                                                devices=jax.devices()[:1]))
-    with pytest.raises(MXNetError, match="input_specs must be None"):
-        ShardedTrainer(lm, loss, input_specs=("dp",))
+    # the reference's mesh and specs are taken on one device; two devices
+    # are a later slice (queue item A14)
+    with tmx.cpu():
+        mesh = make_mesh({"dp": 1})
+    tr = ShardedTrainer(lm, loss, mesh, input_specs=("dp",),
+                        label_specs=("dp",))
+    assert tr.device == torch.device("cpu")
+    with pytest.raises(MXNetError, match="A14"):
+        make_mesh({"dp": 2}, devices=[torch.device("cpu")] * 2)
     with pytest.raises(ValueError, match="grad_accum"):
         ShardedTrainer(lm, loss, grad_accum=0)
 
 
 def test_value_and_grad_matches_autograd():
-    """The step's gradients are those of the loss of the net's forward."""
-    lm = tt.TransformerLMModule(device="cpu", seed=5, **SMALL)
-    x = torch.from_numpy(_batch(14)).long()
+    """The step's gradients are those of the loss of the net's forward,
+    recorded by autograd: the eager Gluon path on the same net."""
+    from mxnet_tpu_torch import autograd
+
+    lm = _small_lm(5)
+    x = _batch(14)
     loss_fn = SoftmaxCrossEntropyLoss()
     tr = ShardedTrainer(lm, loss_fn)
-    loss, grads = tr.value_and_grad(x, x)
-    want = loss_fn(lm(x), x).mean()
-    want.backward()
-    assert abs(float(loss) - float(want.detach())) < 1e-6
-    for n, p in lm.named_parameters():
-        torch.testing.assert_close(grads[n], p.grad, rtol=1e-5, atol=1e-6)
+    loss, grads, aux = tr.value_and_grad(x, x)
+    assert aux == {}
+    with tmx.cpu():
+        xt = tnd.array(x)
+        with autograd.record():
+            want = loss_fn(lm(xt), xt).mean()
+        want.backward()
+    assert abs(float(loss) - float(want.asnumpy())) < 1e-6
+    for p in lm.collect_params().values():
+        torch.testing.assert_close(grads[p.name], p.grad()._data,
+                                   rtol=1e-5, atol=1e-6)

@@ -11,7 +11,9 @@ import torch
 import mxnet_tpu as mx
 from mxnet_tpu import nd
 from mxnet_tpu.models import transformer as jt
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.models import transformer as tt
 
 # tiny shapes need no intra-op threads; the suite runs test files in
@@ -93,9 +95,9 @@ def test_forward_matches_gluon_forward(ref_lm, carried):
     _cfg, _params, lm = carried
     toks = np.random.RandomState(2).randint(1, 97, size=(2, 8))
     want = ref_lm(nd.array(toks)).asnumpy()
-    with torch.no_grad():
-        got = lm(torch.from_numpy(toks))
-    _close(got.numpy(), want)
+    with tmx.cpu():
+        got = lm(tnd.array(toks)).asnumpy()
+    _close(got, want)
 
 
 def test_sample_token_greedy_and_temperature():
@@ -135,11 +137,17 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists: the default is valid here")
     with pytest.raises(MXNetError, match="no CUDA device"):
-        tt.TransformerLMModule(**SMALL)
+        tt.transformer_lm(**SMALL).initialize()
     from mxnet_tpu_torch.context import default_device
     with pytest.raises(MXNetError):
         default_device()
-    assert tt.TransformerLMModule(device="cpu", **SMALL).device.type == "cpu"
+    cfg = {"vocab": 97, "units": 32, "heads": 4, "head_dim": 8,
+           "layers": 2, "max_length": 64}
+    params = _random_params(cfg, 64, seed=4)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        tt.from_numpy_params(cfg, params)
+    lm = tt.from_numpy_params(cfg, params, device="cpu")
+    assert lm.word_embed.weight.data()._data.device.type == "cpu"
 
 
 def _random_params(cfg, hidden, seed):
