@@ -84,7 +84,19 @@ H100): ``python3 chip_smoke.py``. It
    launch); then one step of ``bert_base(dropout=0.1)`` (finite loss)
    whose predict-mode forward equals the dropout-free net's; seq/s,
    tokens/s, model TFLOP/s (``bench.py::_bert_train_flops``) and MFU;
-11. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+11. drives the symbolic path (``module_path``), MXNet 1.x's classic
+   trainer: the same LM traced to a Symbol over ``sym.var("data",
+   shape=(4, 2048))`` under ``SoftmaxOutput``, trained by ``Module``
+   (Adam, lr 1e-4, f32) on the card: the first step's loss and every
+   gradient / (B*S) against the plain-tensor oracle (the nd path's
+   limits), 1 warmup and 3 timed steps with falling finite losses, 12
+   flash launches a step each way, one profiled step, ``save_params`` of
+   the whole net and ``load_params`` into a second Module (bitwise-equal
+   forward), one ``Module.fit`` epoch of 2 batches (``eval_metric="ce"``);
+   then ResNet-50 v1 traced the same way through Module (SGD, batch 32 x
+   3 x 224 x 224): its first step's gradients and the moving statistics
+   the Executor folds against the eager Gluon path's, and images/s;
+12. prints each phase's wall time (``timing``), the ``kernels`` JSON line
    and, last, the ``ok`` line.
 
 Between 3 and 4 it also holds the flash kernels against their plain
@@ -1651,6 +1663,330 @@ def phase_bert_path(torch, dev, smi):
                           fwd_err, "tolerance": 1e-6}})
 
 
+MODULE_WARMUP, MODULE_STEPS = 1, 3    # LM forward_backward + update steps
+MODULE_FIT_BATCHES = 2                  # one Module.fit epoch of the LM
+MODULE_LR = 1e-4
+MODULE_ZOO_BATCH, MODULE_ZOO_STEPS = 32, 3
+MODULE_LM_KW = {}                       # transformer_lm() at its defaults
+MODULE_ZOO_MODEL = "resnet50_v1"
+
+
+def _module_step(torch, mod, batch):
+    """One Module training step: forward_backward, update; returns the
+    mean cross-entropy of the batch from SoftmaxOutput's probabilities
+    (one host read)."""
+    mod.forward_backward(batch)
+    mod.update()
+    probs = mod.get_outputs()[0].astorch()
+    lab = batch.label[0].astorch().reshape(-1).long()
+    return float(-torch.log(probs.gather(1, lab[:, None])).mean())
+
+
+def phase_module_path(torch, dev, smi):
+    """The symbolic path, MXNet 1.x's classic trainer, at full width.
+
+    LM leg: ``transformer_lm()`` (seed GLUON_SEED) traced to a Symbol over
+    ``sym.var("data", shape=(4, 2048))``, ``SoftmaxOutput`` over the
+    logits and labels reshaped to (B*S, V) and (B*S,) (default
+    normalization), ``Module(..., context=mx.gpu(0))``, ``bind``,
+    ``init_params(arg_params=)`` from the Gluon net's own parameters (the
+    symbol's argument names are the Gluon names), ``init_optimizer("adam",
+    lr 1e-4)`` (rescale 1/batch). The first step's loss and every
+    ``grad_dict[name] / (B*S)`` against the plain-tensor oracle at the nd
+    and Gluon paths' limits; MODULE_WARMUP + MODULE_STEPS steps with
+    finite, falling losses; one profiled step; ``save_params`` of the
+    whole net and ``load_params`` into a second Module, whose forward on a
+    fixed batch is bitwise the first's; one ``Module.fit`` epoch of
+    MODULE_FIT_BATCHES batches from an ``NDArrayIter`` with
+    ``eval_metric="ce"``. The flash kernels launch 12 times each way per
+    training step (forward only for the two predict forwards).
+
+    ResNet leg: ``get_model("resnet50_v1", classes=1000)`` traced the same
+    way, ``SoftmaxOutput``, Module with SGD (lr 0.1, momentum 0.9, wd
+    1e-4), batch 32 x 3 x 224 x 224: the first step's gradients / B and
+    the moving statistics the Executor folds against the eager Gluon
+    path's first step on the same net and batch (``_eager_first_step``),
+    then MODULE_ZOO_STEPS timed steps after one warmup (finite losses,
+    images/s) and one profiled step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.io import DataBatch, NDArrayIter
+    from mxnet_tpu_torch.models.transformer import (decode_config,
+                                                    decode_params,
+                                                    gluon_parameters,
+                                                    transformer_lm)
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from mxnet_tpu_torch.tools import nd_lm
+
+    os.environ.pop("MXNET_ATTENTION_IMPL", None)  # the auto policy
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    mx.random.seed(GLUON_SEED)
+    net = transformer_lm(**MODULE_LM_KW)
+    net.initialize()  # on the default context, cuda:0
+    cfg = decode_config(net)
+    seq, batch, vocab = cfg["max_length"], TRAIN_BATCH, cfg["vocab"]
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, vocab, (batch, seq))
+    ref_loss, ref_grads = _oracle_loss_and_grads(
+        torch, cfg, decode_params(net), torch.from_numpy(tokens).to(dev))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with mx.name.NameManager():
+        logits = net(sym.var("data", shape=(batch, seq)))
+        label = sym.var("softmax_label", shape=(batch, seq))
+        out = sym.SoftmaxOutput(logits.reshape((-1, vocab)),
+                                label.reshape((-1,)), name="softmax")
+    trace_s = time.perf_counter() - t0
+    args = out.list_arguments()
+    names = [p.name for p in net.collect_params().values()]
+    check(args == ["data"] + names + ["softmax_label"],
+          "the traced LM's arguments are not data, the Gluon names, label")
+    ops = sorted({n._op for n in out._topo() if n._op})
+    check("_invoke_fn" in ops, f"no attention node in the traced LM: {ops}")
+    arg_params = {p.name: p.data() for p in net.collect_params().values()}
+    pname_of = {n: p.name for n, p in
+                nd_lm.flat_params(gluon_parameters(net))}
+    n_params = _n_params(net)
+    net_hidden = net.encoder.cells[0].ffn.ffn_1._units
+
+    ctx = mx.Context(dev)  # gpu(0)
+    t0 = time.perf_counter()
+    mod = Module(out, context=ctx)
+    mod.bind(data_shapes=[("data", (batch, seq))],
+             label_shapes=[("softmax_label", (batch, seq))])
+    mod.init_params(arg_params=arg_params)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": MODULE_LR})
+    bind_s = time.perf_counter() - t0
+    check(mod._exec.arg_dict["data"].context == mx.gpu(0),
+          "the Module's arrays are not on cuda:0")
+    x = nd.array(tokens.astype(np.float32))
+    lm_batch = DataBatch([x], [x])
+    del net, arg_params
+    torch.cuda.empty_cache()
+
+    losses, times = [], []
+    passes = {"fwd": 0, "bwd": 0}
+    agreement = None
+    for i in range(1 + MODULE_WARMUP + MODULE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:  # the first step, checked before its update
+            mod.forward_backward(lm_batch)
+            probs = mod.get_outputs()[0].astorch()
+            lab = torch.from_numpy(tokens).to(dev).reshape(-1, 1)
+            loss = float(-torch.log(probs.gather(1, lab)).mean())
+            del probs
+            err = {}
+            for name, want in ref_grads.items():
+                g = mod._exec.grad_dict[pname_of[name]].astorch() / (
+                    batch * seq)
+                err[name] = float((g - want).abs().max()
+                                  / want.abs().max().clamp_min(1e-30))
+            worst = max(err, key=err.get)
+            agreement = {"loss_module": loss, "loss_oracle": ref_loss,
+                         "loss_rel_diff": abs(loss - ref_loss) / ref_loss,
+                         "grad_err_of_max_worst": err[worst],
+                         "worst_param": worst,
+                         "grad_scale": f"grad_dict / (B*S) = 1/{batch * seq}",
+                         "tolerance": {"grad_of_max": ND_GRAD_TOL,
+                                       "loss_rel": ND_LOSS_TOL}}
+            check(agreement["loss_rel_diff"] <= ND_LOSS_TOL,
+                  f"module LM loss {loss} vs the oracle's {ref_loss}")
+            check(err[worst] <= ND_GRAD_TOL,
+                  f"module LM gradient {worst} err {err[worst]} of its max")
+            mod.update()
+        else:
+            loss = _module_step(torch, mod, lm_batch)
+        torch.cuda.synchronize()
+        passes["fwd"] += 1
+        passes["bwd"] += 1
+        losses.append(loss)
+        if i > MODULE_WARMUP:
+            times.append(1e3 * (time.perf_counter() - t0))
+    del ref_grads
+    check(all(math.isfinite(v) for v in losses), f"module losses {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"module LM losses do not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof_ms, idle, device_ms = _device_profile(
+        torch, lambda: _module_step(torch, mod, lm_batch))
+    passes["fwd"] += 1
+    passes["bwd"] += 1
+
+    # save_params / load_params: a second Module on the same symbol gives a
+    # bitwise-equal forward on a fixed batch
+    params_path = os.path.join(_out_dir(), "module_lm.params")
+    t0 = time.perf_counter()
+    mod.save_params(params_path)
+    save_s = time.perf_counter() - t0
+    params_mb = os.path.getsize(params_path) / 2 ** 20
+    mod2 = Module(out, context=ctx)
+    mod2.bind(data_shapes=[("data", (batch, seq))],
+              label_shapes=[("softmax_label", (batch, seq))],
+              for_training=False)
+    t0 = time.perf_counter()
+    mod2.load_params(params_path)
+    load_s = time.perf_counter() - t0
+    os.remove(params_path)
+    fixed = nd.array(np.random.RandomState(5).randint(
+        0, vocab, (batch, seq)).astype(np.float32))
+    fixed_batch = DataBatch([fixed], [fixed])
+    mod.forward(fixed_batch, is_train=False)
+    a = mod.get_outputs()[0].astorch().clone()
+    mod2.forward(fixed_batch, is_train=False)
+    b = mod2.get_outputs()[0].astorch()
+    bitwise = bool(torch.equal(a, b))
+    check(bitwise, "the reloaded Module's forward differs from the saved "
+          "Module's")
+    passes["fwd"] += 2
+    del a, b, mod2
+    torch.cuda.empty_cache()
+
+    # one Module.fit epoch from an NDArrayIter
+    fit_x = np.random.RandomState(6).randint(
+        0, vocab, (MODULE_FIT_BATCHES * batch, seq)).astype(np.float32)
+    it = NDArrayIter(fit_x, fit_x, batch_size=batch)
+    seen = []
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric="ce", optimizer="adam",
+            optimizer_params={"learning_rate": MODULE_LR},
+            batch_end_callback=lambda p: seen.append(
+                float(p.eval_metric.get_name_value()[0][1])))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(len(seen) == MODULE_FIT_BATCHES and
+          all(math.isfinite(v) for v in seen),
+          f"Module.fit ran {len(seen)} batches, metric {seen}")
+    passes["fwd"] += MODULE_FIT_BATCHES
+    passes["bwd"] += MODULE_FIT_BATCHES
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    want = {"flash_attention_fwd": cfg["layers"] * passes["fwd"],
+            "flash_attention_bwd": cfg["layers"] * passes["bwd"]}
+    check(launches == want, f"module flash launches {launches}, want "
+          f"{want} = {cfg['layers']} layers x {passes}")
+    med = float(np.median(times))
+    hidden = net_hidden
+    flops = _lm_train_flops(cfg["layers"], cfg["units"], hidden, vocab, seq,
+                            batch)
+    lm = {"model": "transformer_lm", "params": n_params,
+          "batch": batch, "seq": seq, "optimizer": "adam",
+          "lr": MODULE_LR, "rescale_grad": f"1/{batch}", "dtype": "float32",
+          "output": "SoftmaxOutput(reshape(logits, (-1, V)), "
+                    "reshape(label, (-1,)))",
+          "ops": ops, "trace_s": trace_s, "bind_init_s": bind_s,
+          "agreement": agreement, "losses": losses,
+          "step_ms_median": med, "step_ms_all": times,
+          "tokens_per_s": batch * seq / med * 1e3,
+          "model_tflops": flops / med / 1e9,
+          "peak_mem_gb": peak_gb, "profiled_step_ms": prof_ms,
+          "device_idle_share": idle, "device_ms_by_class": device_ms,
+          "params_file_mb": params_mb, "save_params_s": save_s,
+          "load_params_s": load_s, "reload_forward_bitwise": bitwise,
+          "fit": {"batches": MODULE_FIT_BATCHES, "eval_metric": "ce",
+                  "metric_by_batch": seen, "wall_s": fit_s},
+          "passes": passes, "flash_launches": launches}
+    del mod, out, lm_batch, x, fixed_batch, fixed, it
+    torch.cuda.empty_cache()
+    emit({"phase": "module_path", "leg": "lm", "card": smi, **lm})
+
+    # ResNet-50 v1 traced, through Module with SGD
+    mx.random.seed(0)
+    net = get_model(MODULE_ZOO_MODEL, classes=1000)
+    net.initialize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    zb = MODULE_ZOO_BATCH
+    xs = rng.rand(zb, 3, ZOO_SIZE, ZOO_SIZE).astype(np.float32)
+    ys = rng.randint(0, 1000, zb)
+    x, y = nd.array(xs), nd.array(ys.astype(np.int32))
+    net(x)  # resolve deferred shapes
+    torch.backends.cudnn.deterministic = True  # as zoo_path's comparison
+    try:
+        want_loss, want_grads, want_stats = _eager_first_step(
+            autograd, net, loss_fn, x, y)
+        with mx.name.NameManager():
+            zout = sym.SoftmaxOutput(
+                net(sym.var("data", shape=xs.shape)),
+                sym.var("softmax_label", shape=(zb,)), name="softmax")
+        params = list(net.collect_params().values())
+        zmod = Module(zout, context=ctx)
+        zmod.bind(data_shapes=[("data", xs.shape)],
+                  label_shapes=[("softmax_label", (zb,))])
+        check(sorted(zmod._aux_names) == sorted(want_stats),
+              "the traced ResNet's auxiliary states are not its running "
+              "statistics")
+        zmod.init_params(
+            arg_params={p.name: p.data() for p in params
+                        if p.grad_req != "null"},
+            aux_params={p.name: p.data() for p in params
+                        if p.grad_req == "null"})
+        zmod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+        zbatch = DataBatch([x], [nd.array(ys.astype(np.float32))])
+        zmod.forward_backward(zbatch)
+        probs = zmod.get_outputs()[0].astorch()
+        zloss = float(-torch.log(probs.gather(
+            1, torch.from_numpy(ys).to(dev)[:, None])).mean())
+        grads = {n: zmod._exec.grad_dict[n].astorch() / zb
+                 for n in zmod._param_names}
+        zagree = _agreement("module zoo f32", zloss, grads, want_loss,
+                            want_grads)
+        stat_err = max(float((zmod._exec.aux_dict[n].astorch() - v).abs()
+                             .max() / v.abs().max().clamp_min(1e-30))
+                       for n, v in want_stats.items())
+        check(stat_err <= ND_GRAD_TOL, f"module zoo: moving statistics "
+              f"after step 1 differ from the eager path's: {stat_err}")
+        zmod.update()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del grads, want_grads, probs, net
+    zlosses, ztimes = [zloss], []
+    for i in range(MODULE_WARMUP + MODULE_ZOO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zlosses.append(_module_step(torch, zmod, zbatch))
+        torch.cuda.synchronize()
+        if i >= MODULE_WARMUP:
+            ztimes.append(1e3 * (time.perf_counter() - t0))
+    # finite only: at lr 0.1 ResNet's loss climbs for its first steps
+    # before it falls (zoo_path's 31 steps show the fall)
+    check(all(math.isfinite(v) for v in zlosses),
+          f"module zoo losses {zlosses}")
+    zprof_ms, zidle, zdevice_ms = _device_profile(
+        torch, lambda: _module_step(torch, zmod, zbatch))
+    zmed = float(np.median(ztimes))
+    emit({"phase": "module_path", "leg": "resnet", "card": smi,
+          "model": MODULE_ZOO_MODEL, "batch": zb, "image_size": ZOO_SIZE,
+          "optimizer": "sgd", "agreement_f32": zagree,
+          "moving_stats_err_of_max": stat_err, "losses": zlosses,
+          "step_ms_median": zmed, "step_ms_all": ztimes,
+          "images_per_s": zb / zmed * 1e3, "profiled_step_ms": zprof_ms,
+          "device_idle_share": zidle, "device_ms_by_class": zdevice_ms})
+    del zmod, zbatch
+    torch.cuda.empty_cache()
+    check(flash_attention_fwd.launches == launches["flash_attention_fwd"],
+          "the module ResNet leg launched flash attention")
+    return launches
+
+
+def _out_dir():
+    """``chiprun_out/`` beside this script (made if missing): what a run
+    writes that is too large for its output."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "chiprun_out")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
 _ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
 
@@ -1696,10 +2032,12 @@ def main() -> int:
     gluon_launches, gluon_decode = run(phase_gluon_path, torch, dev, smi)
     run(phase_zoo_path, torch, dev, smi)
     run(phase_bert_path, torch, dev, smi)
+    module_launches = run(phase_module_path, torch, dev, smi)
     emit({"phase": "timing", "phase_wall_s": walls,
           "total_wall_s": time.perf_counter() - t_start})
     flash_launches = {k: train_launches[k] + nd_launches[k]
-                      + gluon_launches[k] for k in train_launches}
+                      + gluon_launches[k] + module_launches[k]
+                      for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
@@ -1709,10 +2047,10 @@ def main() -> int:
                       serve_launches + gluon_decode, kern,
                       design=PAGED_DESIGN,
                       chunk=kern["chunk"]),
-        # launches: the training path's (bf16), the nd path's and the
-        # gluon path's (f32 and bf16); the main fields are the bf16
-        # kernels', the f32_* fields the FFMA kernels' (the default dtype
-        # of the nd and gluon paths)
+        # launches: the training path's (bf16), the nd path's, the gluon
+        # path's (f32 and bf16) and the module path's (f32); the main
+        # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
+        # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",
                       "mxnet_tpu/ops/flash_attention.py:143",
                       flash_launches["flash_attention_fwd"],

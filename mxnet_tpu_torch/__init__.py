@@ -41,6 +41,21 @@ and trains it imperatively, the reference's way, and as a Gluon block:
        attention (models/transformer.py MultiHeadAttention)
     -> optimizer.Updater.update_batch -> optimizer.fused (multi-tensor)
 
+and trains it symbolically, the reference's classic way:
+
+    data = mx.sym.var("data", shape=(B, S)); logits = net(data)
+    out = mx.sym.SoftmaxOutput(logits.reshape((-1, V)), ...)
+    mod = mx.mod.Module(out, context=mx.gpu(0)); mod.bind(...)
+    mod.init_params(arg_params=...); mod.init_optimizer("adam", ...)
+    mod.forward_backward(batch); mod.update()   (or mod.fit(NDArrayIter))
+    -> gluon.HybridBlock traced to a symbol.Symbol (the same op names;
+       attention an invoke_fn node) -> executor.Executor: the graph as
+       one function of its argument tensors on the torch.autograd tape
+       -> the registered ops and the flash kernels
+    -> optimizer.Updater.update_batch; checkpoints through
+       ndarray.serialization (.params, the reference's bytes) and
+       checkpoint.CheckpointManager
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``ctx=mx.cpu()``, ``with mx.cpu():`` for ``nd``); with no card and no
 explicit CPU request they raise (``context.py``).
@@ -61,14 +76,17 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from .base import MXNetError, get_env  # noqa: E402,F401
+from .base import GraphAnalysisError, MXNetError, get_env  # noqa: E402,F401
 from .context import (Context, cpu, current_context,  # noqa: E402,F401
                       default_device, gpu)
 
-_SUBMODULES = ("amp", "autograd", "gluon", "initializer", "models",
-               "ndarray", "ops", "optimizer", "parallel", "random", "serve")
+_SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
+               "checkpoint", "executor", "gluon", "initializer", "io",
+               "metric", "model", "models", "module", "name", "ndarray",
+               "ops", "optimizer", "parallel", "random", "serve", "symbol")
 # the reference's short names
-_ALIASES = {"nd": "ndarray", "init": "initializer"}
+_ALIASES = {"nd": "ndarray", "init": "initializer", "sym": "symbol",
+            "mod": "module"}
 
 
 def __getattr__(name):

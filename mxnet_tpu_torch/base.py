@@ -9,8 +9,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "get_env", "mx_real_t", "dtype_np", "dtype_name",
-           "dtype_torch"]
+__all__ = ["MXNetError", "GraphAnalysisError", "get_env", "mx_real_t",
+           "dtype_np", "dtype_name", "dtype_torch"]
 
 mx_real_t = np.float32  # the default real type, as the reference's
 
@@ -25,6 +25,20 @@ _NAME_OF = {v: k for k, v in _BY_NAME.items()}
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (parity with reference ``MXNetError``)."""
+
+
+class GraphAnalysisError(MXNetError, ValueError):
+    """Shape or type inference failure naming where the graph broke:
+    ``node``, ``op``, ``rule_id`` and the node's ``input_shapes``. A
+    ValueError as well, as the reference's."""
+
+    def __init__(self, message, node=None, op=None, rule_id=None,
+                 input_shapes=None):
+        super().__init__(message)
+        self.node = node
+        self.op = op
+        self.rule_id = rule_id
+        self.input_shapes = input_shapes
 
 
 def get_env(name: str, default=None, typ=str):

@@ -20,10 +20,16 @@ reference's program. Parameters that the forward rebinds (aux state) are
 written back after the call. A first call with deferred shapes runs
 eagerly, and ``hybridize()`` drops the cache.
 
-The symbolic side waits for the symbolic API (queue item A10):
-``SymbolBlock``, ``export``, ``optimize_for`` and ``load_stablehlo``
-raise, and so does calling a block on anything but arrays; ``lint``
-waits for the analysis plane (A15).
+Called on Symbols, a block traces itself (``hybrid_forward`` with
+``F = symbol``): its parameters become Variables named as they are, with
+their shapes as hints, and parameters that take no gradient (BatchNorm's
+running statistics) become auxiliary states that a bound ``Executor``
+folds in training, as the eager layer does (the reference's trace leaves
+them plain arguments). ``export`` writes the ``.params`` file and the
+traced graph; ``SymbolBlock``/``imports`` run a graph as a block.
+``export(format="onnx")`` waits for the ONNX exporter (queue item A12),
+``optimize_for`` for the subgraph backends (A10(c)), ``lint`` for the
+analysis plane (A15); ``load_stablehlo`` raises by design.
 """
 from __future__ import annotations
 
@@ -42,10 +48,6 @@ from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "CachedOp",
            "load_stablehlo"]
-
-_SYMBOLIC = ("the symbolic API (Symbol, SymbolBlock, export; queue item "
-             "A10) is not ported yet")
-
 
 class _BlockScope(threading.local):
     def __init__(self):
@@ -194,14 +196,54 @@ class Block:
         return ret
 
     def save_parameters(self, filename, deduplicate=False):
-        raise MXNetError("Block.save_parameters: the reference's .params "
-                         "file format (queue item A10) is not ported yet")
+        """Write the initialized parameters to ``filename`` in the
+        reference's ``.params`` container, keyed by structural name.
+        ``deduplicate`` writes a parameter shared by several names once,
+        under its first name."""
+        from ..ndarray import save as nd_save
+
+        params = self._collect_params_with_prefix()
+        out, seen = {}, set()
+        for k, p in params.items():
+            if p._data is None or (deduplicate and id(p) in seen):
+                continue
+            seen.add(id(p))
+            out[k] = p.data()
+        nd_save(filename, out)
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False, cast_dtype=False,
                         dtype_source="current"):
-        raise MXNetError("Block.load_parameters: the reference's .params "
-                         "file format (queue item A10) is not ported yet")
+        """Load ``filename`` (structural names; a file keyed by parameter
+        names, the older format, is matched by those). A parameter shared
+        by several names needs only one of them in the file. Missing
+        parameters raise ``KeyError`` unless ``allow_missing``, extra
+        ones unless ``ignore_extra``. Values are cast to each parameter's
+        dtype, or, with ``cast_dtype`` and ``dtype_source="saved"``, the
+        parameter takes the saved dtype. Uninitialized parameters land on
+        ``ctx`` (default: the current context)."""
+        from ..ndarray import load as nd_load
+
+        loaded = nd_load(filename, ctx=ctx)
+        mine = self._collect_params_with_prefix()
+        if loaded and mine and not any(k in mine for k in loaded):
+            mine = {p.name: p for p in self._iter_params()}
+        names_of = {}
+        for name, p in mine.items():
+            names_of.setdefault(id(p), []).append(name)
+        for name, param in mine.items():
+            src = next((n for n in names_of[id(param)] if n in loaded),
+                       None)
+            if src is not None:
+                param._load_init(loaded[src], ctx, cast_dtype=cast_dtype,
+                                 dtype_source=dtype_source)
+            elif not allow_missing:
+                raise KeyError(f"Parameter {name} missing in {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(mine)
+            if extra:
+                raise KeyError(f"{filename} contains extra parameters "
+                               f"{sorted(extra)}")
 
     # -- call ------------------------------------------------------------
     def register_forward_hook(self, hook):
@@ -279,7 +321,9 @@ class HybridBlock(Block):
         return {attr: p.data() for attr, p in self._reg_params.items()}
 
     def forward(self, x, *args, **kwargs):
-        if not isinstance(x, NDArray):
+        from ..symbol.symbol import Symbol
+
+        if isinstance(x, Symbol):
             return self._forward_symbolic(x, *args, **kwargs)
         self._ensure_init(x, *args)
         if self._active and not _IN_CACHED_OP.active:
@@ -293,7 +337,19 @@ class HybridBlock(Block):
         return self._forward_eager(x, *args, **kwargs)
 
     def _forward_symbolic(self, x, *args, **kwargs):
-        raise MXNetError(f"HybridBlock._forward_symbolic: {_SYMBOLIC}")
+        from .. import symbol as sym_mod
+
+        def as_var(p):
+            # a fully known shape anchors the shape engine, so that
+            # shape-reading forwards (b, s, u = x.shape) trace
+            attrs = {"__aux__": True} if p.grad_req == "null" else {}
+            shape = getattr(p, "shape", None)
+            if shape and all(int(d) > 0 for d in shape):
+                return sym_mod.Variable(p.name, shape=tuple(shape), **attrs)
+            return sym_mod.Variable(p.name, **attrs)
+
+        params = {attr: as_var(p) for attr, p in self._reg_params.items()}
+        return self.hybrid_forward(sym_mod, x, *args, **params, **kwargs)
 
     def _forward_eager(self, x, *args, **kwargs):
         from .. import ndarray as nd_mod
@@ -321,10 +377,53 @@ class HybridBlock(Block):
                          "A15) is not ported yet")
 
     def export(self, path, epoch=0, format="json", example_inputs=None):
-        raise MXNetError(f"HybridBlock.export: {_SYMBOLIC}")
+        """Save for deployment: ``{path}-{epoch:04d}.params`` and
+        ``{path}-symbol.json``, the reference's descriptor (format, class,
+        the traced graph's JSON and the saved-name to variable-name map;
+        a block that does not trace symbolically exports its parameters
+        alone). ``format="onnx"`` waits for the ONNX exporter (queue item
+        A12); ``"stablehlo"`` is the reference's JAX artifact and raises
+        by design."""
+        import json
+
+        if format == "onnx":
+            raise MXNetError("HybridBlock.export(format='onnx'): the ONNX "
+                             "exporter (contrib/onnx.py, queue item A12) "
+                             "is not ported yet")
+        if format != "json":
+            raise MXNetError(f"HybridBlock.export: format {format!r} is "
+                             "not the port's (json)")
+        if example_inputs is not None and \
+                not isinstance(example_inputs, (list, tuple)):
+            example_inputs = (example_inputs,)
+        self.save_parameters(f"{path}-{epoch:04d}.params")
+        meta = {"format": "mxnet_tpu-hybrid",
+                "class": self.__class__.__name__}
+        try:
+            from .. import symbol as sym_mod
+
+            n_inputs = len(example_inputs) if example_inputs is not None \
+                else 1
+            data_syms = [sym_mod.Variable(f"data{i}" if i else "data")
+                         for i in range(n_inputs)]
+            traced = self(*data_syms)
+            if isinstance(traced, (list, tuple)):
+                traced = sym_mod.Group(list(traced))
+            meta["symbol"] = traced.tojson()
+            meta["param_map"] = {
+                saved: p.name for saved, p in
+                self._collect_params_with_prefix().items()}
+        except Exception:  # noqa: BLE001 — a non-F-generic forward
+            pass
+        from ..checkpoint.atomic import atomic_write_bytes
+
+        atomic_write_bytes(f"{path}-symbol.json",
+                           json.dumps(meta).encode("utf-8"))
 
     def optimize_for(self, *args, **kwargs):
-        raise MXNetError(f"HybridBlock.optimize_for: {_SYMBOLIC}")
+        raise MXNetError("HybridBlock.optimize_for: the subgraph backends "
+                         "(subgraph.py, queue item A10(c)) are not ported "
+                         "yet")
 
 
 class CachedOp:
@@ -421,17 +520,99 @@ def run_bound(params, values, forward):
 
 
 class SymbolBlock(HybridBlock):
-    """Runs a Symbol graph as a block: waits for the symbolic API."""
+    """Run a Symbol graph as a Gluon block (reference SymbolBlock): free
+    graph variables that are not inputs become Parameters, so a
+    ``symbol.json`` + ``.params`` pair reloads as a trainable,
+    hybridizable block."""
 
-    def __init__(self, outputs=None, inputs=None, params=None):
-        raise MXNetError(f"SymbolBlock: {_SYMBOLIC}")
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        if isinstance(outputs, (list, tuple)):
+            if len(outputs) == 1:
+                outputs = outputs[0]
+            else:
+                from ..symbol import Group
+
+                outputs = Group(outputs)
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._outputs_sym = outputs
+        self._input_names = [i.name if hasattr(i, "name") else str(i)
+                             for i in inputs]
+        self._arg_names = [n for n in outputs.list_arguments()
+                           if n not in self._input_names]
+        self._aux_names = outputs.list_auxiliary_states()
+        for n in self._arg_names:
+            self._reg_params[n] = self.params.get(
+                n, shape=(0,), allow_deferred_init=True)
+        for n in self._aux_names:
+            self._reg_params[n] = self.params.get(
+                n, shape=(0,), allow_deferred_init=True, grad_req="null")
+        self._graph_fns = {}  # train flag -> _build_graph_fn's tuple
+
+    def _direct_param_kwargs(self):
+        return {}  # graph params are resolved by name in hybrid_forward
+
+    def hybrid_forward(self, F, *args, **kwargs):
+        from ..executor import _build_graph_fn
+        from ..ndarray.ndarray import invoke_fn
+
+        train = autograd.is_training()
+        entry = self._graph_fns.get(train)
+        if entry is None:
+            entry = self._graph_fns[train] = _build_graph_fn(
+                self._outputs_sym, train=train)
+        arg_names, aux_names, fn, _has_aux = entry
+        by_name = dict(zip(self._input_names, args))
+        ins = []
+        for n in arg_names:
+            v = by_name[n] if n in by_name else self.params.get(n).data()
+            ins.append(v if isinstance(v, NDArray) else NDArray(v))
+        aux_nds = [self.params.get(n).data() for n in aux_names]
+        n_args = len(ins)
+
+        # through invoke_fn, so eager calls land on the autograd tape
+        # (fine-tuning an imported checkpoint with record()/backward)
+        def pure(*vals):
+            outs, new_aux = fn(list(vals[:n_args]), list(vals[n_args:]))
+            return tuple(outs) + tuple(new_aux)
+
+        result = invoke_fn(pure, ins + aux_nds)
+        result = result if isinstance(result, tuple) else (result,)
+        n_out = len(result) - len(aux_names)
+        outs, aux_new = result[:n_out], result[n_out:]
+        with autograd.pause():
+            for nd_, new in zip(aux_nds, aux_new):
+                nd_._set_data(new._data)
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None):
-        raise MXNetError(f"SymbolBlock.imports: {_SYMBOLIC}")
+        """Load a ``-symbol.json`` (+ ``.params``) into a block; the
+        parameters land on ``ctx`` (default: the current context)."""
+        from ..symbol import Variable, load as sym_load
+
+        sym = sym_load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        inputs = [Variable(n) for n in input_names]
+        blk = SymbolBlock(sym, inputs)
+        if param_file:
+            from ..ndarray import load as nd_load
+
+            loaded = nd_load(param_file, ctx=ctx)
+            flat = {}
+            for k, v in loaded.items():  # arg:/aux: checkpoint keys too
+                flat[k.split(":", 1)[1] if ":" in k else k] = v
+            for n, p in blk._reg_params.items():
+                if n not in flat:
+                    raise KeyError(f"parameter {n} missing in {param_file}")
+                p._load_init(flat[n], ctx)
+        return blk
 
 
 def load_stablehlo(path):
     raise MXNetError("load_stablehlo: the reference's StableHLO artifact is "
-                     "a JAX export format; the port's deployment format "
-                     f"waits for {_SYMBOLIC}")
+                     "a JAX export format, which the port does not run; "
+                     "export with format='json' and load with "
+                     "SymbolBlock.imports")

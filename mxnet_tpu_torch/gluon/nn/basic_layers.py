@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from ... import autograd
+from ...ndarray import NDArray
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
@@ -271,6 +272,12 @@ class BatchNorm(HybridBlock):
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         kw = dict(eps=self._eps, momentum=self._momentum,
                   fix_gamma=not self._scale, axis=self._axis)
+        if not isinstance(x, NDArray):  # a Symbol
+            # traced: the running statistics are the node's auxiliary
+            # states, folded by a bound Executor in training
+            return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                               use_global_stats=self._use_global_stats,
+                               output_mean_var=False, **kw)
         if autograd.is_training() and not self._use_global_stats:
             out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,
                                          running_var, use_global_stats=False,

@@ -9,8 +9,10 @@ deferred: ``initialize()`` then only records the initializer and the
 device, and the owning layer finishes the job at its first forward from
 the input's shape (``shape_inferred``).
 
-Saving and loading ``.params`` files needs the reference's byte format,
-which is not ported yet: ``ParameterDict.save``/``load`` raise.
+``ParameterDict.save``/``load`` write and read the reference's ``.params``
+container (``ndarray/serialization.py``), keyed by parameter name; a
+block's ``save_parameters``/``load_parameters`` key it by structural
+name. ``Parameter.var()`` is the parameter's symbol variable.
 """
 from __future__ import annotations
 
@@ -26,10 +28,6 @@ from ..ndarray import NDArray, zeros
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
-
-_PARAMS_IO = ("the reference's .params file format (ndarray "
-              "serialization, queue item A10) is not ported yet")
-
 
 class DeferredInitializationError(MXNetError):
     """Parameter accessed before its shape was inferred and it was
@@ -182,9 +180,34 @@ class Parameter:
             if req != "null":
                 self._data.attach_grad(req)
 
+    def _load_init(self, data: NDArray, ctx=None, cast_dtype=False,
+                   dtype_source="current"):
+        """Set the value from a loaded array. An uninitialized parameter
+        takes the array's shape and lands on ``ctx`` (else the device its
+        deferred init names, else the array's). ``cast_dtype`` with
+        ``dtype_source="saved"`` makes the parameter take the saved dtype;
+        otherwise the value is cast to the parameter's own dtype."""
+        if cast_dtype and dtype_source == "saved":
+            self.dtype = dtype_np(data.dtype)
+            if self._data is not None:
+                self.cast(self.dtype)
+        if self._data is None:
+            if ctx is None and self._deferred_init is not None:
+                ctx = self._deferred_init[1]
+            self.shape = tuple(data.shape)
+            self._finish_init(lambda name, arr: None, ctx or data.context)
+        elif tuple(self._data.shape) != tuple(data.shape):
+            raise ValueError(f"Parameter {self.name!r}: shape "
+                             f"{tuple(self._data.shape)}, the saved array "
+                             f"{tuple(data.shape)}")
+        _initializer._fill(self._data, data)
+
     def var(self):
-        raise MXNetError("Parameter.var: the symbolic API (queue item A10) "
-                         "is not ported yet")
+        """The symbol variable of this parameter, named as it is and
+        carrying its shape."""
+        from ..symbol import var
+
+        return var(self.name, shape=self.shape)
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
@@ -259,11 +282,38 @@ class ParameterDict:
             setattr(p, name, value)
 
     def save(self, filename, strip_prefix=""):
-        raise MXNetError(f"ParameterDict.save: {_PARAMS_IO}")
+        """Write every parameter to ``filename``, keyed by its name less
+        ``strip_prefix``."""
+        from ..ndarray import save as nd_save
+
+        arg = {}
+        for p in self.values():
+            n = p.name
+            if strip_prefix and n.startswith(strip_prefix):
+                n = n[len(strip_prefix):]
+            arg[n] = p.data()
+        nd_save(filename, arg)
 
     def load(self, filename, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix=""):
-        raise MXNetError(f"ParameterDict.load: {_PARAMS_IO}")
+        """Set the parameters from ``filename`` (keys get
+        ``restore_prefix``); a missing parameter raises ``KeyError``
+        unless ``allow_missing``, an extra one unless ``ignore_extra``."""
+        from ..ndarray import load as nd_load
+
+        loaded = nd_load(filename, ctx=ctx)
+        loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        for name, p in self._params.items():
+            if name in loaded:
+                p._load_init(loaded[name], ctx)
+            elif not allow_missing:
+                raise KeyError(f"Parameter {name} missing from file "
+                               f"{filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(self._params)
+            if extra:
+                raise KeyError(f"file {filename} has extra parameters: "
+                               f"{sorted(extra)}")
 
     # dict protocol ----------------------------------------------------
     def items(self):

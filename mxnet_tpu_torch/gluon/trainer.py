@@ -6,42 +6,23 @@ the gradients across devices (nothing to reduce on one device) and updates
 every parameter that has a gradient in one multi-tensor pass
 (``optimizer.Updater.update_batch``), with the global-norm clip and an
 attached AMP loss scaler folded into it. ``save_states``/``load_states``
-write and read the reference's pickled state layout atomically.
+write and read the reference's pickled state layout atomically;
+``get_checkpoint_state``/``set_checkpoint_state`` carry the slots and the
+counters ``save_states`` loses, for a ``checkpoint.CheckpointManager``.
 
 Only single-device stores exist in the port: ``kvstore`` ``None``,
-``"device"`` or ``"local"``; the others are queue item A14. The
-checkpoint-state hooks (A10) and the health monitor (A15) raise.
+``"device"`` or ``"local"``; the others are queue item A14. The health
+monitor (A15) raises.
 """
 from __future__ import annotations
 
-import os
-import tempfile
-
 from ..base import MXNetError
+from ..checkpoint.atomic import atomic_write_bytes
 from ..optimizer import Updater, create as opt_create
 
 __all__ = ["Trainer"]
 
 _LOCAL_STORES = (None, "device", "local")
-
-
-def _atomic_write_bytes(fname, data: bytes) -> None:
-    """Write ``data`` to ``fname`` through a temporary file in the same
-    directory and ``os.replace``: a crash leaves the old file or the new
-    one, never a truncated one."""
-    d = os.path.dirname(os.path.abspath(fname))
-    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp_",
-                               suffix=os.path.basename(fname))
-    try:
-        with os.fdopen(fd, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, fname)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
 
 
 class Trainer:
@@ -118,7 +99,7 @@ class Trainer:
                          "plane (queue item A15) is not ported yet")
 
     def save_states(self, fname):
-        _atomic_write_bytes(fname, self._updaters[0].get_states())
+        atomic_write_bytes(fname, self._updaters[0].get_states())
 
     def load_states(self, fname):
         with open(fname, "rb") as f:
@@ -127,9 +108,20 @@ class Trainer:
         self._updaters[0].set_states(data, ctx=ctx)
 
     def get_checkpoint_state(self):
-        raise MXNetError("Trainer.get_checkpoint_state: the checkpoint "
-                         "plane (queue item A10) is not ported yet")
+        """Full optimizer snapshot for a CheckpointManager: slot arrays plus
+        the scalar counters ``save_states`` loses (num_update and the
+        per-index counts that drive Adam's bias correction)."""
+        from ..checkpoint.state import capture_optimizer
+
+        arrays = {}
+        meta = capture_optimizer(self._updaters[0], self._optimizer, arrays)
+        return {"arrays": arrays, "optimizer": meta}
 
     def set_checkpoint_state(self, state):
-        raise MXNetError("Trainer.set_checkpoint_state: the checkpoint "
-                         "plane (queue item A10) is not ported yet")
+        from ..checkpoint.state import TrainingState, restore_optimizer
+
+        ctx = self._params[0].data().context if self._params else None
+        restore_optimizer(self._updaters[0], self._optimizer,
+                          TrainingState(state["arrays"],
+                                        {"optimizer": state["optimizer"]}),
+                          ctx=ctx)

@@ -2,8 +2,9 @@
 ``split_data``, ``split_and_load``, ``clip_global_norm`` and
 ``check_sha1``. ``download`` raises: the port fetches nothing, and data
 loading is queue item A11. ``set_params_from_numpy`` carries a block's
-weights in from numpy arrays, as long as the reference's ``.params``
-format (queue item A10) is not ported."""
+weights in from numpy arrays keyed as a ``.params`` file is (the file
+format itself: ``ndarray/serialization.py``, through
+``Block.save_parameters``/``load_parameters``)."""
 from __future__ import annotations
 
 import hashlib

@@ -249,9 +249,8 @@ class InitDesc(str):
 @register
 class Load(Initializer):
     """Init from a dict of arrays (numpy, tensors or NDArrays; ``arg:``/
-    ``aux:`` prefixes stripped), falling back to ``default_init`` for
-    missing names. Reading the ``.params`` file format is not ported: pass
-    the dict."""
+    ``aux:`` prefixes stripped; a ``.params`` file's through ``nd.load``),
+    falling back to ``default_init`` for missing names."""
 
     def __init__(self, param, default_init=None, verbose=False):
         self.param = {}

@@ -559,14 +559,14 @@ invoke.calls = 0
 
 def invoke_fn(fn, inputs: Sequence[NDArray], kwargs=None):
     """Invoke an ad-hoc pure function of tensors as if it were an op (used
-    by ``__getitem__`` and model code such as attention). The reference
-    splices it into a graph when its inputs are Symbols; the symbolic API
-    is not ported yet, so only arrays are taken."""
-    for x in inputs:
-        if not (x is None or isinstance(x, (NDArray, torch.Tensor))):
-            raise NotImplementedError(
-                f"invoke_fn on {type(x).__name__} inputs: the symbolic API "
-                "is not ported yet")
+    by ``__getitem__`` and model code such as attention). With Symbol
+    inputs the function is spliced into the graph as one node
+    (``symbol.invoke_fn``), so F-generic ``hybrid_forward`` code that uses
+    it traces symbolically."""
+    from ..symbol.symbol import Symbol, invoke_fn as _sym_invoke_fn
+
+    if any(isinstance(x, Symbol) for x in inputs):
+        return _sym_invoke_fn(fn, inputs, kwargs)
     opdef = OpDef("<lambda>", fn, num_outputs=1)
     return invoke(opdef, inputs, kwargs or {})
 
@@ -674,12 +674,55 @@ def waitall():
 
 
 def save(fname: str, data) -> None:
-    """The reference's binary NDArray container is not ported yet."""
-    raise NotImplementedError("nd.save: NDArray serialization is not "
-                              "ported yet")
+    """Save an NDArray, a list or a dict of them in the reference's binary
+    container (``serialization.py``): the same bytes as the reference's
+    ``nd.save`` for the same values."""
+    from .serialization import host_array, save_nd
+
+    if isinstance(data, NDArray):
+        keys, arrays = [], [data]
+    elif isinstance(data, dict):
+        keys = list(data.keys())
+        arrays = [data[k] for k in keys]
+    elif isinstance(data, (list, tuple)):
+        keys, arrays = [], list(data)
+    else:
+        raise TypeError(f"cannot save {type(data)}")
+    save_nd(fname, [host_array(a) for a in arrays], keys)
 
 
-def load(fname: str):
-    """The reference's binary NDArray container is not ported yet."""
-    raise NotImplementedError("nd.load: NDArray serialization is not "
-                              "ported yet")
+def load(fname: str, ctx=None):
+    """Load what :func:`save` (or the reference, or upstream MXNet) wrote:
+    a list, or a dict when the file names its arrays. Arrays land on
+    ``ctx`` (default: the current context, the card unless a ``with
+    mx.cpu():`` scope is open). The npz container earlier builds of the
+    reference wrote loads as well."""
+    from .serialization import is_binary_nd, load_nd
+
+    ctx = ctx or current_context()
+    path = _npz_path(fname)
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if is_binary_nd(head):
+        out = load_nd(path)
+        if isinstance(out, dict):
+            return {k: NDArray(v, ctx=ctx) for k, v in out.items()}
+        return [NDArray(v, ctx=ctx) for v in out]
+    with np.load(path, allow_pickle=False) as z:  # legacy npz container
+        keys = list(z.keys())
+        if keys == ["__single__"]:
+            return [NDArray(z["__single__"], ctx=ctx)]
+        if all(k.startswith("__list_") for k in keys):
+            return [NDArray(z[f"__list_{i}__"], ctx=ctx)
+                    for i in range(len(keys))]
+        return {k: NDArray(z[k], ctx=ctx) for k in keys}
+
+
+def _npz_path(fname):
+    import os
+
+    if os.path.exists(fname):
+        return fname
+    if os.path.exists(fname + ".npz"):
+        return fname + ".npz"
+    return fname

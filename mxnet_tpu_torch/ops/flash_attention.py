@@ -4,8 +4,10 @@ Counterpart of ``mxnet_tpu/ops/flash_attention.py``. Each function that
 reached a Pallas kernel there reaches a hand-written CUDA kernel here
 (``csrc/``), with a plain PyTorch version beside it: the CPU path and the
 yardstick the kernel is held to on the card. A wrapper computes the plain
-version only for a tensor on the CPU; on a CUDA tensor it launches its
-kernel, counts the launch in its ``.launches`` and never falls back.
+version only for a tensor on the CPU (or on ``meta``, where the plain
+version gives the output's shape to symbolic shape inference and nothing
+is computed); on a CUDA tensor it launches its kernel, counts the launch
+in its ``.launches`` and never falls back.
 
 Flash attention
 ---------------
@@ -343,6 +345,12 @@ def _empty_bshd(q):
                        device=q.device).transpose(1, 2)
 
 
+# the devices whose tensors take a wrapper's plain version: the CPU, and
+# meta, which carries shapes and computes nothing (symbolic shape
+# inference, analysis/shape_infer.py), so no kernel is skipped there
+_PLAIN_DEVICES = ("cpu", "meta")
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None, offset=0,
                         block_q=None, block_k=None):
     """Flash-attention forward -> (out, lse), q/k/v (B, H, S, D).
@@ -354,7 +362,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, offset=0,
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if not q.is_cuda:
-        if q.device.type == "cpu":
+        if q.device.type in _PLAIN_DEVICES:
             return _flash_attention_plain(q, k, v, causal, scale, offset,
                                           block_q, block_k)
         raise MXNetError(f"flash_attention_fwd: unsupported device "
@@ -392,7 +400,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if not q.is_cuda:
-        if q.device.type == "cpu":
+        if q.device.type in _PLAIN_DEVICES:
             return _flash_bwd_plain(q, k, v, out, lse, dout, g_lse, causal,
                                     scale, offset, block_k)
         raise MXNetError(f"flash_attention_bwd: unsupported device "
@@ -592,7 +600,7 @@ def flash_decode_attention(q, k_pages, v_pages, page_table, lengths,
     b, h, d = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if not q.is_cuda:
-        if q.device.type == "cpu":
+        if q.device.type in _PLAIN_DEVICES:
             return _decode_attention_plain(q, k_pages, v_pages, page_table,
                                            lengths, scale)
         raise MXNetError(f"flash_decode_attention: unsupported device "

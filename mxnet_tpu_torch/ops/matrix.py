@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..base import dtype_torch
+from .indexing import _filled
 from .registry import register
 
 
@@ -480,11 +481,14 @@ def _cumprod(a, axis=None, dtype=None):
 
 @register("batch_take", differentiable=False, ndarray_inputs=["a", "indices"])
 def _batch_take(a, indices):
-    """a (N, ...) with indices (N,): per-row take (reference batch_take);
-    out-of-range indices clamp, as the reference's gather does."""
+    """a (N, ...) with indices (N,): per-row take (reference batch_take).
+    Indices are read as the reference's ``take_along_axis`` reads them: a
+    negative index counts from the end of the row, and one past the end
+    reads the fill value (NaN for floats)."""
     flat = a.reshape(a.shape[0], -1)
-    idx = indices.reshape(-1, 1).long().clamp(0, flat.shape[1] - 1)
-    return torch.gather(flat, 1, idx).reshape(indices.shape)
+    idx = indices.reshape(-1, 1).long()
+    return _filled(flat, 1, idx, lambda i: torch.gather(flat, 1, i)
+                   ).reshape(indices.shape)
 
 
 @register("cast_storage", ndarray_inputs=["data"])

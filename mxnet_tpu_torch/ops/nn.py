@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import dtype_torch
+from .indexing import _filled
 from .registry import register
 
 
@@ -216,15 +217,27 @@ def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
 
 @register("softmax_cross_entropy", ndarray_inputs=["data", "label"])
 def _softmax_cross_entropy(data, label):
+    """Summed cross-entropy. Labels are read as the reference's
+    ``take_along_axis`` reads them: a negative label counts from the
+    end, and one of C or more reads NaN."""
     logp = torch.log_softmax(data, dim=-1)
-    lab = label.to(torch.int32).long().clamp(0, data.shape[-1] - 1)
-    nll = -torch.gather(logp, -1, lab[:, None])
+    lab = label.to(torch.int32).long()[:, None]
+    nll = -_filled(logp, 1, lab, lambda i: torch.gather(logp, -1, i))
     return torch.sum(nll).reshape(1)
 
 
 # ---------------------------------------------------------------------------
 # Normalisation
 # ---------------------------------------------------------------------------
+
+def _var_mean(x, dims, keepdim):
+    """Biased (variance, mean) over ``dims``. No dims is no reduction, as
+    the reference's ``jnp.var``/``jnp.mean`` over ``axis=()`` mean it
+    (torch would reduce every dim): (0, x)."""
+    if not dims:
+        return torch.zeros_like(x), x
+    return torch.var_mean(x, dim=dims, correction=0, keepdim=keepdim)
+
 
 def _bshape(data, ax):
     return tuple(data.shape[i] if i == ax else 1 for i in range(data.ndim))
@@ -264,7 +277,7 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     bshape = _bshape(data, ax)
     if train and not use_global_stats:
         stat_t = torch.promote_types(data.dtype, torch.float32)
-        var, mean = torch.var_mean(data.to(stat_t), dim=red, correction=0)
+        var, mean = _var_mean(data.to(stat_t), red, keepdim=False)
     else:
         mean, var = moving_mean, moving_var
     dt = data.dtype
@@ -280,7 +293,7 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 @register("InstanceNorm", ndarray_inputs=["data", "gamma", "beta"])
 def _instance_norm(data, gamma, beta, eps=1e-3):
     red = tuple(range(2, data.ndim))
-    var, mean = torch.var_mean(data, dim=red, correction=0, keepdim=True)
+    var, mean = _var_mean(data, red, keepdim=True)
     bshape = (1, -1) + (1,) * (data.ndim - 2)
     return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape)
             + beta.reshape(bshape))
@@ -363,14 +376,27 @@ def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                    cudnn_off=False, layout=None):
     """Transposed convolution (the gradient of Convolution with respect to
     its input); weight (in, out/g, *k), the reference's layout and
-    torch's; ``adj`` adds to the output's trailing edge."""
+    torch's. Along each spatial dim the output is the full transposed
+    convolution (no padding) with ``pad`` cropped from the front and
+    ``full - 2 pad + adj`` positions kept, zeros past the end where
+    ``adj > pad``: the reference's padding of the dilated input by
+    (keff-1-pad, keff-1-pad+adj), for any ``adj`` (torch's
+    ``output_padding`` must stay below the stride or the dilation)."""
     nsp = data.ndim - 2
-    return _DECONV[nsp](data, weight, None if no_bias else bias,
-                        stride=_spatial(stride, nsp, 1),
-                        padding=_spatial(pad, nsp, 0),
-                        output_padding=_spatial(adj, nsp, 0),
-                        groups=int(num_group),
-                        dilation=_spatial(dilate, nsp, 1))
+    pad = _spatial(pad, nsp, 0)
+    adj = _spatial(adj, nsp, 0)
+    out = _DECONV[nsp](data, weight, None, stride=_spatial(stride, nsp, 1),
+                       padding=0, groups=int(num_group),
+                       dilation=_spatial(dilate, nsp, 1))
+    grow = [(0, max(0, a - p)) for p, a in zip(pad, adj)]
+    if any(g for _, g in grow):
+        out = F.pad(out, [x for pair in reversed(grow) for x in pair])
+    keep = tuple(slice(p, p + n - 2 * p + a) for p, a, n in
+                 zip(pad, adj, out.shape[2:]))
+    out = out[(slice(None), slice(None)) + keep]
+    if bias is not None and not no_bias:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
+    return out
 
 
 def _sum_pool(x, kernel, stride):
@@ -394,6 +420,11 @@ def _pooling(data, kernel=(), stride=(), pad=(), pool_type="max",
     at most half the window); otherwise the input is padded explicitly
     (``-inf`` for max), so every window and divisor is the reference's."""
     nsp = data.ndim - 2
+    if global_pool and nsp == 0:
+        # no spatial dims: every window is one element, as the
+        # reference's reductions over axis=() give (torch would reduce
+        # every dim)
+        return data.abs() if pool_type == "lp" else data.clone()
     if global_pool:
         red = tuple(range(2, data.ndim))
         if pool_type == "max":

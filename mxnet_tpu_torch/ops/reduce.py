@@ -84,7 +84,9 @@ alias("min", "min_axis")
 @register("norm", ndarray_inputs=["data"])
 def _norm(data, ord=2, axis=None, keepdims=False, out_dtype=None):
     axes = _norm_axes(axis, data.ndim)
-    if ord == 1:
+    if not axes:  # axis=() reduces nothing (torch's dim=() would reduce all)
+        r = torch.abs(data) if ord == 1 else torch.sqrt(torch.square(data))
+    elif ord == 1:
         r = torch.sum(torch.abs(data), dim=axes, keepdim=bool(keepdims))
     else:
         r = torch.sqrt(torch.sum(torch.square(data), dim=axes,

@@ -12,10 +12,12 @@ registered yet raise ``NotImplementedError`` naming the op.
 from __future__ import annotations
 
 import ast
+import inspect
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 __all__ = ["OpDef", "register", "get_op", "has_op", "list_ops", "alias",
-           "coerce_value", "coerce_kwargs"]
+           "coerce_value", "coerce_kwargs", "call_op"]
 
 
 class OpDef:
@@ -121,3 +123,23 @@ def coerce_value(v: Any) -> Any:
 
 def coerce_kwargs(kwargs: Dict[str, Any]) -> Dict[str, Any]:
     return {k: coerce_value(v) for k, v in kwargs.items()}
+
+
+_TAKES_CTX: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def call_op(opdef: OpDef, inputs, kwargs: Dict[str, Any], device):
+    """Run ``opdef`` on ``inputs`` as a graph node does: an op that creates
+    its output (``_zeros``, ``_arange``; it takes ``ctx``) creates it on
+    ``device`` unless the node names one, as its inputs' device is the
+    graph's."""
+    takes = _TAKES_CTX.get(opdef.fn)
+    if takes is None:
+        try:
+            takes = "ctx" in inspect.signature(opdef.fn).parameters
+        except (TypeError, ValueError):
+            takes = False
+        _TAKES_CTX[opdef.fn] = takes
+    if takes and kwargs.get("ctx") is None:
+        kwargs = {**kwargs, "ctx": device}
+    return opdef.fn(*inputs, **kwargs)

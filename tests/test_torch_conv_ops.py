@@ -51,6 +51,13 @@ NORM = [
       {"fix_gamma": False, "use_global_stats": True}, "bn_global_stats"),
     c("BatchNorm", _bn((4, 3, 5)), {"fix_gamma": False, "_train": False},
       "bn_eval"),
+    # no dim left to reduce: the statistics are the element itself (the
+    # reference's reductions over axis=()), not the whole array's
+    c("BatchNorm", _bn((4,), c_axis=0),
+      {"fix_gamma": False, "axis": 0, "output_mean_var": True},
+      "bn_1d_no_reduction"),
+    c("InstanceNorm", [U(-2, 2, (2, 3)), U(0.5, 1.5, (3,)),
+                       U(-0.5, 0.5, (3,))], {}, "instance_norm_no_spatial"),
     c("InstanceNorm", [U(-2, 2, (2, 3, 5, 4)), U(0.5, 1.5, (3,)),
                        U(-0.5, 0.5, (3,))], {}, "instance_norm_2d"),
     c("InstanceNorm", [U(-2, 2, (2, 3, 7)), U(0.5, 1.5, (3,)),
@@ -94,7 +101,39 @@ CONV = [
     c("Deconvolution", [U(-1, 1, (1, 2, 3, 4, 3)), U(-1, 1, (2, 2, 2, 2, 2))],
       {"kernel": (2, 2, 2), "stride": (2, 2, 2), "num_filter": 2},
       "deconv3d"),
+    # adj at or past the stride and the dilation (torch's output_padding
+    # refuses it; the reference pads the dilated input by it)
+    c("Deconvolution", [U(-1, 1, (2, 4, 6)), U(-1, 1, (4, 2, 2))],
+      {"kernel": (2,), "stride": (2,), "pad": (0,), "adj": (2,),
+       "num_filter": 4, "num_group": 2}, "deconv1d_adj_past_stride"),
 ]
+
+
+def _deconv_sweep():
+    """1-3-D, groups, dilation and adj 0-3, adj both below and above pad,
+    with and without bias."""
+    out = []
+    for nsp in (1, 2, 3):
+        for adj in range(4):
+            g = 1 + (adj + nsp) % 2
+            s, d, p = 1 + adj % 3, 1 + nsp % 2, (adj + nsp) % 3
+            k = 2 if nsp == 3 else 3
+            cin, cout = 2 * g, 2 * g
+            sp = (4,) * nsp if nsp < 3 else (3,) * nsp
+            ins = [U(-1, 1, (2, cin) + sp), U(-1, 1, (cin, cout // g)
+                                             + (k,) * nsp)]
+            kw = {"kernel": (k,) * nsp, "stride": (s,) * nsp,
+                  "dilate": (d,) * nsp, "pad": (p,) * nsp,
+                  "adj": (adj,) * nsp, "num_filter": cout, "num_group": g}
+            if adj % 2:
+                ins.append(U(-1, 1, (cout,)))
+                kw["no_bias"] = False
+            out.append(c("Deconvolution", ins, kw,
+                         f"deconv{nsp}d_s{s}_d{d}_p{p}_adj{adj}_g{g}"))
+    return out
+
+
+CONV += _deconv_sweep()
 
 
 def _pool(pool_type, shape, kernel, stride, pad, convention="valid",
@@ -140,7 +179,7 @@ GLOBAL_POOL = [
                                      "pool_type": t, "global_pool": True},
       f"global_{t}_{len(shape) - 2}d")
     for t in ("max", "avg", "sum", "lp")
-    for shape in ((2, 3, 7), (2, 3, 5, 6), (1, 2, 3, 4, 3))
+    for shape in ((2, 3), (2, 3, 7), (2, 3, 5, 6), (1, 2, 3, 4, 3))
 ]
 
 CASES = NORM + CONV + POOL + GLOBAL_POOL

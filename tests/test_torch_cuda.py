@@ -759,3 +759,67 @@ def test_conv_bn_trainer_on_card_matches_trainer_on_cpu(cuda_device):
         err = float((gpu_first[k] - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()) + 1e-12, (k, err)
     assert np.isfinite(gpu_losses).all() and gpu_losses[-1] < gpu_losses[0]
+
+
+# ---------------------------------------------------------------------------
+# slice 6: Module, Executor and .params files on the card
+# ---------------------------------------------------------------------------
+
+def _module_mlp():
+    from mxnet_tpu_torch import symbol as sym
+
+    data = sym.Variable("data")
+    net = sym.FullyConnected(data, num_hidden=8, name="fc1")
+    net = sym.Activation(net, act_type="relu", name="relu1")
+    net = sym.FullyConnected(net, num_hidden=3, name="fc2")
+    return sym.SoftmaxOutput(net, name="softmax")
+
+
+def test_module_and_executor_default_to_the_card(cuda_device):
+    """Module, simple_bind and nd.load with no context land on cuda:0; a
+    step on the card equals the same step on the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.module import Module
+
+    exe = _module_mlp().simple_bind(data=(4, 5))
+    assert exe.arg_dict["fc1_weight"].astorch().is_cuda
+    rng = np.random.RandomState(0)
+    x = rng.randn(4, 5).astype(np.float32)
+    y = np.array([0, 1, 2, 1], np.float32)
+    init = {"fc1_weight": rng.randn(8, 5).astype(np.float32) * 0.3,
+            "fc1_bias": np.zeros(8, np.float32),
+            "fc2_weight": rng.randn(3, 8).astype(np.float32) * 0.3,
+            "fc2_bias": np.zeros(3, np.float32)}
+    weights = []
+    for ctx in (None, mx.cpu()):
+        mod = Module(_module_mlp(), context=ctx)
+        mod.bind([("data", (4, 5))], [("softmax_label", (4,))])
+        mod.init_params(arg_params=init)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        with mx.Context(mod._context):
+            batch = DataBatch([nd.array(x)], [nd.array(y)])
+        mod.forward_backward(batch)
+        mod.update()
+        w = mod.get_params()[0]["fc1_weight"]
+        assert w.astorch().is_cuda == (ctx is None)
+        weights.append(w.asnumpy())
+    np.testing.assert_allclose(weights[0], weights[1], rtol=1e-5, atol=1e-6)
+
+
+def test_nd_load_lands_on_the_card(cuda_device, tmp_path):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    path = str(tmp_path / "a.params")
+    with mx.cpu():
+        nd.save(path, {"w": nd.array(np.arange(6, dtype=np.float32)),
+                       "h": nd.array(np.ones(3, np.float32)).astype(
+                           "bfloat16")})
+    out = nd.load(path)
+    assert out["w"].astorch().device == torch.device("cuda", 0)
+    assert out["h"].dtype == torch.bfloat16 and out["h"].astorch().is_cuda
+    np.testing.assert_array_equal(out["w"].asnumpy(), np.arange(6))
+    assert nd.load(path, ctx=mx.cpu())["w"].context == mx.cpu()

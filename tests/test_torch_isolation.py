@@ -29,7 +29,16 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.gluon, mxnet_tpu_torch.ndarray, "
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.random, "
             "mxnet_tpu_torch.tools.nd_lm, "
-            "mxnet_tpu_torch.tools.launch_cost_probe\n"
+            "mxnet_tpu_torch.tools.launch_cost_probe, "
+            "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
+            "mxnet_tpu_torch.module, mxnet_tpu_torch.checkpoint, "
+            "mxnet_tpu_torch.checkpoint.manager, "
+            "mxnet_tpu_torch.checkpoint.state, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.callback, "
+            "mxnet_tpu_torch.model, mxnet_tpu_torch.name, "
+            "mxnet_tpu_torch.attribute, "
+            "mxnet_tpu_torch.analysis.shape_infer, "
+            "mxnet_tpu_torch.ndarray.serialization\n"
             "from mxnet_tpu_torch import nd, autograd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -19,7 +19,7 @@ from mxnet_tpu import autograd as jag
 from mxnet_tpu import nd as jnd
 from mxnet_tpu.gluon.model_zoo import get_model as jget_model
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import MXNetError, autograd, nd
+from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.gluon.model_zoo import get_model, vision
 from mxnet_tpu_torch.gluon.utils import set_params_from_numpy
 
@@ -209,20 +209,24 @@ def test_pretrained_raises():
 
 
 def test_save_load_roundtrip(tmp_path):
-    """The reference saves and loads a .params file; the port's file
-    format waits (queue item A10), so ``save_parameters`` raises and the
-    weights round-trip as numpy arrays by structural name."""
+    """The reference's case: save_parameters, then load_parameters into a
+    fresh net, which gives the same output; the file holds the structural
+    names that set_params_from_numpy takes."""
     with mx.cpu():
         net = get_model("mobilenet0.25", classes=3)
         net.initialize()
         x = nd.ones((1, 3, 32, 32))
         ref = net(x).asnumpy()
-        with pytest.raises(MXNetError, match="A10"):
-            net.save_parameters(str(tmp_path / "m.params"))
-        arrays = {k: p.data().asnumpy()
-                  for k, p in net._collect_params_with_prefix().items()}
+        path = str(tmp_path / "m.params")
+        net.save_parameters(path)
         net2 = get_model("mobilenet0.25", classes=3)
-        net2.initialize()
-        set_params_from_numpy(net2, arrays)
+        net2.load_parameters(path, ctx=mx.cpu())
         np.testing.assert_allclose(ref, net2(x).asnumpy(), rtol=1e-5,
+                                   atol=1e-6)
+        arrays = {k: v.asnumpy() for k, v in nd.load(path).items()}
+        assert set(arrays) == set(net._collect_params_with_prefix())
+        net3 = get_model("mobilenet0.25", classes=3)
+        net3.initialize()
+        set_params_from_numpy(net3, arrays)
+        np.testing.assert_allclose(ref, net3(x).asnumpy(), rtol=1e-5,
                                    atol=1e-6)

@@ -60,6 +60,9 @@ def LOWER(n=3):
     return make
 
 
+_RS0_4x5 = np.random.RandomState(0).randn(4, 5).astype(np.float32)
+
+
 def case(name, inputs, kwargs=None, grad=True, rtol=RTOL, atol=ATOL,
          cmp=None, id=None):
     return pytest.param(name, inputs, kwargs or {}, grad, rtol, atol, cmp,
@@ -171,6 +174,9 @@ REDUCE = [
     case("nanprod", [C([[1.5, np.nan, 2.0], [np.nan, 3.0, 0.5]])],
          {"axis": 0}),
     case("norm", [U(-1, 1, (3, 4))], id="norm-2"),
+    case("norm", [U(-1, 1, (2, 3, 4))], {"axis": ()}, id="norm-axis-none"),
+    case("norm", [U(-1, 1, (2, 3, 4))], {"ord": 1, "axis": ()},
+         id="norm-1-axis-none"),
     case("norm", [U(-1, 1, (3, 4))], {"ord": 1, "axis": 1,
                                       "keepdims": True}, id="norm-1"),
     case("argmax", [U(-1, 1, (3, 4))], {"axis": 1}, grad=False),
@@ -261,6 +267,9 @@ MATRIX = [
     case("cumprod", [U(0.5, 1.5, (3, 4))]),
     case("batch_take", [U(shape=(3, 4)), C([1, 3, 0], np.int32)],
          grad=False),
+    case("batch_take", [C(np.arange(20).reshape(4, 5)),
+                        C([0, 1, -1, 7], np.int32)], grad=False,
+         id="batch_take-wraps-and-fills"),
     case("cast_storage", [U()]),
     case("_linalg_potri", [LOWER()]),
     case("_linalg_sumlogdiag", [SPD()]),
@@ -347,6 +356,11 @@ NN = [
           "grad_scale": 2.0}, id="SoftmaxOutput-multi"),
     case("softmax_cross_entropy", [U(-3, 3, (4, 5)),
                                    C([0, 4, 2, 1], np.float32)]),
+    # labels read as take_along_axis reads them: -1 wraps, 7 >= C is NaN
+    case("softmax_cross_entropy", [C(_RS0_4x5), C([0, 1, 2, -1])],
+         id="softmax_cross_entropy-label-wraps"),
+    case("softmax_cross_entropy", [C(_RS0_4x5), C([0, 1, 2, 7])],
+         id="softmax_cross_entropy-label-past-end"),
     case("LayerNorm", [U(-2, 2, (2, 3, 4)), U(0.5, 1.5, (4,)),
                        U(-0.5, 0.5, (4,))]),
     case("LayerNorm", [U(-2, 2, (2, 3, 4)), U(0.5, 1.5, (3,)),
@@ -554,3 +568,24 @@ def test_registry_api_matches_reference():
     raw = {"a": "(3, 3)", "b": "True", "c": "2", "d": "none", "e": "relu",
            "f": 1.5}
     assert tregistry.coerce_kwargs(raw) == jregistry.coerce_kwargs(raw)
+
+
+def test_label_and_index_reads_pin_reference_values():
+    """The values the reference gives for the inputs that once showed the
+    port clamping (``softmax_cross_entropy`` labels, ``batch_take``
+    indices) and reducing every axis (``norm`` over ``axis=()``)."""
+    with tmx.cpu():
+        x = tnd.array(_RS0_4x5)
+        ce = [float(tinvoke("softmax_cross_entropy",
+                            [x, tnd.array(lab)], {}).asscalar())
+              for lab in ([0, 1, 2, -1], [0, 1, 2, 7])]
+        bt = tinvoke("batch_take", [tnd.array(np.arange(20, dtype=np.float32)
+                                              .reshape(4, 5)),
+                                    tnd.array(np.array([0, 1, -1, 7],
+                                                       np.int32))], {})
+        nrm = tinvoke("norm", [tnd.array(-np.ones((2, 3, 4), np.float32))],
+                      {"axis": ()})
+    np.testing.assert_allclose(ce[0], 6.925333, rtol=1e-6)
+    assert np.isnan(ce[1])
+    np.testing.assert_array_equal(bt.asnumpy(), [0, 6, 14, np.nan])
+    assert nrm.shape == (2, 3, 4) and (nrm.asnumpy() == 1).all()
