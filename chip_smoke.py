@@ -95,8 +95,29 @@ H100): ``python3 chip_smoke.py``. It
    forward), one ``Module.fit`` epoch of 2 batches (``eval_metric="ce"``);
    then ResNet-50 v1 traced the same way through Module (SGD, batch 32 x
    3 x 224 x 224): its first step's gradients and the moving statistics
-   the Executor folds against the eager Gluon path's, and images/s;
-12. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+   the Executor folds against the eager Gluon path's, and images/s; then
+   ``optimize_for("fold_bn", args, aux)`` on the traced ResNet (53
+   BatchNorms folded, none left) and its predict forward against the
+   unfolded graph's (1e-4 of the largest |logit|), both timed;
+12. drives ``estimator_path`` after the Gluon path: the same LM trained
+   by ``gluon.contrib.estimator.Estimator.fit`` (Adam, f32, hybridized)
+   from a ``DataLoader`` (2 workers, ``pin_memory``) over 16 rows of 2048
+   tokens, with a ``CheckpointHandler(batch_period=2)``, a
+   ``LoggingHandler`` and a ``Monitor(interval=2)`` on every block: the
+   first step against the oracle, falling losses, 12 flash launches a
+   step each way, finite stats (one per block a tapped batch), a net
+   loaded from the last checkpoint forwarding bitwise equal; step ms,
+   tokens/s and the idle share of one profiled Estimator step;
+13. drives ``data_path`` after the zoo path: ResNet-50 v1 fed by
+   ``gluon.data`` (``SyntheticImageDataset`` + ``Normalize`` into a
+   ``DataLoader`` of 4 workers with ``pin_memory``; f32, the first batch
+   bitwise equal to the serial loader's) and by the record pipeline of
+   ``bench.py::bench_resnet_piped`` (JPEG records written by the port's
+   recordio, ``ImageRecordIter`` uint8 under ``PrefetchingIter``, bf16
+   with the normalization on the card; the prefetched first batch bitwise
+   equal to a serial read, the decoder the card's JPEG stack allows);
+   images/s, stalls, the host floor, one batch's copy and the idle share;
+14. prints each phase's wall time (``timing``), the ``kernels`` JSON line
    and, last, the ``ok`` line.
 
 Between 3 and 4 it also holds the flash kernels against their plain
@@ -114,6 +135,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -623,9 +645,12 @@ def phase_flash_kernels(torch, dev):
 
 # other head dims: bf16 to 256 at the next built one (16, 32, 64, 128,
 # 256), f32 and bf16 past 256 on the FFMA kernels, which take any; checked
-# at a ragged S on the model's strided views, timed at D 96, 256, 320, 512
+# at a ragged S on the model's strided views, timed at D 96, 256, 320, 512.
+# S 992 is ragged for the kernels' 64- and 128-row tiles; the plain
+# versions loop over blocks of 32 there (S 1000 gave blocks of 8 and 82 s
+# of checks on an H100)
 HD_DIMS = [8, 48, 80, 96, 256, 320, 512]
-HD_CHECK = (2, 4, 1000)         # B, H, S of the checks
+HD_CHECK = (2, 4, 992)          # B, H, S of the checks
 HD_TIME = (4, 12, 2048)         # B, H, S of the timings (the model's)
 HD_TIMED = [96, 256, 320, 512]
 
@@ -655,6 +680,7 @@ def phase_flash_head_dims(torch, dev):
         return [qkv[:, :, i].transpose(1, 2) for i in range(3)] + [do]
 
     rows = []
+    t0 = time.perf_counter()
     for d in HD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -685,10 +711,12 @@ def phase_flash_head_dims(torch, dev):
                              "grad_err": e_g})
             del q, k, v, do
     emit({"phase": "kernel", "kernel": "flash_attention head dims",
-          "B_H_S": list(HD_CHECK), "tolerance": FA_TOL, "checks": rows})
+          "B_H_S": list(HD_CHECK), "tolerance": FA_TOL, "checks": rows,
+          "checks_s": time.perf_counter() - t0})
 
     timings = []
     for d in HD_TIMED:
+        t0 = time.perf_counter()
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             b, h, s = HD_TIME
@@ -728,7 +756,8 @@ def phase_flash_head_dims(torch, dev):
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "share_of_peak": flops / (ms / 1e3) / peak}
                 timings.append(row)
-                emit({"phase": "kernel", "case": "head dim timing", **row})
+                emit({"phase": "kernel", "case": "head dim timing", **row,
+                      "seconds_since_dim_start": time.perf_counter() - t0})
             del q, k, v, do, out, lse, ql, kl, vl, lib_o, work
             torch.cuda.empty_cache()
     return rows, timings
@@ -1368,7 +1397,10 @@ def phase_gluon_path(torch, dev, smi):
           "decode": decode,
           "kernel_launches": launches,
           "steps_run": f32_steps + GLUON_BF16_STEPS})
-    return launches, decode_launches
+    med = float(np.median(times["hybrid"]))
+    return launches, decode_launches, {
+        "step_ms_hybridized_median": med,
+        "tokens_per_s": batch * seq / med * 1e3, "device_idle_share": idle}
 
 
 # bench.py::bench_resnet / _resnet_trainer: ResNet-50 v1, batch 64 at
@@ -1454,6 +1486,24 @@ def _timed_steps(torch, trainer, batch, warmup, steps):
     return losses, times
 
 
+def _resnet_trainer(mesh, compute_dtype=None, preprocess=None):
+    """bench.py::_resnet_trainer: ResNet-50 v1 (seed 0), ShardedTrainer
+    with SGD (lr 0.1, momentum 0.9, wd 1e-4) on ``mesh``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+
+    mx.random.seed(0)
+    net = get_model("resnet50_v1", classes=1000)
+    net.initialize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    return net, loss_fn, par.ShardedTrainer(
+        net, loss_fn, mesh, optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                          "wd": 1e-4},
+        compute_dtype=compute_dtype, preprocess=preprocess)
+
+
 def phase_zoo_path(torch, dev, smi):
     """The vision zoo the reference's benchmark way (bench.py::
     _resnet_trainer, bench_resnet): get_model("resnet50_v1",
@@ -1462,26 +1512,12 @@ def phase_zoo_path(torch, dev, smi):
     ZOO_STEPS steps. The f32 leg's first step (loss, every gradient, the
     running statistics it leaves) against the eager Gluon path on the
     same net and batch; the bf16 leg keeps its statistics f32 and moves
-    them. One profiled step per leg."""
-    import mxnet_tpu_torch as mx
+    them. One profiled step per leg. Returns the phase's result."""
     from mxnet_tpu_torch import autograd, nd
     from mxnet_tpu_torch import parallel as par
-    from mxnet_tpu_torch.gluon.model_zoo import get_model
     from mxnet_tpu_torch.ops.flash_attention import flash_attention_fwd
 
     mesh = par.make_mesh({"dp": 1}, devices=[dev])
-
-    def resnet_trainer(compute_dtype=None):  # bench.py::_resnet_trainer
-        mx.random.seed(0)
-        net = get_model("resnet50_v1", classes=1000)
-        net.initialize()
-        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-        return net, loss_fn, par.ShardedTrainer(
-            net, loss_fn, mesh, optimizer="sgd",
-            optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
-                              "wd": 1e-4},
-            compute_dtype=compute_dtype)
-
     rng = np.random.RandomState(0)
     x = nd.array(rng.rand(ZOO_BATCH, 3, ZOO_SIZE, ZOO_SIZE)
                  .astype(np.float32))
@@ -1494,7 +1530,7 @@ def phase_zoo_path(torch, dev, smi):
     for leg, cdt in (("f32", None), ("bf16", "bfloat16")):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        net, loss_fn, tr = resnet_trainer(cdt)
+        net, loss_fn, tr = _resnet_trainer(mesh, cdt)
         net(x)  # resolve deferred shapes (bench_resnet's net(x))
         check(not tr._captured, "the trainer captured before its first step")
         out = {}
@@ -1557,6 +1593,7 @@ def phase_zoo_path(torch, dev, smi):
     check(flash_attention_fwd.launches == flash0,
           "the zoo path launched flash attention")
     emit(res)
+    return res
 
 
 def _bert_train_flops(n_layers, units, hidden, vocab, seq, batch):
@@ -1680,6 +1717,53 @@ def _module_step(torch, mod, batch):
     probs = mod.get_outputs()[0].astorch()
     lab = batch.label[0].astorch().reshape(-1).long()
     return float(-torch.log(probs.gather(1, lab[:, None])).mean())
+
+
+# fold_bn on the traced ResNet-50: 53 BatchNorms, and the folded predict
+# forward held to FOLD_TOL of the largest |logit| of the unfolded one
+FOLD_BNS, FOLD_TOL, FOLD_REPS = 53, 1e-4, 5
+
+
+def _fold_bn_leg(torch, ctx, zsym, args, aux, x):
+    """``zsym.optimize_for("fold_bn", args, aux)`` on the traced ResNet:
+    every BatchNorm folded, none left; the folded and the unfolded graph's
+    predict forwards on ``x`` (each bound on ``ctx``, timed, median of
+    FOLD_REPS after one warmup) agree to FOLD_TOL of the largest
+    |logit|."""
+    t0 = time.perf_counter()
+    folded = zsym.optimize_for("fold_bn", args, aux)
+    fold_s = time.perf_counter() - t0
+    n_bn = sum(n._op == "BatchNorm" for n in zsym._topo())
+    left = sum(n._op == "BatchNorm" for n in folded._topo())
+    check(n_bn == FOLD_BNS and len(folded._folded_bn) == FOLD_BNS
+          and left == 0, f"fold_bn folded {len(folded._folded_bn)} of "
+          f"{n_bn} BatchNorms, {left} left")
+    check(not folded._optimized_aux, "fold_bn left auxiliary states")
+    outs, ms = [], []
+    for graph, a, au in ((zsym, args, aux),
+                         (folded, folded._optimized_args, {})):
+        exe = graph.bind(ctx=ctx, args={**a, "data": x}, aux_states=au,
+                         grad_req="null")
+        reps = []
+        for _ in range(1 + FOLD_REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = exe.forward(is_train=False)[0].astorch()
+            torch.cuda.synchronize()
+            reps.append(1e3 * (time.perf_counter() - t1))
+        outs.append(out.clone())
+        ms.append(float(np.median(reps[1:])))
+        del exe
+    err = float((outs[1] - outs[0]).abs().max() / outs[0].abs().max())
+    check(bool(torch.isfinite(outs[1]).all()) and err <= FOLD_TOL,
+          f"fold_bn: the folded forward differs by {err} of the largest "
+          f"|logit| (tolerance {FOLD_TOL})")
+    return {"batchnorms_folded": len(folded._folded_bn),
+            "batchnorms_left": left, "fold_s": fold_s,
+            "err_of_max_logit": err, "tolerance": FOLD_TOL,
+            "max_abs_logit": float(outs[0].abs().max()),
+            "forward_ms_unfolded": ms[0], "forward_ms_folded": ms[1],
+            "batch": int(x.shape[0])}
 
 
 def phase_module_path(torch, dev, smi):
@@ -1914,9 +1998,9 @@ def phase_module_path(torch, dev, smi):
         want_loss, want_grads, want_stats = _eager_first_step(
             autograd, net, loss_fn, x, y)
         with mx.name.NameManager():
+            zsym = net(sym.var("data", shape=xs.shape))
             zout = sym.SoftmaxOutput(
-                net(sym.var("data", shape=xs.shape)),
-                sym.var("softmax_label", shape=(zb,)), name="softmax")
+                zsym, sym.var("softmax_label", shape=(zb,)), name="softmax")
         params = list(net.collect_params().values())
         zmod = Module(zout, context=ctx)
         zmod.bind(data_shapes=[("data", xs.shape)],
@@ -1964,17 +2048,514 @@ def phase_module_path(torch, dev, smi):
     zprof_ms, zidle, zdevice_ms = _device_profile(
         torch, lambda: _module_step(torch, zmod, zbatch))
     zmed = float(np.median(ztimes))
+    args, aux = zmod.get_params()
+    fold = _fold_bn_leg(torch, ctx, zsym, args, aux, x)
     emit({"phase": "module_path", "leg": "resnet", "card": smi,
           "model": MODULE_ZOO_MODEL, "batch": zb, "image_size": ZOO_SIZE,
           "optimizer": "sgd", "agreement_f32": zagree,
           "moving_stats_err_of_max": stat_err, "losses": zlosses,
           "step_ms_median": zmed, "step_ms_all": ztimes,
           "images_per_s": zb / zmed * 1e3, "profiled_step_ms": zprof_ms,
-          "device_idle_share": zidle, "device_ms_by_class": zdevice_ms})
-    del zmod, zbatch
+          "device_idle_share": zidle, "device_ms_by_class": zdevice_ms,
+          "fold_bn": fold})
+    del zmod, zbatch, zsym, args, aux
     torch.cuda.empty_cache()
     check(flash_attention_fwd.launches == launches["flash_attention_fwd"],
           "the module ResNet leg launched flash attention")
+    return launches
+
+
+# the data plane (data_path): batches of ZOO_BATCH images at ZOO_SIZE,
+# DATA_BATCHES of them, 1 warmup + DATA_STEPS timed ResNet-50 steps
+DATA_BATCHES, DATA_WARMUP, DATA_STEPS = 13, 1, 10
+DATA_WORKERS = 4
+DATA_SEED = 5
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# bench.py::bench_resnet_piped: the iterator's mean and std (0-255 scale),
+# records of quality 80 (_make_rec_dataset), 2 decode threads, prefetch 3
+REC_MEAN, REC_STD = (123.68, 116.78, 103.94), (58.4, 57.12, 57.38)
+REC_QUALITY, REC_THREADS, REC_PREFETCH = 80, 2, 3
+LOADER_PROBE_BATCHES = 3   # batches timed per sample placement
+DATA_RESIDENT_STEPS = 5    # steps on a resident batch once the feed is idle
+
+
+def _loader_ms(torch, loader, n):
+    """Mean ms a batch of ``loader`` alone (its first ``n`` batches, the
+    copies waited for)."""
+    it = iter(loader)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        batch = next(it)
+        batch[0].wait_to_read()
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    del it
+    return ms
+
+
+def _fed_steps(torch, tr, next_batch, warmup, steps):
+    """``warmup`` + ``steps`` trainer steps, each fed by ``next_batch()``:
+    (losses, step ms, stall ms), the stall being the time ``next_batch``
+    blocked the loop."""
+    losses, step_ms, stall_ms = [], [], []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, y = next_batch()
+        t1 = time.perf_counter()
+        loss = tr.step(x, y)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses.append(float(loss.asnumpy()))
+        if i >= warmup:
+            stall_ms.append(1e3 * (t1 - t0))
+            step_ms.append(1e3 * (t2 - t0))
+    check(all(math.isfinite(v) for v in losses), f"fed losses {losses}")
+    return losses, step_ms, stall_ms
+
+
+def _resident_ms(torch, tr, x, y, n=DATA_RESIDENT_STEPS):
+    """Median ms of ``n`` steps of ``tr`` on one batch already on the card
+    (the feed idle): the same trainer's step without the loader."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step(x, y)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _make_records(prefix, n, size):
+    """bench.py::_make_rec_dataset through the port's recordio: n random
+    size x size JPEGs of quality REC_QUALITY, label i % 1000."""
+    from mxnet_tpu_torch.io.recordio import (IRHeader, MXIndexedRecordIO,
+                                             pack_img)
+
+    rec = MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    rng = np.random.RandomState(0)
+    for i in range(n):
+        img = rng.randint(0, 255, (size, size, 3), np.uint8)
+        rec.write_idx(i, pack_img(IRHeader(0, float(i % 1000), i, 0), img,
+                                  quality=REC_QUALITY, img_fmt=".jpg"))
+    rec.close()
+
+
+def _copy_ms(torch, dev, nbytes):
+    """ms of one host-to-device copy of ``nbytes`` of uint8 from pinned
+    and from pageable memory (CUDA events, median of 20)."""
+    out = {}
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    for kind in ("pinned", "pageable"):
+        src = torch.randint(0, 255, (nbytes,), dtype=torch.uint8,
+                            pin_memory=kind == "pinned")
+        times = []
+        for _ in range(22):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=kind == "pinned")
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        out[kind] = float(np.median(times[2:]))
+    return out
+
+
+def phase_data_path(torch, dev, smi, zoo):
+    """ResNet-50 v1 fed by the data plane.
+
+    (a) gluon.data: SyntheticImageDataset(ZOO_BATCH * DATA_BATCHES images
+    of 3 x 224 x 224, 1000 classes).transform_first(Normalize) into a
+    DataLoader(ZOO_BATCH, DATA_WORKERS workers, pin_memory, discard); the
+    first batch bitwise equal to the same loader's with no workers; the
+    ResNet f32 ShardedTrainer of zoo_path for DATA_WARMUP + DATA_STEPS
+    steps, then DATA_RESIDENT_STEPS on a resident batch with the feed
+    idle; the loader alone timed with samples made on the host (the
+    port) and with each sample moved to the card (the reference's
+    placement).
+
+    (b) bench.py::bench_resnet_piped: ZOO_BATCH * DATA_BATCHES JPEG
+    records written by the port's recordio, ImageRecordIter (uint8, random
+    crop and mirror) under PrefetchingIter, the bf16 ShardedTrainer
+    normalizing on the card; the decoder the card's JPEG stack allows (the
+    C++ decoder needs jpeglib.h); the prefetched first batch bitwise equal
+    to a serial read of the same seeded iterator, the first loss within
+    AGREE_TOL of the host-normalized f32 batch's; the host floor (the
+    iterator alone), one batch's copy from pinned memory, the stall, the
+    idle share of one profiled step and the step on a resident batch once
+    the prefetcher is closed."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import native, nd
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import (SyntheticImageDataset,
+                                                   transforms)
+    from mxnet_tpu_torch.io import ImageRecordIter, PrefetchingIter
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    mesh = par.make_mesh({"dp": 1}, devices=[dev])
+    flash0 = flash_attention_fwd.launches
+    n_img = ZOO_BATCH * DATA_BATCHES
+
+    # (a) gluon.data
+    torch.cuda.empty_cache()
+    ds = SyntheticImageDataset(length=n_img, shape=(3, ZOO_SIZE, ZOO_SIZE),
+                               num_classes=1000)
+    ds = ds.transform_first(transforms.Normalize(IMAGENET_MEAN,
+                                                 IMAGENET_STD))
+
+    def loader(workers, dataset=ds):
+        return DataLoader(dataset, batch_size=ZOO_BATCH,
+                          num_workers=workers, pin_memory=True,
+                          last_batch="discard")
+
+    stream = iter(loader(DATA_WORKERS))
+    first = next(stream)
+    serial = next(iter(loader(0)))
+    check(all(b.astorch().device == dev for b in first),
+          "DataLoader batch not on cuda:0")
+    check(torch.equal(first[0].astorch(), serial[0].astorch())
+          and torch.equal(first[1].astorch(), serial[1].astorch()),
+          "the threaded DataLoader's first batch differs from the serial "
+          "loader's")
+    del serial
+    pending = [first]
+
+    def next_batch():
+        b = pending.pop() if pending else next(stream)
+        return b[0], b[1]
+
+    net, _loss_fn, tr = _resnet_trainer(mesh)
+    net(first[0])  # resolve deferred shapes (bench_resnet's net(x))
+    losses, step_ms, stall_ms = _fed_steps(torch, tr, next_batch,
+                                           DATA_WARMUP, DATA_STEPS)
+    resident_ms = _resident_ms(torch, tr, first[0], first[1])
+    del stream, first, net, tr
+    torch.cuda.empty_cache()
+    host_ms = _loader_ms(torch, loader(DATA_WORKERS), LOADER_PROBE_BATCHES)
+    on_card = ds.transform_first(lambda x: x.as_in_context(mx.gpu(0)))
+    card_ms = _loader_ms(torch, loader(DATA_WORKERS, on_card),
+                         LOADER_PROBE_BATCHES)
+    med = float(np.median(step_ms))
+    zoo_f32 = zoo["f32"]
+    leg_a = {"dataset": "SyntheticImageDataset", "images": n_img,
+             "transform": "Normalize(ImageNet mean, std)",
+             "loader": {"batch_size": ZOO_BATCH, "num_workers": DATA_WORKERS,
+                        "pin_memory": True, "last_batch": "discard"},
+             "first_batch_bitwise_equal_serial": True,
+             "compute_dtype": "float32", "losses": losses,
+             "step_ms_median": med, "step_ms_all": step_ms,
+             "images_per_s": ZOO_BATCH / med * 1e3,
+             "stall_ms_median": float(np.median(stall_ms)),
+             "stall_ms_all": stall_ms,
+             "resident_step_ms_feed_idle": resident_ms,
+             "resident_batch_f32_images_per_s": zoo_f32["images_per_s"],
+             "resident_batch_f32_step_ms": zoo_f32["step_ms_median"],
+             "loader_alone_ms_per_batch": {
+                 "samples_on_host_one_copy_per_batch": host_ms,
+                 "each_sample_moved_to_the_card": card_ms}}
+
+    # (b) the record pipeline
+    probe = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                           input="#include <jpeglib.h>\n", text=True,
+                           capture_output=True, timeout=60)
+    jpeglib = probe.returncode == 0
+    tmp = tempfile.mkdtemp(prefix="mxt_records_")
+    prefix = os.path.join(tmp, "synth")
+    t0 = time.perf_counter()
+    _make_records(prefix, n_img, ZOO_SIZE)
+    write_s = time.perf_counter() - t0
+    rec_mb = os.path.getsize(prefix + ".rec") / 2 ** 20
+    kw = dict(path_imgrec=prefix + ".rec", data_shape=(3, ZOO_SIZE, ZOO_SIZE),
+              batch_size=ZOO_BATCH, shuffle=False, rand_crop=True,
+              rand_mirror=True, resize=ZOO_SIZE,
+              preprocess_threads=REC_THREADS, dtype="uint8",
+              mean_r=REC_MEAN[0], mean_g=REC_MEAN[1], mean_b=REC_MEAN[2],
+              std_r=REC_STD[0], std_g=REC_STD[1], std_b=REC_STD[2])
+    np.random.seed(DATA_SEED)
+    raw = ImageRecordIter(**kw)
+    decoder = "native" if raw._native is not None else "pil"
+    check(decoder == ("native" if jpeglib else "pil"),
+          f"decoder {decoder} with jpeglib.h "
+          f"{'present' if jpeglib else 'missing'}")
+    serial = raw.next()
+    t0 = time.perf_counter()
+    for _ in range(5):  # bench's host floor: the iterator alone
+        raw.next().data[0].wait_to_read()
+    floor_ms = 1e3 * (time.perf_counter() - t0) / 5
+    np.random.seed(DATA_SEED)
+    it = PrefetchingIter(ImageRecordIter(**kw), prefetch=REC_PREFETCH)
+    b0 = it.next()
+    x0, y0 = b0.data[0], b0.label[0]
+    check(x0.astorch().device == dev and x0.dtype == np.uint8,
+          "prefetched batch not uint8 on cuda:0")
+    check(torch.equal(x0.astorch(), serial.data[0].astorch())
+          and torch.equal(y0.astorch(), serial.label[0].astorch()),
+          "the prefetched first batch differs from a serial read")
+    del serial
+    mean = torch.tensor(raw.mean, device=dev)
+    std = torch.tensor(raw.std, device=dev)
+
+    def preprocess(x):
+        if x.dtype == torch.uint8:
+            return (x.float() - mean) / std
+        return x
+
+    net, _loss_fn, tr = _resnet_trainer(mesh, "bfloat16", preprocess)
+    loss_u8 = float(tr.value_and_grad(x0, y0)[0])
+    host_f32 = nd.array((x0.asnumpy().astype(np.float32) - raw.mean)
+                        / raw.std)
+    loss_f32 = float(tr.value_and_grad(host_f32, y0)[0])
+    check(abs(loss_u8 - loss_f32) <= AGREE_TOL,
+          f"uint8-normalized-on-card loss {loss_u8} vs host-normalized "
+          f"{loss_f32}")
+    del host_f32
+    pending = [(x0, y0)]
+
+    def next_record_batch():
+        if pending:
+            return pending.pop()
+        b = it.next()
+        return b.data[0], b.label[0]
+
+    rlosses, rstep_ms, rstall_ms = _fed_steps(torch, tr, next_record_batch,
+                                              DATA_WARMUP, DATA_STEPS)
+    prof_ms, idle, device_ms = _device_profile(
+        torch, lambda: tr.step(*next_record_batch()))
+    it.close()
+    rresident_ms = _resident_ms(torch, tr, x0, y0)
+    del it, raw, net, tr, x0, y0
+    torch.cuda.empty_cache()
+    copy_ms = _copy_ms(torch, dev, ZOO_BATCH * 3 * ZOO_SIZE * ZOO_SIZE)
+    shutil.rmtree(tmp)
+    check(flash_attention_fwd.launches == flash0,
+          "the data path launched flash attention")
+    rmed = float(np.median(rstep_ms))
+    leg_b = {"config": "bench.py::bench_resnet_piped", "records": n_img,
+             "record_file_mb": rec_mb, "write_s": write_s,
+             "jpeg_quality": REC_QUALITY, "jpeglib_h": jpeglib,
+             "decoder": decoder,
+             "native_build_error": native.io_lib_error(),
+             "iterator": {"dtype": "uint8", "rand_crop": True,
+                          "rand_mirror": True, "resize": ZOO_SIZE,
+                          "preprocess_threads": REC_THREADS,
+                          "prefetch": REC_PREFETCH},
+             "prefetched_first_batch_bitwise_equal_serial": True,
+             "first_loss": {"uint8_normalized_on_card": loss_u8,
+                            "host_normalized_f32": loss_f32,
+                            "abs_diff": abs(loss_u8 - loss_f32),
+                            "tolerance": AGREE_TOL},
+             "compute_dtype": "bfloat16", "losses": rlosses,
+             "step_ms_median": rmed, "step_ms_all": rstep_ms,
+             "images_per_s": ZOO_BATCH / rmed * 1e3,
+             "stall_ms_median": float(np.median(rstall_ms)),
+             "stall_ms_all": rstall_ms,
+             "resident_step_ms_feed_idle": rresident_ms,
+             "host_floor_ms_per_batch": floor_ms,
+             "host_floor_images_per_s": ZOO_BATCH / floor_ms * 1e3,
+             "h2d_copy_ms_one_uint8_batch": copy_ms,
+             "uint8_batch_mb": ZOO_BATCH * 3 * ZOO_SIZE ** 2 / 1e6,
+             "resident_batch_bf16_images_per_s": zoo["bf16"]["images_per_s"],
+             "profiled_step_ms": prof_ms, "device_idle_share": idle,
+             "device_ms_by_class": device_ms}
+    emit({"phase": "data_path", "model": "resnet50_v1", "card": smi,
+          "batch": ZOO_BATCH, "image_size": ZOO_SIZE, "gluon_data": leg_a,
+          "records": leg_b})
+
+
+# estimator_path: the LM under Estimator.fit from a DataLoader over
+# EST_ROWS rows (EST_DISTINCT distinct rows, tiled), Adam, f32
+EST_ROWS, EST_DISTINCT = 16, 4
+EST_WORKERS = 2
+EST_MONITOR_INTERVAL = 2
+EST_CKPT_PERIOD = 2
+
+
+def phase_estimator_path(torch, dev, smi, gluon_summary):
+    """The full-width LM (seed GLUON_SEED) trained by
+    ``gluon.contrib.estimator.Estimator``: ``fit(epochs=1)`` over a
+    ``DataLoader(ArrayDataset(tokens, labels), TRAIN_BATCH, EST_WORKERS
+    workers, pin_memory)`` of EST_ROWS rows of 2048 int32 tokens (the
+    gluon path's TRAIN_BATCH rows, tiled; no shuffle), SoftmaxCrossEntropy,
+    ``gluon.Trainer`` with Adam (lr GLUON_LR), f32, hybridized, with a
+    ``CheckpointHandler(batch_period=EST_CKPT_PERIOD)`` in a temp dir, a
+    ``LoggingHandler`` and a ``Monitor(interval=EST_MONITOR_INTERVAL)``
+    tapping every block. The first step's loss and every gradient against
+    the plain-tensor oracle (the nd path's limits), finite falling losses,
+    12 flash launches a step each way, finite monitored stats (one per
+    block a tapped batch), and a net loaded from the last checkpoint whose
+    forward is bitwise the trained net's; one profiled Estimator step."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.gluon.contrib.estimator import (CheckpointHandler,
+                                                         Estimator,
+                                                         LoggingHandler)
+    from mxnet_tpu_torch.gluon.contrib.estimator.event_handler import (
+        BatchBegin, BatchEnd)
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.models.transformer import (decode_config,
+                                                    decode_params,
+                                                    gluon_parameters,
+                                                    transformer_lm)
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from mxnet_tpu_torch.tools import nd_lm
+
+    os.environ.pop("MXNET_ATTENTION_IMPL", None)  # the auto policy
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mx.random.seed(GLUON_SEED)
+    net = transformer_lm()
+    net.initialize()
+    cfg = decode_config(net)
+    seq, batch = cfg["max_length"], TRAIN_BATCH
+    rows = np.random.RandomState(0).randint(0, cfg["vocab"], (EST_DISTINCT,
+                                                              seq))
+    tokens = np.tile(rows, (EST_ROWS // EST_DISTINCT, 1)).astype(np.int32)
+    ref_loss, ref_grads = _oracle_loss_and_grads(
+        torch, cfg, decode_params(net), torch.from_numpy(tokens[:batch])
+        .to(dev))
+    torch.cuda.empty_cache()
+    net.hybridize()
+    flat = nd_lm.flat_params(gluon_parameters(net))
+
+    blocks = []
+
+    def walk(b):
+        blocks.append(b.name)
+        for c in b._children.values():
+            walk(c)
+
+    walk(net)
+    mon = mx.monitor.Monitor(EST_MONITOR_INTERVAL)
+    mon.install_gluon(net)
+    taps, losses, times, agreement = [], [], [], {}
+
+    class Taps(BatchBegin, BatchEnd):
+        """The monitor's tic/toc around each batch, and the step clock."""
+        priority = -500  # after MetricHandler's loss read, before saving
+
+        def batch_begin(self, est, *a, **k):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+            mon.tic()
+
+        def batch_end(self, est, *a, **k):
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - self.t0))
+            loss = k["loss"]
+            losses.append(float(loss.mean().asscalar()))
+            stats = mon.toc()
+            if stats:
+                taps.append(stats)
+            if len(losses) == 1:  # the first step's gradients (the
+                # trainer leaves them in place)
+                err = {}
+                for name, p in flat:
+                    g, r = p.grad().astorch() / batch, ref_grads[name]
+                    err[name] = float((g - r).abs().max()
+                                      / r.abs().max().clamp_min(1e-30))
+                worst = max(err, key=err.get)
+                agreement.update(
+                    loss_estimator=losses[0], loss_oracle=ref_loss,
+                    loss_rel_diff=abs(losses[0] - ref_loss) / ref_loss,
+                    grad_err_of_max_worst=err[worst], worst_param=worst,
+                    tolerance={"grad_of_max": ND_GRAD_TOL,
+                               "loss_rel": ND_LOSS_TOL})
+
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": GLUON_LR})
+    est = Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                    trainer=trainer)
+    data = DataLoader(ArrayDataset(tokens, tokens), batch_size=batch,
+                      num_workers=EST_WORKERS, pin_memory=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="mxt_estimator_")
+    ckpt = CheckpointHandler(ckpt_dir, batch_period=EST_CKPT_PERIOD)
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    est.fit(data, epochs=1, event_handlers=[Taps(), ckpt, LoggingHandler(
+        metrics=est.train_metrics)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n_steps = EST_ROWS // batch
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    want = cfg["layers"] * n_steps
+    check(launches == {k: want for k in launches},
+          f"estimator flash launches {launches}, want {want} = "
+          f"{cfg['layers']} layers x {n_steps} steps")
+    del ref_grads
+    check(agreement["loss_rel_diff"] <= ND_LOSS_TOL,
+          f"estimator loss {losses[0]} vs the oracle's {ref_loss}")
+    check(agreement["grad_err_of_max_worst"] <= ND_GRAD_TOL,
+          f"estimator gradient {agreement['worst_param']} err "
+          f"{agreement['grad_err_of_max_worst']} of its max")
+    check(len(losses) == n_steps and all(math.isfinite(v) for v in losses),
+          f"estimator losses {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"estimator losses do not fall: {losses}")
+    metric = dict(m.get() for m in est.train_metrics)["loss"]
+    check(math.isfinite(metric), f"estimator loss metric {metric}")
+    tapped = -(-n_steps // EST_MONITOR_INTERVAL)
+    check(len(taps) == tapped and all(len(t) == len(blocks) for t in taps),
+          f"monitor: {[len(t) for t in taps]} stats per tapped batch, want "
+          f"{tapped} batches of {len(blocks)} (one per block)")
+    check(all(np.isfinite(v).all() for t in taps for _, _, v in t),
+          "monitor: a stat is not finite")
+    mon.uninstall_gluon()
+
+    # a second net loaded from the last checkpoint: a bitwise-equal forward
+    last = ckpt.saved[-1]
+    ckpt_mb = os.path.getsize(last) / 2 ** 20
+    net2 = transformer_lm()
+    net2.initialize()
+    t0 = time.perf_counter()
+    net2.load_parameters(last)
+    load_s = time.perf_counter() - t0
+    fixed = nd.array(tokens[:1], dtype="int32")
+    a = net(fixed).astorch().clone()
+    b = net2(fixed).astorch()
+    check(torch.equal(a, b), "the net loaded from the last checkpoint "
+          "forwards differently")
+    del a, b, net2
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    one = DataLoader(ArrayDataset(tokens[:batch], tokens[:batch]),
+                     batch_size=batch, pin_memory=True)
+    prof_ms, idle, device_ms = _device_profile(
+        torch, lambda: est.fit(one, epochs=1))
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    shutil.rmtree(ckpt_dir)
+    med = float(np.median(times[1:]))
+    emit({"phase": "estimator_path", "model": "transformer_lm",
+          "card": smi, "batch": batch, "seq_len": seq, "rows": EST_ROWS,
+          "distinct_rows": EST_DISTINCT, "optimizer": "adam",
+          "learning_rate": GLUON_LR, "dtype": "float32",
+          "loader": {"num_workers": EST_WORKERS, "pin_memory": True,
+                     "shuffle": False},
+          "handlers": ["CheckpointHandler(batch_period="
+                       f"{EST_CKPT_PERIOD})", "LoggingHandler",
+                       "StoppingHandler", "MetricHandler",
+                       f"Monitor(interval={EST_MONITOR_INTERVAL})"],
+          "agreement": agreement, "losses": losses, "loss_metric": metric,
+          "step_ms_all": times, "step_ms_median_after_first": med,
+          "tokens_per_s": batch * seq / med * 1e3, "fit_s": fit_s,
+          "gluon_path": gluon_summary,
+          "monitor": {"tapped_batches": len(taps),
+                      "stats_per_batch": len(blocks)},
+          "checkpoints": [os.path.basename(p) for p in ckpt.saved],
+          "params_file_mb": ckpt_mb, "load_parameters_s": load_s,
+          "reload_forward_bitwise": True, "peak_mem_gb": peak_gb,
+          "profiled_fit_of_one_batch_ms": prof_ms,
+          "device_idle_share": idle, "device_ms_by_class": device_ms,
+          "flash_launches": launches})
     return launches
 
 
@@ -2029,15 +2610,19 @@ def main() -> int:
     serve_launches = run(phase_main_path, torch, dev)
     train_launches = run(phase_train_path, torch, dev)
     nd_launches = run(phase_nd_path, torch, dev, smi)
-    gluon_launches, gluon_decode = run(phase_gluon_path, torch, dev, smi)
-    run(phase_zoo_path, torch, dev, smi)
+    gluon_launches, gluon_decode, gluon_summary = run(phase_gluon_path,
+                                                      torch, dev, smi)
+    estimator_launches = run(phase_estimator_path, torch, dev, smi,
+                             gluon_summary)
+    zoo = run(phase_zoo_path, torch, dev, smi)
+    run(phase_data_path, torch, dev, smi, zoo)
     run(phase_bert_path, torch, dev, smi)
     module_launches = run(phase_module_path, torch, dev, smi)
     emit({"phase": "timing", "phase_wall_s": walls,
           "total_wall_s": time.perf_counter() - t_start})
     flash_launches = {k: train_launches[k] + nd_launches[k]
-                      + gluon_launches[k] + module_launches[k]
-                      for k in train_launches}
+                      + gluon_launches[k] + estimator_launches[k]
+                      + module_launches[k] for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
@@ -2048,7 +2633,8 @@ def main() -> int:
                       design=PAGED_DESIGN,
                       chunk=kern["chunk"]),
         # launches: the training path's (bf16), the nd path's, the gluon
-        # path's (f32 and bf16) and the module path's (f32); the main
+        # path's (f32 and bf16), the estimator path's (f32) and the module
+        # path's (f32); the main
         # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
         # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",

@@ -56,6 +56,17 @@ and trains it symbolically, the reference's classic way:
        ndarray.serialization (.params, the reference's bytes) and
        checkpoint.CheckpointManager
 
+and feeds them from the data plane:
+
+    loader = gluon.data.DataLoader(dataset, batch_size, num_workers=4,
+                                   pin_memory=True)
+    it = io.PrefetchingIter(io.ImageRecordIter(path_imgrec=..., ...))
+    -> samples, transforms and batches made on the host (numpy, PIL, the
+       C++ RecordIO + JPEG decoder of native/ built by native.py), one
+       copy per batch to the card (pinned, non_blocking; the prefetcher's
+       own CUDA stream)
+    -> gluon.contrib.estimator.Estimator(net, loss, trainer=...).fit(loader)
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``ctx=mx.cpu()``, ``with mx.cpu():`` for ``nd``); with no card and no
 explicit CPU request they raise (``context.py``).
@@ -81,12 +92,15 @@ from .context import (Context, cpu, current_context,  # noqa: E402,F401
                       default_device, gpu)
 
 _SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
-               "checkpoint", "executor", "gluon", "initializer", "io",
-               "metric", "model", "models", "module", "name", "ndarray",
-               "ops", "optimizer", "parallel", "random", "serve", "symbol")
+               "checkpoint", "engine", "executor", "gluon", "image",
+               "initializer", "io", "metric", "model", "models", "module",
+               "monitor", "name", "native", "ndarray", "ops", "optimizer",
+               "parallel", "random", "registry", "serve", "subgraph",
+               "symbol", "visualization")
 # the reference's short names
 _ALIASES = {"nd": "ndarray", "init": "initializer", "sym": "symbol",
-            "mod": "module"}
+            "mod": "module", "mon": "monitor", "viz": "visualization",
+            "recordio": "io.recordio"}
 
 
 def __getattr__(name):

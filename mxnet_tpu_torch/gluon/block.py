@@ -27,9 +27,9 @@ running statistics) become auxiliary states that a bound ``Executor``
 folds in training, as the eager layer does (the reference's trace leaves
 them plain arguments). ``export`` writes the ``.params`` file and the
 traced graph; ``SymbolBlock``/``imports`` run a graph as a block.
-``export(format="onnx")`` waits for the ONNX exporter (queue item A12),
-``optimize_for`` for the subgraph backends (A10(c)), ``lint`` for the
-analysis plane (A15); ``load_stablehlo`` raises by design.
+``export(format="onnx")`` waits for the ONNX exporter (queue item A12)
+and ``lint`` for the analysis plane (A15); ``optimize_for`` hybridizes,
+as the reference's does; ``load_stablehlo`` raises by design.
 """
 from __future__ import annotations
 
@@ -421,9 +421,9 @@ class HybridBlock(Block):
                            json.dumps(meta).encode("utf-8"))
 
     def optimize_for(self, *args, **kwargs):
-        raise MXNetError("HybridBlock.optimize_for: the subgraph backends "
-                         "(subgraph.py, queue item A10(c)) are not ported "
-                         "yet")
+        """As the reference's: hybridize. The graph passes apply to a
+        Symbol (``Symbol.optimize_for``, ``subgraph.py``)."""
+        self.hybridize(True)
 
 
 class CachedOp:

@@ -1,0 +1,4 @@
+"""gluon.contrib, the experimental Gluon surface (counterpart of
+``mxnet_tpu/gluon/contrib/``): the Estimator. Its ``nn``
+(``SyncBatchNorm``) is queue item A12."""
+from . import estimator  # noqa: F401

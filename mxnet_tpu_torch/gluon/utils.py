@@ -1,7 +1,7 @@
 """Gluon utilities (counterpart of ``mxnet_tpu/gluon/utils.py``):
 ``split_data``, ``split_and_load``, ``clip_global_norm`` and
-``check_sha1``. ``download`` raises: the port fetches nothing, and data
-loading is queue item A11. ``set_params_from_numpy`` carries a block's
+``check_sha1``. ``download`` raises, as the reference's does: nothing is
+fetched over the network. ``set_params_from_numpy`` carries a block's
 weights in from numpy arrays keyed as a ``.params`` file is (the file
 format itself: ``ndarray/serialization.py``, through
 ``Block.save_parameters``/``load_parameters``)."""
@@ -70,7 +70,7 @@ def check_sha1(filename, sha1_hash):
 def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
              verify_ssl=True):
     raise MXNetError("download: the port fetches nothing over the network; "
-                     "place files locally (data loading is queue item A11)")
+                     "place files locally")
 
 
 def set_params_from_numpy(block, arrays) -> None:

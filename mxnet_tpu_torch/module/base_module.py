@@ -2,9 +2,10 @@
 ``mxnet_tpu/module/base_module.py``).
 
 The reference's hooks into planes the port lacks are refused loudly:
-``health=`` and ``monitor=`` (the training-health plane and ``monitor.py``:
-queue items A15 and A10(c)), and an elastic or distributed ``kvstore``
-(A14). Its fleet-accounting spans and obs counters (A15) are left out.
+``health=`` (the training-health plane, queue item A15) and an elastic or
+distributed ``kvstore`` (A14). Its fleet-accounting spans and obs
+counters (A15) are left out. ``monitor=`` is accepted and never read, as
+in the reference's ``fit``.
 """
 from __future__ import annotations
 
@@ -126,9 +127,6 @@ class BaseModule:
         if health is not None:
             raise MXNetError("fit(health=...): the training-health plane "
                              "(queue item A15) is not ported yet")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=...): monitor.py (queue item "
-                             "A10(c)) is not ported yet")
         if not isinstance(kvstore, str) or kvstore not in ("local",
                                                            "device"):
             raise MXNetError(f"fit(kvstore={kvstore!r}): distributed and "

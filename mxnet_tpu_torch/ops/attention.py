@@ -8,9 +8,10 @@ Counterpart of ``mxnet_tpu/ops/attention.py``, with its policy:
   (``flash_attention.py``; the CUDA kernels on a CUDA tensor);
 - an explicit mask: plain (the kernels handle causal masks only).
 
-``MXNET_ATTENTION_IMPL`` in {auto, plain, flash} overrides. The threshold
-1024 is the reference's, measured on a TPU; it has not been measured on
-the card yet.
+``MXNET_ATTENTION_IMPL`` in {auto, plain, flash} overrides; any other
+value raises ``MXNetError`` (the reference treats it as auto). The
+threshold 1024 is the reference's, measured on a TPU; it has not been
+measured on the card yet.
 """
 from __future__ import annotations
 

@@ -12,9 +12,9 @@ Missing tensor inputs auto-create Variables named ``{name}_{arg}`` (the
 reference's behavior that makes ``Module.init_params`` work); ``moving_*``
 args become auxiliary states. ``tojson`` gives the reference's JSON for
 graphs of registered ops; the ``_invoke_fn`` placeholder of
-:func:`invoke_fn` cannot be loaded back, in either package. ``lint``
-(the analysis plane, queue item A15) and ``optimize_for`` (the subgraph
-backends, queue item A10(c)) raise.
+:func:`invoke_fn` cannot be loaded back, in either package.
+``optimize_for`` applies a graph pass of ``subgraph.py``; ``lint`` (the
+analysis plane, queue item A15) raises.
 """
 from __future__ import annotations
 
@@ -367,9 +367,15 @@ class Symbol:
                         args_grad=args_grad, aux_states=aux_states)
 
     def optimize_for(self, backend, args=None, aux=None, **kwargs):
-        raise MXNetError("Symbol.optimize_for: the subgraph backends "
-                         "(subgraph.py, queue item A10(c)) are not ported "
-                         "yet")
+        """Apply a registered graph pass (reference Symbol.optimize_for /
+        subgraph backend API): returns the rewritten Symbol; updated params
+        are available on ._optimized_args/._optimized_aux."""
+        from ..subgraph import optimize_symbol
+
+        new_sym, new_args, new_aux = optimize_symbol(self, backend, args, aux)
+        new_sym._optimized_args = new_args
+        new_sym._optimized_aux = new_aux
+        return new_sym
 
     def eval(self, ctx=None, **kwargs):
         exe = self.simple_bind(ctx=ctx, grad_req="null",

@@ -2,7 +2,7 @@
 against the JAX package, on the CPU.
 
 The cases of ``tests/test_checkpoint.py`` run through the port (the
-Estimator case waits for ``gluon/contrib/estimator``, queue item A10(c)):
+Estimator case runs in ``tests/test_torch_estimator.py``):
 the atomic commit and CRC footer, ``CheckpointManager`` (commit, keep-
 last-N, the async writer and its surfaced errors, the stale-staging sweep,
 fallback past a corrupt, truncated or manifest-less newest checkpoint),
@@ -464,7 +464,7 @@ def test_fit_refuses_planes_not_ported():
     mod = Module(_mlp(), context=mx.cpu())
     with pytest.raises(MXNetError, match="A15"):
         mod.fit(it, num_epoch=1, health=True)
-    with pytest.raises(MXNetError, match="A10"):
-        mod.fit(it, num_epoch=1, monitor=object())
+    # monitor= is accepted and never read, as in the reference's fit
+    mod.fit(it, num_epoch=1, monitor=object())
     with pytest.raises(MXNetError, match="A14"):
         mod.fit(it, num_epoch=1, kvstore="dist_sync")

@@ -823,3 +823,138 @@ def test_nd_load_lands_on_the_card(cuda_device, tmp_path):
     assert out["h"].dtype == torch.bfloat16 and out["h"].astorch().is_cuda
     np.testing.assert_array_equal(out["w"].asnumpy(), np.arange(6))
     assert nd.load(path, ctx=mx.cpu())["w"].context == mx.cpu()
+
+
+# ---------------------------------------------------------------------------
+# the data plane, the monitor and fold_bn on the card
+# ---------------------------------------------------------------------------
+
+def _write_jpeg_records(prefix, n, size):
+    from mxnet_tpu_torch.io.recordio import (IRHeader, MXIndexedRecordIO,
+                                             pack_img)
+
+    rec = MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    rng = np.random.RandomState(0)
+    for i in range(n):
+        img = rng.randint(0, 255, (size, size, 3), np.uint8)
+        rec.write_idx(i, pack_img(IRHeader(0, float(i % 10), i, 0), img,
+                                  quality=80))
+    rec.close()
+    return prefix + ".rec"
+
+
+def test_pin_memory_loader_batches_arrive_on_cuda(cuda_device):
+    """pin_memory=True: host-made batches reach cuda:0 by one non_blocking
+    copy each, bitwise equal to the same loader's batches on the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import (SyntheticImageDataset,
+                                                   transforms)
+
+    ds = SyntheticImageDataset(length=40, shape=(3, 32, 32), num_classes=10)
+    ds = ds.transform_first(transforms.Normalize((0.5, 0.4, 0.3),
+                                                 (0.2, 0.2, 0.2)))
+    card = []
+    for data, label in DataLoader(ds, batch_size=8, num_workers=3,
+                                  pin_memory=True, last_batch="discard"):
+        assert data.astorch().device == cuda_device
+        assert label.astorch().device == cuda_device
+        # work queued behind the copy on the consumer's stream
+        card.append((data.astorch() * 1.0).cpu().numpy())
+    with mx.cpu():
+        host = [d.asnumpy() for d, _ in DataLoader(ds, batch_size=8)]
+    assert len(card) == len(host) == 5
+    for a, b in zip(card, host):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_prefetch_stream_bitwise_equal_serial_read(cuda_device, tmp_path):
+    """PrefetchingIter copies on its own stream from pinned memory; the
+    consumer's stream waits for each batch. With the card busy between
+    batches, every prefetched batch still equals a serial read of the same
+    seeded iterator, bitwise."""
+    from mxnet_tpu_torch.io import ImageRecordIter, PrefetchingIter
+
+    uri = _write_jpeg_records(str(tmp_path / "r"), 48, 64)
+    kw = dict(path_imgrec=uri, data_shape=(3, 56, 56), batch_size=8,
+              rand_crop=True, rand_mirror=True, resize=60,
+              preprocess_threads=2, dtype="uint8")
+    np.random.seed(7)
+    serial = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+              for b in ImageRecordIter(**kw)]
+    np.random.seed(7)
+    it = PrefetchingIter(ImageRecordIter(**kw), prefetch=3)
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    got = []
+    for b in it:
+        assert b.data[0].astorch().device == cuda_device
+        for _ in range(4):
+            busy = torch.tanh(busy @ busy) * 0.5
+        got.append((b.data[0].astorch().float().sum().item(),
+                    b.data[0].asnumpy(), b.label[0].asnumpy()))
+    it.close()
+    assert len(got) == len(serial) == 6
+    for (_, d, lab), (sd, sl) in zip(got, serial):
+        np.testing.assert_array_equal(d, sd)
+        np.testing.assert_array_equal(lab, sl)
+
+
+def test_prefetching_ndarray_iter_on_card(cuda_device):
+    from mxnet_tpu_torch.io import NDArrayIter, PrefetchingIter
+
+    x = np.arange(64, dtype=np.float32).reshape(32, 2)
+    it = PrefetchingIter(NDArrayIter(x, np.zeros(32, np.float32),
+                                     batch_size=4), prefetch=3)
+    got = np.concatenate([b.data[0].asnumpy() for b in it])
+    it.close()
+    np.testing.assert_array_equal(got, x)
+
+
+def test_monitor_and_fold_bn_on_card(cuda_device):
+    """Monitor stats of a net on the card equal the same net's on the CPU
+    (rtol 1e-6), and fold_bn keeps the folded weights on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon import block
+
+    stats, weights = [], None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with ctx:
+            block._SCOPE.counters = {}  # the same block names on both
+            net = mx.gluon.nn.HybridSequential()
+            net.add(mx.gluon.nn.Dense(6, in_units=4),
+                    mx.gluon.nn.Dense(3, in_units=6))
+            net.initialize()
+            params = list(net.collect_params().values())
+            if weights is None:  # the card's net takes the CPU net's weights
+                weights = [p.data().asnumpy() for p in params]
+            for p, w in zip(params, weights):
+                p.set_data(w)
+            net.hybridize()
+            mon = mx.monitor.Monitor(1, sort=True)
+            mon.install_gluon(net)
+            mon.tic()
+            net(nd.array(np.linspace(-1, 1, 8, dtype=np.float32)
+                         .reshape(2, 4)))
+            stats.append(mon.toc())
+    assert [t for _, t, _ in stats[0]] == [t for _, t, _ in stats[1]]
+    for (_, _, a), (_, _, b) in zip(*stats):
+        np.testing.assert_allclose(a, b, rtol=1e-6)
+
+    data = mx.sym.Variable("data")
+    conv = mx.sym.Convolution(data, kernel=(3, 3), num_filter=4, pad=(1, 1),
+                              no_bias=True, name="c")
+    out = mx.sym.BatchNorm(conv, fix_gamma=False, name="b")
+    rng = np.random.RandomState(0)
+    args = {"c_weight": nd.array(rng.rand(4, 3, 3, 3).astype(np.float32)),
+            "b_gamma": nd.array(rng.rand(4).astype(np.float32) + 0.5),
+            "b_beta": nd.array(rng.rand(4).astype(np.float32))}
+    aux = {"b_moving_mean": nd.array(rng.rand(4).astype(np.float32)),
+           "b_moving_var": nd.array(rng.rand(4).astype(np.float32) + 0.5)}
+    x = nd.array(rng.rand(2, 3, 8, 8).astype(np.float32))
+    want = out.bind(args={**args, "data": x}, aux_states=aux).forward()[0]
+    folded = out.optimize_for("fold_bn", args, aux)
+    assert folded._optimized_args["c_bias"].astorch().is_cuda
+    got = folded.bind(args={**folded._optimized_args, "data": x}).forward()[0]
+    np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), rtol=1e-4,
+                               atol=1e-5)

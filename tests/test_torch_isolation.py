@@ -38,7 +38,19 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.model, mxnet_tpu_torch.name, "
             "mxnet_tpu_torch.attribute, "
             "mxnet_tpu_torch.analysis.shape_infer, "
-            "mxnet_tpu_torch.ndarray.serialization\n"
+            "mxnet_tpu_torch.ndarray.serialization, "
+            "mxnet_tpu_torch.registry, mxnet_tpu_torch.engine, "
+            "mxnet_tpu_torch.visualization, mxnet_tpu_torch.subgraph, "
+            "mxnet_tpu_torch.monitor, mxnet_tpu_torch.gluon.data, "
+            "mxnet_tpu_torch.gluon.data.vision, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.gluon.data.vision.datasets, "
+            "mxnet_tpu_torch.io.recordio, mxnet_tpu_torch.io.io, "
+            "mxnet_tpu_torch.native, mxnet_tpu_torch.image, "
+            "mxnet_tpu_torch.gluon.contrib, "
+            "mxnet_tpu_torch.gluon.contrib.estimator, "
+            "mxnet_tpu_torch.gluon.contrib.estimator.event_handler, "
+            "mxnet_tpu_torch.tools.im2rec\n"
             "from mxnet_tpu_torch import nd, autograd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -223,8 +223,8 @@ def test_symbolblock_imports_roundtrip(tmp_path):
 
 
 def test_symbolic_hooks_and_refusals(tmp_path):
-    """Parameter.var, the gluon export descriptor, and the entry points
-    that wait for other queue items raise naming them."""
+    """Parameter.var, the gluon export descriptor, optimize_for, and the
+    entry points that wait for other queue items raise naming them."""
     net = mx.gluon.nn.Dense(3, in_units=2)
     net.initialize()
     v = net.weight.var()
@@ -240,9 +240,11 @@ def test_symbolic_hooks_and_refusals(tmp_path):
                                                              "bias"}
     with pytest.raises(MXNetError, match="A12"):
         net.export(str(tmp_path / "o"), format="onnx")
-    with pytest.raises(MXNetError, match="A10"):
-        net.optimize_for(nd.ones((1, 2)), backend="x")
-    with pytest.raises(MXNetError, match="A10"):
+    # optimize_for: the block hybridizes (the reference's), the Symbol
+    # runs a graph pass and refuses an unknown one
+    net.optimize_for(nd.ones((1, 2)), backend="x")
+    assert net._active
+    with pytest.raises(ValueError, match="unknown subgraph"):
         traced.optimize_for("x")
     with pytest.raises(MXNetError, match="A15"):
         traced.lint()
