@@ -117,7 +117,23 @@ H100): ``python3 chip_smoke.py``. It
    with the normalization on the card; the prefetched first batch bitwise
    equal to a serial read, the decoder the card's JPEG stack allows);
    images/s, stalls, the host floor, one batch's copy and the idle share;
-14. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+14. drives ``rnn_path`` after the module path: (a) example/rnn/word_lm at
+   Zaremba et al.'s medium size (Embedding(10000, 650), a 2-layer
+   ``gluon.rnn.LSTM`` of 650 with dropout 0.5, a decoder tied to the
+   embedding; batch 32 x bptt 35, f32, hybridized, SGD lr 1.0 with
+   global-norm clipping 0.2, the state carried and detached): the first
+   step at dropout 0 against the RNN op's per-step loop on the card (the
+   loss and every gradient), then 1 + 20 steps through cuDNN; (b)
+   example/rnn/bucketing/lstm_bucketing.py at its defaults through
+   ``BucketSentenceIter`` and ``BucketingModule``, one epoch on
+   ``mx.rnn`` LSTM cells and one on ``FusedRNNCell`` from the same packed
+   weights (first-batch losses equal), step ms per bucket;
+15. drives ``nmt_path``: ``Seq2SeqTransformer()`` (Transformer-base) on
+   64 x 64 source and target tokens, label smoothing 0.1, Adam, 1 + 10
+   f32 steps, then ``beam_search`` (beam 4, 32 tokens, alpha 0.6) over 4
+   sources, twice (the same tokens and scores); no flash launch (the
+   sequences are below the flash threshold);
+16. prints each phase's wall time (``timing``), the ``kernels`` JSON line
    and, last, the ``ok`` line.
 
 Between 3 and 4 it also holds the flash kernels against their plain
@@ -1421,13 +1437,13 @@ BERT_WARMUP, BERT_STEPS = 1, 10
 # and each gradient to 2e-4 of its largest element (ND_* above)
 
 
-def _forward_flops(net, x):
-    """FLOPs of one forward of ``net`` on ``x`` as torch's flop counter
+def _forward_flops(net, *xs):
+    """FLOPs of one forward of ``net`` on ``xs`` as torch's flop counter
     counts them (2 per multiply-add of the convolutions and products)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as counter:
-        net(x)
+        net(*xs)
     return counter.get_total_flops()
 
 
@@ -2559,6 +2575,440 @@ def phase_estimator_path(torch, dev, smi, gluon_summary):
     return launches
 
 
+# --------------------------------------------------------------------------
+# The sequence models (rnn_path, nmt_path)
+# --------------------------------------------------------------------------
+
+# (a) the word LM: Zaremba et al. (2014) "medium", as MXNet's
+# example/rnn/word_lm and GluonNLP's standard_lstm_lm_650 train it
+WLM_VOCAB, WLM_EMBED, WLM_HIDDEN, WLM_LAYERS = 10000, 650, 650, 2
+WLM_DROPOUT, WLM_BATCH, WLM_BPTT = 0.5, 32, 35
+WLM_LR, WLM_CLIP, WLM_STEPS = 1.0, 0.2, 20     # 1 + WLM_STEPS steps
+WLM_LOSS_TOL, WLM_GRAD_TOL = 1e-5, 2e-4        # cuDNN route vs the loop
+# (b) example/rnn/bucketing/lstm_bucketing.py at its defaults
+BKT_BUCKETS = [10, 20, 30, 40, 50, 60]
+BKT_LAYERS, BKT_HIDDEN, BKT_EMBED, BKT_BATCH = 2, 200, 200, 32
+BKT_VOCAB, BKT_PER_BUCKET, BKT_LR = 10000, 64, 0.01
+BKT_LOSS_TOL = 1e-5                            # cells vs fused, first batch
+# the Transformer-base NMT model (Vaswani et al. 2017), models/seq2seq.py
+NMT_BATCH, NMT_SRC_LEN, NMT_TGT_LEN = 64, 64, 64
+NMT_LR, NMT_STEPS = 1e-4, 10                   # 1 + NMT_STEPS Adam steps
+NMT_BEAM, NMT_MAX_LEN, NMT_ALPHA, NMT_SOURCES = 4, 32, 0.6, 4
+
+
+def _zipf_tokens(rng, shape, vocab, low=0):
+    """Tokens in [low, vocab) drawn from a Zipf law (p(k) ~ 1/(k + 1)),
+    the shape of a word corpus's unigram distribution."""
+    ranks = np.arange(vocab - low, dtype=np.float64)
+    p = 1.0 / (ranks + 1.0)
+    return (rng.choice(vocab - low, size=shape, p=p / p.sum()) + low) \
+        .astype(np.int32)
+
+
+def _word_lm_class():
+    from mxnet_tpu_torch.gluon import HybridBlock, nn, rnn
+
+    class WordLM(HybridBlock):
+        """example/rnn/word_lm's model: embedding, dropout, a fused
+        multi-layer LSTM, dropout, and a decoder tied to the embedding."""
+
+        def __init__(self, vocab, embed, hidden, layers, dropout, **kw):
+            super().__init__(**kw)
+            self.drop = nn.Dropout(dropout)
+            self.encoder = nn.Embedding(vocab, embed)
+            self.rnn = rnn.LSTM(hidden, num_layers=layers, dropout=dropout,
+                                input_size=embed)
+            self.decoder = nn.Dense(vocab, in_units=hidden, flatten=False,
+                                    prefix=self.encoder.prefix,
+                                    params=self.encoder.params)
+
+        def hybrid_forward(self, F, inputs, hidden):
+            out, hidden = self.rnn(self.drop(self.encoder(inputs)), hidden)
+            return self.decoder(self.drop(out)), hidden
+
+    return WordLM
+
+
+def _word_lm_oracle(torch, net, tokens, targets, state):
+    """The dropout-free word LM in plain tensors, its recurrence by the
+    RNN op's per-step loop (ops.rnn.rnn_loop) on the same card: (summed
+    cross-entropy, {parameter name: gradient})."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.rnn import rnn_loop, rnn_unpack_params
+
+    leaves = {n: p.data().astorch().detach().clone().requires_grad_(True)
+              for n, p in net.collect_params().items()}
+    pre = net.rnn.prefix
+    flat = torch.cat([leaves[pre + n].reshape(-1)
+                      for n in net.rnn._param_order_names()])
+    layers = rnn_unpack_params(flat, "lstm", WLM_EMBED, WLM_HIDDEN,
+                               WLM_LAYERS, False)
+    w = leaves[net.encoder.weight.name]
+    emb = F.embedding(tokens.long(), w)
+    out, _hs, _cs = rnn_loop(emb, layers, state[0], state[1], "lstm", 0.0,
+                             False)
+    logits = out @ w.T + leaves[net.decoder.bias.name]
+    loss = F.cross_entropy(logits.reshape(-1, WLM_VOCAB),
+                           targets.reshape(-1).long(), reduction="sum")
+    names = list(leaves)
+    grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def _word_lm_leg(torch, dev, smi):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    WordLM = _word_lm_class()
+    rng = np.random.RandomState(0)
+    n = WLM_STEPS + 1
+    stream = _zipf_tokens(rng, (n * WLM_BPTT + 1, WLM_BATCH), WLM_VOCAB)
+    batches = [(nd.array(stream[i * WLM_BPTT:(i + 1) * WLM_BPTT],
+                         dtype="int32"),
+                nd.array(stream[i * WLM_BPTT + 1:(i + 1) * WLM_BPTT + 1],
+                         dtype="int32")) for i in range(n)]
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    tokens_per_step = WLM_BATCH * WLM_BPTT
+
+    def build(dropout):
+        mx.random.seed(0)
+        net = WordLM(WLM_VOCAB, WLM_EMBED, WLM_HIDDEN, WLM_LAYERS, dropout)
+        net.initialize(mx.init.Uniform(0.1))
+        check(net.decoder.weight is net.encoder.weight,
+              "word LM: the decoder is not tied to the embedding")
+        net.hybridize()
+        return net
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the first step at dropout 0: cuDNN's loss and gradients vs the loop's
+    net0 = build(0.0)
+    x, y = batches[0]
+    state = net0.rnn.begin_state(WLM_BATCH)
+    want_loss, want_grads = _word_lm_oracle(
+        torch, net0, x.astorch(), y.astorch(),
+        [s.astorch() for s in state])
+    before = rnn_ops.rnn_calls["cudnn"]
+    with autograd.record():
+        out, _ = net0(x, state)
+        loss = loss_fn(out.reshape((-1, WLM_VOCAB)), y.reshape((-1,)))
+    loss.backward()
+    got_loss = float(loss.sum().asscalar())
+    check(rnn_ops.rnn_calls["cudnn"] == before + 1,
+          "word LM: the LSTM did not run the cuDNN route")
+    err = {}
+    for name, p in net0.collect_params().items():
+        r = want_grads[name]
+        err[name] = float((p.grad().astorch() - r).abs().max()
+                          / r.abs().max().clamp_min(1e-30))
+    worst = max(err, key=err.get)
+    agreement = {"loss_cudnn": got_loss, "loss_loop": want_loss,
+                 "loss_rel_diff": abs(got_loss - want_loss) / want_loss,
+                 "grad_err_of_max_worst": err[worst], "worst_param": worst,
+                 "tolerance": {"loss_rel": WLM_LOSS_TOL,
+                               "grad_of_max": WLM_GRAD_TOL}}
+    check(agreement["loss_rel_diff"] <= WLM_LOSS_TOL,
+          f"word LM: cuDNN loss {got_loss} vs the loop's {want_loss}")
+    check(err[worst] <= WLM_GRAD_TOL, f"word LM: cuDNN gradient {worst} "
+          f"err {err[worst]} of its max vs the loop's")
+    del net0, want_grads
+    torch.cuda.empty_cache()
+
+    # 1 + WLM_STEPS training steps at dropout 0.5, the state carried
+    net = build(WLM_DROPOUT)
+    params = list(net.collect_params().values())
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": WLM_LR})
+    hidden = net.rnn.begin_state(WLM_BATCH)
+
+    def step(x, y, hidden):
+        hidden = [h.detach() for h in hidden]
+        with autograd.record():
+            out, hidden = net(x, hidden)
+            loss = loss_fn(out.reshape((-1, WLM_VOCAB)), y.reshape((-1,)))
+        loss.backward()
+        # example/rnn/word_lm: the summed loss's gradients clipped at
+        # clip * bptt * batch, the step normalized by bptt * batch
+        gluon.utils.clip_global_norm([p.grad() for p in params],
+                                     WLM_CLIP * tokens_per_step)
+        trainer.step(tokens_per_step)
+        return loss, hidden
+
+    losses, times = [], []
+    calls0 = rnn_ops.rnn_calls["cudnn"]
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, hidden = step(x, y, hidden)
+        losses.append(float(loss.mean().asscalar()))
+        times.append(1e3 * (time.perf_counter() - t0))
+    cudnn_calls = rnn_ops.rnn_calls["cudnn"] - calls0
+    check(cudnn_calls == n, f"word LM: {cudnn_calls} cuDNN RNN calls in "
+          f"{n} steps")
+    check(all(math.isfinite(v) for v in losses), f"word LM losses {losses}")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"word LM losses do not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    x, y = batches[-1]
+    prof_ms, idle, device_ms = _device_profile(
+        torch, lambda: step(x, y, hidden))
+    steady = times[1:]
+    med = float(np.median(steady))
+    return {"model": "word_lm (Zaremba medium, tied)", "vocab": WLM_VOCAB,
+            "embed": WLM_EMBED, "hidden": WLM_HIDDEN,
+            "layers": WLM_LAYERS, "dropout": WLM_DROPOUT,
+            "batch": WLM_BATCH, "bptt": WLM_BPTT, "optimizer": "sgd",
+            "learning_rate": WLM_LR, "clip_global_norm": WLM_CLIP,
+            "tokens": "synthetic, Zipf over the vocabulary, seed 0",
+            "dtype": "float32", "hybridized": True,
+            "first_step_dropout0_vs_loop": agreement, "losses": losses,
+            "step_ms_first": times[0], "step_ms_median": med,
+            "step_ms_range": [min(steady), max(steady)],
+            "tokens_per_s": tokens_per_step / med * 1e3,
+            "cudnn_rnn_calls": cudnn_calls, "peak_mem_gb": peak_gb,
+            "profiled_step_ms": prof_ms, "device_idle_share": idle,
+            "device_ms_by_class": device_ms}
+
+
+def _bucket_sentences(rng):
+    """BKT_PER_BUCKET synthetic sentences per bucket, each a length in
+    (previous bucket, bucket] of Zipf tokens in [1, BKT_VOCAB) (0 pads)."""
+    out, lo = [], 1
+    for b in BKT_BUCKETS:
+        for _ in range(BKT_PER_BUCKET):
+            n = int(rng.randint(lo, b + 1))
+            out.append(list(_zipf_tokens(rng, (n,), BKT_VOCAB, low=1)))
+        lo = b + 1
+    return out
+
+
+def _bucketing_sym_gen(mx, fused):
+    """lstm_bucketing.py's sym_gen (cudnn_lstm_bucketing.py's with
+    ``fused``)."""
+    if fused:
+        cell = mx.rnn.FusedRNNCell(BKT_HIDDEN, num_layers=BKT_LAYERS,
+                                   mode="lstm", prefix="lstm_")
+    else:
+        cell = mx.rnn.SequentialRNNCell()
+        for i in range(BKT_LAYERS):
+            cell.add(mx.rnn.LSTMCell(BKT_HIDDEN, prefix=f"lstm_l{i}_"))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=BKT_VOCAB,
+                                 output_dim=BKT_EMBED, name="embed")
+        cell.reset()
+        outputs, _states = cell.unroll(seq_len, inputs=embed,
+                                       merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, BKT_HIDDEN))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=BKT_VOCAB,
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return cell, sym_gen
+
+
+def _bucketing_leg(torch, dev):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.module import BucketingModule
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+
+    sentences = _bucket_sentences(np.random.RandomState(1))
+    runs, init = {}, None
+    for kind in ("cells", "fused"):
+        np.random.seed(2)  # the iterator's shuffles
+        it = mx.rnn.BucketSentenceIter(sentences, BKT_BATCH,
+                                       buckets=BKT_BUCKETS, invalid_label=0)
+        cell, sym_gen = _bucketing_sym_gen(mx, kind == "fused")
+        mod = BucketingModule(sym_gen, default_bucket_key=it.
+                              default_bucket_key, context=mx.gpu(0))
+        mod.bind(it.provide_data, it.provide_label)
+        if init is None:
+            mx.random.seed(3)
+            mod.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                                       magnitude=2.34))
+            init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+            args = init
+        else:  # the cells' initial weights, packed
+            args = cell.pack_weights(init)
+            args = {k: args[k] for k in ("embed_weight", "pred_weight",
+                                         "pred_bias", "lstm_parameters")}
+        mod.init_params(arg_params={k: mx.nd.array(v)
+                                    for k, v in args.items()},
+                        force_init=True)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": BKT_LR,
+                                             "momentum": 0.0, "wd": 1e-5})
+        calls0 = dict(rnn_ops.rnn_calls)
+        per_bucket, losses = {}, []
+        it.reset()
+        for batch in it:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            per_bucket.setdefault(batch.bucket_key, []).append(ms)
+            out = mod.get_outputs()[0].astorch()
+            lbl = batch.label[0].astorch().reshape(-1).long()
+            p = out.gather(1, lbl[:, None]).clamp_min(1e-9)
+            losses.append(float(-p.log().mean()))
+        check(len(losses) == len(BKT_BUCKETS) * BKT_PER_BUCKET // BKT_BATCH,
+              f"bucketing {kind}: {len(losses)} batches in one epoch")
+        check(all(math.isfinite(v) for v in losses),
+              f"bucketing {kind}: losses {losses}")
+        cudnn = rnn_ops.rnn_calls["cudnn"] - calls0["cudnn"]
+        check(cudnn == (len(losses) if kind == "fused" else 0),
+              f"bucketing {kind}: {cudnn} cuDNN RNN calls")
+        runs[kind] = {"losses": losses, "cudnn_rnn_calls": cudnn,
+                      "step_ms_by_bucket": {
+                          str(k): v for k, v in sorted(per_bucket.items())}}
+    first = {k: r["losses"][0] for k, r in runs.items()}
+    rel = abs(first["fused"] - first["cells"]) / first["cells"]
+    check(rel <= BKT_LOSS_TOL, f"bucketing: first-batch loss {first} "
+          f"(rel {rel}) with the same packed weights")
+    return {"model": "lstm_bucketing (example/rnn/bucketing defaults)",
+            "layers": BKT_LAYERS, "hidden": BKT_HIDDEN, "embed": BKT_EMBED,
+            "buckets": BKT_BUCKETS, "batch": BKT_BATCH, "vocab": BKT_VOCAB,
+            "sentences_per_bucket": BKT_PER_BUCKET, "optimizer": "sgd",
+            "learning_rate": BKT_LR, "epochs": 1,
+            "tokens": "synthetic, Zipf over the vocabulary, seed 1",
+            "first_batch_loss": first, "first_batch_loss_rel_diff": rel,
+            "tolerance": BKT_LOSS_TOL, "runs": runs}
+
+
+def phase_rnn_path(torch, dev, smi):
+    """The recurrent models on the card. (a) example/rnn/word_lm at
+    Zaremba et al.'s medium size: Embedding(10000, 650), gluon.rnn.LSTM
+    (650, 2 layers, dropout 0.5), a decoder tied to the embedding, batch
+    32 x bptt 35, f32, hybridized, gluon.Trainer SGD lr 1.0, global-norm
+    clipping 0.2 (clip_global_norm), the state carried and detached: the
+    first step at dropout 0 holds cuDNN's loss and every gradient against
+    the RNN op's per-step loop on the same card, then 1 + 20 steps at
+    dropout 0.5 (losses finite and falling, one cuDNN call a step), one
+    profiled step. (b) example/rnn/bucketing/lstm_bucketing.py at its
+    defaults: BucketSentenceIter over 64 synthetic sentences per bucket,
+    BucketingModule SGD lr 0.01, one epoch on mx.rnn.SequentialRNNCell of
+    LSTMCells, and one on FusedRNNCell given the same weights packed:
+    their first-batch losses agree; step ms per bucket."""
+    emit({"phase": "rnn_path", "card": smi,
+          "word_lm": _word_lm_leg(torch, dev, smi),
+          "bucketing": _bucketing_leg(torch, dev)})
+
+
+def phase_nmt_path(torch, dev, smi):
+    """Seq2SeqTransformer() at the reference's defaults (Transformer-base:
+    6 + 6 layers, 512 units, 2048 hidden, 8 heads, dropout 0.1, vocab
+    32000 each side), hybridized, f32, label_smoothing_loss(epsilon=0.1),
+    gluon.Trainer Adam (0.9, 0.98, 1e-9) lr 1e-4, batch 64 x 64 source and
+    64 x 64 target tokens from seed 0: 1 + 10 steps (finite, falling
+    losses), one profiled step; then beam_search(beam_size=4,
+    max_length=32, alpha=0.6) from the trained weights over 4 sources of
+    64 tokens, twice: the same tokens and scores, every hypothesis
+    starting with bos, finite scores. Attention runs plain (sequences of
+    64, below the flash threshold): no flash launch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.models import seq2seq
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    os.environ.pop("MXNET_ATTENTION_IMPL", None)  # the auto policy
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash0 = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    mx.random.seed(0)
+    net = seq2seq.Seq2SeqTransformer()
+    net.initialize()
+    net.hybridize()
+    n_params = _n_params(net)
+    rng = np.random.RandomState(0)
+    src = nd.array(rng.randint(0, 32000, (NMT_BATCH, NMT_SRC_LEN)),
+                   dtype="int32")
+    stream = rng.randint(0, 32000, (NMT_BATCH, NMT_TGT_LEN + 1))
+    tgt = nd.array(stream[:, :-1], dtype="int32")
+    label = nd.array(stream[:, 1:], dtype="int32")
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": NMT_LR, "beta1": 0.9,
+                             "beta2": 0.98, "epsilon": 1e-9})
+
+    def step():
+        with autograd.record():
+            loss = seq2seq.label_smoothing_loss(net(src, tgt), label,
+                                                epsilon=0.1)
+        loss.backward()
+        trainer.step(1)  # the loss is already a mean
+        return loss
+
+    losses, times = [], []
+    for _ in range(1 + NMT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step().asscalar()))
+        times.append(1e3 * (time.perf_counter() - t0))
+    check(all(math.isfinite(v) for v in losses), f"nmt losses {losses}")
+    check(losses[-1] < losses[0], f"nmt losses do not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof_ms, idle, device_ms = _device_profile(torch, step)
+    flops = 3 * _forward_flops(net, src, tgt)
+    steady = times[1:]
+    med = float(np.median(steady))
+
+    sources = nd.array(rng.randint(0, 32000, (NMT_SOURCES, NMT_SRC_LEN)),
+                       dtype="int32")
+    decoded = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, scores = seq2seq.beam_search(net, sources,
+                                           beam_size=NMT_BEAM,
+                                           max_length=NMT_MAX_LEN,
+                                           alpha=NMT_ALPHA)
+        decoded.append((toks, scores, time.perf_counter() - t0))
+    (t1, s1, w1), (t2, s2, w2) = decoded
+    check(np.array_equal(t1, t2) and np.array_equal(s1, s2),
+          "beam search: two runs differ")
+    check(t1.shape == (NMT_SOURCES, NMT_MAX_LEN) and (t1[:, 0] == 1).all(),
+          f"beam search: hypotheses {t1[:, :4]} do not start with bos")
+    check(np.isfinite(s1).all(), f"beam search scores {s1}")
+    flash = (flash_attention_fwd.launches - flash0[0],
+             flash_attention_bwd.launches - flash0[1])
+    check(flash == (0, 0), f"nmt path launched flash attention {flash}")
+    emit({"phase": "nmt_path", "model": "Seq2SeqTransformer()", "card": smi,
+          "layers": "6 + 6", "units": 512, "hidden": 2048, "heads": 8,
+          "dropout": 0.1, "vocab": [32000, 32000], "parameters": n_params,
+          "batch": NMT_BATCH, "src_len": NMT_SRC_LEN,
+          "tgt_len": NMT_TGT_LEN, "dtype": "float32", "hybridized": True,
+          "loss": "label_smoothing_loss(epsilon=0.1)",
+          "optimizer": "adam(0.9, 0.98, 1e-9)", "learning_rate": NMT_LR,
+          "losses": losses, "step_ms_first": times[0],
+          "step_ms_median": med, "step_ms_range": [min(steady),
+                                                   max(steady)],
+          "target_tokens_per_s": NMT_BATCH * NMT_TGT_LEN / med * 1e3,
+          "model_tflop_per_step": flops / 1e12,
+          "flops_counted": "torch.utils.flop_counter on one forward "
+                           "(2 per multiply-add), x 3 for the backward",
+          "model_tflops": flops / med / 1e9,
+          "mfu_of_fp32": flops / (med / 1e3) / FP32_FLOPS_PER_S,
+          "peak_mem_gb": peak_gb, "profiled_step_ms": prof_ms,
+          "device_idle_share": idle, "device_ms_by_class": device_ms,
+          "flash_launches": 0,
+          "beam_search": {"beam_size": NMT_BEAM, "max_length": NMT_MAX_LEN,
+                          "alpha": NMT_ALPHA, "sources": NMT_SOURCES,
+                          "wall_s": [w1, w2],
+                          "wall_ms_per_sentence": 1e3 * min(w1, w2)
+                          / NMT_SOURCES,
+                          "repeatable": True, "scores": s1.tolist(),
+                          "first_tokens": t1[:, :8].tolist()}})
+
+
 def _out_dir():
     """``chiprun_out/`` beside this script (made if missing): what a run
     writes that is too large for its output."""
@@ -2618,6 +3068,8 @@ def main() -> int:
     run(phase_data_path, torch, dev, smi, zoo)
     run(phase_bert_path, torch, dev, smi)
     module_launches = run(phase_module_path, torch, dev, smi)
+    run(phase_rnn_path, torch, dev, smi)
+    run(phase_nmt_path, torch, dev, smi)
     emit({"phase": "timing", "phase_wall_s": walls,
           "total_wall_s": time.perf_counter() - t_start})
     flash_launches = {k: train_launches[k] + nd_launches[k]

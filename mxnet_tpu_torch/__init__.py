@@ -95,8 +95,8 @@ _SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
                "checkpoint", "engine", "executor", "gluon", "image",
                "initializer", "io", "metric", "model", "models", "module",
                "monitor", "name", "native", "ndarray", "ops", "optimizer",
-               "parallel", "random", "registry", "serve", "subgraph",
-               "symbol", "visualization")
+               "parallel", "random", "registry", "rnn", "serve",
+               "subgraph", "symbol", "visualization")
 # the reference's short names
 _ALIASES = {"nd": "ndarray", "init": "initializer", "sym": "symbol",
             "mod": "module", "mon": "monitor", "viz": "visualization",

@@ -1,8 +1,8 @@
 """Gluon, the imperative high-level API (counterpart of
 ``mxnet_tpu/gluon/``): ``Parameter``/``ParameterDict``, ``Block``/
 ``HybridBlock``, the ``nn`` layers, the losses, ``Trainer``, the
-utilities and (imported on first use) ``data``, ``contrib`` and the
-vision ``model_zoo``."""
+utilities and (imported on first use) ``rnn``, ``data``, ``contrib``
+and the vision ``model_zoo``."""
 from .block import (Block, HybridBlock, SymbolBlock,  # noqa: F401
                     load_stablehlo)
 from .parameter import Constant, Parameter, ParameterDict  # noqa: F401
@@ -13,8 +13,8 @@ from . import utils  # noqa: F401
 
 
 def __getattr__(name):
-    # lazy, as the reference's (its ``rnn`` is queue item A12)
-    if name in ("data", "model_zoo", "contrib"):
+    # lazy, as the reference's
+    if name in ("rnn", "data", "model_zoo", "contrib"):
         import importlib
 
         mod = importlib.import_module("." + name, __name__)

@@ -27,7 +27,7 @@ running statistics) become auxiliary states that a bound ``Executor``
 folds in training, as the eager layer does (the reference's trace leaves
 them plain arguments). ``export`` writes the ``.params`` file and the
 traced graph; ``SymbolBlock``/``imports`` run a graph as a block.
-``export(format="onnx")`` waits for the ONNX exporter (queue item A12)
+``export(format="onnx")`` waits for the ONNX exporter (queue item A12(b))
 and ``lint`` for the analysis plane (A15); ``optimize_for`` hybridizes,
 as the reference's does; ``load_stablehlo`` raises by design.
 """
@@ -382,13 +382,13 @@ class HybridBlock(Block):
         the traced graph's JSON and the saved-name to variable-name map;
         a block that does not trace symbolically exports its parameters
         alone). ``format="onnx"`` waits for the ONNX exporter (queue item
-        A12); ``"stablehlo"`` is the reference's JAX artifact and raises
+        A12(b)); ``"stablehlo"`` is the reference's JAX artifact and raises
         by design."""
         import json
 
         if format == "onnx":
             raise MXNetError("HybridBlock.export(format='onnx'): the ONNX "
-                             "exporter (contrib/onnx.py, queue item A12) "
+                             "exporter (contrib/onnx.py, queue item A12(b)) "
                              "is not ported yet")
         if format != "json":
             raise MXNetError(f"HybridBlock.export: format {format!r} is "
@@ -457,7 +457,7 @@ class CachedOp:
                         + list(flat_in), {})
         if not isinstance(result, tuple):
             result = (result,)
-        n_out = len(entry["out_fmt"])
+        n_out = entry["n_flat"][0]
         outs, aux = result[:n_out], result[n_out:]
         for p_idx, a in zip(entry["aux_param_idx"], aux):
             with autograd.pause():
@@ -470,6 +470,7 @@ class CachedOp:
         n_params = len(params)
         aux_param_idx: list = []
         out_fmt: list = []
+        n_flat = [0]  # outputs flattened out of nested lists
 
         def fn(*vals):
             pvals, ivals = vals[:n_params], vals[n_params:]
@@ -487,14 +488,14 @@ class CachedOp:
             outs = list(out) if isinstance(out, tuple) else [out]
             flat_out, fmt = _flatten_nds(outs)
             out_fmt[:] = fmt
+            n_flat[0] = len(flat_out)
             aux_param_idx[:] = list(aux)
             return tuple([o._data for o in flat_out] + list(aux.values()))
 
         opdef = OpDef(f"CachedOp_{block.name}", fn,
-                      num_outputs=lambda kw: len(out_fmt)
-                      + len(aux_param_idx))
+                      num_outputs=lambda kw: n_flat[0] + len(aux_param_idx))
         return {"opdef": opdef, "aux_param_idx": aux_param_idx,
-                "out_fmt": out_fmt}
+                "out_fmt": out_fmt, "n_flat": n_flat}
 
 
 def run_bound(params, values, forward):

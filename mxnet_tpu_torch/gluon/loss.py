@@ -236,46 +236,19 @@ class CosineEmbeddingLoss(Loss):
 
 
 def _ctc(pred, label, ntc):
-    """Negative log-likelihood of each label sequence under CTC: the
-    log-alpha recursion of the reference, one step per time frame. pred
-    (T, N, C), or (N, T, C) when ``ntc``; label (N, L), blank 0, padding
-    <= 0. Returns (N,)."""
+    """Negative log-likelihood of each label sequence under CTC
+    (``ops.loss_ops.ctc_nll``): pred (T, N, C), or (N, T, C) when
+    ``ntc``; label (N, L), blank 0, padding <= 0. Returns (N,)."""
+    from ..ops.loss_ops import ctc_nll
+
     x = pred.transpose(0, 1) if ntc else pred  # (T, N, C)
-    t_len, n, _c = x.shape
-    logp = torch.log_softmax(x, dim=-1)
     lab = label.to(torch.int64)
-    ell = lab.shape[1]
     valid = lab > 0
-    lab_len = valid.sum(dim=1)
-    s = 2 * ell + 1
-    ext = torch.zeros((n, s), dtype=torch.int64, device=x.device)
-    ext[:, 1::2] = torch.where(valid, lab, torch.zeros_like(lab))
-    neg_inf = -1e30
-    alpha = torch.full((n, s), neg_inf, dtype=x.dtype, device=x.device)
-    alpha = torch.cat([logp[0, :, :1],
-                       torch.gather(logp[0], 1, ext[:, 1:2]),
-                       alpha[:, 2:]], dim=1)
-    idx = torch.arange(s, device=x.device)[None, :]
-    same = torch.cat([torch.zeros((n, 2), dtype=torch.bool,
-                                  device=x.device),
-                      ext[:, 2:] == ext[:, :-2]], dim=1)
-    allow2 = (idx % 2 == 1) & ~same
-    pad1 = torch.full((n, 1), neg_inf, dtype=x.dtype, device=x.device)
-    pad2 = torch.full((n, 2), neg_inf, dtype=x.dtype, device=x.device)
-    for t in range(1, t_len):
-        prev1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
-        prev2 = torch.cat([pad2, alpha[:, :-2]], dim=1)
-        m = torch.maximum(alpha, prev1)
-        m = torch.where(allow2, torch.maximum(m, prev2), m)
-        ssum = (torch.exp(alpha - m) + torch.exp(prev1 - m)
-                + torch.where(allow2, torch.exp(prev2 - m),
-                              torch.zeros_like(m)))
-        alpha = m + torch.log(ssum.clamp_min(1e-38)) + \
-            torch.gather(logp[t], 1, ext)
-    end1 = (2 * lab_len)[:, None]
-    end2 = (2 * lab_len - 1).clamp_min(0)[:, None]
-    return -torch.logaddexp(torch.gather(alpha, 1, end1)[:, 0],
-                            torch.gather(alpha, 1, end2)[:, 0])
+    lens = torch.full((x.shape[1],), x.shape[0], dtype=torch.int64,
+                      device=x.device)
+    return ctc_nll(torch.log_softmax(x, dim=-1),
+                   torch.where(valid, lab, torch.zeros_like(lab)), lens,
+                   valid.sum(dim=1), 0)
 
 
 class CTCLoss(Loss):

@@ -1,9 +1,12 @@
 """Model families of the port (counterpart of
 ``mxnet_tpu/models/``): the transformer family, BERT and the decoder-only
 causal ``TransformerLM`` as Gluon blocks, with tensor-parallel rules and
-the LM's decode interface (``transformer.py``). The seq2seq and SSD
-families are not ported yet."""
+the LM's decode interface (``transformer.py``), and the encoder-decoder
+NMT transformer with label smoothing and beam search (``seq2seq.py``).
+The SSD family is not ported yet (queue item A12(b))."""
 from .transformer import (MultiHeadAttention, PositionwiseFFN,  # noqa: F401
                           TransformerEncoderCell, BERTEncoder, BERTModel,
                           TransformerLM, bert_base, bert_large, bert_tiny,
                           transformer_lm, bert_sharding_rules)
+from .seq2seq import (TransformerDecoderCell, Seq2SeqTransformer,  # noqa: F401
+                      beam_search, label_smoothing_loss)

@@ -4,7 +4,9 @@
 Any registered op name resolves to an eager dispatcher through PEP 562's
 module ``__getattr__``, so ``nd.relu``, ``nd.FullyConnected``,
 ``nd.broadcast_add`` ... exist without generated code; a name that no
-slice of the port has registered raises ``AttributeError``. A few
+slice of the port has registered raises ``AttributeError``.
+``nd.contrib`` holds the contrib ops and the control-flow functions,
+``nd.random`` the sampling front-ends. A few
 wrappers whose Python signatures differ from raw dispatch follow.
 """
 from __future__ import annotations
@@ -38,6 +40,12 @@ def _make_dispatcher(name: str):
 
 
 def __getattr__(name: str):
+    if name == "contrib":
+        import importlib
+
+        mod = importlib.import_module("." + name, __name__)
+        globals()[name] = mod
+        return mod
     if has_op(name):
         fn = _make_dispatcher(name)
         globals()[name] = fn  # cache

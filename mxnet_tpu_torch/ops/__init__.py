@@ -3,7 +3,9 @@
 Importing this package registers every ported op family in the
 reference's order (``registry.py``; the analog of the reference's static
 op registrations): elementwise, reductions, matrix, indexing, creation,
-neural-net and optimizer updates. Beside them: attention dispatch
+ordering, neural-net, sequence, the fused RNN, optimizer updates, random
+sampling and densities, and CTC; beside them the control-flow functions
+(``control_flow.py``). Beside them: attention dispatch
 (``attention.py``), flash and paged decode attention
 (``flash_attention.py``) and the build of the CUDA kernels
 (``_kernels.py``). (The function ``flash_attention`` is not re-exported
@@ -18,8 +20,14 @@ from . import reduce  # noqa: F401,E402
 from . import matrix  # noqa: F401,E402
 from . import indexing  # noqa: F401,E402
 from . import init_ops  # noqa: F401,E402
+from . import ordering  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
+from . import sequence  # noqa: F401,E402
+from . import rnn  # noqa: F401,E402
 from . import optimizer_ops  # noqa: F401,E402
+from . import control_flow  # noqa: F401,E402
+from . import random_ops  # noqa: F401,E402
+from . import loss_ops  # noqa: F401,E402
 
 from .attention import fused_attention, plain_attention  # noqa: F401,E402
 from .flash_attention import (decode_attention,  # noqa: F401,E402

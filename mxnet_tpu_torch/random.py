@@ -1,12 +1,15 @@
 """The framework's random stream: ``seed()``, the per-device
-``torch.Generator`` that ``Dropout`` and the initializers draw from, and
-the seeded host generator ``np_rng()`` (counterpart of the ``seed``/
-``next_key``/``np_rng`` part of ``mxnet_tpu/random.py``; the sampling ops
-are not ported yet). Torch's generators do not give ``jax.random``'s
-bits: draws match the reference in distribution only.
-``get_state_data``/``set_state_data`` capture and restore every device
-generator's state for a checkpoint, where the reference keeps its JAX
-key.
+``torch.Generator`` that ``Dropout``, the initializers and the sampling
+ops draw from, the seeded host generator ``np_rng()``, and the sampling
+front-ends ``mx.random.*`` / ``mx.nd.random.*`` (``uniform``, ``normal``,
+``randn``, ``randint``, ``bernoulli``, ``gamma``, ``exponential``,
+``poisson``, ``negative_binomial``, ``generalized_negative_binomial``,
+``multinomial``, ``shuffle``) over the registered ops of
+``ops/random_ops.py`` (counterpart of ``mxnet_tpu/random.py``). Torch's
+generators do not give ``jax.random``'s bits: draws match the reference
+in distribution only. ``get_state_data``/``set_state_data`` capture and
+restore every device generator's state for a checkpoint, where the
+reference keeps its JAX key.
 """
 from __future__ import annotations
 
@@ -18,7 +21,10 @@ import torch
 from .base import get_env
 
 __all__ = ["seed", "generator", "np_rng", "get_state_data",
-           "set_state_data"]
+           "set_state_data", "uniform", "normal", "randint", "randn",
+           "bernoulli", "gamma", "exponential", "poisson",
+           "negative_binomial", "generalized_negative_binomial",
+           "multinomial", "shuffle"]
 
 
 class _State:
@@ -87,3 +93,97 @@ def set_state_data(data) -> None:
                                                                  int(idx))
         generator(dev).set_state(torch.from_numpy(
             np.asarray(state, np.uint8).copy()))
+
+
+# ---------------------------------------------------------------------------
+# Sampling front-ends (mx.random.* / mx.nd.random.*): NDArrays, on ``ctx``
+# (the current context by default), or written into ``out``
+# ---------------------------------------------------------------------------
+
+def _draw(op, ctx, out, **kwargs):
+    from .ndarray.ndarray import invoke
+
+    kwargs = {"ctx": ctx, **kwargs}
+    if out is not None:
+        kwargs["out"] = out
+    return invoke(op, [], kwargs)
+
+
+def uniform(low=0.0, high=1.0, shape=None, dtype="float32", ctx=None,
+            out=None, **kw):
+    return _draw("_random_uniform", ctx, out, low=low, high=high,
+                 shape=shape, dtype=dtype)
+
+
+def normal(loc=0.0, scale=1.0, shape=None, dtype="float32", ctx=None,
+           out=None, **kw):
+    return _draw("_random_normal", ctx, out, loc=loc, scale=scale,
+                 shape=shape, dtype=dtype)
+
+
+def randn(*shape, loc=0.0, scale=1.0, dtype="float32", ctx=None, **kw):
+    return normal(loc, scale, shape, dtype, ctx)
+
+
+def randint(low, high=None, shape=None, dtype="int32", ctx=None, out=None,
+            **kw):
+    if high is None:
+        low, high = 0, low
+    return _draw("_random_randint", ctx, out, low=low, high=high,
+                 shape=shape, dtype=dtype)
+
+
+def bernoulli(prob=0.5, shape=None, dtype="float32", ctx=None, out=None,
+              **kw):
+    u = uniform(shape=shape, ctx=ctx)
+    r = (u < prob).astype(dtype)
+    if out is not None:
+        out._set_data(r._data)
+        return out
+    return r
+
+
+def gamma(alpha=1.0, beta=1.0, shape=None, dtype="float32", ctx=None,
+          out=None, **kw):
+    return _draw("_random_gamma", ctx, out, alpha=alpha, beta=beta,
+                 shape=shape, dtype=dtype)
+
+
+def exponential(scale=1.0, shape=None, dtype="float32", ctx=None, out=None,
+                **kw):
+    return _draw("_random_exponential", ctx, out, lam=1.0 / scale,
+                 shape=shape, dtype=dtype)
+
+
+def poisson(lam=1.0, shape=None, dtype="float32", ctx=None, out=None, **kw):
+    return _draw("_random_poisson", ctx, out, lam=lam, shape=shape,
+                 dtype=dtype)
+
+
+def negative_binomial(k=1, p=1.0, shape=None, dtype="float32", ctx=None,
+                      out=None, **kw):
+    return _draw("_random_negative_binomial", ctx, out, k=k, p=p,
+                 shape=shape, dtype=dtype)
+
+
+def generalized_negative_binomial(mu=1.0, alpha=1.0, shape=None,
+                                  dtype="float32", ctx=None, out=None, **kw):
+    return _draw("_random_generalized_negative_binomial", ctx, out, mu=mu,
+                 alpha=alpha, shape=shape, dtype=dtype)
+
+
+def multinomial(data, shape=1, get_prob=False, dtype="int32", **kw):
+    """Class indices drawn from the probability rows of ``data``; with
+    ``get_prob`` also the log-probability of each draw. ``shape=1`` draws
+    one per row, with no trailing axis."""
+    from .ndarray.ndarray import invoke
+
+    return invoke("_sample_multinomial", [data],
+                  {"shape": None if shape == 1 else shape,
+                   "get_prob": get_prob, "dtype": dtype})
+
+
+def shuffle(data, **kw):
+    from .ndarray.ndarray import invoke
+
+    return invoke("_shuffle", [data], {})

@@ -630,7 +630,18 @@ def _param_shape_rules(op: str, in_shape: tuple, kwargs: Dict[str, Any],
         return (in_shape[0],)
     if op.endswith("RegressionOutput") and arg == "label":
         return tuple(in_shape)
-    # RNN's parameter shapes wait for the RNN op (queue item A12)
+    if op == "RNN":
+        from ..ops.rnn import rnn_param_size
+
+        h = int(k["state_size"])
+        L = int(k["num_layers"])
+        bi = str(k.get("bidirectional", False)).lower() == "true" or \
+            k.get("bidirectional") is True
+        dirs = 2 if bi else 1
+        if arg == "parameters":
+            return (rnn_param_size(k["mode"], in_shape[2], h, L, bi),)
+        if arg in ("state", "state_cell"):
+            return (L * dirs, in_shape[1], h)
     return None
 
 

@@ -958,3 +958,68 @@ def test_monitor_and_fold_bn_on_card(cuda_device):
     got = folded.bind(args={**folded._optimized_args, "data": x}).forward()[0]
     np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+@pytest.mark.parametrize("bidir", [False, True], ids=["uni", "bidir"])
+def test_rnn_op_runs_cudnn_and_matches_the_loop(cuda_device, mode, bidir):
+    """On the card the RNN op runs cuDNN (its route counter moves); its
+    outputs and gradients equal the per-step loop's on the same card to
+    1e-4 of each tensor's largest magnitude. cuDNN's f32 RNN is not exact
+    to the last bits, so elementwise f32 limits do not apply. On an
+    NVIDIA H100 (torch 2.11, CUDA 12.8) the worst of these ratios was
+    6.32e-5 (rnn_tanh, bidirectional, the gradient of h0: room 1.58x),
+    every other tensor's at most 3.16e-5 (room 3.16x), bitwise the same
+    in three processes; each case prints its ratios (pytest -s)."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    T, N, C, H, L = 7, 5, 6, 8, 2
+    dirs = 2 if bidir else 1
+    size = trnn.rnn_param_size(mode, C, H, L, bidir)
+
+    def rand(*shape, scale=0.4):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * scale).requires_grad_(True)
+
+    ins = [rand(T, N, C, scale=1.0), rand(size), rand(L * dirs, N, H)]
+    if mode == "lstm":
+        ins.append(rand(L * dirs, N, H))
+    kw = dict(state_size=H, num_layers=L, mode=mode, bidirectional=bidir,
+              state_outputs=True)
+    before = trnn.rnn_calls["cudnn"]
+    got = get_op("RNN").fn(*ins, **kw)
+    assert trnn.rnn_calls["cudnn"] == before + 1
+    g_got = torch.autograd.grad(sum(o.square().sum() for o in got), ins)
+    layers = trnn.rnn_unpack_params(ins[1], mode, C, H, L, bidir)
+    out, hs, cs = trnn.rnn_loop(ins[0], layers, ins[2],
+                                ins[3] if mode == "lstm" else None, mode,
+                                0.0, False)
+    want = [out, torch.stack(hs)] + ([torch.stack(cs)] if cs else [])
+    g_want = torch.autograd.grad(sum(o.square().sum() for o in want), ins)
+    names = ["out", "h", "c"][:len(want)] + [
+        "d_data", "d_params", "d_h0", "d_c0"][:len(ins)]
+    errs = {}
+    for name, a, b in zip(names, list(got) + list(g_got),
+                          want + list(g_want)):
+        assert a.shape == b.shape
+        errs[name] = float((a - b).detach().abs().max()
+                           / b.detach().abs().max().clamp_min(1e-30))
+    # one line per case (pytest -s) so a passing run records the margin
+    print(f"rnn_cudnn_vs_loop {mode} {'bidir' if bidir else 'uni'} "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    assert max(errs.values()) <= 1e-4, errs
+
+
+def test_rnn_op_on_card_raises_without_cudnn(cuda_device, monkeypatch):
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    x = torch.zeros((3, 2, 4), device=cuda_device)
+    monkeypatch.setattr(torch.backends.cudnn, "enabled", False)
+    with pytest.raises(MXNetError, match="cuDNN"):
+        get_op("RNN").fn(x, torch.zeros(220, device=cuda_device),
+                         torch.zeros((1, 2, 5), device=cuda_device),
+                         torch.zeros((1, 2, 5), device=cuda_device),
+                         state_size=5, num_layers=1, mode="lstm")

@@ -50,7 +50,16 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.gluon.contrib, "
             "mxnet_tpu_torch.gluon.contrib.estimator, "
             "mxnet_tpu_torch.gluon.contrib.estimator.event_handler, "
-            "mxnet_tpu_torch.tools.im2rec\n"
+            "mxnet_tpu_torch.tools.im2rec, mxnet_tpu_torch.ops.ordering, "
+            "mxnet_tpu_torch.ops.sequence, mxnet_tpu_torch.ops.rnn, "
+            "mxnet_tpu_torch.ops.loss_ops, mxnet_tpu_torch.ops.random_ops, "
+            "mxnet_tpu_torch.ops.control_flow, "
+            "mxnet_tpu_torch.ndarray.contrib, mxnet_tpu_torch.symbol.contrib, "
+            "mxnet_tpu_torch.symbol.random, mxnet_tpu_torch.gluon.rnn, "
+            "mxnet_tpu_torch.gluon.rnn.rnn_cell, "
+            "mxnet_tpu_torch.gluon.rnn.rnn_layer, mxnet_tpu_torch.rnn, "
+            "mxnet_tpu_torch.rnn.rnn_cell, mxnet_tpu_torch.rnn.io, "
+            "mxnet_tpu_torch.models.seq2seq\n"
             "from mxnet_tpu_torch import nd, autograd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -3,11 +3,9 @@ tests/test_ndarray.py whose ops the port has, run as written there once
 through ``mxnet_tpu`` and once through ``mxnet_tpu_torch`` (on the CPU,
 inside ``with mx.cpu():``), held to the same numpy expectations with the
 reference's tolerances (``mxnet_tpu.test_utils``: f32 rtol 1e-4, atol
-1e-5; exact where the reference asks for ``same``). Three cases wait for
-later slices of the port: ``test_topk_sort`` (ordering ops),
-``test_sequence_ops`` (sequence ops) and ``test_save_load``
-(serialization). Then the port's own traps: JAX's out-of-range indexing,
-creation dtypes and the default context."""
+1e-5; exact where the reference asks for ``same``). ``test_save_load``
+is ``tests/test_torch_serialization.py``'s. Then the port's own traps:
+JAX's out-of-range indexing, creation dtypes and the default context."""
 import numpy as np
 import pytest
 import torch
@@ -359,11 +357,37 @@ def test_default_context_is_the_card():
         assert tmx.current_context() == tmx.cpu()
 
 
+def test_topk_sort(pkg):
+    mx, nd = pkg
+    x = np.array([[3.0, 1.0, 2.0], [0.0, 5.0, 4.0]], np.float32)
+    a = nd.array(x)
+    assert same(nd.topk(a, k=1), np.array([[0], [1]], np.float32))
+    v = nd.topk(a, k=2, ret_typ="value")
+    assert same(v, np.array([[3, 2], [5, 4]], np.float32))
+    assert same(nd.sort(a), np.sort(x, -1))
+    assert same(nd.argsort(a), np.argsort(x, -1).astype(np.float32))
+
+
+def test_sequence_ops(pkg):
+    mx, nd = pkg
+    x = np.random.rand(4, 2, 3).astype(np.float32)  # (T, B, D)
+    ln = nd.array([2.0, 4.0])
+    masked = nd.SequenceMask(nd.array(x), ln, use_sequence_length=True,
+                             value=-1.0)
+    out = masked.asnumpy()
+    assert (out[2:, 0] == -1).all() and (out[:, 1] == x[:, 1]).all()
+    last = nd.SequenceLast(nd.array(x), ln, use_sequence_length=True)
+    assert_almost_equal(last, np.stack([x[1, 0], x[3, 1]]))
+    rev = nd.SequenceReverse(nd.array(x), ln, use_sequence_length=True)
+    assert_almost_equal(rev.asnumpy()[0, 0], x[1, 0])
+    assert_almost_equal(rev.asnumpy()[3, 1], x[0, 1])
+
+
 def test_unported_op_names_fail_loudly():
-    with pytest.raises(NotImplementedError, match="'topk'"):
-        tmx.ops.get_op("topk")
+    with pytest.raises(NotImplementedError, match="'UpSampling'"):
+        tmx.ops.get_op("UpSampling")
     with pytest.raises(AttributeError):
-        tnd.SequenceMask
+        tnd.SpatialTransformer
     with pytest.raises(AttributeError):
         tmx.io.NoSuchIter
     for name in ("FullyConnected", "LayerNorm", "Embedding", "pick",

@@ -495,13 +495,17 @@ def test_optimizer_ops(name, inputs, kwargs, grad, rtol, atol, cmp):
 
 def test_every_registered_op_has_a_case():
     """Each op the port registers (once per definition, aliases aside) is
-    held to the reference here or in ``test_torch_conv_ops.py`` (the
-    convolution, pooling and batch/instance/group norm ops), and each
-    exists in the reference."""
+    held to the reference here, in ``test_torch_conv_ops.py`` (the
+    convolution, pooling and batch/instance/group norm ops), in
+    ``test_torch_longtail_ops.py`` (ordering, sequence, CTC, random) or
+    in ``test_torch_rnn.py`` (``RNN``), and each exists in the
+    reference."""
     from test_torch_conv_ops import CASES as CONV_CASES
+    from test_torch_longtail_ops import COVERED as LONGTAIL
+    from test_torch_rnn import COVERED as RNN
 
     covered = {p.values[0] for cases in [*FAMILIES.values(), CONV_CASES]
-               for p in cases}
+               for p in cases} | LONGTAIL | RNN
     ops = {op.name for op in tregistry._REGISTRY.values()}
     assert ops - covered == set()
     from mxnet_tpu.ops import has_op
