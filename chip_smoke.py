@@ -133,8 +133,26 @@ H100): ``python3 chip_smoke.py``. It
    f32 steps, then ``beam_search`` (beam 4, 32 tokens, alpha 0.6) over 4
    sources, twice (the same tokens and scores); no flash launch (the
    sequences are below the flash threshold);
-16. prints each phase's wall time (``timing``), the ``kernels`` JSON line
-   and, last, the ``ok`` line.
+16. drives ``ssd_path``: example/ssd/train.py at full width,
+   ``ssd_300(num_classes=20)`` on 300 x 300 synthetic images, batch 32,
+   hybridized, f32, targets by ``MultiBoxTarget``, ``SSDMultiBoxLoss``,
+   ``gluon.Trainer`` SGD, 1 + 20 steps; the first batch's targets and a
+   2-image step of the hybridized net against the same on the CPU;
+   ``detect`` (NMS 0.45, top 400) bitwise equal to the plain per-row NMS
+   loop; VOC07 mAP of 2 held-out batches;
+17. drives ``quant_path``: ResNet-50 v1 traced to a Symbol,
+   ``contrib.quantization.quantize_model(calib_mode="naive")`` over 5
+   batches of 64 synthetic images, predict-mode ``Module`` forwards of the
+   int8 and the f32 graph at batch 64 (53 convolutions and the fc on
+   int8 tensor cores; three layers' int32 accumulators bitwise equal to
+   the f64 product), the int8-vs-f32 error and top-1 agreement;
+18. drives ``onnx_path``: ResNet-50 v1 exported with
+   ``HybridBlock.export(format="onnx")``, imported with
+   ``contrib.onnx.import_model`` and run on the card at batch 8 against
+   the net's own forward (rtol 1e-5, atol 1e-6);
+19. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+   and, last, the ``ok`` line. The detection, int8 and ONNX paths launch
+   no kernel of the port's own (they run PyTorch's and cuBLAS's).
 
 Between 3 and 4 it also holds the flash kernels against their plain
 versions at other head dims (D 8, 48, 80, 96, 256, 320, 512; f32 and bf16;
@@ -3009,6 +3027,475 @@ def phase_nmt_path(torch, dev, smi):
                           "first_tokens": t1[:, :8].tolist()}})
 
 
+# ssd_path: example/ssd/train.py at ssd_300's full width on VOC's 20
+# classes, GluonCV's SSD-300 VOC batch; synthetic images and boxes
+SSD_CLASSES, SSD_SIZE, SSD_BATCH = 20, 300, 32
+SSD_LR, SSD_STEPS, SSD_DATA_BATCHES = 1e-3, 20, 4  # 1 + SSD_STEPS steps
+SSD_CHECK_IMAGES, SSD_EVAL_BATCHES = 2, 2
+SSD_NMS = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
+
+
+def _ssd_batch(rng):
+    """example/ssd/train.py's make_batch: 1-3 boxes an image, padded with
+    -1 rows."""
+    imgs = rng.rand(SSD_BATCH, 3, SSD_SIZE, SSD_SIZE).astype(np.float32)
+    labels = np.full((SSD_BATCH, 3, 5), -1, np.float32)
+    for b in range(SSD_BATCH):
+        for k in range(rng.randint(1, 4)):
+            cls = rng.randint(0, SSD_CLASSES)
+            x0, y0 = rng.rand(2) * 0.6
+            w, h = 0.2 + rng.rand(2) * 0.2
+            labels[b, k] = [cls, x0, y0, min(x0 + w, 1.0), min(y0 + h, 1.0)]
+    return imgs, labels
+
+
+def _ssd_targets(nd, autograd, net, x, labels):
+    anchors, cls_preds, _ = net(x)
+    with autograd.pause():
+        return nd.contrib.MultiBoxTarget(anchors, labels,
+                                         cls_preds.transpose((0, 2, 1)))
+
+
+def _ssd_grad_step(torch, net, x, labels):
+    """One example step's loss, gradients ({structural name: f32 tensor})
+    and hard negatives, on the net's device."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.models import SSDMultiBoxLoss
+    from mxnet_tpu_torch.models.ssd import hard_negatives
+
+    loc_t, loc_m, cls_t = _ssd_targets(nd, autograd, net, x, labels)
+    with autograd.record():
+        _, cls_preds, box_preds = net(x)
+        loss = SSDMultiBoxLoss()(cls_preds, box_preds, cls_t, loc_t, loc_m)
+    loss.backward()
+    cp, ct = cls_preds.astorch().detach(), cls_t.astorch()
+    ce = -torch.log_softmax(cp, -1).gather(-1, ct.long()[..., None])[..., 0]
+    # keyed by structural name: a second net's counters name it apart
+    grads = {n: p.grad().astorch().float().clone()
+             for n, p in net._collect_params_with_prefix().items()
+             if p.grad_req != "null"}
+    return (float(loss.asscalar()), grads,
+            hard_negatives(ce, ct > 0, 3.0).cpu())
+
+
+def phase_ssd_path(torch, dev, smi):
+    """example/ssd/train.py at full width: ssd_300(num_classes=20) (the
+    repo's own backbone: base 32/64/128, three scales of 128; 7096
+    anchors at 300 x 300), hybridized, f32, batch 32 of synthetic 300 x
+    300 images with 1-3 boxes each (seed 0; SSD_DATA_BATCHES drawn up
+    front, cycled), targets by MultiBoxTarget under autograd.pause, then
+    SSDMultiBoxLoss, gluon.Trainer SGD (lr 1e-3, momentum 0.9, wd 5e-4),
+    1 + SSD_STEPS steps (finite losses), one profiled step. Checks: the
+    first batch's targets on the card equal the same op on the CPU copies
+    (classes and masks exactly, locations at 1e-5); one step on 2 images
+    on the card (f32, through the hybridized net's CachedOp, the route
+    the timed steps take) and on an eager f64 CPU copy from the same
+    weights (the loss within ND_LOSS_TOL, every gradient within
+    ND_GRAD_TOL of its largest magnitude, the same hard negatives); then
+    detect (NMS 0.45,
+    threshold 0.01, top 400) over one batch, its rows bitwise equal to
+    the plain per-row NMS loop on the same decoded rows, and the VOC07
+    mAP of SSD_EVAL_BATCHES held-out batches, finite in [0, 1]."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, metric, nd
+    from mxnet_tpu_torch.models import SSDMultiBoxLoss, ssd_300
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.ops import contrib
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rng = np.random.RandomState(0)
+    batches = [tuple(nd.array(a) for a in _ssd_batch(rng))
+               for _ in range(SSD_DATA_BATCHES)]
+    mx.random.seed(0)
+    net = ssd_300(num_classes=SSD_CLASSES)
+    net.initialize()
+    # hybridized before every check, so the card's side of each is the
+    # CachedOp route that the timed steps run
+    net.hybridize()
+    x, labels = batches[0]
+    anchors = net(x)[0]
+    n_anchors = int(anchors.shape[1])
+    check(SSD_SIZE != 300 or n_anchors == 7096,
+          f"ssd_300 at 300 x 300: {n_anchors} anchors")
+    n_params = _n_params(net)
+
+    # the first batch's targets: the card's against the CPU's
+    loc_t, loc_m, cls_t = _ssd_targets(nd, autograd, net, x, labels)
+    _, cls_preds, _ = net(x)
+    cpu = get_op("_contrib_MultiBoxTarget").fn(
+        anchors.astorch().cpu(), labels.astorch().cpu(),
+        cls_preds.astorch().transpose(1, 2).cpu())
+    loc_err = float((loc_t.astorch().cpu() - cpu[0]).abs().max())
+    check(torch.equal(cls_t.astorch().cpu(), cpu[2])
+          and torch.equal(loc_m.astorch().cpu(), cpu[1])
+          and torch.allclose(loc_t.astorch().cpu(), cpu[0], rtol=1e-5,
+                             atol=1e-5),
+          f"MultiBoxTarget on the card differs from the CPU's ({loc_err})")
+    targets = {"positives": int((cls_t.astorch() > 0).sum()),
+               "loc_target_max_abs_err_vs_cpu": loc_err,
+               "cls_target_and_mask_equal": True}
+
+    # one step on 2 images, on the card and on an eager CPU copy in f64:
+    # a CPU copy in f32 (torch 2.11) was off by 1e-2 of the largest
+    # gradient at stage 1's max-pool backward, where the card's f32 held
+    # f64 to 3e-5. The cause is not confirmed: a fault of that torch's
+    # f32 max-pool backward and a tie in a 2 x 2 window that sends the
+    # gradient to another element both fit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ssd.params")
+        net.save_parameters(path)
+        with mx.cpu():
+            cnet = ssd_300(num_classes=SSD_CLASSES)
+            cnet.load_parameters(path, ctx=mx.cpu())
+    for p in cnet.collect_params().values():
+        p.data()._set_data(p.data().astorch().double())
+    n2 = SSD_CHECK_IMAGES
+    card = _ssd_grad_step(torch, net, x[:n2], labels[:n2])
+    with mx.cpu():
+        host = _ssd_grad_step(
+            torch, cnet, NDArray(x[:n2].astorch().cpu().double()),
+            NDArray(labels[:n2].astorch().cpu().double()))
+    agree = _agreement("ssd card vs cpu f64", card[0],
+                       {k: v.cpu() for k, v in card[1].items()}, host[0],
+                       host[1])
+    check(torch.equal(card[2], host[2]),
+          "hard-negative mining picks other anchors on the card")
+    agree["hard_negatives"] = int(card[2].sum())
+    del cnet, card, host
+    for p in net.collect_params().values():
+        p.zero_grad()
+
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": SSD_LR, "momentum": 0.9,
+                             "wd": 5e-4})
+    loss_fn = SSDMultiBoxLoss()
+
+    def step(i):
+        xb, lb = batches[i % len(batches)]
+        lt, lm, ct = _ssd_targets(nd, autograd, net, xb, lb)
+        with autograd.record():
+            _, cp, bp = net(xb)
+            loss = loss_fn(cp, bp, ct, lt, lm)
+        loss.backward()
+        trainer.step(SSD_BATCH)
+        return loss
+
+    losses, times = [], []
+    for i in range(1 + SSD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(i).asscalar()))
+        times.append(1e3 * (time.perf_counter() - t0))
+    check(all(math.isfinite(v) for v in losses), f"ssd losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof_ms, idle, device_ms = _device_profile(torch, lambda: step(0))
+    flops = 3 * _forward_flops(net, x)
+    steady = times[1:]
+    med = float(np.median(steady))
+
+    # detect: forward, softmax, decode and NMS over one batch
+    nms_iters = contrib.nms_keep_fixed_point.iterations
+    nms_syncs = contrib.nms_keep_fixed_point.syncs
+    det_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = net.detect(x, **SSD_NMS)
+        torch.cuda.synchronize()
+        det_ms.append(1e3 * (time.perf_counter() - t0))
+    iters = (contrib.nms_keep_fixed_point.iterations - nms_iters) // 3
+    syncs = (contrib.nms_keep_fixed_point.syncs - nms_syncs) // 3
+    anchors, cls_preds, box_preds = net(x)
+    cls_prob = nd.softmax(cls_preds, axis=-1).transpose((0, 2, 1))
+    det = nd.contrib.MultiBoxDetection(cls_prob, box_preds, anchors,
+                                       **SSD_NMS).astorch()
+    decoded = contrib.multibox_decode(cls_prob.astorch(),
+                                      box_preds.astorch(),
+                                      anchors.astorch(), threshold=0.01)
+    nms_kw = dict(overlap_thresh=0.45, valid_thresh=0.01, topk=400,
+                  id_index=0)
+
+    def fixed():
+        return get_op("_contrib_box_nms").fn(decoded, **nms_kw)
+
+    def plain():
+        return contrib.box_nms_plain(decoded, **nms_kw)
+
+    check(torch.equal(det, plain()),
+          "detect's rows differ from the plain per-row NMS loop's")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    nms_ms = timed_ms(torch, fixed, flush, n=5, warmup=1)
+    nms_plain_ms = timed_ms(torch, plain, flush, n=3, warmup=1)
+    kept = int((det[..., 0] >= 0).sum())
+    m = metric.VOC07MApMetric(ovp_thresh=0.5)
+    eval_rng = np.random.RandomState(99)
+    for _ in range(SSD_EVAL_BATCHES):
+        ex, el = _ssd_batch(eval_rng)
+        m.update([nd.array(el)], [net.detect(nd.array(ex), **SSD_NMS)])
+    map_name, map_value = m.get()
+    check(math.isfinite(map_value) and 0.0 <= map_value <= 1.0,
+          f"VOC07 mAP {map_value}")
+    emit({"phase": "ssd_path", "model": "ssd_300(num_classes=20)",
+          "card": smi, "image_size": SSD_SIZE, "batch": SSD_BATCH,
+          "anchors": n_anchors, "parameters": n_params,
+          "data": "synthetic (seed 0), 1-3 boxes an image, "
+                  f"{SSD_DATA_BATCHES} batches cycled",
+          "dtype": "float32", "hybridized": True,
+          "optimizer": "sgd(lr 1e-3, momentum 0.9, wd 5e-4)",
+          "targets_first_batch": targets, "card_vs_cpu_step": agree,
+          "losses": losses, "step_ms_first": times[0],
+          "step_ms_median": med,
+          "step_ms_range": [min(steady), max(steady)],
+          "images_per_s": SSD_BATCH / med * 1e3,
+          "model_tflop_per_step": flops / 1e12,
+          "flops_counted": "torch.utils.flop_counter on one forward, x 3 "
+                           "(the example's predict forward for the "
+                           "targets is not counted)",
+          "model_tflops": flops / med / 1e9,
+          "peak_mem_gb": peak_gb, "profiled_step_ms": prof_ms,
+          "device_idle_share": idle, "device_ms_by_class": device_ms,
+          "detect": {**SSD_NMS, "wall_ms": det_ms,
+                     "boxes_kept": kept,
+                     "nms_route": "fixed point on the card",
+                     "nms_iterations_per_call": iters,
+                     "nms_host_reads_per_call": syncs,
+                     "nms_ms": nms_ms, "nms_plain_loop_ms": nms_plain_ms,
+                     "rows_equal_plain_loop": True},
+          "voc07_map": {"name": map_name, "value": map_value,
+                        "batches": SSD_EVAL_BATCHES}})
+    del net, trainer, batches, dets
+    torch.cuda.empty_cache()
+
+
+# quant_path: ResNet-50 v1 traced, quantize_model(calib_mode="naive") over
+# QUANT_CALIB_BATCHES of QUANT_BATCH synthetic images, Module inference
+QUANT_BATCH, QUANT_CALIB_BATCHES, QUANT_REPS = 64, 5, 5
+
+
+def _module_forward_ms(torch, mod, batch, reps=QUANT_REPS):
+    """Predict-mode Module forward: (outputs of the last call, median ms
+    of ``reps`` after one warmup)."""
+    times = []
+    for _ in range(1 + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward(batch, is_train=False)
+        out = mod.get_outputs()[0].astorch()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out.clone(), float(np.median(times[1:]))
+
+
+def _int8_layer_checks(torch, ctx, qsym, qargs, qaux, x):
+    """The int32 accumulators of the stem, a 3 x 3 x 512 convolution of
+    stage 4 and the fc in one forward, against the f64 plain product of
+    the same int8 inputs and weights: bitwise."""
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.ops import quantization as q
+
+    nodes = {n._name: n for n in qsym._base()._topo()}
+    picks = {}
+    for name, n in nodes.items():
+        if n._op == "_contrib_quantized_conv":
+            w = qargs[n._inputs[1]._base()._name]
+            if tuple(w.shape[2:]) == (7, 7) and "stem" not in picks:
+                picks["stem"] = n
+            if tuple(w.shape[1:]) == (512, 3, 3):
+                picks["stage4_3x3x512"] = n
+        elif n._op == "_contrib_quantized_fully_connected":
+            picks["fc"] = n
+    check(len(picks) == 3, f"int8 layers found: {sorted(picks)}")
+    outs = []
+    for n in picks.values():
+        outs += [n._inputs[0], n[0]]
+    group = sym.Group(outs)
+    exe = group.bind(ctx=ctx, args={**qargs, "data": x}, aux_states=qaux,
+                     grad_req="null")
+    vals = [v.astorch() for v in exe.forward(is_train=False)]
+    res = {}
+    for i, (label, n) in enumerate(picks.items()):
+        qin, acc = vals[2 * i], vals[2 * i + 1]
+        w = qargs[n._inputs[1]._base()._name].astorch()
+        a = n._attrs
+        if n._op == "_contrib_quantized_conv":
+            from mxnet_tpu_torch.ops.quantization import _conv_args
+
+            _, stride, pad, dil = _conv_args(a.get("kernel"),
+                                             a.get("stride"),
+                                             a.get("pad"), a.get("dilate"))
+            want = q.int8_conv_plain(qin, w, stride, pad, dil,
+                                     int(a.get("num_group", 1)))
+            k = int(np.prod(w.shape[1:]))
+        else:
+            want = q.int8_matmul_plain(qin.reshape(qin.shape[0], -1), w.t())
+            k = int(w.shape[1])
+        check(qin.dtype == torch.int8 and acc.dtype == torch.int32
+              and torch.equal(acc, want),
+              f"int8 layer {label}: the int32 accumulator differs from the "
+              "f64 product")
+        res[label] = {"layer": n._name, "k": k,
+                      "max_abs_acc": int(acc.abs().max())}
+    return res
+
+
+def phase_quant_path(torch, dev, smi):
+    """MXNet's int8 inference: ResNet-50 v1 (get_model("resnet50_v1",
+    classes=1000), seed 0) traced to a Symbol as module_path traces it,
+    quantize_model(calib_mode="naive") over QUANT_CALIB_BATCHES batches of
+    QUANT_BATCH synthetic 224 x 224 images (each layer's input min and
+    max taken on the card, two floats read per layer), then predict-mode
+    Module forwards at batch QUANT_BATCH of the int8 graph and of the f32
+    graph (median of QUANT_REPS after one warmup). Checks: 53
+    convolutions and the fc quantized; the int32 accumulators of three
+    layers in one forward equal the f64 plain product bitwise; int8
+    products ran on the int8 route (torch._int_mm); the int8-vs-f32
+    error (largest |difference| over the largest |f32 logit|) and the
+    top-1 agreement are printed, required finite (random weights)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops import quantization as q
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ctx = mx.gpu(0)
+    shape = (QUANT_BATCH, 3, ZOO_SIZE, ZOO_SIZE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    calib = [nd.array(torch.rand(shape, generator=gen, device=dev))
+             for _ in range(QUANT_CALIB_BATCHES)]
+    x = nd.array(torch.rand(shape, generator=gen, device=dev))
+    mx.random.seed(0)
+    net = get_model("resnet50_v1", classes=1000)
+    net.initialize()
+    net(x)
+    with mx.name.NameManager():
+        zsym = net(sym.var("data", shape=shape))
+    params = {p.name: p.data() for p in net.collect_params().values()}
+    aux_names = set(zsym.list_auxiliary_states())
+    args = {k: v for k, v in params.items() if k not in aux_names}
+    aux = {k: v for k, v in params.items() if k in aux_names}
+    del net
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qsym, qargs, qaux = quantize_model(
+        zsym, args, aux, ctx=ctx, calib_mode="naive", calib_data=calib,
+        num_calib_examples=QUANT_BATCH * QUANT_CALIB_BATCHES)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    del calib
+    topo = qsym._base()._topo()
+    n_conv = sum(n._op == "_contrib_quantized_conv" for n in topo)
+    n_fc = sum(n._op == "_contrib_quantized_fully_connected" for n in topo)
+    left = sum(n._op in ("Convolution", "FullyConnected") for n in topo)
+    check(n_conv == 53 and n_fc == 1 and left == 0,
+          f"quantized {n_conv} convolutions and {n_fc} fc, {left} left")
+    layers = _int8_layer_checks(torch, ctx, qsym, qargs, qaux, x)
+
+    batch = DataBatch([x])
+    res = {}
+    for leg, graph, a, au in (("int8", qsym, qargs, qaux),
+                              ("f32", zsym, args, aux)):
+        mod = Module(graph, data_names=("data",), label_names=None,
+                     context=ctx)
+        mod.bind(data_shapes=[("data", shape)], for_training=False)
+        mod.set_params(a, au)
+        launches = q.int8_matmul.launches
+        out, ms = _module_forward_ms(torch, mod, batch)
+        res[leg] = {"forward_ms": ms,
+                    "images_per_s": QUANT_BATCH / ms * 1e3,
+                    "int8_matmul_launches_per_forward":
+                        (q.int8_matmul.launches - launches)
+                        // (1 + QUANT_REPS),
+                    "logits": out}
+        del mod
+    i8, f32 = res["int8"].pop("logits"), res["f32"].pop("logits")
+    check(res["int8"]["int8_matmul_launches_per_forward"] == 54
+          and res["f32"]["int8_matmul_launches_per_forward"] == 0,
+          f"int8 products launched {res}")
+    err = float((i8 - f32).abs().max() / f32.abs().max())
+    top1 = float((i8.argmax(1) == f32.argmax(1)).float().mean())
+    check(math.isfinite(err) and bool(torch.isfinite(i8).all()),
+          f"int8 logits not finite (error {err})")
+    emit({"phase": "quant_path", "model": "resnet50_v1", "card": smi,
+          "batch": QUANT_BATCH, "image_size": ZOO_SIZE,
+          "calib_mode": "naive",
+          "calib_examples": QUANT_BATCH * QUANT_CALIB_BATCHES,
+          "calib_s": calib_s, "quantized_convolutions": n_conv,
+          "quantized_fc": n_fc, "int32_layer_checks": layers,
+          "int8": res["int8"], "f32": res["f32"],
+          "int8_over_f32_ms": res["int8"]["forward_ms"]
+          / res["f32"]["forward_ms"],
+          "err_of_max_logit": err, "top1_agreement": top1,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
+    torch.cuda.empty_cache()
+
+
+ONNX_BATCH = 8
+
+
+def phase_onnx_path(torch, dev, smi):
+    """ONNX deployment of full-width ResNet-50 v1 (seed 0):
+    HybridBlock.export(prefix, format="onnx") writes the file (a temporary
+    directory, removed after), contrib.onnx.import_model reads it back,
+    the graph is bound on the card and its predict forward at batch
+    ONNX_BATCH is held to the net's own f32 forward (rtol 1e-5, atol
+    1e-6, tests/test_onnx.py's limits), both under cuDNN's default
+    settings, as a deployment runs them."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.contrib.onnx import import_model
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = nd.array(torch.rand((ONNX_BATCH, 3, ZOO_SIZE, ZOO_SIZE),
+                            generator=gen, device=dev))
+    mx.random.seed(0)
+    net = get_model("resnet50_v1", classes=1000)
+    net.initialize()
+    tmp = tempfile.mkdtemp()
+    try:
+        want = net(x).astorch().clone()
+        prefix = os.path.join(tmp, "resnet50_v1")
+        t0 = time.perf_counter()
+        net.export(prefix, format="onnx", example_inputs=x)
+        export_s = time.perf_counter() - t0
+        path = prefix + "-0000.onnx"
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        isym, iargs, iaux = import_model(path)
+        import_s = time.perf_counter() - t0
+        exe = isym.bind(ctx=mx.gpu(0), args={**iargs, "data": x},
+                        aux_states=iaux, grad_req="null")
+        got = exe.forward(is_train=False)[0].astorch()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = float((got - want).abs().max())
+    check(got.is_cuda and torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+          f"the imported ONNX graph differs from the net by {err}")
+    n_nodes = sum(1 for n in isym._base()._topo() if n._op)
+    emit({"phase": "onnx_path", "model": "resnet50_v1", "card": smi,
+          "batch": ONNX_BATCH, "image_size": ZOO_SIZE, "opset": 9,
+          "file_bytes": nbytes, "export_s": export_s,
+          "import_s": import_s, "imported_nodes": n_nodes,
+          "max_abs_err": err, "max_abs_logit": float(want.abs().max()),
+          "tolerance": {"rtol": 1e-5, "atol": 1e-6}})
+    del net, exe
+    torch.cuda.empty_cache()
+
+
 def _out_dir():
     """``chiprun_out/`` beside this script (made if missing): what a run
     writes that is too large for its output."""
@@ -3070,6 +3557,17 @@ def main() -> int:
     module_launches = run(phase_module_path, torch, dev, smi)
     run(phase_rnn_path, torch, dev, smi)
     run(phase_nmt_path, torch, dev, smi)
+    # the detection, int8 and ONNX paths run no kernel of the port's own
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_decode_attention)
+
+    own = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention)
+    before = [k.launches for k in own]
+    run(phase_ssd_path, torch, dev, smi)
+    run(phase_quant_path, torch, dev, smi)
+    run(phase_onnx_path, torch, dev, smi)
+    check([k.launches for k in own] == before,
+          "the ssd, quant or onnx path launched an attention kernel")
     emit({"phase": "timing", "phase_wall_s": walls,
           "total_wall_s": time.perf_counter() - t_start})
     flash_launches = {k: train_launches[k] + nd_launches[k]

@@ -92,7 +92,7 @@ from .context import (Context, cpu, current_context,  # noqa: E402,F401
                       default_device, gpu)
 
 _SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
-               "checkpoint", "engine", "executor", "gluon", "image",
+               "checkpoint", "contrib", "engine", "executor", "gluon", "image",
                "initializer", "io", "metric", "model", "models", "module",
                "monitor", "name", "native", "ndarray", "ops", "optimizer",
                "parallel", "random", "registry", "rnn", "serve",

@@ -78,7 +78,7 @@ def _build_graph_fn(sym, train: bool, device=None):
                     if i._index is not None and isinstance(v, tuple):
                         v = v[i._index]
                     in_vals.append(v)
-                if node._op == "BatchNorm" and train and \
+                if node._op in _BN_OPS and train and \
                         not kwargs.get("use_global_stats", False):
                     kwargs["output_mean_var"] = True
                     out, bmean, bvar = call_op(opdef, in_vals, kwargs, dev)
@@ -120,6 +120,10 @@ def _tensor(v, device) -> torch.Tensor:
     if not isinstance(v, torch.Tensor):
         v = _x32(torch.from_numpy(np.array(np.asarray(v), copy=True)))
     return v.detach().to(device)
+
+
+_BN_OPS = ("BatchNorm", "SyncBatchNorm", "_contrib_SyncBatchNorm",
+           "sync_batch_norm")
 
 
 class Executor:

@@ -27,8 +27,8 @@ running statistics) become auxiliary states that a bound ``Executor``
 folds in training, as the eager layer does (the reference's trace leaves
 them plain arguments). ``export`` writes the ``.params`` file and the
 traced graph; ``SymbolBlock``/``imports`` run a graph as a block.
-``export(format="onnx")`` waits for the ONNX exporter (queue item A12(b))
-and ``lint`` for the analysis plane (A15); ``optimize_for`` hybridizes,
+``export(format="onnx")`` writes an ONNX file too (``contrib/onnx.py``);
+``lint`` waits for the analysis plane (A15); ``optimize_for`` hybridizes,
 as the reference's does; ``load_stablehlo`` raises by design.
 """
 from __future__ import annotations
@@ -381,21 +381,29 @@ class HybridBlock(Block):
         ``{path}-symbol.json``, the reference's descriptor (format, class,
         the traced graph's JSON and the saved-name to variable-name map;
         a block that does not trace symbolically exports its parameters
-        alone). ``format="onnx"`` waits for the ONNX exporter (queue item
-        A12(b)); ``"stablehlo"`` is the reference's JAX artifact and raises
-        by design."""
+        alone). ``format="onnx"`` also traces the block and writes
+        ``{path}-{epoch:04d}.onnx`` through ``contrib.onnx.export_model``
+        (``example_inputs`` fixes the input shapes; the graph must be in
+        the exporter's op surface); ``"stablehlo"`` is the reference's JAX
+        artifact and raises by design."""
         import json
 
-        if format == "onnx":
-            raise MXNetError("HybridBlock.export(format='onnx'): the ONNX "
-                             "exporter (contrib/onnx.py, queue item A12(b)) "
-                             "is not ported yet")
-        if format != "json":
+        if format not in ("json", "onnx"):
             raise MXNetError(f"HybridBlock.export: format {format!r} is "
-                             "not the port's (json)")
+                             "not the port's (json, onnx)")
         if example_inputs is not None and \
                 not isinstance(example_inputs, (list, tuple)):
             example_inputs = (example_inputs,)
+        # validate before any file is written
+        if format == "onnx":
+            if example_inputs is None:
+                raise ValueError("onnx export needs example_inputs")
+            deferred = [p.name for p in self._iter_params()
+                        if p._data is None]
+            if deferred:
+                raise ValueError(
+                    f"cannot export: parameters {deferred} have deferred "
+                    "shapes; run a forward pass before export")
         self.save_parameters(f"{path}-{epoch:04d}.params")
         meta = {"format": "mxnet_tpu-hybrid",
                 "class": self.__class__.__name__}
@@ -415,6 +423,25 @@ class HybridBlock(Block):
                 self._collect_params_with_prefix().items()}
         except Exception:  # noqa: BLE001 — a non-F-generic forward
             pass
+        if format == "onnx":
+            from .. import symbol as sym_mod
+            from ..contrib.onnx import export_model
+
+            data_syms = [sym_mod.Variable(f"data{i}" if i else "data")
+                         for i in range(len(example_inputs))]
+            sym = self(*data_syms)
+            if isinstance(sym, (list, tuple)):
+                raise ValueError(
+                    f"onnx export supports single-output blocks; this one "
+                    f"returns {len(sym)} outputs — export a wrapper that "
+                    "selects one")
+            params = {p.name: p.data() for p in self._iter_params()}
+            onnx_path = f"{path}-{epoch:04d}.onnx"
+            export_model(sym, params,
+                         [tuple(x.shape) for x in example_inputs],
+                         onnx_file_path=onnx_path)
+            meta["onnx"] = onnx_path
+            meta["input_shapes"] = [list(x.shape) for x in example_inputs]
         from ..checkpoint.atomic import atomic_write_bytes
 
         atomic_write_bytes(f"{path}-symbol.json",

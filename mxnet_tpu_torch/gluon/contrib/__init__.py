@@ -1,4 +1,5 @@
 """gluon.contrib, the experimental Gluon surface (counterpart of
-``mxnet_tpu/gluon/contrib/``): the Estimator. Its ``nn``
-(``SyncBatchNorm``) is queue item A12(b)."""
+``mxnet_tpu/gluon/contrib/``): the Estimator and ``nn``
+(``SyncBatchNorm``, ``Identity``, ``HybridConcurrent``)."""
 from . import estimator  # noqa: F401
+from . import nn  # noqa: F401

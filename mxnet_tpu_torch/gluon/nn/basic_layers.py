@@ -269,19 +269,25 @@ class BatchNorm(HybridBlock):
                   self.running_var):
             p.shape_inferred((c,))
 
+    def _bn_op(self, F):
+        """Overridable hook: (op, extra kwargs). ``SyncBatchNorm`` swaps in
+        its op and keeps the statistics folding below."""
+        return F.BatchNorm, {}
+
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        op, extra = self._bn_op(F)
         kw = dict(eps=self._eps, momentum=self._momentum,
-                  fix_gamma=not self._scale, axis=self._axis)
+                  fix_gamma=not self._scale, axis=self._axis, **extra)
         if not isinstance(x, NDArray):  # a Symbol
             # traced: the running statistics are the node's auxiliary
             # states, folded by a bound Executor in training
-            return F.BatchNorm(x, gamma, beta, running_mean, running_var,
-                               use_global_stats=self._use_global_stats,
-                               output_mean_var=False, **kw)
+            return op(x, gamma, beta, running_mean, running_var,
+                      use_global_stats=self._use_global_stats,
+                      output_mean_var=False, **kw)
         if autograd.is_training() and not self._use_global_stats:
-            out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,
-                                         running_var, use_global_stats=False,
-                                         output_mean_var=True, **kw)
+            out, mean, var = op(x, gamma, beta, running_mean, running_var,
+                                use_global_stats=False, output_mean_var=True,
+                                **kw)
             m = self._momentum
             with autograd.pause():
                 self.running_mean.data()._set_data(
@@ -289,9 +295,8 @@ class BatchNorm(HybridBlock):
                 self.running_var.data()._set_data(
                     (m * running_var + (1 - m) * var.detach())._data)
             return out
-        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
-                           use_global_stats=True, output_mean_var=False,
-                           **kw)
+        return op(x, gamma, beta, running_mean, running_var,
+                  use_global_stats=True, output_mean_var=False, **kw)
 
 
 class LayerNorm(HybridBlock):

@@ -6,6 +6,7 @@ module ``__getattr__``, so ``nd.relu``, ``nd.FullyConnected``,
 ``nd.broadcast_add`` ... exist without generated code; a name that no
 slice of the port has registered raises ``AttributeError``.
 ``nd.contrib`` holds the contrib ops and the control-flow functions,
+``nd.image`` the image ops, ``nd.linalg`` the linear-algebra ops and
 ``nd.random`` the sampling front-ends. A few
 wrappers whose Python signatures differ from raw dispatch follow.
 """
@@ -40,7 +41,7 @@ def _make_dispatcher(name: str):
 
 
 def __getattr__(name: str):
-    if name == "contrib":
+    if name in ("contrib", "image", "linalg"):
         import importlib
 
         mod = importlib.import_module("." + name, __name__)

@@ -4,8 +4,10 @@ Importing this package registers every ported op family in the
 reference's order (``registry.py``; the analog of the reference's static
 op registrations): elementwise, reductions, matrix, indexing, creation,
 ordering, neural-net, sequence, the fused RNN, optimizer updates, random
-sampling and densities, and CTC; beside them the control-flow functions
-(``control_flow.py``). Beside them: attention dispatch
+sampling and densities, CTC, the image ops, the contrib ops (detection,
+deformable convolution, SyncBatchNorm, ...) and the int8 quantization
+ops; beside them the control-flow functions (``control_flow.py``),
+attention dispatch
 (``attention.py``), flash and paged decode attention
 (``flash_attention.py``) and the build of the CUDA kernels
 (``_kernels.py``). (The function ``flash_attention`` is not re-exported
@@ -28,6 +30,9 @@ from . import optimizer_ops  # noqa: F401,E402
 from . import control_flow  # noqa: F401,E402
 from . import random_ops  # noqa: F401,E402
 from . import loss_ops  # noqa: F401,E402
+from . import image_ops  # noqa: F401,E402
+from . import contrib  # noqa: F401,E402
+from . import quantization  # noqa: F401,E402
 
 from .attention import fused_attention, plain_attention  # noqa: F401,E402
 from .flash_attention import (decode_attention,  # noqa: F401,E402

@@ -8,7 +8,10 @@ normalisations and softmax are open-coded as the reference writes them,
 with explicit statistics. Pooling pads explicitly where torch's
 ``ceil_mode`` and padding rules differ from the reference's ``full``
 convention. Train/test behaviour (``Dropout``, ``BatchNorm``) is read
-from autograd's train-mode scope at call time.
+from autograd's train-mode scope at call time. Beside them: the
+regression outputs and ``SVMOutput``, ``UpSampling`` (bilinear through
+``image_ops.resize``), ``BilinearSampler``/``GridGenerator``/
+``SpatialTransformer``, ``Correlation`` and ``LRN``.
 """
 from __future__ import annotations
 
@@ -224,6 +227,57 @@ def _softmax_cross_entropy(data, label):
     lab = label.to(torch.int32).long()[:, None]
     nll = -_filled(logp, 1, lab, lambda i: torch.gather(logp, -1, i))
     return torch.sum(nll).reshape(1)
+
+
+# ---------------------------------------------------------------------------
+# Regression outputs (identity or sigmoid forward, fused gradients)
+# ---------------------------------------------------------------------------
+
+class _RegressionOutput(torch.autograd.Function):
+    """Identity (``linear``, ``mae``) or sigmoid (``logistic``) forward;
+    backward ``(out - label) * grad_scale / num_out``, its sign for
+    ``mae``, whatever the head gradient (the reference's ``custom_vjp``);
+    the label's gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, err_grad):
+        out = torch.sigmoid(data) if err_grad == "logistic" else data
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (grad_scale, err_grad)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_scale, err_grad = ctx.cfg
+        diff = out - label.reshape(out.shape)
+        grad = torch.sign(diff) if err_grad == "mae" else diff
+        num_out = out.numel() // out.shape[0]
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad * (grad_scale / num_out), dlabel, None, None
+
+
+def _make_regression_output(err_grad):
+    def op(data, label, grad_scale=1.0):
+        return _RegressionOutput.apply(data, label, float(grad_scale),
+                                       err_grad)
+
+    return op
+
+
+register("LinearRegressionOutput", ndarray_inputs=["data", "label"])(
+    _make_regression_output("linear"))
+register("MAERegressionOutput", ndarray_inputs=["data", "label"])(
+    _make_regression_output("mae"))
+register("LogisticRegressionOutput", ndarray_inputs=["data", "label"])(
+    _make_regression_output("logistic"))
+
+
+@register("SVMOutput", ndarray_inputs=["data", "label"])
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False):
+    return data
 
 
 # ---------------------------------------------------------------------------
@@ -480,3 +534,144 @@ def _pooling(data, kernel=(), stride=(), pad=(), pool_type="max",
         return torch.pow(s, 1.0 / p_value)
     raise ValueError(f"unknown pool_type {pool_type!r}")
 
+
+
+# ---------------------------------------------------------------------------
+# UpSampling, the spatial transformer family, Correlation, LRN
+# ---------------------------------------------------------------------------
+
+@register("UpSampling", ndarray_inputs="*")
+def _upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", workspace=512):
+    data = args[0]
+    s = int(scale)
+    if sample_type == "nearest":
+        def rep(x, k):
+            return x.repeat_interleave(k, dim=2).repeat_interleave(k, dim=3)
+
+        out = rep(data, s)
+        if len(args) > 1 and multi_input_mode == "concat":
+            outs = [out] + [rep(d, out.shape[2] // d.shape[2])
+                            for d in args[1:]]
+            out = torch.cat(outs, dim=1)
+        return out
+    if sample_type == "bilinear":
+        from .image_ops import resize
+
+        n, c, h, w = data.shape
+        return resize(data, (n, c, h * s, w * s), "bilinear")
+    raise ValueError(f"unknown sample_type {sample_type!r}")
+
+
+@register("BilinearSampler", ndarray_inputs=["data", "grid"])
+def _bilinear_sampler(data, grid, cudnn_off=False):
+    """``grid`` (N, 2, H, W) in [-1, 1]; samples outside the input are
+    zero."""
+    n, c, hin, win = data.shape
+    gx = (grid[:, 0] + 1) * (win - 1) / 2
+    gy = (grid[:, 1] + 1) * (hin - 1) / 2
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    x1, y1 = x0 + 1, y0 + 1
+    wx, wy = gx - x0, gy - y0
+    flat = data.reshape(n, c, hin * win)
+
+    def gather(yy, xx):
+        yi = yy.to(torch.int32).clamp(0, hin - 1).long()
+        xi = xx.to(torch.int32).clamp(0, win - 1).long()
+        valid = ((yy >= 0) & (yy <= hin - 1) & (xx >= 0)
+                 & (xx <= win - 1)).to(data.dtype)
+        idx = (yi * win + xi).reshape(n, 1, -1).expand(n, c, -1)
+        v = torch.gather(flat, 2, idx).reshape((n, c) + tuple(yy.shape[1:]))
+        return v * valid[:, None]
+
+    return (gather(y0, x0) * ((1 - wy) * (1 - wx))[:, None]
+            + gather(y0, x1) * ((1 - wy) * wx)[:, None]
+            + gather(y1, x0) * (wy * (1 - wx))[:, None]
+            + gather(y1, x1) * (wy * wx)[:, None])
+
+
+def _linspace(num, device):
+    """``jnp.linspace(-1, 1, num)`` in f32 and its order of operations:
+    start (1 - t) + stop t with t = i / (num - 1), the end point exact."""
+    if num == 1:
+        return torch.full((1,), -1.0, device=device)
+    div = torch.tensor(float(num - 1), device=device)
+    t = torch.arange(num - 1, dtype=torch.float32, device=device) / div
+    return torch.cat([-1.0 * (1 - t) + 1.0 * t,
+                      torch.ones(1, device=device)])
+
+
+@register("GridGenerator", ndarray_inputs=["data"])
+def _grid_generator(data, transform_type="affine", target_shape=(0, 0)):
+    h, w = int(target_shape[0]), int(target_shape[1])
+    if transform_type == "affine":
+        n = data.shape[0]
+        theta = data.reshape(n, 2, 3)
+        ys, xs = torch.meshgrid(_linspace(h, data.device),
+                                _linspace(w, data.device), indexing="ij")
+        base = torch.stack([xs, ys, torch.ones_like(xs)], dim=0) \
+            .reshape(3, -1).to(data.dtype)
+        return torch.matmul(theta, base).reshape(n, 2, h, w)
+    return data  # warp type passes through
+
+
+@register("SpatialTransformer", ndarray_inputs=["data", "loc"])
+def _spatial_transformer(data, loc, target_shape=(0, 0),
+                         transform_type="affine", sampler_type="bilinear",
+                         cudnn_off=False):
+    grid = _grid_generator(loc, "affine", target_shape)
+    return _bilinear_sampler(data, grid)
+
+
+@register("Correlation", num_outputs=1, ndarray_inputs=["data1", "data2"])
+def _correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
+                 stride2=1, pad_size=0, is_multiply=True):
+    """FlowNet correlation: for each displacement (p, q) on the stride2
+    grid within max_displacement, the kernel_size^2 patch product (or
+    absolute difference) of data1 and shifted data2, averaged over K^2 C.
+    Each displacement is one shifted product, a channel sum and a window
+    sum of static slices; autograd differentiates it."""
+    ks, md = int(kernel_size), int(max_displacement)
+    s1, s2, pad = int(stride1), int(stride2), int(pad_size)
+    mult = is_multiply in (True, 1, "1", "true", "True")
+    if ks % 2 != 1:
+        raise ValueError("Correlation kernel_size must be odd")
+    n, c, h, w = data1.shape
+    kr = (ks - 1) // 2
+    border = md + kr
+    ph, pw = h + 2 * pad, w + 2 * pad
+    out_h = int(math.ceil((ph - 2 * border) / s1))
+    out_w = int(math.ceil((pw - 2 * border) / s1))
+    if out_h <= 0 or out_w <= 0:
+        raise ValueError("Correlation output size is empty; reduce "
+                         "max_displacement/kernel_size or raise pad_size")
+    ngr = md // s2
+    p1 = F.pad(data1, (pad, pad, pad, pad))
+    # an extra md margin, so every shifted view is a slice (zeros beyond)
+    big2 = F.pad(data2, (pad + md,) * 4)
+    ys = border + s1 * torch.arange(out_h, device=data1.device)
+    xs = border + s1 * torch.arange(out_w, device=data1.device)
+    scale = 1.0 / (ks * ks * c)
+    chans = []
+    for p in range(-ngr, ngr + 1):
+        for q in range(-ngr, ngr + 1):
+            dy, dx = p * s2, q * s2
+            shifted = big2[:, :, md + dy:md + dy + ph, md + dx:md + dx + pw]
+            m = (p1 * shifted if mult else torch.abs(p1 - shifted)).sum(1)
+            if ks == 1:
+                win = m
+            else:
+                mp = F.pad(m, (kr, kr, kr, kr))
+                win = sum(mp[:, u:u + ph, v:v + pw]
+                          for u in range(ks) for v in range(ks))
+            chans.append(win[:, ys, :][:, :, xs] * scale)
+    return torch.stack(chans, dim=1).to(data1.dtype)
+
+
+@register("LRN", ndarray_inputs=["data"])
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    n = int(nsize)
+    pad = n // 2
+    sqp = F.pad(torch.square(data), (0, 0, 0, 0, pad, pad))
+    win = sum(sqp[:, i:i + data.shape[1]] for i in range(n))
+    return data / torch.pow(knorm + alpha / n * win, beta)

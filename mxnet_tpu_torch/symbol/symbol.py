@@ -613,6 +613,20 @@ def _param_shape_rules(op: str, in_shape: tuple, kwargs: Dict[str, Any],
     if op in ("BatchNorm", "InstanceNorm"):
         axis = int(k.get("axis", 1))
         return (in_shape[axis],)
+    if op in ("_contrib_quantized_conv", "_contrib_quantized_fully_connected"):
+        # the int8 weights and their ranges, for a graph that
+        # contrib.quantization.quantize_model rewrote
+        if arg in ("min_weight", "max_weight"):
+            return (1,)
+        if arg != "weight":
+            return None
+        if op == "_contrib_quantized_conv":
+            return (int(k["num_filter"]),
+                    in_shape[1] // int(k.get("num_group", 1))) + \
+                tuple(int(x) for x in k.get("kernel", (1, 1)))
+        flatten = str(k.get("flatten", True)).lower() not in ("0", "false")
+        in_units = int(np.prod(in_shape[1:])) if flatten else in_shape[-1]
+        return (int(k["num_hidden"]), in_units)
     if op == "LayerNorm":
         axis = int(k.get("axis", -1)) % len(in_shape)
         return (in_shape[axis],)

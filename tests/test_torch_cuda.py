@@ -1023,3 +1023,229 @@ def test_rnn_op_on_card_raises_without_cudnn(cuda_device, monkeypatch):
                          torch.zeros((1, 2, 5), device=cuda_device),
                          torch.zeros((1, 2, 5), device=cuda_device),
                          state_size=5, num_layers=1, mode="lstm")
+
+
+# ---------------------------------------------------------------------------
+# detection, image and nn extras, int8 products
+# ---------------------------------------------------------------------------
+
+def _op(name):
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    return get_op(name).fn
+
+
+def _on(dev, *arrays):
+    return [None if a is None else torch.from_numpy(np.array(a)).to(dev)
+            for a in arrays]
+
+
+def _nms_rows(seed, b=4, n=700, levels=6):
+    """Rows [id, score, l, t, r, b] with many tied scores."""
+    rng = np.random.RandomState(seed)
+    d = np.zeros((b, n, 6), np.float32)
+    d[..., 0] = rng.randint(0, 4, (b, n))
+    d[..., 1] = np.round(rng.rand(b, n) * levels) / levels
+    d[..., 2:4] = rng.rand(b, n, 2) * 0.7
+    d[..., 4:6] = d[..., 2:4] + 0.05 + rng.rand(b, n, 2) * 0.3
+    return d
+
+
+@pytest.mark.parametrize("topk", [-1, 400])
+@pytest.mark.parametrize("id_index", [-1, 0])
+def test_box_nms_on_card_equals_cpu_bitwise(cuda_device, topk, id_index):
+    from mxnet_tpu_torch.ops import contrib
+
+    d = _nms_rows(topk + id_index + 2)
+    kw = dict(overlap_thresh=0.45, valid_thresh=0.1, topk=topk,
+              id_index=id_index)
+    iters = contrib.nms_keep_fixed_point.iterations
+    got = _op("_contrib_box_nms")(*_on(cuda_device, d), **kw)
+    assert contrib.nms_keep_fixed_point.iterations > iters
+    want = _op("_contrib_box_nms")(torch.from_numpy(d), **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("t", [2, 3, 6, 7, 10, 11])
+def test_box_nms_chain_on_card_equals_plain_loop(cuda_device, t):
+    """Each box overlaps only the next, so the keep mask alternates and
+    the fixed point needs t - 1 rounds: held bitwise to the per-row loop,
+    for every t modulo the rounds between convergence tests."""
+    from mxnet_tpu_torch.ops import contrib
+
+    d = np.zeros((1, t, 6), np.float32)
+    d[0, :, 1] = np.linspace(0.9, 0.5, t, dtype=np.float32)
+    d[0, :, 2] = np.arange(t, dtype=np.float32) * 0.3
+    d[0, :, 4] = d[0, :, 2] + 1.0
+    d[0, :, 5] = 1.0
+    iters = contrib.nms_keep_fixed_point.iterations
+    got = _op("_contrib_box_nms")(*_on(cuda_device, d), overlap_thresh=0.45)
+    assert contrib.nms_keep_fixed_point.iterations > iters
+    want = contrib.box_nms_plain(torch.from_numpy(d), overlap_thresh=0.45)
+    assert torch.equal(got.cpu(), want)
+    assert (got[0, :, 0].cpu() >= 0).tolist() == [i % 2 == 0
+                                                   for i in range(t)]
+
+
+@pytest.mark.parametrize("nms_topk", [-1, 400])
+def test_multibox_detection_on_card_equals_cpu(cuda_device, nms_topk):
+    rng = np.random.RandomState(1)
+    anchors = _op("_contrib_MultiBoxPrior")(
+        torch.zeros(1, 1, 20, 20), sizes=(0.2, 0.3), ratios=(1, 2, 0.5)) \
+        .numpy()
+    n = anchors.shape[1]
+    prob = rng.rand(2, 6, n).astype(np.float32)
+    prob[:, :, ::7] = prob[:, :, :1]  # tied scores
+    prob /= prob.sum(1, keepdims=True)
+    loc = (rng.randn(2, n * 4) * 0.3).astype(np.float32)
+    kw = dict(nms_threshold=0.45, threshold=0.01, nms_topk=nms_topk)
+    fn = _op("_contrib_MultiBoxDetection")
+    from mxnet_tpu_torch.ops.contrib import multibox_decode
+
+    got = fn(*_on(cuda_device, prob, loc, anchors), **kw)
+    # the card's rows against the plain per-row loop on the card's own
+    # decoded rows (decode may differ by rounding between devices)
+    decoded = multibox_decode(*_on(cuda_device, prob, loc, anchors),
+                              threshold=0.01)
+    want = _op("_contrib_box_nms")(decoded.cpu(), overlap_thresh=0.45,
+                                   valid_thresh=0.01, topk=nms_topk,
+                                   id_index=0)
+    assert torch.equal(got.cpu(), want)
+    cpu = fn(*[torch.from_numpy(a) for a in (prob, loc, anchors)], **kw)
+    assert torch.equal(got[..., 0].cpu() >= 0, cpu[..., 0] >= 0)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-6)
+
+
+def test_multibox_target_on_card_equals_cpu(cuda_device):
+    rng = np.random.RandomState(2)
+    anchors = _op("_contrib_MultiBoxPrior")(
+        torch.zeros(1, 1, 19, 19), sizes=(0.2, 0.272), ratios=(1, 2, 0.5))
+    n = anchors.shape[1]
+    label = np.full((8, 3, 5), -1, np.float32)
+    for b in range(8):
+        for k in range(rng.randint(1, 4)):
+            x0, y0 = rng.rand(2) * 0.6
+            w, h = 0.2 + rng.rand(2) * 0.2
+            label[b, k] = [rng.randint(0, 20), x0, y0, x0 + w, y0 + h]
+    cls_pred = np.zeros((8, 21, n), np.float32)
+    fn = _op("_contrib_MultiBoxTarget")
+    got = fn(anchors.to(cuda_device), *_on(cuda_device, label, cls_pred))
+    want = fn(anchors, torch.from_numpy(label), torch.from_numpy(cls_pred))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+
+
+@pytest.mark.parametrize("k", [147, 576, 4608])
+@pytest.mark.parametrize("rows", [3, 16, 50])
+def test_quantized_products_on_card_are_exact(cuda_device, k, rows):
+    from mxnet_tpu_torch.ops import quantization as q
+
+    rng = np.random.RandomState(k + rows)
+    n = 13  # not a multiple of 8
+    x = rng.randint(-127, 128, (rows, k)).astype(np.int8)
+    w = rng.randint(-127, 128, (n, k)).astype(np.int8)
+    r = [np.array([v], np.float32) for v in (-1.0, 1.0, -1.0, 1.0)]
+    before = q.int8_matmul.launches
+    acc = _op("_contrib_quantized_fully_connected")(
+        *_on(cuda_device, x, w, None, *r), num_hidden=n, no_bias=True)[0]
+    assert q.int8_matmul.launches == before + 1
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc.cpu(), q.int8_matmul_plain(
+        torch.from_numpy(x), torch.from_numpy(w).t()))
+    # a convolution with the same k: k = c * 3 * 3 (147 = 3 * 7 * 7)
+    kh = 7 if k == 147 else 3
+    c = k // (kh * kh)
+    xc = rng.randint(-127, 128, (2, c, 9, 9)).astype(np.int8)
+    wc = rng.randint(-127, 128, (n, c, kh, kh)).astype(np.int8)
+    kw = dict(kernel=(kh, kh), pad=(kh // 2, kh // 2), num_filter=n,
+              no_bias=True)
+    got = _op("_contrib_quantized_conv")(*_on(cuda_device, xc, wc, None, *r),
+                                         **kw)[0]
+    want = q.int8_conv_plain(torch.from_numpy(xc), torch.from_numpy(wc),
+                             (1, 1), (kh // 2, kh // 2), (1, 1), 1)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_quantize_dequantize_on_card_bitwise(cuda_device):
+    rng = np.random.RandomState(3)
+    x = (rng.randn(10000) * 3).astype(np.float32)
+    lo, hi = np.array([-4.1], np.float32), np.array([5.3], np.float32)
+    for name, args in (("_contrib_quantize", (x, lo, hi)),
+                       ("_contrib_quantize_v2", (x,))):
+        got = _op(name)(*_on(cuda_device, *args))
+        want = _op(name)(*[torch.from_numpy(a) for a in args])
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        deq = _op("_contrib_dequantize")(*got)
+        assert torch.equal(deq.cpu(), _op("_contrib_dequantize")(*want))
+
+
+def test_int8_product_raises_off_int8(cuda_device):
+    from mxnet_tpu_torch.ops import quantization as q
+
+    a = torch.ones(20, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="int8"):
+        q.int8_matmul(a, a.t())
+
+
+_EXTRA_CASES = {
+    "roi_align": ("_contrib_ROIAlign",
+                  lambda r: [r.randn(2, 3, 9, 11).astype(np.float32),
+                             np.array([[0, 1.0, 2.0, 13.0, 15.0],
+                                       [1, 5.5, 3.2, 18.0, 16.0]],
+                                      np.float32)],
+                  dict(pooled_size=(3, 3), spatial_scale=0.5)),
+    "deformable": ("_contrib_DeformableConvolution",
+                   lambda r: [r.randn(2, 4, 7, 8).astype(np.float32),
+                              (r.randn(2, 18, 7, 8) * 1.5).astype(
+                                  np.float32),
+                              r.randn(6, 4, 3, 3).astype(np.float32),
+                              r.randn(6).astype(np.float32)],
+                   dict(kernel=(3, 3), pad=(1, 1), num_filter=6)),
+    "bilinear_resize": ("_contrib_BilinearResize2D",
+                        lambda r: [r.randn(2, 3, 8, 10).astype(np.float32)],
+                        dict(height=5, width=13)),
+    "adaptive_pool": ("_contrib_AdaptiveAvgPooling2D",
+                      lambda r: [r.randn(2, 3, 7, 9).astype(np.float32)],
+                      dict(output_size=(3, 4))),
+    "sync_bn": ("_contrib_SyncBatchNorm",
+                lambda r: [r.randn(4, 3, 5, 5).astype(np.float32),
+                           np.ones(3, np.float32), np.zeros(3, np.float32),
+                           np.zeros(3, np.float32), np.ones(3, np.float32)],
+                dict(fix_gamma=False, _train=True)),
+    "image_resize": ("_image_resize",
+                     lambda r: [r.rand(2, 8, 10, 3).astype(np.float32)],
+                     dict(size=(13, 5))),
+    "upsampling": ("UpSampling",
+                   lambda r: [r.randn(2, 3, 4, 5).astype(np.float32),
+                              np.zeros((3, 1, 4, 4), np.float32)],
+                   dict(scale=2, sample_type="bilinear", num_filter=3)),
+    "spatial_transformer": ("SpatialTransformer",
+                            lambda r: [r.randn(2, 3, 6, 7).astype(np.float32),
+                                       np.array([[0.9, 0.1, 0.05, -0.1, 1.1,
+                                                  0.0]] * 2, np.float32)],
+                            dict(target_shape=(5, 4))),
+    "correlation": ("Correlation",
+                    lambda r: [r.rand(1, 3, 9, 9).astype(np.float32),
+                               r.rand(1, 3, 9, 9).astype(np.float32)],
+                    dict(kernel_size=3, max_displacement=2, stride2=2,
+                         pad_size=2)),
+    "lrn": ("LRN", lambda r: [r.randn(2, 7, 3, 4).astype(np.float32)], {}),
+    "interleaved": ("_contrib_interleaved_matmul_selfatt_qk",
+                    lambda r: [r.rand(6, 2, 24).astype(np.float32)],
+                    dict(heads=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EXTRA_CASES))
+def test_new_ops_on_card_match_cpu(cuda_device, case):
+    name, make, kw = _EXTRA_CASES[case]
+    arrays = make(np.random.RandomState(4))
+    fn = _op(name)
+    got = fn(*_on(cuda_device, *arrays), **kw)
+    want = fn(*[torch.from_numpy(a) for a in arrays], **kw)
+    got = got[0] if isinstance(got, tuple) else got
+    want = want[0] if isinstance(want, tuple) else want
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

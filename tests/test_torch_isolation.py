@@ -59,7 +59,14 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.gluon.rnn.rnn_cell, "
             "mxnet_tpu_torch.gluon.rnn.rnn_layer, mxnet_tpu_torch.rnn, "
             "mxnet_tpu_torch.rnn.rnn_cell, mxnet_tpu_torch.rnn.io, "
-            "mxnet_tpu_torch.models.seq2seq\n"
+            "mxnet_tpu_torch.models.seq2seq, "
+            "mxnet_tpu_torch.ops.contrib, mxnet_tpu_torch.ops.image_ops, "
+            "mxnet_tpu_torch.ops.quantization, mxnet_tpu_torch.ndarray.image, "
+            "mxnet_tpu_torch.ndarray.linalg, mxnet_tpu_torch.gluon.contrib.nn, "
+            "mxnet_tpu_torch.models.ssd, mxnet_tpu_torch.contrib, "
+            "mxnet_tpu_torch.contrib.quantization, "
+            "mxnet_tpu_torch.contrib.onnx, "
+            "mxnet_tpu_torch.contrib._onnx_proto\n"
             "from mxnet_tpu_torch import nd, autograd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -497,15 +497,19 @@ def test_every_registered_op_has_a_case():
     """Each op the port registers (once per definition, aliases aside) is
     held to the reference here, in ``test_torch_conv_ops.py`` (the
     convolution, pooling and batch/instance/group norm ops), in
-    ``test_torch_longtail_ops.py`` (ordering, sequence, CTC, random) or
-    in ``test_torch_rnn.py`` (``RNN``), and each exists in the
+    ``test_torch_longtail_ops.py`` (ordering, sequence, CTC, random), in
+    ``test_torch_rnn.py`` (``RNN``), in ``test_torch_contrib_ops.py``
+    (contrib, image and the ``nn`` extras) or in
+    ``test_torch_quantization.py`` (int8), and each exists in the
     reference."""
+    from test_torch_contrib_ops import COVERED as CONTRIB
     from test_torch_conv_ops import CASES as CONV_CASES
     from test_torch_longtail_ops import COVERED as LONGTAIL
+    from test_torch_quantization import COVERED as QUANT
     from test_torch_rnn import COVERED as RNN
 
     covered = {p.values[0] for cases in [*FAMILIES.values(), CONV_CASES]
-               for p in cases} | LONGTAIL | RNN
+               for p in cases} | LONGTAIL | RNN | CONTRIB | QUANT
     ops = {op.name for op in tregistry._REGISTRY.values()}
     assert ops - covered == set()
     from mxnet_tpu.ops import has_op
@@ -567,8 +571,8 @@ def test_registry_api_matches_reference():
     for kw in ({}, {"output_mean_var": True}):
         assert tregistry.get_op("BatchNorm").n_out(kw) == \
             jregistry.get_op("BatchNorm").n_out(kw)
-    with pytest.raises(NotImplementedError, match="'UpSampling'"):
-        tregistry.get_op("UpSampling")
+    with pytest.raises(NotImplementedError, match="'NoSuchOp'"):
+        tregistry.get_op("NoSuchOp")
     raw = {"a": "(3, 3)", "b": "True", "c": "2", "d": "none", "e": "relu",
            "f": 1.5}
     assert tregistry.coerce_kwargs(raw) == jregistry.coerce_kwargs(raw)
