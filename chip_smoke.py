@@ -150,9 +150,29 @@ H100): ``python3 chip_smoke.py``. It
    ``HybridBlock.export(format="onnx")``, imported with
    ``contrib.onnx.import_model`` and run on the card at batch 8 against
    the net's own forward (rtol 1e-5, atol 1e-6);
-19. prints each phase's wall time (``timing``), the ``kernels`` JSON line
-   and, last, the ``ok`` line. The detection, int8 and ONNX paths launch
-   no kernel of the port's own (they run PyTorch's and cuBLAS's).
+19. drives ``serve_path``, the batch-serving stack: (a) ResNet-50 v1
+   (``Module.fit`` one batch of 32, ``save_checkpoint``) served by
+   ``serve.load(prefix, buckets=(1, 2, 4, 8, 16, 32))`` behind a
+   ``ServeServer``, 4 ``ServeClient`` threads sending 1-32 rows for 5 s
+   with an ``OP_RELOAD`` to a second checkpoint half way: every reply
+   bitwise equal to ``Module.predict`` at its bucket under the version it
+   carries (cuDNN deterministic), no error, both versions seen, programs
+   <= buckets; qps, p50/p99, shed and the idle share of a profiled
+   second; (b) the LM traced to a Symbol with batch 0 and scored by
+   ``InferenceEngine`` at 1, 2 and 4 rows of 2048 tokens (the flash
+   forward kernel through the Executor, launches counted), one bucket
+   bitwise equal to ``Module.predict``; (c) the same LM in
+   ``DecodeEngine`` + ``DecodeScheduler`` behind ``ServeServer(decode=)``:
+   8 concurrent greedy streams of 16 tokens over ``OP_INFER_STREAM``,
+   equal to the in-process ``generate``, paged launches counted, no page
+   leaked; tokens/s and the p99 inter-token gap;
+20. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
+   under ``autograd.record`` with a ``Custom`` op in it, an SGD update,
+   a CSR ``dot`` and a row-sparse ``retain`` on the card, each against
+   the same code on the CPU from the same seed;
+21. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+   and, last, the ``ok`` line. The detection, int8, ONNX and numpy paths
+   launch no kernel of the port's own (they run PyTorch's and cuBLAS's).
 
 Between 3 and 4 it also holds the flash kernels against their plain
 versions at other head dims (D 8, 48, 80, 96, 256, 320, 512; f32 and bf16;
@@ -3496,6 +3516,518 @@ def phase_onnx_path(torch, dev, smi):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# serve_path: the batch-serving stack, and np_path: the numpy front ends
+# ---------------------------------------------------------------------------
+
+SERVE_SEED = 0
+# the reference's test_serve_flagship_end_to_end at full width
+SERVE_ZOO = {"model": "resnet50_v1", "classes": 1000, "size": 224,
+             "batch": 32, "kw": {}}
+SERVE_ZOO_PARAMS = 25_610_152           # arguments + moving statistics
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+SERVE_POOL = 64            # distinct query rows the clients draw from
+SERVE_CLIENTS = 4
+SERVE_SECONDS = 5.0        # the closed loop; the reload lands half way
+SERVE_PROFILE_SECONDS = 1.0
+SERVE_LM_KW = {}           # transformer_lm() at its defaults, seed 0
+SERVE_LM_PARAMS = 135_812_864
+SERVE_LM_BUCKETS = (1, 2, 4)
+SERVE_LM_REPS = 3
+STREAM_CLIENTS = 8         # one stream per prompt of PROMPT_LENGTHS
+STREAM_TOKENS = 16
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+class _PinnedCudnn:
+    """cuDNN's deterministic algorithms for the comparisons of a phase (as
+    zoo_path's), the setting restored after."""
+
+    def __init__(self, torch):
+        self._b = torch.backends.cudnn
+
+    def __enter__(self):
+        self._was = self._b.deterministic
+        self._b.deterministic = True
+
+    def __exit__(self, *exc):
+        self._b.deterministic = self._was
+
+
+def _closed_loop(serve, port, qx, refs, seconds, reload_spec=None):
+    """SERVE_CLIENTS threads, each with its own ``ServeClient``, sending
+    requests of 1-32 random rows of ``qx`` back to back for ``seconds``;
+    every reply is held bitwise to ``refs[version][bucket]`` at some
+    bucket. ``reload_spec`` = (path, epoch): an ``OP_RELOAD`` from another
+    client half way. Returns the loop's record."""
+    import threading
+
+    deadline = time.perf_counter() + seconds
+    lock = threading.Lock()
+    rec = {"latency_ms": [], "versions": {}, "mismatches": [], "errors": [],
+           "rows": 0}
+
+    def client(i):
+        rng = np.random.RandomState(1000 + i)
+        cli = serve.ServeClient("127.0.0.1", port, timeout=120.0)
+        try:
+            while time.perf_counter() < deadline:
+                n = int(rng.randint(1, max(SERVE_BUCKETS) + 1))
+                lo = int(rng.randint(0, len(qx) - n + 1))
+                t0 = time.perf_counter()
+                out, ver = cli.infer(qx[lo:lo + n], return_version=True)
+                ms = 1e3 * (time.perf_counter() - t0)
+                same = ver in refs and any(
+                    np.array_equal(out, refs[ver][b][lo:lo + n])
+                    for b in SERVE_BUCKETS if b >= n)
+                with lock:
+                    rec["latency_ms"].append(ms)
+                    rec["versions"][ver] = rec["versions"].get(ver, 0) + 1
+                    rec["rows"] += n
+                    if not same:
+                        rec["mismatches"].append((i, lo, n, ver))
+        except Exception as e:  # noqa: BLE001 — counted, then checked
+            rec["errors"].append(f"client {i}: {type(e).__name__}: {e}")
+        finally:
+            cli.close()
+
+    def reloader():
+        time.sleep(seconds / 2)
+        cli = serve.ServeClient("127.0.0.1", port, timeout=300.0)
+        try:
+            t0 = time.perf_counter()
+            rec["reload_version"] = cli.reload(reload_spec[0],
+                                               epoch=reload_spec[1])
+            rec["reload_ms"] = 1e3 * (time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001
+            rec["errors"].append(f"reload: {type(e).__name__}: {e}")
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    if reload_spec is not None:
+        threads.append(threading.Thread(target=reloader))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 600)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["requests"] = len(rec["latency_ms"])
+    return rec
+
+
+def _serve_zoo_leg(torch, dev, smi):
+    """(a) ResNet-50 v1 over the wire: ``Module.fit`` one batch,
+    ``save_checkpoint``, ``serve.load`` with SERVE_BUCKETS, a
+    ``ServeServer`` and SERVE_CLIENTS closed-loop clients with a reload to
+    a second checkpoint half way."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, serve
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+    from mxnet_tpu_torch.io import DataBatch, NDArrayIter
+    from mxnet_tpu_torch.module import Module
+
+    z = SERVE_ZOO
+    ctx = mx.Context(dev)
+    mx.random.seed(SERVE_SEED)
+    rng = np.random.RandomState(SERVE_SEED)
+    shape = (3, z["size"], z["size"])
+    x = rng.rand(z["batch"], *shape).astype(np.float32)
+    y = rng.randint(0, z["classes"], z["batch"]).astype(np.float32)
+    qx = rng.rand(SERVE_POOL, *shape).astype(np.float32)
+    zoo = get_model(z["model"], classes=z["classes"], **z["kw"])
+    with mx.name.NameManager():
+        net = sym.SoftmaxOutput(zoo(sym.var("data")), name="softmax")
+    mod = Module(net, context=ctx)
+    prefix = os.path.join(_out_dir(), "serve_" + z["model"])
+    res = {"model": z["model"], "buckets": list(SERVE_BUCKETS),
+           "clients": SERVE_CLIENTS, "image": list(shape)}
+    with _PinnedCudnn(torch):
+        t0 = time.perf_counter()
+        mod.fit(NDArrayIter(x, y, batch_size=z["batch"]), num_epoch=1,
+                optimizer_params={"learning_rate": 0.01})
+        _sync(torch, dev)
+        res["fit_s"] = time.perf_counter() - t0
+        arg, aux = mod.get_params()
+        res["params"] = sum(int(v.size) for v in list(arg.values())
+                            + list(aux.values()))
+        if not z["kw"] and z["classes"] == 1000:
+            check(res["params"] == SERVE_ZOO_PARAMS,
+                  f"served ResNet-50 has {res['params']} parameters")
+        mod.save_checkpoint(prefix, 1)
+        # the oracle, per version and bucket: Module.predict at batch B
+        refs = {0: {b: mod.predict(NDArrayIter(qx, None, batch_size=b))
+                    .asnumpy() for b in SERVE_BUCKETS}}
+        mod.forward_backward(DataBatch([nd.array(x)], [nd.array(y)]))
+        mod.update()
+        mod.save_checkpoint(prefix, 2)
+        refs[1] = {b: mod.predict(NDArrayIter(qx, None, batch_size=b))
+                   .asnumpy() for b in SERVE_BUCKETS}
+        check(all(np.isfinite(r).all() for v in refs.values()
+                  for r in v.values()), "Module.predict is not finite")
+        check(not np.array_equal(refs[0][1], refs[1][1]),
+              "the second checkpoint predicts the same as the first")
+        t0 = time.perf_counter()
+        engine = serve.load(prefix, epoch=1, buckets=SERVE_BUCKETS,
+                            lint="off")
+        res["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = engine.warmup(shape)
+        _sync(torch, dev)
+        res["warmup_s"] = time.perf_counter() - t0
+        check(warm == len(SERVE_BUCKETS),
+              f"warmup ran {warm} programs, want {len(SERVE_BUCKETS)}")
+        srv = serve.ServeServer(engine, port=0, max_linger_ms=2.0)
+        srv.start()
+        try:
+            loop = _closed_loop(serve, srv.port, qx, refs, SERVE_SECONDS,
+                                reload_spec=(prefix, 2))
+            prof = None
+            if dev.type == "cuda":
+                holder = {}
+                prof = _device_profile(torch, lambda: holder.update(
+                    _closed_loop(serve, srv.port, qx, refs,
+                                 SERVE_PROFILE_SECONDS)))
+                loop["errors"] += holder["errors"]
+                loop["mismatches"] += holder["mismatches"]
+            bst = srv.stats()["batcher"]
+        finally:
+            srv.stop()
+    for f in (f"{prefix}-0001.params", f"{prefix}-0002.params",
+              f"{prefix}-symbol.json"):
+        os.remove(f)
+    check(not loop["errors"], f"serve errors: {loop['errors'][:3]}")
+    check(not loop["mismatches"], f"{len(loop['mismatches'])} replies not "
+          f"bitwise equal to Module.predict at their version and bucket, "
+          f"first {loop['mismatches'][:3]}")
+    check(loop.get("reload_version") == 1,
+          f"reload over the wire answered {loop.get('reload_version')}")
+    check(set(loop["versions"]) == {0, 1} and min(loop["versions"].values())
+          > 0, f"replies by version {loop['versions']}: want both")
+    check(engine.num_programs <= len(SERVE_BUCKETS),
+          f"{engine.num_programs} programs for {len(SERVE_BUCKETS)} buckets")
+    lat = loop["latency_ms"]
+    res.update({
+        "requests": loop["requests"], "rows": loop["rows"],
+        "wall_s": loop["wall_s"], "qps": loop["requests"] / loop["wall_s"],
+        "rows_per_s": loop["rows"] / loop["wall_s"],
+        "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+        "replies_by_version": {str(k): v for k, v in
+                               sorted(loop["versions"].items())},
+        "reload_ms": loop.get("reload_ms"), "errors": len(loop["errors"]),
+        "mismatches": len(loop["mismatches"]),
+        "shed": bst["shed"], "shed_by_reason": bst["shed_by_reason"],
+        "batches": bst["batches_executed"],
+        "rows_per_batch": (bst["rows_executed"]
+                           / max(bst["batches_executed"], 1)),
+        "num_programs": engine.num_programs,
+        "compare": "bitwise vs Module.predict at the reply's bucket, "
+                   "cuDNN deterministic"})
+    if prof is not None:
+        res["profiled_wall_ms"], res["device_idle"], res["device_ms"] = prof
+    return res
+
+
+def _d2h_ms(torch, dev, shape, n=3):
+    """ms of one device-to-host copy of an f32 tensor of ``shape``: into
+    pageable memory (``.cpu()``, as the engine returns outputs) and into
+    a pinned buffer allocated beforehand (host clock around a
+    synchronised copy, median of ``n``)."""
+    x = torch.empty(shape, device=dev)
+    pinned = torch.empty(shape, pin_memory=True)
+    out = {}
+    for kind, fn in (("pageable", lambda: x.cpu()),
+                     ("pinned", lambda: pinned.copy_(x))):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[kind] = float(np.median(times))
+    return out
+
+
+def _serve_lm_leg(torch, dev, smi):
+    """(b) the full-width LM traced to a Symbol (batch dimension 0, so one
+    graph serves every bucket) and scored in-process by ``InferenceEngine``
+    at SERVE_LM_BUCKETS rows of 2048 tokens. Returns (record, LM)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.models.transformer import decode_config
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    ctx = mx.Context(dev)
+    net = _seeded_lm(**SERVE_LM_KW)
+    cfg = decode_config(net)
+    seq, vocab = cfg["max_length"], cfg["vocab"]
+    n_params = _n_params(net)
+    if not SERVE_LM_KW:
+        check(n_params == SERVE_LM_PARAMS, f"LM has {n_params} parameters")
+    with mx.name.NameManager():
+        logits = net(sym.var("data", shape=(0, seq)))  # 0: any batch
+    arg = {p.name: p.data() for p in net.collect_params().values()}
+    prefix = os.path.join(_out_dir(), "serve_lm")
+    t0 = time.perf_counter()
+    mx.model.save_checkpoint(prefix, 0, logits, arg, {})
+    save_s = time.perf_counter() - t0
+    flash0 = flash_attention_fwd.launches
+    # the attention node (invoke_fn) does not survive the json in either
+    # package: the checkpoint's parameters, the traced graph
+    t0 = time.perf_counter()
+    engine = serve.load(prefix, epoch=0, symbol=logits,
+                        buckets=SERVE_LM_BUCKETS, lint="off")
+    load_s = time.perf_counter() - t0
+    for f in (f"{prefix}-0000.params", f"{prefix}-symbol.json"):
+        os.remove(f)
+    warm = engine.warmup((seq,))
+    check(warm == len(SERVE_LM_BUCKETS), f"LM warmup ran {warm} programs")
+    rng = np.random.RandomState(SERVE_SEED)
+    rows = rng.randint(0, vocab, (max(SERVE_LM_BUCKETS), seq)).astype(
+        np.float32)
+    ms = {}
+    for b in SERVE_LM_BUCKETS:
+        times = []
+        for _ in range(SERVE_LM_REPS):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            outs, _v = engine.infer([rows[:b]])
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[str(b)] = float(np.median(times))
+        check(outs[0].shape == (b, seq, vocab) and np.isfinite(
+            outs[0]).all(), f"LM logits at bucket {b}: {outs[0].shape}")
+    prof = copy = None
+    if dev.type == "cuda":  # one top-bucket call: device busy vs the host
+        top = max(SERVE_LM_BUCKETS)
+        prof = _device_profile(torch, lambda: engine.infer([rows[:top]]))
+        copy = _d2h_ms(torch, dev, (top, seq, vocab))
+    hold = SERVE_LM_BUCKETS[len(SERVE_LM_BUCKETS) // 2]
+    mod = Module(logits, data_names=("data",), label_names=None,
+                 context=ctx)
+    mod.bind(data_shapes=[("data", (hold, seq))], for_training=False)
+    mod.init_params(arg_params=arg)
+    del arg
+    ref = mod.predict(NDArrayIter(rows[:hold], None,
+                                  batch_size=hold)).asnumpy()
+    got = engine.infer([rows[:hold]])[0][0]
+    check(np.array_equal(got, ref), "LM logits of bucket "
+          f"{hold} not bitwise Module.predict's: {np.abs(got - ref).max()}")
+    forwards = (warm + SERVE_LM_REPS * len(SERVE_LM_BUCKETS) + 2
+                + (prof is not None))
+    launches = flash_attention_fwd.launches - flash0
+    if dev.type == "cuda":
+        check(launches == cfg["layers"] * forwards,
+              f"flash forward launches {launches}, want {cfg['layers']} "
+              f"layers x {forwards} forwards")
+    del mod, ref, got, outs, engine
+    rec = {"model": "transformer_lm", "params": n_params,
+           "buckets": list(SERVE_LM_BUCKETS), "seq": seq,
+           "infer_ms": ms, "tokens_per_s_top_bucket":
+           max(SERVE_LM_BUCKETS) * seq / (ms[str(max(SERVE_LM_BUCKETS))]
+                                          / 1e3),
+           "checkpoint_save_s": save_s, "load_s": load_s,
+           "held_bucket": hold, "bitwise_vs_predict": True,
+           "flash_fwd_launches": launches, "forwards": forwards}
+    if prof is not None:
+        (rec["profiled_top_bucket_ms"], rec["device_idle"],
+         rec["device_ms"]) = prof
+        rec["logits_copy_ms"] = copy
+    return rec, net
+
+
+def _serve_stream_leg(torch, dev, net):
+    """(c) the same LM in ``DecodeEngine`` + ``DecodeScheduler`` behind
+    ``ServeServer(decode=...)``: STREAM_CLIENTS concurrent greedy streams
+    of STREAM_TOKENS over ``OP_INFER_STREAM``, equal to the in-process
+    ``generate``; paged launches counted, no page leaked."""
+    import threading
+
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.models.transformer import decode_config
+    from mxnet_tpu_torch.ops.flash_attention import flash_decode_attention
+
+    vocab = decode_config(net)["vocab"]
+    paged0 = flash_decode_attention.launches
+    eng = serve.DecodeEngine(net, slots=SLOTS, page_size=PAGE,
+                             num_pages=NUM_PAGES, device=dev)
+    eng.warmup()
+    sched = serve.DecodeScheduler(eng, max_new_tokens=STREAM_TOKENS,
+                                  default_timeout=600.0)
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    prompts = [rng.integers(1, vocab, size=n).astype(np.int32)
+               for n in PROMPT_LENGTHS[:STREAM_CLIENTS]]
+
+    def fan_out(gen_fn):
+        out, stamps = [None] * len(prompts), [None] * len(prompts)
+
+        def one(i):
+            ts, toks = [time.perf_counter()], []
+            for tok in gen_fn(i):
+                toks.append(tok)
+                ts.append(time.perf_counter())
+            out[i], stamps[i] = toks, ts
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        return out, stamps, time.perf_counter() - t0
+
+    want, _s, local_wall = fan_out(lambda i: sched.generate(
+        prompts[i], max_new_tokens=STREAM_TOKENS))
+    srv = serve.ServeServer(decode=sched, port=0)
+    srv.start()
+    clients = [serve.ServeClient("127.0.0.1", srv.port, timeout=600.0)
+               for _ in prompts]
+    try:
+        got, stamps, wall = fan_out(lambda i: clients[i].generate(
+            prompts[i], max_new_tokens=STREAM_TOKENS))
+    finally:
+        for c in clients:
+            c.close()
+        srv.stop()  # closes the scheduler
+    eng.pool.assert_baseline()
+    launches = flash_decode_attention.launches - paged0
+    check(got == want, f"streamed tokens differ from in-process generate: "
+          f"{got[0]} vs {want[0]}")
+    check(all(len(t) == STREAM_TOKENS for t in got),
+          f"stream lengths {[len(t) for t in got]}")
+    if dev.type == "cuda":
+        check(launches > 0, "the paged decode kernel did not launch")
+    gaps = [1e3 * (b - a) for ts in stamps for a, b in zip(ts[1:], ts[2:])]
+    first = [1e3 * (ts[1] - ts[0]) for ts in stamps]
+    n_tok = sum(map(len, got))
+    return {"streams": len(prompts), "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "in_process_tokens_per_s": n_tok / local_wall,
+            "first_token_ms_p50": _pct(first, 50),
+            "inter_token_ms_p50": _pct(gaps, 50),
+            "inter_token_ms_p99": _pct(gaps, 99),
+            "equal_to_in_process": True, "pages_leaked": 0,
+            "paged_launches": launches}
+
+
+def phase_serve_path(torch, dev, smi):
+    """The batch-serving stack (A13(a)) at full width: (a) ResNet-50 v1
+    over the wire with a mid-run reload, (b) the LM scored by
+    ``InferenceEngine``, (c) the LM streamed over ``OP_INFER_STREAM``, one
+    after the other. Returns the port kernels' launches counted from 0
+    at the phase's start."""
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     flash_decode_attention)
+
+    os.environ.pop("MXNET_ATTENTION_IMPL", None)  # the auto policy
+    own = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention)
+    for k in own:
+        k.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    zoo = _serve_zoo_leg(torch, dev, smi)
+    lm, net = _serve_lm_leg(torch, dev, smi)
+    stream = _serve_stream_leg(torch, dev, net)
+    launches = {k.__name__: k.launches for k in own}
+    check(launches["flash_attention_bwd"] == 0,
+          "serving launched the flash backward kernel")
+    emit({"phase": "serve_path", "card": smi, "resnet_over_wire": zoo,
+          "lm_scoring": lm, "lm_streaming": stream,
+          "kernel_launches": launches})
+    return launches
+
+
+NP_SEED = 3
+NP_TOL = 1e-4              # card vs CPU, relative to each tensor's max
+
+
+def phase_np_path(torch, dev, smi):
+    """The front ends that register no op, on the card: an MLP step in
+    ``mx.np``/``mx.npx`` under ``autograd.record`` with a ``Custom`` op in
+    it, an SGD update in ``mx.np``, a CSR ``dot`` and a row-sparse
+    ``retain``, each against the same code on the CPU from the same seed
+    (NP_TOL of each tensor's largest magnitude; ``retain`` bitwise)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    mnp, npx = mx.np, mx.npx
+
+    @mx.operator.register("np_path_swish")
+    class _SwishProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class _Swish(mx.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    x = in_data[0]
+                    self.assign(out_data[0], req[0], x * npx.sigmoid(x))
+            return _Swish()
+
+    def run(ctx):
+        with ctx:
+            rng = np.random.RandomState(NP_SEED)
+            f32 = np.float32
+            x = mnp.array(rng.randn(64, 128).astype(f32))
+            yl = mnp.array(rng.randint(0, 10, 64).astype(f32))
+            params = [mnp.array((rng.randn(128, 256) * 0.05).astype(f32)),
+                      mnp.zeros((256,)),
+                      mnp.array((rng.randn(256, 10) * 0.05).astype(f32))]
+            for p in params:
+                p.attach_grad()
+            with autograd.record():
+                h = npx.relu(mnp.add(mnp.matmul(x, params[0]), params[1]))
+                h = nd.Custom(h, op_type="np_path_swish")
+                logits = mnp.matmul(h, params[2])
+                loss = mnp.mean(mnp.negative(
+                    npx.pick(npx.log_softmax(logits), yl)))
+            loss.backward()
+            new = [mnp.subtract(p, mnp.multiply(p.grad, 0.1))
+                   for p in params]
+            dense = rng.randn(48, 128).astype(f32)
+            dense[rng.rand(48, 128) > 0.1] = 0
+            csr = nd.sparse.csr_matrix(dense)
+            prod = nd.dot(csr, mnp.array(rng.randn(128, 64).astype(f32)))
+            rows = rng.randn(32, 16).astype(f32)
+            rows[rng.rand(32) > 0.5] = 0
+            kept = nd.sparse.row_sparse_array(rows).retain(
+                nd.array(np.arange(0, 32, 3).astype(f32)))
+            arrays = {"loss": loss, "grad_w1": params[0].grad,
+                      "grad_b1": params[1].grad, "grad_w2": params[2].grad,
+                      "w1_new": new[0], "w2_new": new[2], "csr_dot": prod,
+                      "retain": kept}
+            where = {k: v.context for k, v in arrays.items()}
+            return {k: v.asnumpy() for k, v in arrays.items()}, where, \
+                csr.indptr.asnumpy()
+
+    card, where, indptr = run(mx.Context(dev))
+    host, _w, indptr_cpu = run(mx.cpu())
+    check(all(c == mx.Context(dev) for c in where.values()),
+          f"np_path arrays off the device: {where}")
+    check(np.array_equal(indptr, indptr_cpu), "CSR indptr differs")
+    err = {k: float(np.abs(card[k] - host[k]).max()
+                    / max(np.abs(host[k]).max(), 1e-30)) for k in card}
+    worst = max(err, key=err.get)
+    check(err[worst] <= NP_TOL, f"np_path {worst}: {err[worst]} of max")
+    check(err["retain"] == 0.0, "row-sparse retain is not bitwise")
+    emit({"phase": "np_path", "card": smi, "device": str(dev),
+          "max_err_of_max": err, "worst": worst, "tolerance": NP_TOL,
+          "csr_nnz": int(indptr[-1])})
+
+
 def _out_dir():
     """``chiprun_out/`` beside this script (made if missing): what a run
     writes that is too large for its output."""
@@ -3568,23 +4100,30 @@ def main() -> int:
     run(phase_onnx_path, torch, dev, smi)
     check([k.launches for k in own] == before,
           "the ssd, quant or onnx path launched an attention kernel")
+    served = run(phase_serve_path, torch, dev, smi)
+    before = [k.launches for k in own]
+    run(phase_np_path, torch, dev, smi)
+    check([k.launches for k in own] == before,
+          "the np path launched an attention kernel")
     emit({"phase": "timing", "phase_wall_s": walls,
           "total_wall_s": time.perf_counter() - t_start})
     flash_launches = {k: train_launches[k] + nd_launches[k]
                       + gluon_launches[k] + estimator_launches[k]
-                      + module_launches[k] for k in train_launches}
+                      + module_launches[k] + served[k]
+                      for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
         _kernel_entry("paged_decode_attention",
                       src + "paged_decode_attention.cu",
                       "mxnet_tpu/ops/flash_attention.py:559",
-                      serve_launches + gluon_decode, kern,
+                      serve_launches + gluon_decode
+                      + served["flash_decode_attention"], kern,
                       design=PAGED_DESIGN,
                       chunk=kern["chunk"]),
         # launches: the training path's (bf16), the nd path's, the gluon
-        # path's (f32 and bf16), the estimator path's (f32) and the module
-        # path's (f32); the main
+        # path's (f32 and bf16), the estimator path's (f32), the module
+        # path's (f32) and the serve path's LM scoring (f32); the main
         # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
         # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",

@@ -94,13 +94,14 @@ from .context import (Context, cpu, current_context,  # noqa: E402,F401
 _SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
                "checkpoint", "contrib", "engine", "executor", "gluon", "image",
                "initializer", "io", "metric", "model", "models", "module",
-               "monitor", "name", "native", "ndarray", "ops", "optimizer",
-               "parallel", "random", "registry", "rnn", "serve",
-               "subgraph", "symbol", "visualization")
+               "monitor", "name", "native", "ndarray", "operator", "ops",
+               "optimizer", "parallel", "random", "registry", "rnn",
+               "serve", "subgraph", "symbol", "util", "visualization")
 # the reference's short names
 _ALIASES = {"nd": "ndarray", "init": "initializer", "sym": "symbol",
             "mod": "module", "mon": "monitor", "viz": "visualization",
-            "recordio": "io.recordio"}
+            "recordio": "io.recordio", "np": "numpy",
+            "npx": "numpy_extension"}
 
 
 def __getattr__(name):

@@ -1,6 +1,8 @@
-"""Framework error type, the ``MXNET_*`` env-var config reader and dtype
-names (counterparts of ``mxnet_tpu/base.py`` ``MXNetError``, ``get_env``,
-``dtype_np`` and ``dtype_name``)."""
+"""Framework error type, the ``MXNET_*`` env-var config reader, dtype
+names and the wire's dtype codes, and the retry and keepalive policies of
+the socket planes (counterparts of ``mxnet_tpu/base.py`` ``MXNetError``,
+``get_env``, ``dtype_np``, ``dtype_name``, ``DTYPE_TO_CODE``,
+``capped_backoff`` and ``configure_socket_keepalive``)."""
 from __future__ import annotations
 
 import os
@@ -10,7 +12,8 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "GraphAnalysisError", "get_env", "mx_real_t",
-           "dtype_np", "dtype_name", "dtype_torch"]
+           "dtype_np", "dtype_name", "dtype_torch", "capped_backoff",
+           "configure_socket_keepalive", "DTYPE_TO_CODE", "CODE_TO_DTYPE"]
 
 mx_real_t = np.float32  # the default real type, as the reference's
 
@@ -21,6 +24,46 @@ _BY_NAME = {
     "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
 }
 _NAME_OF = {v: k for k, v in _BY_NAME.items()}
+
+# mshadow type flags (the reference's table): the wire's and the .params
+# container's dtype codes; 12 is bfloat16
+DTYPE_TO_CODE = {
+    "float32": 0, "float64": 1, "float16": 2, "uint8": 3, "int32": 4,
+    "int8": 5, "int64": 6, "bool": 7, "int16": 8, "uint16": 9,
+    "uint32": 10, "uint64": 11, "bfloat16": 12,
+}
+CODE_TO_DTYPE = {v: k for k, v in DTYPE_TO_CODE.items()}
+
+
+def capped_backoff(attempt: int, base_interval: float,
+                   max_interval: float) -> float:
+    """Capped exponential backoff with jitter: attempt 0 is about
+    ``base_interval``, doubling up to ``max_interval``, scaled by a
+    uniform draw in [0.5, 1.0] so that clients retrying one restarted
+    peer spread out."""
+    import random
+
+    delay = min(float(max_interval), float(base_interval) * (2.0 ** attempt))
+    return delay * (0.5 + random.random() / 2.0)
+
+
+def configure_socket_keepalive(sock, idle: int = 30, interval: int = 5,
+                               count: int = 3) -> None:
+    """TCP keepalive on ``sock``: a peer that vanished without a FIN is
+    noticed after ``idle + interval * count`` seconds. Options the
+    platform lacks keep their defaults, and an ``OSError`` is ignored:
+    keepalive is an optimization, the RPCs carry their own timeouts."""
+    import socket as _socket
+
+    try:
+        sock.setsockopt(_socket.SOL_SOCKET, _socket.SO_KEEPALIVE, 1)
+        for opt, val in (("TCP_KEEPIDLE", idle), ("TCP_KEEPINTVL", interval),
+                         ("TCP_KEEPCNT", count)):
+            if hasattr(_socket, opt):
+                sock.setsockopt(_socket.IPPROTO_TCP,
+                                getattr(_socket, opt), val)
+    except OSError:
+        pass
 
 
 class MXNetError(RuntimeError):

@@ -481,9 +481,17 @@ class NDArray:
         return invoke("log_softmax", [self], {"axis": axis})
 
     def tostype(self, stype):
+        """This array in storage ``stype``: ``default``, ``csr`` or
+        ``row_sparse`` (``ndarray/sparse.py``)."""
         if stype == "default":
             return self
-        raise NotImplementedError("sparse storage is not ported")
+        from . import sparse
+
+        if stype == "csr":
+            return sparse.CSRNDArray.from_dense(self)
+        if stype == "row_sparse":
+            return sparse.RowSparseNDArray.from_dense(self)
+        raise ValueError(f"unknown stype {stype!r}")
 
     def zeros_like(self):
         return invoke("zeros_like", [self], {})

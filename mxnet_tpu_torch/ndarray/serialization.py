@@ -32,6 +32,7 @@ from typing import Dict, List, Union
 import numpy as np
 import torch
 
+from ..base import CODE_TO_DTYPE, DTYPE_TO_CODE
 from ..checkpoint.atomic import atomic_write_bytes, crc32_bytes
 
 __all__ = ["save_nd", "load_nd", "is_binary_nd", "host_array", "raw_bytes"]
@@ -44,23 +45,12 @@ _ND_V1 = 0xF993FAC8
 _ND_V2 = 0xF993FAC9
 _ND_V3 = 0xF993FACA
 
-# reference mshadow type flags (mshadow/base.h); 12 is bfloat16
-_TYPE_FLAG_TO_DTYPE = {
-    0: np.dtype(np.float32),
-    1: np.dtype(np.float64),
-    2: np.dtype(np.float16),
-    3: np.dtype(np.uint8),
-    4: np.dtype(np.int32),
-    5: np.dtype(np.int8),
-    6: np.dtype(np.int64),
-    7: np.dtype(np.bool_),
-    8: np.dtype(np.int16),
-    9: np.dtype(np.uint16),
-    10: np.dtype(np.uint32),
-    11: np.dtype(np.uint64),
-}
+# reference mshadow type flags (mshadow/base.h, ``base.DTYPE_TO_CODE``);
+# 12 is bfloat16, which numpy cannot hold
+_BF16_FLAG = DTYPE_TO_CODE["bfloat16"]
+_TYPE_FLAG_TO_DTYPE = {c: np.dtype(n) for c, n in CODE_TO_DTYPE.items()
+                       if c != _BF16_FLAG}
 _DTYPE_TO_TYPE_FLAG = {v: k for k, v in _TYPE_FLAG_TO_DTYPE.items()}
-_BF16_FLAG = 12
 
 _CPU_DEV_TYPE = 1  # Context::kCPU: loads are device-agnostic anyway
 

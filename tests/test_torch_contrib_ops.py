@@ -135,9 +135,12 @@ def _grads_close(name, arrays, wrt, kw):
 # ---------------------------------------------------------------------------
 
 def test_registry_equals_reference():
+    import mxnet_tpu.operator  # noqa: F401 — registers Custom
+    import mxnet_tpu_torch.operator  # noqa: F401 — registers Custom
+
     assert set(TREG) == set(JREG)
-    assert len(TREG) == 488
-    assert len({id(v) for v in TREG.values()}) == 328
+    assert len(TREG) == 489
+    assert len({id(v) for v in TREG.values()}) == 329
     for name in TREG:  # the same op under every alias
         same = {n for n in JREG if JREG[n] is JREG[name]}
         assert {n for n in TREG if TREG[n] is TREG[name]} == same, name

@@ -11,9 +11,10 @@ conftest (which configures JAX):
 Each kernel is held to its plain PyTorch version (f32 to the reference's
 2e-5, flash gradients to its 5e-4; bf16/f16 to 2e-2), the engine and the
 trainer on the card to the same on the CPU, the imperative ``nd`` path on
-the card to the same on the CPU, and the convolution, BatchNorm and
-pooling ops (cuDNN and the card's elementwise kernels) to the same ops on
-the CPU.
+the card to the same on the CPU, the convolution, BatchNorm and pooling
+ops (cuDNN and the card's elementwise kernels) to the same ops on the CPU,
+and the batch-serving engine on the card bitwise to ``Module.predict``
+there.
 """
 import math
 
@@ -1249,3 +1250,126 @@ def test_new_ops_on_card_match_cpu(cuda_device, case):
     want = want[0] if isinstance(want, tuple) else want
     assert got.is_cuda
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# batch serving, the numpy front end, sparse arrays and custom ops
+# ---------------------------------------------------------------------------
+
+def _serve_mlp(sym):
+    data = sym.Variable("data")
+    net = sym.FullyConnected(data, num_hidden=16, name="fc1")
+    net = sym.Activation(net, act_type="relu", name="relu1")
+    net = sym.FullyConnected(net, num_hidden=4, name="fc2")
+    net = sym.SoftmaxOutput(net, name="softmax")
+    rng = np.random.RandomState(0)
+    arg = {"fc1_weight": rng.randn(16, 6).astype(np.float32) * 0.3,
+           "fc1_bias": rng.randn(16).astype(np.float32) * 0.1,
+           "fc2_weight": rng.randn(4, 16).astype(np.float32) * 0.3,
+           "fc2_bias": np.zeros(4, np.float32)}
+    return net, arg
+
+
+def test_inference_engine_on_card_equals_module_predict(cuda_device):
+    """Each bucket's rows bitwise equal to Module.predict at that batch on
+    the card, with cuDNN pinned (a convolution and BatchNorm in the
+    graph), and within 1e-5 of the same engine on the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serve, sym
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+
+    data = sym.Variable("data")
+    net = sym.Convolution(data, num_filter=8, kernel=(3, 3), pad=(1, 1),
+                          name="c")
+    net = sym.Activation(sym.BatchNorm(net, name="bn"), act_type="relu")
+    net = sym.SoftmaxOutput(sym.FullyConnected(sym.Flatten(net),
+                                               num_hidden=5, name="fc"),
+                            name="softmax")
+    rng = np.random.RandomState(1)
+    x = rng.rand(8, 3, 12, 12).astype(np.float32)
+    y = rng.randint(0, 5, 8).astype(np.float32)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mod = Module(net, context=mx.gpu(0))
+        mod.fit(NDArrayIter(x, y, batch_size=4), num_epoch=1,
+                optimizer_params={"learning_rate": 0.05})
+        arg, aux = mod.get_params()
+        engine = serve.InferenceEngine(net, arg, aux, buckets=(2, 4, 8),
+                                       lint="off")
+        cpu = serve.InferenceEngine(net, arg, aux, buckets=(2, 4, 8),
+                                    lint="off", ctx=mx.cpu())
+        q = rng.rand(8, 3, 12, 12).astype(np.float32)
+        for b in (2, 4, 8):
+            ref = mod.predict(NDArrayIter(q, None, batch_size=b)).asnumpy()
+            for lo in range(0, 8, b):
+                got = engine.predict(q[lo:lo + b])
+                assert np.array_equal(got, ref[lo:lo + b]), (b, lo)
+            np.testing.assert_allclose(engine.predict(q[:b]),
+                                       cpu.predict(q[:b]), rtol=1e-5,
+                                       atol=1e-6)
+        assert engine.num_programs == 3
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def test_serve_over_the_wire_on_card(cuda_device):
+    from mxnet_tpu_torch import serve, sym
+
+    net, arg = _serve_mlp(sym)
+    engine = serve.InferenceEngine(net, arg, max_batch_size=8, lint="off")
+    srv = serve.ServeServer(engine, port=0, max_linger_ms=1.0)
+    srv.start()
+    cli = serve.ServeClient("127.0.0.1", srv.port)
+    try:
+        x = np.random.RandomState(2).rand(5, 6).astype(np.float32)
+        out, ver = cli.infer(x, return_version=True)
+        assert ver == 0 and np.array_equal(out, engine.predict(x))
+        assert cli.ready_version() == (True, 0)
+        st = cli.stats()
+        assert st["engine"]["num_programs"] >= 1
+    finally:
+        cli.close()
+        srv.stop()
+
+
+def test_numpy_front_end_on_card_matches_cpu(cuda_device):
+    """An mx.np/npx step with a Custom op, on the card and on the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    mnp, npx = mx.np, mx.npx
+
+    @mx.operator.register("card_test_swish")
+    class _Prop(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class _Op(mx.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0],
+                                in_data[0] * npx.sigmoid(in_data[0]))
+            return _Op()
+
+    def run(ctx):
+        with ctx:
+            rng = np.random.RandomState(4)
+            x = mnp.array(rng.randn(16, 24).astype(np.float32))
+            w = mnp.array(rng.randn(24, 8).astype(np.float32))
+            w.attach_grad()
+            with autograd.record():
+                h = nd.Custom(mnp.matmul(x, w), op_type="card_test_swish")
+                loss = mnp.sum(mnp.square(h))
+            loss.backward()
+            dense = rng.randn(6, 24).astype(np.float32)
+            dense[dense < 0.5] = 0
+            prod = nd.dot(nd.sparse.csr_matrix(dense), w)
+            assert w.grad.context == ctx and prod.context == ctx
+            return [loss.asnumpy(), w.grad.asnumpy(), prod.asnumpy(),
+                    mnp.argsort(x, axis=1).asnumpy(),
+                    mnp.divide(mnp.array([1, 2], dtype="int32"),
+                               2).asnumpy()]
+
+    card, host = run(mx.gpu(0)), run(mx.cpu())
+    for c, h in zip(card, host):
+        assert c.dtype == h.dtype
+        np.testing.assert_allclose(c, h, rtol=1e-5, atol=1e-5)

@@ -23,6 +23,9 @@ def _sources():
 
 
 def test_import_loads_neither_jax_nor_reference():
+    """Every module of the port, the numpy front end, sparse arrays,
+    custom ops and the batch-serving stack included, imports without JAX
+    and without the reference package."""
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
             "mxnet_tpu_torch.models, mxnet_tpu_torch.ops, "
             "mxnet_tpu_torch.parallel, mxnet_tpu_torch.optimizer, "
@@ -66,7 +69,21 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.models.ssd, mxnet_tpu_torch.contrib, "
             "mxnet_tpu_torch.contrib.quantization, "
             "mxnet_tpu_torch.contrib.onnx, "
-            "mxnet_tpu_torch.contrib._onnx_proto\n"
+            "mxnet_tpu_torch.contrib._onnx_proto, "
+            "mxnet_tpu_torch.numpy, mxnet_tpu_torch.numpy.linalg, "
+            "mxnet_tpu_torch.numpy.random, mxnet_tpu_torch.numpy._ops, "
+            "mxnet_tpu_torch.numpy_extension, mxnet_tpu_torch.util, "
+            "mxnet_tpu_torch.operator, mxnet_tpu_torch.ndarray.sparse, "
+            "mxnet_tpu_torch.wire, mxnet_tpu_torch.kvstore, "
+            "mxnet_tpu_torch.kvstore.ps_server, "
+            "mxnet_tpu_torch.serve.engine, mxnet_tpu_torch.serve.batcher, "
+            "mxnet_tpu_torch.serve.server, mxnet_tpu_torch.serve.client\n"
+            "import mxnet_tpu_torch as mx\n"
+            "assert mx.np.linalg and mx.npx.relu and mx.util.get_gpu_count "
+            "and mx.operator.CustomOp and mx.nd.sparse.csr_matrix\n"
+            "assert mx.serve.InferenceEngine and mx.serve.DynamicBatcher "
+            "and mx.serve.ServeServer and mx.serve.ServeClient "
+            "and mx.serve.load and mx.serve.load_params\n"
             "from mxnet_tpu_torch import nd, autograd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
