@@ -166,11 +166,32 @@ H100): ``python3 chip_smoke.py``. It
    8 concurrent greedy streams of 16 tokens over ``OP_INFER_STREAM``,
    equal to the in-process ``generate``, paged launches counted, no page
    leaked; tokens/s and the p99 inter-token gap;
-20. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
+20. drives ``fleet_path``, the serving fleet, with ``obs`` recording:
+   (a) the ResNet-50 checkpoints of 19 (a) behind ``FleetServer`` →
+   ``Router`` → ``ReplicaPool.local`` of 2 card replicas, 4 closed-loop
+   clients of 1-32 rows; ``pool.kill(1)`` a third of the way in and, once
+   the pool has restarted it, ``FleetServer.reload`` to the second
+   checkpoint over the wire: every reply bitwise ``Module.predict``'s at
+   its version and bucket, 0 errors, no version-0 reply to a request
+   sent after the reload returned, the restarted replica at the fleet's
+   version when it rejoins, ``fleet.replica_deaths`` equal to the kills,
+   card memory after the restart and the reload within one replica's
+   parameter bytes of its value before the kill; requests/s, p50/p99,
+   failovers, recovery s, reload ms and the idle share of a profiled
+   second; (b) the LM in two replicas, each ``ServeServer(decode=
+   DecodeScheduler(DecodeEngine(lm)))``, behind a ``FleetServer``: 8
+   greedy streams of 16 tokens, then ``pool.kill(0)`` and 4 more through
+   failover, all equal to the in-process engine's, no page left in the
+   live replica, paged launches counted; (c) ``Autoscaler`` over a
+   one-replica ResNet-50 pool reloaded to the second checkpoint: a
+   pressure window scales out (the joiner warms on the card and activates
+   at the committed version), 2 quiet windows scale back in with a drain,
+   under 2 closed-loop clients with 0 errors;
+21. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
    under ``autograd.record`` with a ``Custom`` op in it, an SGD update,
    a CSR ``dot`` and a row-sparse ``retain`` on the card, each against
    the same code on the CPU from the same seed;
-21. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+22. prints each phase's wall time (``timing``), the ``kernels`` JSON line
    and, last, the ``ok`` line. The detection, int8, ONNX and numpy paths
    launch no kernel of the port's own (they run PyTorch's and cuBLAS's).
 
@@ -3562,33 +3583,39 @@ class _PinnedCudnn:
         self._b.deterministic = self._was
 
 
-def _closed_loop(serve, port, qx, refs, seconds, reload_spec=None):
-    """SERVE_CLIENTS threads, each with its own ``ServeClient``, sending
+def _closed_loop(serve, port, qx, refs, seconds, reload_spec=None,
+                 events=None, clients=SERVE_CLIENTS):
+    """``clients`` threads, each with its own ``ServeClient``, sending
     requests of 1-32 random rows of ``qx`` back to back for ``seconds``;
     every reply is held bitwise to ``refs[version][bucket]`` at some
     bucket. ``reload_spec`` = (path, epoch): an ``OP_RELOAD`` from another
-    client half way. Returns the loop's record."""
+    client half way. ``events(rec)`` runs on a thread of its own beside
+    the clients, which keep sending until it returns and ``rec["until"]``
+    (which it may push out) has passed. Returns the loop's record;
+    ``timeline`` holds (sent, replied, version) a reply."""
     import threading
 
-    deadline = time.perf_counter() + seconds
     lock = threading.Lock()
     rec = {"latency_ms": [], "versions": {}, "mismatches": [], "errors": [],
-           "rows": 0}
+           "rows": 0, "timeline": [], "events_open": events is not None,
+           "until": time.perf_counter() + seconds}
 
     def client(i):
         rng = np.random.RandomState(1000 + i)
         cli = serve.ServeClient("127.0.0.1", port, timeout=120.0)
         try:
-            while time.perf_counter() < deadline:
+            while rec["events_open"] or time.perf_counter() < rec["until"]:
                 n = int(rng.randint(1, max(SERVE_BUCKETS) + 1))
                 lo = int(rng.randint(0, len(qx) - n + 1))
                 t0 = time.perf_counter()
                 out, ver = cli.infer(qx[lo:lo + n], return_version=True)
-                ms = 1e3 * (time.perf_counter() - t0)
+                t1 = time.perf_counter()
+                ms = 1e3 * (t1 - t0)
                 same = ver in refs and any(
                     np.array_equal(out, refs[ver][b][lo:lo + n])
                     for b in SERVE_BUCKETS if b >= n)
                 with lock:
+                    rec["timeline"].append((t0, t1, ver))
                     rec["latency_ms"].append(ms)
                     rec["versions"][ver] = rec["versions"].get(ver, 0) + 1
                     rec["rows"] += n
@@ -3612,11 +3639,22 @@ def _closed_loop(serve, port, qx, refs, seconds, reload_spec=None):
         finally:
             cli.close()
 
+    def run_events():
+        try:
+            events(rec)
+        except Exception as e:  # noqa: BLE001
+            rec["errors"].append(f"events: {type(e).__name__}: {e}")
+            rec["until"] = time.perf_counter()
+        finally:
+            rec["events_open"] = False
+
     threads = [threading.Thread(target=client, args=(i,))
-               for i in range(SERVE_CLIENTS)]
+               for i in range(clients)]
     if reload_spec is not None:
         threads.append(threading.Thread(target=reloader))
-    t0 = time.perf_counter()
+    if events is not None:
+        threads.append(threading.Thread(target=run_events))
+    t0 = rec["t_start"] = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
@@ -3630,7 +3668,10 @@ def _serve_zoo_leg(torch, dev, smi):
     """(a) ResNet-50 v1 over the wire: ``Module.fit`` one batch,
     ``save_checkpoint``, ``serve.load`` with SERVE_BUCKETS, a
     ``ServeServer`` and SERVE_CLIENTS closed-loop clients with a reload to
-    a second checkpoint half way."""
+    a second checkpoint half way. Returns (record, the checkpoints: prefix,
+    epochs 1 and 2, the query rows, the oracle per version and bucket,
+    the image shape); ``fleet_path`` serves them again, then deletes
+    them."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import nd, serve
     from mxnet_tpu_torch import symbol as sym
@@ -3704,9 +3745,8 @@ def _serve_zoo_leg(torch, dev, smi):
             bst = srv.stats()["batcher"]
         finally:
             srv.stop()
-    for f in (f"{prefix}-0001.params", f"{prefix}-0002.params",
-              f"{prefix}-symbol.json"):
-        os.remove(f)
+    ckpt = {"prefix": prefix, "qx": qx, "refs": refs, "shape": shape,
+            "params": res["params"]}
     check(not loop["errors"], f"serve errors: {loop['errors'][:3]}")
     check(not loop["mismatches"], f"{len(loop['mismatches'])} replies not "
           f"bitwise equal to Module.predict at their version and bucket, "
@@ -3736,7 +3776,7 @@ def _serve_zoo_leg(torch, dev, smi):
                    "cuDNN deterministic"})
     if prof is not None:
         res["profiled_wall_ms"], res["device_idle"], res["device_ms"] = prof
-    return res
+    return res, ckpt
 
 
 def _d2h_ms(torch, dev, shape, n=3):
@@ -3850,13 +3890,34 @@ def _serve_lm_leg(torch, dev, smi):
     return rec, net
 
 
+def _fan_out(gen_fn, n):
+    """``gen_fn(i)`` for i < n on a thread each, every generator drained:
+    (tokens, perf_counter stamps: the start, then one a token, wall s)."""
+    import threading
+
+    out, stamps = [None] * n, [None] * n
+
+    def one(i):
+        ts, toks = [time.perf_counter()], []
+        for tok in gen_fn(i):
+            toks.append(tok)
+            ts.append(time.perf_counter())
+        out[i], stamps[i] = toks, ts
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, stamps, time.perf_counter() - t0
+
+
 def _serve_stream_leg(torch, dev, net):
     """(c) the same LM in ``DecodeEngine`` + ``DecodeScheduler`` behind
     ``ServeServer(decode=...)``: STREAM_CLIENTS concurrent greedy streams
     of STREAM_TOKENS over ``OP_INFER_STREAM``, equal to the in-process
     ``generate``; paged launches counted, no page leaked."""
-    import threading
-
     from mxnet_tpu_torch import serve
     from mxnet_tpu_torch.models.transformer import decode_config
     from mxnet_tpu_torch.ops.flash_attention import flash_decode_attention
@@ -3871,35 +3932,15 @@ def _serve_stream_leg(torch, dev, net):
     rng = np.random.default_rng(SERVE_SEED + 1)
     prompts = [rng.integers(1, vocab, size=n).astype(np.int32)
                for n in PROMPT_LENGTHS[:STREAM_CLIENTS]]
-
-    def fan_out(gen_fn):
-        out, stamps = [None] * len(prompts), [None] * len(prompts)
-
-        def one(i):
-            ts, toks = [time.perf_counter()], []
-            for tok in gen_fn(i):
-                toks.append(tok)
-                ts.append(time.perf_counter())
-            out[i], stamps[i] = toks, ts
-
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        return out, stamps, time.perf_counter() - t0
-
-    want, _s, local_wall = fan_out(lambda i: sched.generate(
-        prompts[i], max_new_tokens=STREAM_TOKENS))
+    want, _s, local_wall = _fan_out(lambda i: sched.generate(
+        prompts[i], max_new_tokens=STREAM_TOKENS), len(prompts))
     srv = serve.ServeServer(decode=sched, port=0)
     srv.start()
     clients = [serve.ServeClient("127.0.0.1", srv.port, timeout=600.0)
                for _ in prompts]
     try:
-        got, stamps, wall = fan_out(lambda i: clients[i].generate(
-            prompts[i], max_new_tokens=STREAM_TOKENS))
+        got, stamps, wall = _fan_out(lambda i: clients[i].generate(
+            prompts[i], max_new_tokens=STREAM_TOKENS), len(prompts))
     finally:
         for c in clients:
             c.close()
@@ -3930,7 +3971,7 @@ def phase_serve_path(torch, dev, smi):
     over the wire with a mid-run reload, (b) the LM scored by
     ``InferenceEngine``, (c) the LM streamed over ``OP_INFER_STREAM``, one
     after the other. Returns the port kernels' launches counted from 0
-    at the phase's start."""
+    at the phase's start, and (a)'s checkpoints for ``fleet_path``."""
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd,
                                                      flash_decode_attention)
@@ -3941,7 +3982,7 @@ def phase_serve_path(torch, dev, smi):
         k.launches = 0
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    zoo = _serve_zoo_leg(torch, dev, smi)
+    zoo, ckpt = _serve_zoo_leg(torch, dev, smi)
     lm, net = _serve_lm_leg(torch, dev, smi)
     stream = _serve_stream_leg(torch, dev, net)
     launches = {k.__name__: k.launches for k in own}
@@ -3949,6 +3990,373 @@ def phase_serve_path(torch, dev, smi):
           "serving launched the flash backward kernel")
     emit({"phase": "serve_path", "card": smi, "resnet_over_wire": zoo,
           "lm_scoring": lm, "lm_streaming": stream,
+          "kernel_launches": launches})
+    return launches, ckpt
+
+
+# ---------------------------------------------------------------------------
+# fleet_path: the serving fleet (ReplicaPool, Router, FleetServer, Autoscaler)
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 2
+FLEET_SECONDS = 6.0        # (a)'s closed loop; the kill lands at 1/3
+FLEET_TAIL_S = 1.0         # (a) and (c) run on this long after their events
+FLEET_WAIT_S = 180.0       # the longest wait on a restart, join or drain
+FLEET_STREAMS = 8          # (b): streams before the kill, one per prompt
+FLEET_FAILOVER_STREAMS = 4  # (b): streams after the kill
+SCALE_CLIENTS = 2          # (c)'s closed loop
+SCALE_HYSTERESIS = 2       # (c): quiet windows before the scale-in
+
+
+def _wait_for(cond, what, timeout=FLEET_WAIT_S):
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < deadline,
+              f"{what}: not within {timeout} s")
+        time.sleep(0.01)
+
+
+def _zoo_server(mx, serve, ckpt, ctx):
+    """A replica factory: ResNet-50 from checkpoint 1 (version 0), every
+    bucket warmed, behind a started ``ServeServer``."""
+    def factory():
+        eng = serve.load(ckpt["prefix"], epoch=1, buckets=SERVE_BUCKETS,
+                         lint="off", ctx=ctx)
+        eng.warmup(ckpt["shape"])
+        srv = serve.ServeServer(eng, port=0, max_linger_ms=2.0)
+        srv.start()
+        return srv
+    return factory
+
+
+def _loop_summary(loop):
+    lat = loop["latency_ms"]
+    return {"requests": loop["requests"], "rows": loop["rows"],
+            "wall_s": loop["wall_s"],
+            "qps": loop["requests"] / loop["wall_s"],
+            "rows_per_s": loop["rows"] / loop["wall_s"],
+            "p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+            "replies_by_version": {str(k): v for k, v in
+                                   sorted(loop["versions"].items())},
+            "errors": len(loop["errors"]),
+            "mismatches": len(loop["mismatches"])}
+
+
+def _fleet_zoo_leg(torch, dev, ckpt):
+    """(a) ResNet-50 v1 behind ``FleetServer`` → ``Router`` →
+    ``ReplicaPool.local`` of FLEET_REPLICAS card replicas; SERVE_CLIENTS
+    closed-loop clients of 1-32 rows; ``pool.kill(1)`` at a third of the
+    run and, once the pool has restarted it, ``FleetServer.reload`` to
+    checkpoint 2 over the wire."""
+    import gc
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import obs, serve
+
+    ctx = mx.Context(dev)
+    obs.reset()
+    pool = serve.ReplicaPool.local(_zoo_server(mx, serve, ckpt, ctx),
+                                   FLEET_REPLICAS).start()
+    router = serve.Router(pool)
+    front = serve.FleetServer(router, port=0)
+    front.start()
+    rec = {}
+    try:
+        check(len(pool.ready_members()) == FLEET_REPLICAS,
+              f"{len(pool.ready_members())} replicas ready")
+        gc.collect()
+        _sync(torch, dev)
+        mem_before = (torch.cuda.memory_allocated() if dev.type == "cuda"
+                      else 0)
+
+        def events(loop):
+            victim = pool.members()[1]
+            time.sleep(FLEET_SECONDS / 3)
+            loop["t_kill"] = time.perf_counter()
+            pool.kill(1)
+            _wait_for(lambda: victim.restarts >= 1
+                      and victim.state == "ready", "replica 1's restart")
+            loop["t_recovered"] = time.perf_counter()
+            # the rejoined replica serves the committed generation
+            loop["rejoin_versions"] = (victim.version, router.version)
+            cli = serve.ServeClient("127.0.0.1", front.port, timeout=600.0)
+            try:
+                t0 = time.perf_counter()
+                loop["reload_version"] = cli.reload(ckpt["prefix"], epoch=2)
+                loop["t_reloaded"] = time.perf_counter()
+                loop["reload_ms"] = 1e3 * (loop["t_reloaded"] - t0)
+            finally:
+                cli.close()
+            loop["until"] = max(loop["until"],
+                                time.perf_counter() + FLEET_TAIL_S)
+
+        loop = _closed_loop(serve, front.port, ckpt["qx"], ckpt["refs"],
+                            FLEET_SECONDS, events=events)
+        prof = None
+        if dev.type == "cuda":
+            holder = {}
+            prof = _device_profile(torch, lambda: holder.update(
+                _closed_loop(serve, front.port, ckpt["qx"], ckpt["refs"],
+                             SERVE_PROFILE_SECONDS)))
+            loop["errors"] += holder["errors"]
+            loop["mismatches"] += holder["mismatches"]
+        fstats = router.stats()
+        pstats = pool.stats()
+        snap = obs.metrics.snapshot()
+        gc.collect()
+        _sync(torch, dev)
+        mem_after = (torch.cuda.memory_allocated() if dev.type == "cuda"
+                     else 0)
+    finally:
+        front.stop()
+        pool.stop()
+    check(not loop["errors"], f"fleet errors: {loop['errors'][:3]}")
+    check(not loop["mismatches"], f"{len(loop['mismatches'])} fleet replies "
+          f"not bitwise Module.predict's, first {loop['mismatches'][:3]}")
+    check(loop.get("reload_version") == 1,
+          f"fleet reload answered {loop.get('reload_version')}")
+    late_v0 = [t for t in loop["timeline"]
+               if t[2] == 0 and t[0] >= loop["t_reloaded"]]
+    check(not late_v0, f"{len(late_v0)} version-0 replies to requests sent "
+          "after the reload returned")
+    check(loop["rejoin_versions"][0] == loop["rejoin_versions"][1],
+          f"replica 1 rejoined at version {loop['rejoin_versions'][0]}, "
+          f"the fleet at {loop['rejoin_versions'][1]}")
+    check(all(m["version"] == 1 for m in pstats["members"].values()),
+          f"members after the reload: {pstats['members']}")
+    deaths = snap["counters"].get("fleet.replica_deaths", 0)
+    check(deaths == 1, f"{deaths} replica deaths for 1 kill")
+    param_bytes = 4 * ckpt["params"]
+    check(abs(mem_after - mem_before) < param_bytes,
+          f"card memory {mem_before} B before the kill, {mem_after} B after "
+          f"the restart and the reload: more than one replica's "
+          f"{param_bytes} B of parameters apart")
+    res = _loop_summary(loop)
+    res.update({
+        "replicas": FLEET_REPLICAS, "clients": SERVE_CLIENTS,
+        "kill_at_s": loop["t_kill"] - loop["t_start"],
+        "recovery_s": loop["t_recovered"] - loop["t_kill"],
+        "reload_ms": loop["reload_ms"],
+        "failovers": fstats["failovers"],
+        "breaker_trips": fstats["breaker_trips"],
+        "stale_rejected": fstats["stale_rejected"],
+        "replica_deaths": deaths,
+        "replica_restarts": snap["counters"].get("fleet.replica_restarts", 0),
+        "member_sheds": sum(r["sheds"] for r in fstats["replicas"].values()),
+        "rpc_p99_ms": {k: 1e3 * v["p99"] for k, v in
+                       snap["histograms"].items()
+                       if k.startswith("fleet.rpc.")},
+        "memory_before_kill_b": mem_before, "memory_after_b": mem_after,
+        "replica_param_bytes": param_bytes,
+        "compare": "bitwise vs Module.predict at the reply's bucket and "
+                   "version, cuDNN deterministic"})
+    if prof is not None:
+        res["profiled_wall_ms"], res["device_idle"], res["device_ms"] = prof
+    return res
+
+
+def _fleet_lm_leg(torch, dev):
+    """(b) the full-width LM in two ``LocalReplica``s, each
+    ``ServeServer(decode=DecodeScheduler(DecodeEngine(lm)))``, behind a
+    ``FleetServer``: FLEET_STREAMS greedy streams through
+    ``ServeClient.generate``, then ``pool.kill(0)`` and
+    FLEET_FAILOVER_STREAMS more; every stream equal to the in-process
+    engine's, no page left in the live replica."""
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.models.transformer import decode_config
+
+    net = _seeded_lm(**SERVE_LM_KW)
+    vocab = decode_config(net)["vocab"]
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    n_all = FLEET_STREAMS + FLEET_FAILOVER_STREAMS
+    lengths = (PROMPT_LENGTHS * 2)[:n_all]
+    prompts = [rng.integers(1, vocab, size=n).astype(np.int32)
+               for n in lengths]
+    kw = dict(slots=SLOTS, page_size=PAGE, num_pages=NUM_PAGES, device=dev)
+    eng = serve.DecodeEngine(net, **kw)
+    eng.warmup()
+    sched = serve.DecodeScheduler(eng, max_new_tokens=STREAM_TOKENS,
+                                  default_timeout=600.0)
+    want, _s, local_wall = _fan_out(lambda i: sched.generate(
+        prompts[i], max_new_tokens=STREAM_TOKENS), n_all)
+    sched.close()
+    eng.pool.assert_baseline()
+    del sched, eng
+
+    def factory():
+        e = serve.DecodeEngine(net, **kw)
+        e.warmup()
+        srv = serve.ServeServer(decode=serve.DecodeScheduler(
+            e, max_new_tokens=STREAM_TOKENS, default_timeout=600.0), port=0)
+        srv.start()
+        return srv
+
+    # a probe interval past the leg: the corpse stays listed, so the
+    # router, not the supervisor, meets the death
+    t0 = time.perf_counter()
+    pool = serve.ReplicaPool.local(factory, FLEET_REPLICAS,
+                                   probe_interval=600.0).start()
+    bringup_s = time.perf_counter() - t0
+    router = serve.Router(pool)
+    front = serve.FleetServer(router, port=0)
+    front.start()
+
+    def streams(idx):
+        clients = [serve.ServeClient("127.0.0.1", front.port, timeout=600.0)
+                   for _ in idx]
+        try:
+            return _fan_out(lambda j: clients[j].generate(
+                prompts[idx[j]], max_new_tokens=STREAM_TOKENS), len(idx))
+        finally:
+            for c in clients:
+                c.close()
+
+    try:
+        got, stamps, wall = streams(list(range(FLEET_STREAMS)))
+        pool.kill(0)
+        before = router.failovers
+        got2, _s2, wall2 = streams(list(range(FLEET_STREAMS, n_all)))
+        failovers = router.failovers - before
+        live = pool.members()[1].handle.server._decode.engine
+        _wait_for(lambda: live.pool.used() == 0,
+                  "the live replica's pages to come back")
+    finally:
+        front.stop()
+        pool.stop()
+    check(got == want[:FLEET_STREAMS], "fleet streams differ from the "
+          f"in-process engine's: {got[0]} vs {want[0]}")
+    check(got2 == want[FLEET_STREAMS:], "streams after the kill differ: "
+          f"{got2} vs {want[FLEET_STREAMS:]}")
+    check(failovers >= 1, "no stream failed over after the kill")
+    gaps = [1e3 * (b - a) for ts in stamps for a, b in zip(ts[1:], ts[2:])]
+    n_tok = sum(map(len, got))
+    return {"streams": FLEET_STREAMS, "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "in_process_tokens_per_s": sum(map(len, want)) / local_wall,
+            "first_token_ms_p50": _pct([1e3 * (ts[1] - ts[0])
+                                        for ts in stamps], 50),
+            "inter_token_ms_p99": _pct(gaps, 99),
+            "failover_streams": FLEET_FAILOVER_STREAMS,
+            "failover_wall_s": wall2, "failovers": failovers,
+            "replicas_bringup_s": bringup_s,
+            "equal_to_in_process": True, "pages_leaked": 0}
+
+
+def _fleet_scale_leg(torch, dev, ckpt):
+    """(c) ``Autoscaler(pool, router, factory=...)`` over a one-replica
+    ResNet-50 pool reloaded to checkpoint 2: a pressure window scales out
+    (the joiner warms on the card, resyncs and activates at the committed
+    version), then SCALE_HYSTERESIS quiet windows scale back in with a
+    drain, under a closed loop of SCALE_CLIENTS clients."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serve
+
+    ctx = mx.Context(dev)
+    make = _zoo_server(mx, serve, ckpt, ctx)
+    pool = serve.ReplicaPool.local(make, 1).start()
+    router = serve.Router(pool)
+    front = serve.FleetServer(router, port=0)
+    front.start()
+    refs = {1: ckpt["refs"][1]}
+    try:
+        check(router.reload(ckpt["prefix"], epoch=2) == 1,
+              "the one-replica pool did not reload")
+        scaler = serve.Autoscaler(
+            pool, router, factory=lambda: serve.LocalReplica(make),
+            policy=serve.AutoscalePolicy(
+                min_replicas=1, max_replicas=2,
+                hysteresis=SCALE_HYSTERESIS, cooldown_s=0.0,
+                scale_in_cooldown_s=0.0),
+            drain_timeout=FLEET_WAIT_S)
+        rec = {}
+
+        def events(loop):
+            time.sleep(FLEET_TAIL_S)
+            t0 = time.perf_counter()
+            d = scaler.tick(signals={"ready": 1, "burn": 5.0})
+            rec["out"] = d["action"]
+            _wait_for(lambda: len(pool.ready_members()) == 2,
+                      "the joiner's activation")
+            rec["join_s"] = time.perf_counter() - t0
+            rec["joiner_version"] = (pool.members()[1].version,
+                                     router.version)
+            time.sleep(FLEET_TAIL_S)
+            for _ in range(SCALE_HYSTERESIS):
+                d = scaler.tick(signals={"ready": 2, "burn": 0.0})
+            rec["in"] = d["action"]
+            t0 = time.perf_counter()
+            scaler._leave_thread.join(timeout=FLEET_WAIT_S)
+            rec["leave_s"] = time.perf_counter() - t0
+            loop["until"] = time.perf_counter() + FLEET_TAIL_S
+
+        loop = _closed_loop(serve, front.port, ckpt["qx"], refs, 600.0,
+                            events=events, clients=SCALE_CLIENTS)
+        members = pool.stats()["members"]
+        ready = len(pool.ready_members())
+        fstats = router.stats()
+    finally:
+        front.stop()
+        pool.stop()
+    check(not loop["errors"], f"scale errors: {loop['errors'][:3]}")
+    check(not loop["mismatches"], f"{len(loop['mismatches'])} replies not "
+          "bitwise Module.predict's during the scale events")
+    check(rec.get("out") == "scale_out" and rec.get("in") == "scale_in",
+          f"decisions {rec.get('out')}, {rec.get('in')}")
+    check(rec["joiner_version"] == (1, 1),
+          f"the joiner activated at version {rec['joiner_version']}")
+    check(ready == 1 and members["1"]["state"] == "removed",
+          f"after the scale-in: {ready} ready, {members}")
+    check([e["action"] for e in scaler.events] == ["scale_out", "scale_in"],
+          f"scale events {scaler.events}")
+    res = _loop_summary(loop)
+    res.update({"clients": SCALE_CLIENTS, "join_s": rec["join_s"],
+                "leave_s": rec["leave_s"], "joiner_version": 1,
+                "member_sheds": sum(r["sheds"] for r in
+                                    fstats["replicas"].values()),
+                "failovers": fstats["failovers"],
+                "events": [e["action"] for e in scaler.events]})
+    return res
+
+
+def phase_fleet_path(torch, dev, smi, ckpt):
+    """The serving fleet (A13(b)) at full width: (a) ResNet-50 v1 through
+    two card replicas with a kill, a restart and a fleet reload, (b) the
+    LM streamed through a fleet with a failover, (c) the autoscaler out
+    to two replicas and back. ``obs`` records the fleet's metrics for
+    the phase. Returns the port kernels' launches counted from 0 at the
+    phase's start; deletes ``serve_path``'s checkpoints."""
+    from mxnet_tpu_torch import obs
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     flash_decode_attention)
+
+    own = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention)
+    for k in own:
+        k.launches = 0
+    was = obs.enabled()
+    obs.enable()
+    try:
+        with _PinnedCudnn(torch):
+            zoo = _fleet_zoo_leg(torch, dev, ckpt)
+            scale = _fleet_scale_leg(torch, dev, ckpt)
+        lm = _fleet_lm_leg(torch, dev)
+    finally:
+        if not was:
+            obs.disable()
+        obs.reset()
+        prefix = ckpt["prefix"]
+        for f in (f"{prefix}-0001.params", f"{prefix}-0002.params",
+                  f"{prefix}-symbol.json"):
+            if os.path.exists(f):
+                os.remove(f)
+    launches = {k.__name__: k.launches for k in own}
+    check(launches["flash_attention_bwd"] == 0,
+          "the fleet launched the flash backward kernel")
+    if dev.type == "cuda":
+        check(launches["flash_decode_attention"] > 0,
+              "the fleet's streams did not launch the paged kernel")
+    emit({"phase": "fleet_path", "card": smi, "resnet_fleet": zoo,
+          "lm_fleet_streams": lm, "autoscale": scale,
           "kernel_launches": launches})
     return launches
 
@@ -4100,7 +4508,8 @@ def main() -> int:
     run(phase_onnx_path, torch, dev, smi)
     check([k.launches for k in own] == before,
           "the ssd, quant or onnx path launched an attention kernel")
-    served = run(phase_serve_path, torch, dev, smi)
+    served, zoo_ckpt = run(phase_serve_path, torch, dev, smi)
+    fleet = run(phase_fleet_path, torch, dev, smi, zoo_ckpt)
     before = [k.launches for k in own]
     run(phase_np_path, torch, dev, smi)
     check([k.launches for k in own] == before,
@@ -4109,7 +4518,7 @@ def main() -> int:
           "total_wall_s": time.perf_counter() - t_start})
     flash_launches = {k: train_launches[k] + nd_launches[k]
                       + gluon_launches[k] + estimator_launches[k]
-                      + module_launches[k] + served[k]
+                      + module_launches[k] + served[k] + fleet[k]
                       for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
@@ -4118,7 +4527,8 @@ def main() -> int:
                       src + "paged_decode_attention.cu",
                       "mxnet_tpu/ops/flash_attention.py:559",
                       serve_launches + gluon_decode
-                      + served["flash_decode_attention"], kern,
+                      + served["flash_decode_attention"]
+                      + fleet["flash_decode_attention"], kern,
                       design=PAGED_DESIGN,
                       chunk=kern["chunk"]),
         # launches: the training path's (bf16), the nd path's, the gluon

@@ -30,6 +30,7 @@ from ..base import dtype_torch
 from ..context import current_context
 from ..ndarray import NDArray
 from ..ndarray.ndarray import _x32, invoke_fn
+from ..ops.elemwise import sign as _elem_sign
 
 __all__: list = []
 
@@ -146,9 +147,13 @@ def _torch_dtype(dtype):
 # ufuncs
 # ---------------------------------------------------------------------------
 
-def _ufunc2(name, fn):
+def _ufunc2(name, fn, check=None):
+    """A binary ufunc; ``check(x1, x2)``, when given, sees the operands
+    before Python scalars become arrays and returns the pair to use."""
     @_np_op(name)
     def op(x1, x2, out=None, where=True, **kwargs):
+        if check is not None:
+            x1, x2 = check(x1, x2)
         if where is True or where is None:
             return _invoke(fn, [x1, x2], out)
         if out is None:
@@ -238,6 +243,28 @@ def _float2(fn):
     return f
 
 
+def _float2_strong(fn):
+    """``fn`` over the operands made float the reference's ``divide`` way
+    (``astype(float32)``): an integer or bool operand, a Python scalar
+    included, becomes a float32 that a float16 operand promotes to."""
+    def f(a, b):
+        fa, fb = _to_float(a), _to_float(b)
+        if fa is a and fb is b:
+            return fn(*_promoted(fa, fb))
+        dt = torch.promote_types(fa.dtype, fb.dtype)
+        return fn(fa.to(dt), fb.to(dt))
+    return f
+
+
+def _floor_divide(a, b):
+    # XLA's float floor division, (a - fmod(a, b)) / b, is NaN for a zero
+    # divisor (torch gives ±inf)
+    q = torch.floor_divide(a, b)
+    if not q.is_floating_point():
+        return q
+    return torch.where(b == 0, torch.full_like(q, math.nan), q)
+
+
 def _bitwise2(name, fn):
     def f(a, b):
         if a.is_floating_point() or b.is_floating_point():
@@ -257,9 +284,10 @@ def _shift(name, fn):
 
 def _int_only(name, fn):
     def f(a, b):
-        if not (_isint(a) and _isint(b)):
+        a, b = _promoted(a, b)  # a bool array with an int scalar is int
+        if not _isint(a):
             raise ValueError(f"np.{name} is only defined for integers")
-        return fn(*_promoted(a, b))
+        return fn(a, b)
     return f
 
 
@@ -278,13 +306,35 @@ def _logaddexp2(a, b):
     return torch.logaddexp2(a, b)
 
 
+def _no_negative_int_power(x1, x2):
+    # the reference's integer_pow refuses a negative Python-int exponent
+    # of an integer base (an array exponent computes)
+    base_int = (not x1._data.is_floating_point() if isinstance(x1, NDArray)
+                else isinstance(x1, int))
+    if type(x2) is int and x2 < 0 and base_int:
+        raise TypeError("Integers cannot be raised to negative powers, got "
+                        f"exponent {x2}")
+    return x1, x2
+
+
+def _bool_scalar_as_int(x1, x2):
+    # a Python bool beside an integer array is the integer 0 or 1 (the
+    # reference's weak bool); beside a bool array it stays bool and raises
+    def conv(v, other):
+        if isinstance(v, bool) and not (isinstance(other, NDArray)
+                                        and _isbool(other._data)):
+            return int(v)
+        return v
+    return conv(x1, x2), conv(x2, x1)
+
+
 _ufunc2("add", _bool_as(torch.logical_or, torch.add))
 _ufunc2("subtract", _no_bool("subtract", lambda a, b: torch.sub(
     *_promoted(a, b))))
 _ufunc2("multiply", _bool_as(torch.logical_and, torch.mul))
 _ufunc2("mod", _int_div(torch.remainder, _rem_by_zero))
 _ufunc2("remainder", _int_div(torch.remainder, _rem_by_zero))
-_ufunc2("power", _bool_int(torch.pow))
+_ufunc2("power", _bool_int(torch.pow), _no_negative_int_power)
 _ufunc2("maximum", _bool_as(torch.logical_or, torch.maximum))
 _ufunc2("minimum", _bool_as(torch.logical_and, torch.minimum))
 _ufunc2("hypot", _float2(torch.hypot))
@@ -295,7 +345,7 @@ _ufunc2("copysign", _float2(torch.copysign))
 @_np_op("divide")
 def divide(x1, x2, out=None, where=True, **kwargs):
     # int/int division is float32 (the mxnet default float), never float64
-    fn = _float2(torch.div)
+    fn = _float2_strong(torch.div)
     if where is True or where is None:
         return _invoke(fn, [x1, x2], out)
     if out is None:
@@ -322,7 +372,7 @@ def _abs(x):
 def _sign(x):
     if _isbool(x):
         raise TypeError("np.sign is not supported for booleans")
-    return torch.sign(x)
+    return _elem_sign(x)
 
 
 def _negative(x):
@@ -519,14 +569,18 @@ def argmin(a, axis=None, out=None, **kw):
 
 @_np_op("clip")
 def clip(a, a_min=None, a_max=None, out=None, **kw):
+    """Bounds take part in type promotion, Python scalars weakly: an
+    integer array clipped to float bounds gives float32."""
     def pure(x):
-        lo = None if a_min is None else _unwrap(a_min)
-        hi = None if a_max is None else _unwrap(a_max)
-        if lo is not None and hi is not None:
-            return torch.minimum(torch.maximum(
-                x, torch.as_tensor(lo, dtype=x.dtype, device=x.device)),
-                torch.as_tensor(hi, dtype=x.dtype, device=x.device))
-        return torch.clamp(x, min=lo, max=hi)
+        bounds = [None if b is None else _as_t(_unwrap(b), x)
+                  for b in (a_min, a_max)]
+        for b in bounds:
+            if b is not None:
+                x = x.to(torch.result_type(x, b))
+        lo, hi = (None if b is None else b.to(x.dtype) for b in bounds)
+        if lo is not None:
+            x = torch.maximum(x, lo)
+        return x if hi is None else torch.minimum(x, hi)
     return _invoke(pure, [a], out)
 
 
@@ -773,13 +827,12 @@ _ufunc1("bitwise_not", _bitwise_not)
 _ufunc1("invert", _bitwise_not)
 _ufunc2("left_shift", _shift("left_shift", torch.bitwise_left_shift))
 _ufunc2("right_shift", _shift("right_shift", torch.bitwise_right_shift))
-_ufunc2("floor_divide", _int_div(torch.floor_divide,
-                                        _floordiv_by_zero))
+_ufunc2("floor_divide", _int_div(_floor_divide, _floordiv_by_zero))
 _ufunc2("fmod", lambda a, b: _int_div(
     torch.fmod, (lambda x: x) if _isbool(a) and _isbool(b)
     else _rem_by_zero)(a, b))  # the reference's bool fmod keeps a
-_ufunc2("gcd", _int_only("gcd", torch.gcd))
-_ufunc2("lcm", _int_only("lcm", torch.lcm))
+_ufunc2("gcd", _int_only("gcd", torch.gcd), _bool_scalar_as_int)
+_ufunc2("lcm", _int_only("lcm", torch.lcm), _bool_scalar_as_int)
 _ufunc2("heaviside", _float2(_heaviside))
 _ufunc2("logaddexp", _float2(torch.logaddexp))
 _ufunc2("fmax", _bool_as(torch.logical_or, torch.fmax))
@@ -815,10 +868,10 @@ def round(x, decimals=0, out=None, **kw):  # noqa: A001 - numpy name
         if _isbool(a):
             raise ValueError("np.round is not supported for booleans")
         if not a.is_floating_point():
-            if decimals >= 0:
-                return a
-            f = 10 ** (-decimals)
-            return (torch.round(a.to(torch.float32) / f) * f).to(a.dtype)
+            if decimals < 0:
+                raise NotImplementedError(
+                    "integer np.round not implemented for decimals < 0")
+            return a
         return torch.round(a, decimals=decimals)
     return _invoke(pure, [x], out)
 
@@ -1151,29 +1204,169 @@ def atleast_3d(*arys):
     return res[0] if len(res) == 1 else res
 
 
+def _pairs(v, nd, name):
+    """numpy's broadcasting of a per-axis ``(before, after)`` argument:
+    ``v``, ``(v,)``, ``(before, after)``, ``((before, after),)`` or one
+    pair per axis."""
+    a = _onp.asarray(v.cpu() if isinstance(v, torch.Tensor) else v,
+                     dtype=object)
+    if a.shape in ((), (1,)):
+        return [(a.reshape(-1)[0],) * 2] * nd
+    if a.shape in ((2,), (1, 2)):
+        return [tuple(a.reshape(-1))] * nd
+    if a.shape == (nd, 2):
+        return [tuple(r) for r in a]
+    raise ValueError(f"np.pad: {name} with nd={nd} has unsupported shape "
+                     f"{a.shape}. Valid shapes are ({nd}, 2), (1, 2), (2,), "
+                     "(1,), or ().")
+
+
+def _take_axis(x, ax, idx):
+    return torch.index_select(x, ax, torch.as_tensor(idx, dtype=torch.long,
+                                                     device=x.device))
+
+
+def _pad_reflect(x, ax, lo, hi, mode, odd):
+    """``symmetric``/``reflect`` along ``ax``, the reference's way: copies
+    of at most the axis length (one less for ``reflect``) are flipped on
+    until the width is reached; ``odd`` reflects about the edge value."""
+    n = x.shape[ax]
+    off = 1 if (mode == "reflect" and n > 1) else 0
+    for before, width in ((True, lo), (False, hi)):
+        m = x.shape[ax]
+        edge = x.narrow(ax, 0 if before else m - 1, 1)
+        while width > 0:
+            cur = builtins.min(width, n - off)
+            width -= cur
+            m = x.shape[ax]
+            if before:
+                part = x.narrow(ax, off, cur)
+            else:
+                stop = m if (mode == "symmetric" or n == 1) else m - 1
+                part = x.narrow(ax, stop - cur, cur)
+            part = part.flip(ax)
+            if odd:
+                part = 2 * edge - part
+                if n > 1:
+                    edge = part.narrow(ax, 0 if before else cur - 1, 1)
+            x = torch.cat([part, x] if before else [x, part], dim=ax)
+    return x
+
+
+def _median_keep(x, ax):
+    srt = torch.sort(_to_float(x), dim=ax).values
+    n = x.shape[ax]
+    lo = srt.narrow(ax, (n - 1) // 2, 1)
+    hi = srt.narrow(ax, n // 2, 1)
+    return (lo + hi) / 2
+
+
+_PAD_STATS = {
+    "maximum": lambda x, ax: torch.amax(x, dim=ax, keepdim=True),
+    "minimum": lambda x, ax: torch.amin(x, dim=ax, keepdim=True),
+    "mean": lambda x, ax: torch.mean(_to_float(x), dim=ax, keepdim=True),
+    "median": _median_keep,
+}
+
+
+def _pad_axis(x, ax, lo, hi, mode, kwargs, nd):
+    n = x.shape[ax]
+    if mode == "constant":
+        lo_v, hi_v = kwargs["constant_values"][ax]
+        parts = []
+        for w, v in ((lo, lo_v), (hi, hi_v)):
+            shape = list(x.shape)
+            shape[ax] = w
+            parts.append(torch.full(shape, v, dtype=x.dtype, device=x.device)
+                         if x.is_floating_point() or _isbool(x)
+                         else torch.full(shape, int(v), dtype=x.dtype,
+                                         device=x.device))
+        return torch.cat([parts[0], x, parts[1]], dim=ax)
+    if mode == "empty":
+        shape = list(x.shape)
+        return torch.cat([x.new_zeros(shape[:ax] + [lo] + shape[ax + 1:]), x,
+                          x.new_zeros(shape[:ax] + [hi] + shape[ax + 1:])],
+                         dim=ax)
+    if n == 0:
+        if lo or hi:
+            raise ValueError(f"can't extend empty axis {ax} using modes "
+                             "other than 'constant' or 'empty'")
+        return x
+    i = _onp.arange(-lo, n + hi)
+    if mode == "edge":
+        return _take_axis(x, ax, _onp.clip(i, 0, n - 1))
+    if mode == "wrap":
+        return _take_axis(x, ax, i % n)
+    if mode in ("symmetric", "reflect"):
+        if not (lo or hi):
+            return x
+        return _pad_reflect(x, ax, lo, hi, mode,
+                            kwargs.get("reflect_type", "even") == "odd")
+    if mode == "linear_ramp":
+        ends = kwargs["end_values"][ax]
+        comp = x.dtype if x.is_floating_point() else torch.float32
+        parts = []
+        for w, end, at in ((lo, ends[0], 0), (hi, ends[1], n - 1)):
+            edge = x.narrow(ax, at, 1).to(comp)
+            shape = [1] * x.dim()
+            shape[ax] = w
+            step = (torch.arange(w, dtype=torch.float32, device=x.device)
+                    / builtins.max(w, 1)).to(comp).reshape(shape)
+            ramp = torch.as_tensor(float(end), dtype=comp,
+                                   device=x.device) * (1 - step) + edge * step
+            if not x.is_floating_point():
+                ramp = torch.floor(ramp)
+            parts.append(ramp.to(x.dtype))
+        return torch.cat([parts[0], x, parts[1].flip(ax)], dim=ax)
+    stat = _PAD_STATS.get(mode)
+    if stat is None:
+        raise ValueError(f"mode {mode!r} is not implemented")
+    lengths = kwargs.get("stat_length")
+    if lengths is None:
+        before = after = stat(x, ax)
+    else:
+        lb, la = (int(v) for v in lengths[ax])
+        if lb == 0 or la == 0:
+            raise ValueError("stat_length of 0 yields no value for padding")
+        before = stat(x.narrow(ax, 0, builtins.min(lb, n)), ax)
+        after = stat(x.narrow(ax, n - builtins.min(la, n),
+                              builtins.min(la, n)), ax)
+    if not x.is_floating_point():
+        before, after = torch.round(before), torch.round(after)
+    before, after = before.to(x.dtype), after.to(x.dtype)
+    return torch.cat([before.expand(_with(before.shape, ax, lo)), x,
+                      after.expand(_with(after.shape, ax, hi))], dim=ax)
+
+
+def _with(shape, ax, n):
+    shape = list(shape)
+    shape[ax] = n
+    return shape
+
+
 @_np_op("pad")
 def pad(array, pad_width, mode="constant", **kwargs):
+    """``jnp.pad`` in every mode, built axis by axis from index arithmetic
+    and flips of the input (``constant_values``, ``end_values`` and
+    ``stat_length`` per axis, ``reflect_type="odd"``, widths past the
+    axis length)."""
     def pure(x):
-        pw = _onp.broadcast_to(_onp.asarray(pad_width, _onp.int64)
-                               .reshape(-1, 2)
-                               if _onp.ndim(pad_width) == 2
-                               else _onp.asarray(pad_width, _onp.int64),
-                               (x.dim(), 2))
-        flat = []
-        for lo, hi in pw[::-1]:
-            flat += [int(lo), int(hi)]
-        if mode == "constant":
-            value = kwargs.get("constant_values", 0)
-            return torch.nn.functional.pad(x, flat, mode="constant",
-                                           value=float(value))
-        tmode = {"edge": "replicate", "reflect": "reflect",
-                 "wrap": "circular"}.get(mode)
-        if tmode is None:
-            raise NotImplementedError(f"np.pad mode {mode!r}")
-        y = x.reshape((1, 1) + tuple(x.shape)) if x.dim() <= 3 else x
-        out = torch.nn.functional.pad(_to_float(y), flat, mode=tmode)
-        return out.reshape(out.shape[2:] if x.dim() <= 3 else out.shape) \
-            .to(x.dtype)
+        nd = x.dim()
+        if nd == 0:
+            return x
+        widths = [(int(lo), int(hi)) for lo, hi in
+                  _pairs(pad_width, nd, "pad_width")]
+        if builtins.any(w < 0 for pair in widths for w in pair):
+            raise ValueError("index can't contain negative values")
+        kw = dict(kwargs)
+        kw["constant_values"] = _pairs(kw.get("constant_values", 0), nd,
+                                       "constant_values")
+        kw["end_values"] = _pairs(kw.get("end_values", 0), nd, "end_values")
+        if kw.get("stat_length") is not None:
+            kw["stat_length"] = _pairs(kw["stat_length"], nd, "stat_length")
+        for ax, (lo, hi) in enumerate(widths):
+            x = _pad_axis(x, ax, lo, hi, mode, kw, nd)
+        return x
     return _invoke(pure, [array])
 
 
@@ -1508,6 +1701,32 @@ def _as_t(v, like_t=None):
     return t.to(like_t.device) if like_t is not None else t
 
 
+def _scalar_operands(fn):
+    """``fn(a, b)`` with a Python scalar on either side made a 0-d tensor
+    (weakly typed in promotion, as the reference's scalars)."""
+    def f(a, b):
+        like = a if isinstance(a, torch.Tensor) else \
+            b if isinstance(b, torch.Tensor) else None
+        return fn(_as_t(a, like), _as_t(b, like))
+    return f
+
+
+def _refuse_lists(name, *args):
+    """The reference's ``TypeError`` for a Python list or tuple given as
+    an array argument."""
+    for i, a in enumerate(args):
+        if isinstance(a, (list, tuple)):
+            raise TypeError(f"{name} requires ndarray or scalar arguments, "
+                            f"got {type(a)} at position {i}.")
+
+
+def _arraylike(name, fn):
+    def f(*args, **kwargs):
+        _refuse_lists(name, *args)
+        return fn(*args, **kwargs)
+    return f
+
+
 def _nextafter(a, b):
     a, b = _promoted(_to_float(a), _to_float(b))
     return torch.nextafter(a, b)
@@ -1527,7 +1746,7 @@ def _frexp(x):
 
 
 def _divmod(a, b):
-    return (_int_div(torch.floor_divide, _floordiv_by_zero)(a, b),
+    return (_int_div(_floor_divide, _floordiv_by_zero)(a, b),
             _int_div(torch.remainder, _rem_by_zero)(a, b))
 
 
@@ -1832,22 +2051,23 @@ for _nm, _fn in [
     ("signbit", _signbit), ("real", lambda x: x.clone()), ("imag", _imag),
     ("angle", _angle), ("sinc", _fl(torch.sinc)), ("i0", _fl(torch.i0)),
     ("fabs", _fl(torch.abs)), ("flatnonzero", _flatnonzero),
-    ("nextafter", _nextafter), ("ldexp", _ldexp),
-    ("frexp", _frexp), ("logaddexp2", _float2(_logaddexp2)),
-    ("divmod", _divmod), ("nanargmax", _nanarg(torch.argmax, -math.inf)),
+    ("nextafter", _scalar_operands(_nextafter)),
+    ("ldexp", _scalar_operands(_ldexp)), ("frexp", _frexp),
+    ("logaddexp2", _scalar_operands(_float2(_logaddexp2))),
+    ("divmod", _scalar_operands(_divmod)), ("nanargmax", _nanarg(torch.argmax, -math.inf)),
     ("nanargmin", _nanarg(torch.argmin, math.inf)),
     ("nancumsum", _nancum(torch.cumsum, 0)),
     ("nancumprod", _nancum(torch.cumprod, 1)),
-    ("isin", _isin), ("digitize", _digitize),
+    ("isin", _isin), ("digitize", _arraylike("digitize", _digitize)),
     ("broadcast_arrays", _broadcast_arrays),
     ("row_stack", lambda tup: torch.cat(
         [_atleast(t, 2) for t in _cat_dtype([_as_t(t) for t in tup])],
         dim=0)),
-    ("vander", _vander), ("delete", _delete), ("append", _append),
-    ("resize", _resize), ("compress", _compress), ("extract", _extract),
+    ("vander", _vander), ("delete", _arraylike("delete", _delete)), ("append", _append),
+    ("resize", _resize), ("compress", _arraylike("compress", _compress)), ("extract", _extract),
     ("unwrap", _unwrap_phase), ("select", _select),
     ("trim_zeros", _trim_zeros), ("convolve", _convolve),
-    ("correlate", _correlate), ("polyval", _polyval),
+    ("correlate", _correlate), ("polyval", _arraylike("polyval", _polyval)),
     ("gradient", _gradient), ("histogram", _histogram),
     ("tril_indices", _tri_indices(torch.tril_indices)),
     ("triu_indices", _tri_indices(torch.triu_indices)),
@@ -1863,6 +2083,7 @@ def insert(arr, obj, values, axis=None):
     """numpy's ``insert``: a scalar ``obj`` inserts ``values`` (padded to
     the array's rank and moved onto ``axis``) as one block; a sequence
     inserts one slice before each position, in the given order."""
+    _refuse_lists("insert", arr, obj, values)
     o = _unwrap(obj)
     pos = _onp.asarray(o.cpu() if isinstance(o, torch.Tensor) else o)
 
@@ -1895,7 +2116,7 @@ def insert(arr, obj, values, axis=None):
 @_np_op("float_power")
 def float_power(x1, x2, out=None, **kw):
     # numpy promises float64; the mxnet default float is float32
-    return _invoke(_float2(torch.pow), [x1, x2], out)
+    return _invoke(_float2_strong(torch.pow), [x1, x2], out)
 
 
 @_np_op("trapz")

@@ -32,9 +32,11 @@ def _norm(x, ord=None, axis=None, keepdims=False):
         return torch.linalg.vector_norm(x.reshape(-1), 2).reshape(
             (1,) * x.dim() if keepdims else ())
     dim = (axis,) if isinstance(axis, int) else axis
-    if dim is not None and len(dim) == 1:
+    if (dim is not None and len(dim) == 1) or (dim is None and x.dim() == 1):
         o = 2 if ord is None else ord
-        return torch.linalg.vector_norm(x, o, dim=dim, keepdim=keepdims)
+        if isinstance(o, str):
+            raise ValueError(f"Invalid order '{o}' for vector norm.")
+        return torch.linalg.vector_norm(x, o, dim=dim or 0, keepdim=keepdims)
     return torch.linalg.matrix_norm(x, "fro" if ord is None else ord,
                                     dim=dim or (-2, -1), keepdim=keepdims)
 
@@ -89,9 +91,23 @@ def qr(a, mode="reduced"):
 
 
 def _solve(a, b):
+    """The reference's shapes (``jnp.linalg.solve`` since JAX 0.5): a 1-D
+    ``b`` is one vector, any other ``b`` a stack of matrices broadcast
+    against ``a``; a ``b`` that would read as a batch of vectors raises."""
+    if a.dim() < 2:
+        raise ValueError("left hand array must be at least two dimensional; "
+                         f"got a.shape={tuple(a.shape)}")
+    if (b.dim() > 1 and a.dim() == b.dim() + 1 and a.shape[-1] == b.shape[-1]
+            and a.shape[-1] != b.shape[-2]):
+        raise ValueError(
+            f"Invalid shapes for solve: {tuple(a.shape)}, {tuple(b.shape)}: "
+            "a batched 1-dimensional solve; use solve(a, b[..., None])"
+            ".squeeze(-1)")
     if b.dim() == 1:
         return torch.linalg.solve(a, b.unsqueeze(-1)).squeeze(-1)
-    return torch.linalg.solve(a, b)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    return torch.linalg.solve(a.expand(batch + a.shape[-2:]),
+                              b.expand(batch + b.shape[-2:]))
 
 
 def solve(a, b):
@@ -99,20 +115,23 @@ def solve(a, b):
 
 
 def _lstsq(a, b, rcond=None):
-    """numpy's ``(x, residuals, rank, s)`` through the pseudo-inverse (the
-    card's ``torch.linalg.lstsq`` driver reports neither rank nor s)."""
-    s = torch.linalg.svdvals(a)
+    """``jnp.linalg.lstsq``'s ``(x, residuals, rank, s)`` through the SVD:
+    singular values below ``rcond`` times the largest are dropped, and the
+    residuals (shape ``(K,)``, ``(1,)`` for a 1-D ``b``) are always
+    returned, where numpy leaves them empty unless m > n at full rank."""
     m, n = a.shape[-2], a.shape[-1]
-    cutoff = (torch.finfo(a.dtype).eps * max(m, n) if rcond is None
-              else rcond) * s.max()
-    rank = torch.sum(s > cutoff)
-    x = torch.linalg.pinv(a, atol=cutoff) @ b
-    if int(rank) == n and m > n:
-        r = b - a @ x
-        res = torch.sum(r * r, dim=0).reshape(-1)
-    else:
-        res = torch.zeros((0,), dtype=a.dtype, device=a.device)
-    return x, res, rank.to(torch.int32), s
+    b2 = b.unsqueeze(-1) if b.dim() == 1 else b
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    eps = torch.finfo(a.dtype).eps
+    rc = eps * max(m, n) if rcond is None else (eps if rcond < 0 else rcond)
+    mask = (s > 0) & (s >= rc * s[0])
+    s_inv = torch.where(mask, 1 / torch.where(mask, s, torch.ones_like(s)),
+                        torch.zeros_like(s)).unsqueeze(-1)
+    x = vh.mH @ (s_inv * (u.mH @ b2))
+    r = b2 - a @ x
+    res = torch.sum(r * r, dim=0)
+    return (x.reshape(-1) if b.dim() == 1 else x), res, \
+        mask.sum().to(torch.int32), s
 
 
 def lstsq(a, b, rcond="warn"):
@@ -126,6 +145,8 @@ def matrix_rank(a, tol=None, hermitian=False):
             "np.linalg.matrix_rank(hermitian=True) is not supported")
 
     def rank(t):
+        if t.dim() < 2:  # a vector has rank 1 unless it is all zeros
+            return torch.any(t != 0).to(torch.int32)
         s = torch.linalg.svdvals(t)
         cut = (s.max(-1, keepdim=True).values * max(t.shape[-2:])
                * torch.finfo(t.dtype).eps) if tol is None else tol
@@ -133,8 +154,31 @@ def matrix_rank(a, tol=None, hermitian=False):
     return _call(rank, [a])
 
 
+def _int_matmul(x, y):
+    """An integer product in the operands' dtype (wrapping as XLA's does;
+    cuBLAS has no integer product)."""
+    return (x.unsqueeze(-1) * y.unsqueeze(-3)).sum(-2, dtype=x.dtype)
+
+
+def _matrix_power(t, n):
+    if t.is_floating_point() or t.is_complex() or t.dtype == torch.bool \
+            or n < 0:
+        return torch.linalg.matrix_power(_to_float(t), n)
+    out = torch.eye(t.shape[-1], dtype=t.dtype, device=t.device).expand(
+        t.shape).clone()
+    base = t
+    while n:  # repeated squaring, as jnp.linalg.matrix_power
+        if n & 1:
+            out = _int_matmul(out, base)
+        n >>= 1
+        if n:
+            base = _int_matmul(base, base)
+    return out
+
+
 def matrix_power(a, n):
-    return _call(lambda t: torch.linalg.matrix_power(t, n), [a])
+    """Integer matrices stay integer (the power-0 identity too)."""
+    return invoke_fn(lambda t: _fix(_matrix_power(t, n)), [_nd(a, None)])
 
 
 def pinv(a, rcond=None, hermitian=False):

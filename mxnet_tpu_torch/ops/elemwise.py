@@ -24,6 +24,14 @@ def _to_float(x):
     return x if x.is_floating_point() else x.float()
 
 
+def sign(x):
+    """``jnp.sign``: NaN stays NaN and a signed zero keeps its sign, where
+    ``torch.sign`` gives 0 for both; the gradient is 0 everywhere."""
+    if not (x.is_floating_point() or x.is_complex()):
+        return torch.sign(x)
+    return torch.where((x == 0) | torch.isnan(x), x.detach(), torch.sign(x))
+
+
 def _logical_not(x):
     return (x == 0).to(x.dtype)
 
@@ -47,7 +55,7 @@ _UNARY = {
     "square": torch.square,
     "reciprocal": lambda x: 1 / x,
     "abs": torch.abs,
-    "sign": torch.sign,
+    "sign": sign,
     "round": torch.round,
     "rint": torch.round,
     "ceil": torch.ceil,

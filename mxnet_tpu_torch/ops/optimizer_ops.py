@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .elemwise import sign
 from .registry import register
 
 __all__ = ["sgld_noise", "lars_trust"]
@@ -160,7 +161,7 @@ def _ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
     z = z + g - (torch.sqrt(n_new) - torch.sqrt(n)) / lr * weight
     w = torch.where(
         torch.abs(z) > lamda1,
-        -(z - torch.sign(z) * lamda1) / ((beta + torch.sqrt(n_new)) / lr
+        -(z - sign(z) * lamda1) / ((beta + torch.sqrt(n_new)) / lr
                                           + wd),
         torch.zeros_like(z))
     return w.to(weight.dtype), z, n_new
@@ -170,7 +171,7 @@ def _ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
 def _signsgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
                     clip_gradient=-1.0):
     g = _clip(grad * rescale_grad, clip_gradient)
-    return weight - lr * (torch.sign(g) + wd * weight)
+    return weight - lr * (sign(g) + wd * weight)
 
 
 @register("signum_update", num_outputs=2,
@@ -179,7 +180,7 @@ def _signum_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
     g = _clip(grad * rescale_grad, clip_gradient)
     mom = momentum * mom - (1 - momentum) * g
-    return (1 - lr * wd_lh) * weight + lr * torch.sign(mom), mom
+    return (1 - lr * wd_lh) * weight + lr * sign(mom), mom
 
 
 def _lamb_states(grad, mean, var, beta1=0.9, beta2=0.999, rescale_grad=1.0,

@@ -33,6 +33,7 @@ import torch
 
 from ..ndarray import NDArray
 from ..ops import get_op
+from ..ops.elemwise import sign
 from ..ops.optimizer_ops import lars_trust, sgld_noise
 from .optimizer import (DCASGD, FTML, LAMB, LARS, NAG, SGD, SGLD, AdaDelta,
                         AdaGrad, Adam, AdamW, AdaMax, Ftrl, Nadam, RMSProp,
@@ -291,14 +292,14 @@ def _low_ftml(opt, ws, gs, sts, lrs, wds, ts, rescale, ex):
 def _low_signum(opt, ws, gs, sts, lrs, wds, ts, rescale, ex):
     g = _prep(opt, gs, rescale)
     if sts[0] is None:
-        step = torch._foreach_sign(g)
+        step = [sign(x) for x in g]
         _add_scaled(step, ws, wds)  # sign(g) + wd w
         torch._foreach_mul_(step, lrs)
         return torch._foreach_sub(ws, step), sts, ex
     moms = torch._foreach_mul(list(sts), opt.momentum)
     torch._foreach_sub_(moms, torch._foreach_mul(g, 1 - opt.momentum))
     new_ws = torch._foreach_mul(ws, [1 - lr * opt.wd_lh for lr in lrs])
-    _add_scaled(new_ws, torch._foreach_sign(moms), lrs)
+    _add_scaled(new_ws, [sign(m) for m in moms], lrs)
     return new_ws, moms, ex
 
 

@@ -14,11 +14,17 @@ Layers
   ``client.py``; the wire is byte-identical with the reference's);
 - :class:`DecodeEngine` / :class:`DecodeScheduler` — the paged-KV decode
   engine and its continuous-batching scheduler (``decode.py``, the page
-  pool in ``kvcache.py``), which ``ServeServer(decode=...)`` streams.
+  pool in ``kvcache.py``), which ``ServeServer(decode=...)`` streams;
+- :class:`ReplicaPool` / :class:`Router` / :class:`FleetServer` — the
+  fault-tolerant fleet: supervised replicas (:class:`LocalReplica`,
+  :class:`ProcReplica`), a :class:`CircuitBreaker` per replica, failover,
+  hedging, streaming relay and the fleet-atomic two-phase reload
+  (``fleet.py``);
+- :class:`Autoscaler` / :class:`AutoscalePolicy` — SLO-driven elastic
+  scaling of a pool (``autoscale.py``).
 
-The replica fleet and the autoscaler (``fleet.py``, ``autoscale.py``) are
-queue item A13(b) of the port; the persisted programs of
-:func:`ship_programs` are A15.
+The persisted programs of :func:`ship_programs` are queue item A15 of the
+port; mesh-sliced pools (``ReplicaPool.sharded``) are A14.
 
 Typical session::
 
@@ -57,6 +63,9 @@ from .engine import (DeadlineExceeded, Draining, InferenceEngine,
                      RequestRejected, ServeError, default_buckets)
 from .kvcache import PageLeakError, PagePool, PagesExhausted
 from .server import ServeServer
+from .fleet import (CircuitBreaker, FleetServer, LocalReplica,
+                    ProcReplica, ReplicaPool, Router)
+from .autoscale import Autoscaler, AutoscalePolicy
 
 __all__ = ["load", "load_params", "ship_programs", "programs_dir_for",
            "InferenceEngine", "DynamicBatcher", "Future", "ServeServer",
@@ -64,7 +73,9 @@ __all__ = ["load", "load_params", "ship_programs", "programs_dir_for",
            "DeadlineExceeded", "Draining", "default_buckets",
            "DecodeEngine", "DecodeScheduler", "StreamHandle",
            "default_decode_buckets", "PagePool", "PageLeakError",
-           "PagesExhausted"]
+           "PagesExhausted", "CircuitBreaker", "LocalReplica",
+           "ProcReplica", "ReplicaPool", "Router", "FleetServer",
+           "Autoscaler", "AutoscalePolicy"]
 
 
 def _newest_epoch(path: str) -> int:

@@ -282,6 +282,7 @@ class InferenceEngine:
                 "programs": {repr(k): v for k, v in self._programs.items()},
                 "compiles": len(self.compile_log),
                 "cache_hits": self.cache_hits,
+                "device": str(self.device),
             }
 
     # ------------------------------------------------------------------

@@ -164,12 +164,7 @@ class ServeServer:
     def stop(self):
         self._stop.set()
         self._close_listener()
-        # a snapshot: handler threads remove themselves from _conns
-        for c in list(self._conns):
-            try:
-                c.close()
-            except OSError:
-                pass
+        self._sever_connections()
         # reap handler threads; OP_SHUTDOWN stops from inside a handler,
         # which must not join itself
         me = threading.current_thread()
@@ -186,7 +181,17 @@ class ServeServer:
         without draining queued or in-flight work."""
         self._stop.set()
         self._close_listener()
+        self._sever_connections()
+
+    def _sever_connections(self):
+        # shutdown() wakes a handler blocked in recv (close() alone does
+        # not), so the handler threads end and release the server and its
+        # engine; a snapshot: handler threads remove themselves from _conns
         for c in list(self._conns):
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 c.close()
             except OSError:
@@ -413,11 +418,13 @@ class ServeServer:
         return True
 
     def _do_infer_stream(self, conn, payload) -> bool:
-        """Relay one generation of the decode scheduler as a chunked reply
-        sequence. Returns False (drop the connection) only when the client
-        died mid-stream; closing the generator cancels the generation so
-        that its KV pages are reclaimed at the next step boundary."""
-        src = self._decode
+        """Relay one generation as a chunked reply sequence: from the decode
+        scheduler on a replica, from ``Router.generate`` on a fleet front
+        (both yield ints and raise the typed serve errors). Returns False
+        (drop the connection) only when the client died mid-stream;
+        closing the generator cancels the generation so that its KV pages
+        are reclaimed at the next step boundary."""
+        src = self._decode if self._decode is not None else self._batcher
         gen_fn = getattr(src, "generate", None)
         if gen_fn is None:
             self._reply(conn, OP_STREAM_ERROR, _err_payload(
@@ -506,7 +513,23 @@ class ServeServer:
         return [struct.pack("<BI", STATUS_OK, version), _pack_arrays(outs)]
 
 
-def main():  # pragma: no cover - CLI shim
+def _serve_context():
+    """The engine's placement: ``MXNET_SERVE_PLATFORM`` (the reference's
+    pin, ``cpu`` or ``gpu``) when set, else the default context (the card;
+    without one, raises)."""
+    from ..context import cpu, current_context, gpu
+
+    plat = os.environ.get("MXNET_SERVE_PLATFORM", "").strip().lower()
+    if not plat:
+        return current_context()
+    if plat == "cpu":
+        return cpu()
+    if plat in ("gpu", "cuda"):
+        return gpu(0)
+    raise ValueError(f"MXNET_SERVE_PLATFORM={plat!r}: want cpu or gpu")
+
+
+def main(argv=None):  # pragma: no cover - CLI shim
     import argparse
 
     ap = argparse.ArgumentParser(description="mxnet_tpu_torch serving "
@@ -521,12 +544,24 @@ def main():  # pragma: no cover - CLI shim
     ap.add_argument("--warmup-shape", type=str, default=None,
                     help="comma-separated per-row feature shape to run "
                          "every bucket for, e.g. 3,224,224")
-    args = ap.parse_args()
+    ap.add_argument("--progcache-dir", type=str, default=None,
+                    help="persistent program cache (queue item A15 of the "
+                         "port: raises when given)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel engine over N devices (queue item "
+                         "A14 of the port: raises above 0)")
+    args = ap.parse_args(argv)
+    if args.progcache_dir:
+        raise ServeError("--progcache-dir: persisted programs are queue "
+                         "item A15 of the port")
+    if args.tp:
+        raise ServeError("--tp: a tensor-parallel engine over a device mesh "
+                         "is queue item A14 of the port")
 
     from . import load
 
     engine = load(args.model, epoch=args.epoch,
-                  max_batch_size=args.max_batch_size)
+                  max_batch_size=args.max_batch_size, ctx=_serve_context())
     if args.warmup_shape:
         feat = tuple(int(d) for d in args.warmup_shape.split(",") if d)
         engine.warmup(feat)

@@ -1,0 +1,817 @@
+"""Load generator for the ``mxnet_tpu_torch`` serving endpoint (counterpart
+of the reference's ``tools/serve_bench.py``).
+
+Two drive modes against an in-process endpoint (or ``--connect host:port``
+for an external one):
+
+- **closed-loop** (``--mode closed``): N client threads, each sending the
+  next request the moment the previous reply lands — the throughput
+  ceiling and the latency the system settles at under maximum sustainable
+  pressure;
+- **open-loop** (``--mode open``): requests arrive on a Poisson process at
+  ``--qps`` offered load, regardless of completions — tail latency under a
+  traffic model. Sheds (rejections, deadline misses) are counted, not
+  retried.
+
+Reports p50/p95/p99 latency, achieved throughput against offered load,
+shed rate and the engine's program count (the bucketing bound), as a table
+or one JSON line a mode (``--json``).
+
+Further legs, each printing JSON: ``--chaos`` drives the open-loop load
+through a supervised fleet (``serve/fleet.py``), hard-kills one replica a
+third of the way in and reports error rate and p50/p99 before, during and
+after the kill-to-recovery window; ``--decode`` streams tokens with churn
+through the paged-KV decode engine; ``--cold`` times a ``ProcReplica``
+child from spawn to ready, twice.
+
+Every leg runs on the card unless ``--device cpu`` is given; without a
+card and without it, building the engine raises. The mesh-scaling and
+autoscaled-ramp legs (``--scale``, ``--ramp``) are queue item A14 of the
+port; the telemetry-overhead legs (``--obs-overhead``, ``--wire-hop``,
+``--prof-overhead``) are A15. Each raises naming its item.
+
+Run: ``python -m mxnet_tpu_torch.tools.serve_bench --chaos --json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import threading
+import time
+
+import numpy as np
+
+
+def _percentile(sorted_vals, q):
+    if not sorted_vals:
+        return float("nan")
+    idx = min(int(q * len(sorted_vals)), len(sorted_vals) - 1)
+    return sorted_vals[idx]
+
+
+def _ctx(device):
+    """The placement of a leg: the card by default, the CPU on request."""
+    from .. import context
+
+    if device == "cpu":
+        return context.cpu()
+    if device in ("gpu", "cuda"):
+        return context.gpu(0)
+    raise ValueError(f"device={device!r}: want 'gpu' or 'cpu'")
+
+
+def _build_model(model: str, classes: int = 10, device="gpu"):
+    """Return (symbol, arg_params, aux_params, feature_shape). ``mlp`` is a
+    two-layer perceptron; any other name is a model-zoo CNN (thumbnail
+    variant, ``SERVE_BENCH_IMAGE_SIZE`` pixels, default 32) traced to a
+    Symbol."""
+    from .. import random as mxrandom
+    from .. import symbol as sym
+
+    rng = np.random.RandomState(0)
+    if model == "mlp":
+        data = sym.Variable("data")
+        net = sym.FullyConnected(data, num_hidden=64, name="fc1")
+        net = sym.Activation(net, act_type="relu", name="relu1")
+        net = sym.FullyConnected(net, num_hidden=classes, name="fc2")
+        net = sym.softmax(net, name="prob")
+        arg = {"fc1_weight": rng.randn(64, 32).astype(np.float32) * 0.1,
+               "fc1_bias": np.zeros(64, np.float32),
+               "fc2_weight": rng.randn(classes, 64).astype(np.float32) * 0.1,
+               "fc2_bias": np.zeros(classes, np.float32)}
+        return net, arg, {}, (32,)
+    from .. import nd
+    from ..gluon.model_zoo import get_model
+    from ..serve import _split_arg_aux
+
+    ctx = _ctx(device)
+    mxrandom.seed(0)
+    img = int(os.environ.get("SERVE_BENCH_IMAGE_SIZE", 32))
+    zoo = get_model(model, classes=classes, thumbnail=True)
+    zoo.initialize(ctx=ctx)
+    zoo(nd.array(rng.rand(1, 3, img, img).astype(np.float32), ctx=ctx))
+    traced = zoo(sym.Variable("data"))
+    net = sym.softmax(traced, name="prob")
+    all_params = {p.name: p.data() for p in zoo._iter_params()}
+    arg, aux = _split_arg_aux(all_params, net)
+    return net, arg, aux, (3, img, img)
+
+
+def run_bench(model="mlp", mode="closed", duration=5.0, clients=4, qps=200.0,
+              max_batch_size=8, max_linger_ms=2.0, deadline_ms=None,
+              request_rows=1, connect=None, warmup=True, device="gpu"):
+    """Drive the endpoint; returns the result dict (see module doc)."""
+    from .. import serve
+
+    srv = None
+    feat = None
+    if connect:
+        host, _, port = connect.partition(":")
+        addr = (host, int(port))
+        engine = None
+        feat_env = os.environ.get("SERVE_BENCH_FEATURE", "32")
+        feat = tuple(int(d) for d in feat_env.split(",") if d)
+    else:
+        net, arg, aux, feat = _build_model(model, device=device)
+        engine = serve.InferenceEngine(net, arg, aux,
+                                       max_batch_size=max_batch_size,
+                                       lint="off", ctx=_ctx(device))
+        if warmup:
+            engine.warmup(feat)  # first calls never pollute latencies
+        srv = serve.ServeServer(engine, port=0, max_linger_ms=max_linger_ms)
+        srv.start()
+        addr = ("127.0.0.1", srv.port)
+
+    rng = np.random.RandomState(1)
+    payload = rng.rand(request_rows, *feat).astype(np.float32)
+    lat_lock = threading.Lock()
+    latencies: list = []
+    shed = [0]
+    errors = [0]
+    stop_at = [0.0]
+
+    def one_request(cli):
+        t0 = time.perf_counter()
+        try:
+            cli.infer(payload, deadline_ms=deadline_ms)
+        except (serve.RequestRejected, serve.DeadlineExceeded):
+            with lat_lock:
+                shed[0] += 1
+            return
+        except serve.ServeError:
+            with lat_lock:
+                errors[0] += 1
+            return
+        dt = time.perf_counter() - t0
+        with lat_lock:
+            latencies.append(dt)
+
+    t_start = time.perf_counter()
+    stop_at[0] = t_start + duration
+    if mode == "closed":
+        def closed_worker():
+            cli = serve.ServeClient(*addr)
+            while time.perf_counter() < stop_at[0]:
+                one_request(cli)
+            cli.close()
+
+        threads = [threading.Thread(target=closed_worker)
+                   for _ in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        offered = None
+    elif mode == "open":
+        # Poisson arrivals: a dispatcher sleeps exponential gaps and hands
+        # each request to a pooled connection — arrivals never wait on
+        # completions (that would turn the experiment closed-loop and hide
+        # queueing collapse), so the pool grows on exhaustion
+        pool = [serve.ServeClient(*addr) for _ in range(max(clients, 8))]
+        free = list(range(len(pool)))
+        free_lock = threading.Lock()
+        inflight = []
+        n_sent = 0
+
+        def fire(idx):
+            one_request(pool[idx])
+            with free_lock:
+                free.append(idx)
+
+        while time.perf_counter() < stop_at[0]:
+            time.sleep(rng.exponential(1.0 / qps))
+            with free_lock:
+                if free:
+                    idx = free.pop()
+                else:  # every connection busy: open another, don't stall
+                    pool.append(serve.ServeClient(*addr))
+                    idx = len(pool) - 1
+            th = threading.Thread(target=fire, args=(idx,))
+            th.start()
+            inflight.append(th)
+            n_sent += 1
+        for th in inflight:
+            th.join(timeout=30)
+        for cli in pool:
+            cli.close()
+        offered = n_sent / (time.perf_counter() - t_start)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    wall = time.perf_counter() - t_start
+
+    lat = sorted(latencies)
+    n_ok = len(lat)
+    out = {
+        "model": model, "mode": mode, "clients": clients,
+        "request_rows": request_rows, "duration_s": round(wall, 2),
+        "completed": n_ok, "shed": shed[0], "errors": errors[0],
+        "qps": round(n_ok * request_rows / wall, 2),
+        "p50_ms": round(_percentile(lat, 0.50) * 1e3, 3) if lat else None,
+        "p95_ms": round(_percentile(lat, 0.95) * 1e3, 3) if lat else None,
+        "p99_ms": round(_percentile(lat, 0.99) * 1e3, 3) if lat else None,
+        "max_ms": round(lat[-1] * 1e3, 3) if lat else None,
+    }
+    if offered is not None:
+        out["offered_qps"] = round(offered * request_rows, 2)
+        out["shed_rate"] = round(shed[0] / max(shed[0] + n_ok, 1), 4)
+    if engine is not None:
+        out["compiled_programs"] = engine.num_programs
+        out["buckets"] = list(engine.buckets)
+    if srv is not None:
+        srv.stop()
+    return out
+
+
+def run_cold_bench(model="mlp", max_batch_size=8, timeout=180.0,
+                   keep_artifact=None, device="gpu"):
+    """Start-to-ready of a fresh ``ProcReplica`` child, twice: wall time
+    from process spawn to the readiness probe answering OK (the child
+    warms every bucket first), measured by the parent — the number a fleet
+    autoscaler waits on. The first child is SIGKILLed, the second stopped.
+
+    The reference's second leg deserializes the first's compiled programs
+    from a persistent cache; the port has no such cache (queue item A15)
+    and compiles nothing ahead of time, so both legs run every bucket once
+    and ``progcache`` is None. The gate is on the deterministic quantity:
+    each leg saw exactly one shape signature a bucket (no retrace), and
+    the second saw no more than the first."""
+    import shutil
+    import tempfile
+
+    from .. import nd, serve
+    from ..context import cpu
+    from ..model import save_checkpoint
+
+    tmp = keep_artifact or tempfile.mkdtemp(prefix="mxnet-torch-coldstart-")
+    created = keep_artifact is None
+    try:
+        net, arg, aux, feat = _build_model(model, device=device)
+        prefix = os.path.join(tmp, "model")
+        with cpu():
+            save_checkpoint(
+                prefix, 0, net,
+                {k: nd.array(np.asarray(v)) for k, v in arg.items()},
+                {k: nd.array(np.asarray(v)) for k, v in aux.items()})
+        shape_arg = ",".join(str(d) for d in feat)
+        plat = "cpu" if device == "cpu" else "gpu"
+        legs = {}
+        n_buckets = None
+        for leg in ("cold", "warm"):
+            rep = serve.ProcReplica(
+                prefix,
+                args=["--epoch", "0", "--warmup-shape", shape_arg,
+                      "--max-batch-size", str(max_batch_size)],
+                env={"MXNET_SERVE_PLATFORM": plat})
+            rep.idx = 0
+            t0 = time.perf_counter()
+            cli = None
+            graceful = False
+            try:
+                addr = rep.start()
+                cli = serve.ServeClient(*addr, timeout=5.0)
+                ready = False
+                deadline = time.perf_counter() + timeout
+                while time.perf_counter() < deadline:
+                    try:
+                        if cli.ready():
+                            ready = True
+                            break
+                    except Exception:  # noqa: BLE001 — still booting
+                        pass
+                    if not rep.alive():
+                        break
+                    time.sleep(0.05)
+                t_ready = time.perf_counter() - t0
+                if not ready:
+                    raise RuntimeError(
+                        f"{leg} replica never became ready in {timeout}s")
+                eng = cli.stats().get("engine", {})
+                n_buckets = len(eng.get("buckets", ()))
+                legs[leg] = {
+                    "start_to_ready_s": round(t_ready, 3),
+                    "compiles": int(eng.get("compiles", 0)),
+                    "cache_hits": int(eng.get("cache_hits", 0)),
+                    "progcache": None,
+                }
+                # the cold leg always exits by SIGKILL; warm stops
+                # gracefully unless something above raised — the finally
+                # must never leak the child
+                graceful = leg == "warm"
+            finally:
+                if cli is not None:
+                    try:
+                        cli.close()
+                    except Exception:  # noqa: BLE001 — already torn down
+                        pass
+                if not graceful:
+                    rep.kill()
+                rep.stop()  # reap
+        cold, warm = legs["cold"], legs["warm"]
+        cold_fresh = cold["compiles"] - cold["cache_hits"]
+        warm_fresh = warm["compiles"] - warm["cache_hits"]
+        ok = (cold["compiles"] == n_buckets and warm["compiles"] == n_buckets
+              and warm["compiles"] <= cold["compiles"])
+        return {
+            "model": model,
+            "max_batch_size": max_batch_size,
+            "cold_start_to_ready_s": warm["start_to_ready_s"],
+            "cold_s": cold["start_to_ready_s"],
+            "warm_s": warm["start_to_ready_s"],
+            "speedup": round(cold["start_to_ready_s"]
+                             / max(warm["start_to_ready_s"], 1e-9), 3),
+            "warm_wall_win": warm["start_to_ready_s"]
+            < cold["start_to_ready_s"],
+            "compiles_cold": cold["compiles"],
+            "compiles_warm": warm["compiles"],
+            "fresh_compiles_cold": cold_fresh,
+            "fresh_compiles_warm": warm_fresh,
+            "cache_hits_warm": warm["cache_hits"],
+            "host_cores": os.cpu_count(),
+            "note": "start-to-ready includes the interpreter and the torch "
+                    "import; with no persistent program cache both legs "
+                    "run every bucket once, and the signature counts are "
+                    "the deterministic gate",
+            "ok": ok,
+        }
+    finally:
+        if created:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_decode_bench(duration=4.0, clients=6, slots=4, page_size=8,
+                     num_pages=64, max_new_tokens=24, churn=True,
+                     device="gpu"):
+    """Autoregressive decode bench: a tiny transformer LM behind the
+    paged-KV engine and the streaming wire, driven by ``clients``
+    concurrent streams with churn (periodic early hang-ups and one hopeless
+    deadline lane), so join/leave and page reclaim are on the measured
+    path.
+
+    Headline numbers: ``decode_tokens_per_s`` and
+    ``decode_p99_per_token_ms`` (the client-observed inter-token gap,
+    first token excluded; it carries queue wait and prefill and is
+    ``ttft_ms_p50``). The program bound and the zero-residual-pages check
+    ride along: a retrace or a page leak shows in the result."""
+    from .. import nd, serve
+    from ..models.transformer import transformer_lm
+    from ..serve.decode import DecodeEngine, DecodeScheduler
+
+    ctx = _ctx(device)
+    lm = transformer_lm(vocab_size=257, units=64, hidden_size=128,
+                        num_layers=2, num_heads=4, max_length=128,
+                        dropout=0.0)
+    lm.initialize(ctx=ctx)
+    lm(nd.zeros((1, 8), ctx=ctx))
+    eng = DecodeEngine(lm, slots=slots, page_size=page_size,
+                       num_pages=num_pages, device=ctx)
+    eng.warmup()  # first calls never pollute token-gap numbers
+    sched = DecodeScheduler(eng, max_new_tokens=max_new_tokens)
+    srv = serve.ServeServer(engine=None, decode=sched, port=0)
+    srv.start()
+
+    lock = threading.Lock()
+    gaps: list = []          # inter-token gaps, first token excluded
+    ttfts: list = []         # submit -> first token
+    tokens = [0]
+    completed = [0]
+    cancelled = [0]
+    shed = [0]
+    errors = [0]
+    stop_at = time.perf_counter() + duration
+
+    def worker(wid):
+        rng = np.random.RandomState(100 + wid)
+        cli = serve.ServeClient("127.0.0.1", srv.port)
+        my_gaps, my_ttfts = [], []
+        rounds = 0
+        try:
+            while time.perf_counter() < stop_at:
+                rounds += 1
+                n = int(rng.randint(3, 33))
+                prompt = rng.randint(1, 250, size=n).astype(np.int32)
+                mode = "normal"
+                if churn and wid == 0 and rounds % 3 == 2:
+                    mode = "cancel"
+                elif churn and wid == 1 and rounds % 5 == 3:
+                    mode = "deadline"
+                try:
+                    if mode == "cancel":
+                        gen = cli.generate(prompt,
+                                           max_new_tokens=max_new_tokens)
+                        next(gen)
+                        next(gen)
+                        gen.close()  # hang-up: the server reclaims pages
+                        with lock:
+                            cancelled[0] += 1
+                            tokens[0] += 2
+                        continue
+                    dl = 1.0 if mode == "deadline" else None
+                    t_sent = time.perf_counter()
+                    t_prev = t_sent
+                    got = 0
+                    for _tok in cli.generate(prompt,
+                                             max_new_tokens=max_new_tokens,
+                                             deadline_ms=dl):
+                        now = time.perf_counter()
+                        if got == 0:
+                            my_ttfts.append(now - t_sent)
+                        else:
+                            my_gaps.append(now - t_prev)
+                        t_prev = now
+                        got += 1
+                    with lock:
+                        completed[0] += 1
+                        tokens[0] += got
+                except (serve.DeadlineExceeded, serve.RequestRejected,
+                        serve.Draining):
+                    with lock:
+                        shed[0] += 1
+                except serve.ServeError:
+                    with lock:
+                        errors[0] += 1
+        finally:
+            cli.close()
+            with lock:
+                gaps.extend(my_gaps)
+                ttfts.extend(my_ttfts)
+
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=duration + 60)
+    wall = time.perf_counter() - t_start
+    st = sched.stats()
+    srv.stop()
+    sigs = {repr(e["sig"]) for e in eng.compile_log}
+    gaps.sort()
+    ttfts.sort()
+    return {
+        "duration_s": round(wall, 2), "clients": clients, "slots": slots,
+        "page_size": page_size, "num_pages": num_pages,
+        "max_new_tokens": max_new_tokens,
+        "streams_completed": completed[0],
+        "streams_cancelled": cancelled[0],
+        "shed": shed[0], "errors": errors[0],
+        "tokens_out": tokens[0],
+        "decode_tokens_per_s": round(tokens[0] / wall, 2),
+        "ttft_ms_p50": (round(_percentile(ttfts, 0.50) * 1e3, 3)
+                        if ttfts else None),
+        "decode_p50_per_token_ms": (round(_percentile(gaps, 0.50) * 1e3, 3)
+                                    if gaps else None),
+        "decode_p99_per_token_ms": (round(_percentile(gaps, 0.99) * 1e3, 3)
+                                    if gaps else None),
+        "occupancy": round(st["occupancy"], 3),
+        "scheduler_steps": st["steps"],
+        "compiled_programs": len(eng.compile_log),
+        "buckets": list(eng.buckets),
+        "program_bound_ok": len(sigs) == len(eng.buckets) + 1,
+        "pages_leaked": eng.pool.used(),
+    }
+
+
+def _closed_drive(addr, payload, clients, duration, deadline_ms=None):
+    """Closed-loop drive against an already-running endpoint; returns
+    (sorted latencies, shed, errors, wall_seconds)."""
+    from .. import serve
+
+    lock = threading.Lock()
+    lats: list = []
+    shed = [0]
+    errors = [0]
+    t_start = time.perf_counter()
+    stop_at = t_start + duration
+
+    def worker():
+        cli = serve.ServeClient(*addr)
+        while time.perf_counter() < stop_at:
+            t0 = time.perf_counter()
+            try:
+                cli.infer(payload, deadline_ms=deadline_ms)
+            except (serve.RequestRejected, serve.DeadlineExceeded):
+                with lock:
+                    shed[0] += 1
+                continue
+            except serve.ServeError:
+                with lock:
+                    errors[0] += 1
+                continue
+            with lock:
+                lats.append(time.perf_counter() - t0)
+        cli.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return sorted(lats), shed[0], errors[0], time.perf_counter() - t_start
+
+
+def run_scale_bench(*args, **kwargs):
+    """Closed-loop qps through tensor-parallel replica groups on mesh
+    slices: queue item A14 of the port."""
+    from ..base import MXNetError
+
+    raise MXNetError("serve_bench --scale: replica groups on mesh slices "
+                     "are queue item A14 of the port")
+
+
+def run_ramp_bench(*args, **kwargs):
+    """An open-loop ramp against an autoscaled mesh-sliced fleet: queue
+    item A14 of the port."""
+    from ..base import MXNetError
+
+    raise MXNetError("serve_bench --ramp: the autoscaled mesh-sliced fleet "
+                     "is queue item A14 of the port")
+
+
+def _a15(what):
+    from ..base import MXNetError
+
+    return MXNetError(f"serve_bench {what}: the span, copy-tracking and "
+                      "profiler planes are queue item A15 of the port")
+
+
+def run_obs_overhead(*args, **kwargs):
+    raise _a15("--obs-overhead")
+
+
+def run_wire_hop(*args, **kwargs):
+    raise _a15("--wire-hop")
+
+
+def run_prof_overhead(*args, **kwargs):
+    raise _a15("--prof-overhead")
+
+
+def run_chaos_bench(model="mlp", duration=12.0, qps=120.0, replicas=3,
+                    max_batch_size=8, max_linger_ms=2.0, deadline_ms=500.0,
+                    request_rows=1, hedge_ms=None, kill_replica=0,
+                    device="gpu"):
+    """Availability under replica death, measured: open-loop Poisson load
+    through a FleetServer front over ``replicas`` supervised in-process
+    replicas; at duration/3 one replica is hard-killed (its sockets sever
+    mid-work) and the pool restarts it with backoff. Every request is
+    timestamped and bucketed into before / during (kill to readiness
+    recovered) / after windows. Returns the result dict."""
+    from .. import serve
+    from ..serve.fleet import FleetServer, ReplicaPool, Router
+
+    net, arg, aux, feat = _build_model(model, device=device)
+    ctx = _ctx(device)
+
+    def factory():
+        engine = serve.InferenceEngine(net, arg, aux,
+                                       max_batch_size=max_batch_size,
+                                       lint="off", ctx=ctx)
+        engine.warmup(feat)
+        srv = serve.ServeServer(engine, port=0,
+                                max_linger_ms=max_linger_ms)
+        srv.start()
+        return srv
+
+    pool = ReplicaPool.local(factory, replicas, probe_interval=0.15,
+                             backoff_base=0.1, backoff_cap=1.0)
+    pool.start()
+    router = Router(pool, hedge_ms=hedge_ms, breaker_cooldown=0.3)
+    front = FleetServer(router, port=0)
+    front.start()
+    addr = ("127.0.0.1", front.port)
+
+    rng = np.random.RandomState(1)
+    payload = rng.rand(request_rows, *feat).astype(np.float32)
+    lock = threading.Lock()
+    records = []  # (t_sent, outcome, latency)
+    pool_clients = [serve.ServeClient(*addr) for _ in range(8)]
+    free = list(range(len(pool_clients)))
+
+    def fire(idx, t_sent):
+        t0 = time.perf_counter()
+        try:
+            pool_clients[idx].infer(payload, deadline_ms=deadline_ms)
+            outcome = "ok"
+        except (serve.RequestRejected, serve.Draining):
+            outcome = "shed"
+        except serve.DeadlineExceeded:
+            outcome = "deadline"
+        except serve.ServeError:
+            outcome = "error"
+        with lock:
+            records.append((t_sent, outcome, time.perf_counter() - t0))
+            free.append(idx)
+
+    t_start = time.perf_counter()
+    kill_at = t_start + duration / 3.0
+    t_kill = [None]
+    t_recovered = [None]
+    killed = [False]
+    dipped = [False]  # readiness must visibly drop before "recovered"
+    inflight = []
+    while time.perf_counter() < t_start + duration:
+        now = time.perf_counter()
+        if not killed[0] and now >= kill_at:
+            pool.kill(kill_replica)
+            t_kill[0] = now
+            killed[0] = True
+        if killed[0] and t_recovered[0] is None:
+            ready = len(pool.ready_members())
+            if ready < replicas:
+                dipped[0] = True
+            elif dipped[0]:
+                t_recovered[0] = now
+        time.sleep(rng.exponential(1.0 / qps))
+        with lock:
+            if free:
+                idx = free.pop()
+            else:
+                pool_clients.append(serve.ServeClient(*addr))
+                idx = len(pool_clients) - 1
+        th = threading.Thread(target=fire,
+                              args=(idx, time.perf_counter() - t_start))
+        th.start()
+        inflight.append(th)
+    for th in inflight:
+        th.join(timeout=30)
+    if killed[0] and t_recovered[0] is None and dipped[0] \
+            and len(pool.ready_members()) >= replicas:
+        t_recovered[0] = time.perf_counter()
+    fleet_stats = router.stats()
+    front.stop()
+    pool.stop()
+    for cli in pool_clients:
+        cli.close()
+
+    kill_off = (t_kill[0] - t_start) if t_kill[0] else None
+    rec_off = (t_recovered[0] - t_start) if t_recovered[0] else None
+
+    def window(name, lo, hi):
+        rows = [r for r in records if lo <= r[0] < hi]
+        lat = sorted(r[2] for r in rows if r[1] == "ok")
+        n = len(rows)
+        bad = sum(1 for r in rows if r[1] == "error")
+        shed = sum(1 for r in rows if r[1] in ("shed", "deadline"))
+        return {"window": name, "sent": n, "ok": len(lat), "shed": shed,
+                "errors": bad,
+                "error_rate": round(bad / n, 4) if n else None,
+                "p50_ms": round(_percentile(lat, 0.5) * 1e3, 2) if lat
+                else None,
+                "p99_ms": round(_percentile(lat, 0.99) * 1e3, 2) if lat
+                else None}
+
+    end = duration + 1e9
+    return {
+        "mode": "chaos", "model": model, "replicas": replicas,
+        "offered_qps": qps, "duration_s": duration,
+        "deadline_ms": deadline_ms, "hedge_ms": hedge_ms,
+        "kill_at_s": round(kill_off, 2) if kill_off else None,
+        "recovered_at_s": round(rec_off, 2) if rec_off else None,
+        "recovery_s": round(rec_off - kill_off, 2)
+        if (kill_off and rec_off) else None,
+        "windows": [window("before", 0.0, kill_off or end),
+                    window("during", kill_off or end, rec_off or end),
+                    window("after", rec_off or end, end)],
+        "failovers": fleet_stats["failovers"],
+        "breaker_trips": fleet_stats["breaker_trips"],
+        "hedges": fleet_stats["hedges"],
+        "restarts": sum(r["restarts"]
+                        for r in fleet_stats["replicas"].values()),
+        "lost": sum(1 for r in records if r[1] == "error"),
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="closed/open-loop load generator for "
+                    "mxnet_tpu_torch.serve")
+    ap.add_argument("--model", default="mlp",
+                    help="mlp or a model-zoo name (e.g. resnet18_v1)")
+    ap.add_argument("--mode", default="both",
+                    choices=("closed", "open", "both"))
+    ap.add_argument("--device", default="gpu", choices=("gpu", "cpu"),
+                    help="where every leg's engines run (default: the "
+                         "card; without one, the engine raises)")
+    ap.add_argument("--duration", type=float, default=5.0)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--qps", type=float, default=200.0,
+                    help="offered load for open-loop mode")
+    ap.add_argument("--deadline-ms", type=float, default=None)
+    ap.add_argument("--request-rows", type=int, default=1)
+    ap.add_argument("--max-batch-size", type=int, default=8)
+    ap.add_argument("--max-linger-ms", type=float, default=2.0)
+    ap.add_argument("--connect", default=None,
+                    help="host:port of an external endpoint (skips the "
+                         "in-process server)")
+    ap.add_argument("--json", action="store_true",
+                    help="one JSON line per mode instead of the table")
+    ap.add_argument("--chaos", action="store_true",
+                    help="fleet availability bench: open-loop load over a "
+                         "supervised replica fleet, hard-kill one replica "
+                         "mid-run, report error rate and p99 before/during/"
+                         "after (always prints JSON)")
+    ap.add_argument("--replicas", type=int, default=3,
+                    help="fleet size for --chaos")
+    ap.add_argument("--hedge-ms", type=float, default=None,
+                    help="fleet tail-latency hedge threshold for --chaos")
+    ap.add_argument("--cold", action="store_true",
+                    help="spawn-to-ready of a ProcReplica child, twice "
+                         "(always prints JSON; exits 1 on a retrace)")
+    ap.add_argument("--decode", action="store_true",
+                    help="autoregressive decode bench: concurrent token "
+                         "streams with churn through the paged-KV engine "
+                         "and the streaming wire (always prints JSON; "
+                         "exits 1 on a program-bound break or a page leak)")
+    for flag, item in (("--scale", "A14"), ("--ramp", "A14"),
+                       ("--obs-overhead", "A15"), ("--wire-hop", "A15"),
+                       ("--prof-overhead", "A15")):
+        ap.add_argument(flag, action="store_true",
+                        help=f"queue item {item} of the port: raises")
+    args = ap.parse_args(argv)
+
+    if args.scale:
+        run_scale_bench()
+    if args.ramp:
+        run_ramp_bench()
+    if args.obs_overhead:
+        run_obs_overhead()
+    if args.wire_hop:
+        run_wire_hop()
+    if args.prof_overhead:
+        run_prof_overhead()
+
+    if args.cold:
+        res = run_cold_bench(model=args.model,
+                             max_batch_size=args.max_batch_size,
+                             device=args.device)
+        print(json.dumps(res, indent=1))
+        if not res["ok"]:
+            print(f"WARNING: the children saw {res['compiles_cold']} and "
+                  f"{res['compiles_warm']} shape signatures for their "
+                  "buckets — a retrace", file=sys.stderr)
+            return 1
+        return 0
+
+    if args.decode:
+        if args.connect:
+            ap.error("--decode builds an in-process decode stack and "
+                     "cannot target --connect")
+        res = run_decode_bench(duration=args.duration,
+                               clients=args.clients, device=args.device)
+        print(json.dumps(res, indent=1))
+        print(f"decode: {res['decode_tokens_per_s']} tok/s, "
+              f"per-token p50 {res['decode_p50_per_token_ms']} ms / "
+              f"p99 {res['decode_p99_per_token_ms']} ms, ttft p50 "
+              f"{res['ttft_ms_p50']} ms, occupancy {res['occupancy']}, "
+              f"{res['compiled_programs']} programs for "
+              f"{len(res['buckets'])} buckets", file=sys.stderr)
+        if not res["program_bound_ok"] or res["pages_leaked"]:
+            print("WARNING: decode invariant broke — "
+                  f"program_bound_ok={res['program_bound_ok']} "
+                  f"pages_leaked={res['pages_leaked']}", file=sys.stderr)
+            return 1
+        return 0
+
+    if args.chaos:
+        res = run_chaos_bench(model=args.model, duration=args.duration,
+                              qps=args.qps, replicas=args.replicas,
+                              max_batch_size=args.max_batch_size,
+                              max_linger_ms=args.max_linger_ms,
+                              deadline_ms=args.deadline_ms or 500.0,
+                              request_rows=args.request_rows,
+                              hedge_ms=args.hedge_ms, device=args.device)
+        print(json.dumps(res, indent=1))
+        return 0
+
+    modes = ("closed", "open") if args.mode == "both" else (args.mode,)
+    results = []
+    for mode in modes:
+        res = run_bench(model=args.model, mode=mode, duration=args.duration,
+                        clients=args.clients, qps=args.qps,
+                        max_batch_size=args.max_batch_size,
+                        max_linger_ms=args.max_linger_ms,
+                        deadline_ms=args.deadline_ms,
+                        request_rows=args.request_rows,
+                        connect=args.connect, device=args.device)
+        results.append(res)
+        if args.json:
+            print(json.dumps(res))
+    if not args.json:
+        cols = ("qps", "offered_qps", "p50_ms", "p95_ms", "p99_ms",
+                "max_ms", "completed", "shed", "errors",
+                "compiled_programs")
+        print(f"{'metric':<18}" + "".join(f"{m:>14}" for m in modes))
+        for c in cols:
+            vals = [r.get(c, "-") for r in results]
+            if all(v in ("-", None) for v in vals):
+                continue
+            print(f"{c:<18}" + "".join(
+                f"{('-' if v is None else v):>14}" for v in vals))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,7 +14,10 @@ trainer on the card to the same on the CPU, the imperative ``nd`` path on
 the card to the same on the CPU, the convolution, BatchNorm and pooling
 ops (cuDNN and the card's elementwise kernels) to the same ops on the CPU,
 and the batch-serving engine on the card bitwise to ``Module.predict``
-there.
+there, as are the replies of a fleet of two card replicas through a kill,
+a restart and a fleet reload; a ``ProcReplica`` child serves on the card,
+and streams relayed by a ``FleetServer`` through the paged kernel equal
+the plain version's.
 """
 import math
 
@@ -1373,3 +1376,198 @@ def test_numpy_front_end_on_card_matches_cpu(cuda_device):
     for c, h in zip(card, host):
         assert c.dtype == h.dtype
         np.testing.assert_allclose(c, h, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet on the card
+# ---------------------------------------------------------------------------
+
+def _conv_checkpoints(mx, sym, prefix):
+    """Two generations of a small conv net trained on the card, saved as
+    Module checkpoints 1 and 2; returns (net, the Module)."""
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+
+    data = sym.Variable("data")
+    net = sym.Convolution(data, num_filter=8, kernel=(3, 3), pad=(1, 1),
+                          name="c")
+    net = sym.Activation(sym.BatchNorm(net, name="bn"), act_type="relu")
+    net = sym.SoftmaxOutput(sym.FullyConnected(sym.Flatten(net),
+                                               num_hidden=5, name="fc"),
+                            name="softmax")
+    rng = np.random.RandomState(1)
+    x = rng.rand(8, 3, 12, 12).astype(np.float32)
+    y = rng.randint(0, 5, 8).astype(np.float32)
+    mod = Module(net, context=mx.gpu(0))
+    for epoch in (1, 2):
+        mod.fit(NDArrayIter(x, y, batch_size=4), num_epoch=1,
+                optimizer_params={"learning_rate": 0.05})
+        mod.save_checkpoint(prefix, epoch)
+    return net, mod
+
+
+def test_fleet_of_card_replicas_answers_module_predict(cuda_device,
+                                                       tmp_path):
+    """Two card replicas behind a Router: every reply bitwise
+    ``Module.predict``'s for the version it carries, through a kill, the
+    restart and a fleet reload; the killed engine's memory comes back."""
+    import gc
+    import time
+    import weakref
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serve, sym
+    from mxnet_tpu_torch.io import NDArrayIter
+
+    prefix = str(tmp_path / "conv")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pool = None
+    try:
+        net, mod = _conv_checkpoints(mx, sym, prefix)
+        q = np.random.RandomState(2).rand(8, 3, 12, 12).astype(np.float32)
+        refs = {}
+        for ver, epoch in ((0, 1), (1, 2)):
+            arg, aux = serve.load_params(prefix, epoch=epoch)
+            mod.set_params(arg, aux)
+            refs[ver] = {b: mod.predict(NDArrayIter(q, None, batch_size=b))
+                         .asnumpy() for b in (2, 4, 8)}
+
+        def factory():
+            eng = serve.load(prefix, epoch=1, buckets=(2, 4, 8), lint="off")
+            eng.warmup((3, 12, 12))
+            srv = serve.ServeServer(eng, port=0, max_linger_ms=0.0)
+            srv.start()
+            return srv
+
+        pool = serve.ReplicaPool.local(factory, 2, probe_interval=0.1,
+                                       backoff_base=0.05).start()
+        router = serve.Router(pool)
+
+        def check(ver_want):
+            for b in (2, 4, 8):
+                for lo in range(0, 8, b):
+                    outs, ver = router.infer([q[lo:lo + b]],
+                                             deadline_ms=60000)
+                    assert ver == ver_want
+                    assert np.array_equal(outs[0], refs[ver][b][lo:lo + b])
+
+        check(0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        dead = weakref.ref(pool.members()[1].handle.server._engine)
+        pool.kill(1)
+        check(0)
+        m1 = pool.members()[1]
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not (
+                m1.restarts >= 1 and m1.state == "ready"):
+            time.sleep(0.05)
+        assert m1.restarts >= 1 and m1.state == "ready"
+        # the killed incarnation's engine, and so its parameters on the
+        # card, are gone; what is allocated differs from before the kill
+        # by less than a replica's parameters and the allocator's blocks
+        deadline = time.monotonic() + 30
+        while dead() is not None and time.monotonic() < deadline:
+            gc.collect()
+            time.sleep(0.05)
+        assert dead() is None
+        torch.cuda.synchronize()
+        params = sum(4 * v.size for v in mod.get_params()[0].values())
+        assert abs(torch.cuda.memory_allocated() - before) <= params + 65536
+        assert router.reload(prefix, epoch=2) == 1
+        check(1)
+    finally:
+        if pool is not None:
+            pool.stop()
+        torch.backends.cudnn.deterministic = was
+
+
+def test_proc_replica_child_serves_on_the_card(cuda_device, tmp_path):
+    """A child with no MXNET_SERVE_PLATFORM places its engine on the card
+    and answers as the same engine in process."""
+    import time
+
+    from mxnet_tpu_torch import serve, sym
+    from mxnet_tpu_torch.model import save_checkpoint
+    from mxnet_tpu_torch import nd
+
+    net, arg = _serve_mlp(sym)
+    prefix = str(tmp_path / "mlp")
+    save_checkpoint(prefix, 0, net, {k: nd.array(v) for k, v in arg.items()},
+                    {})
+    rep = serve.ProcReplica(prefix, env={"MXNET_SERVE_PLATFORM": ""},
+                            log_path=str(tmp_path / "child.log"))
+    rep.idx = 0
+    addr = rep.start()
+    cli = serve.ServeClient(*addr, timeout=5.0)
+    try:
+        deadline = time.monotonic() + 180
+        while time.monotonic() < deadline and rep.alive():
+            try:
+                if cli.ready():
+                    break
+            except serve.ServeError:
+                pass
+            time.sleep(0.1)
+        assert rep.alive(), open(tmp_path / "child.log").read()[-2000:]
+        assert cli.stats()["engine"]["device"] == "cuda:0"
+        x = np.random.RandomState(3).rand(5, 6).astype(np.float32)
+        eng = serve.InferenceEngine(net, arg, max_batch_size=32, lint="off")
+        assert np.array_equal(cli.infer(x), eng.predict(x))
+    finally:
+        cli.close()
+        rep.kill()
+        rep.stop()
+
+
+def test_fleet_streams_through_the_paged_kernel_equal_plain(cuda_device,
+                                                          monkeypatch):
+    """Greedy streams relayed by a FleetServer from two card replicas (the
+    paged kernel) equal an in-process engine's on the plain version."""
+    import threading
+
+    from mxnet_tpu_torch import serve
+
+    small = dict(vocab_size=97, units=32, hidden_size=64, num_layers=2,
+                 num_heads=4, max_length=64)
+    kw = dict(slots=4, page_size=8, num_pages=16, prompt_buckets=[8, 16])
+    cfg, params = _seeded_lm(**small)
+    prompts = [np.arange(1, n + 1) % 90 + 1 for n in (3, 8, 13, 5)]
+    monkeypatch.setenv("MXNET_DECODE_ATTN", "plain")
+    eng = DecodeEngine(cfg, params, device=cuda_device, **kw)
+    sched = DecodeScheduler(eng, max_new_tokens=6)
+    want = [list(sched.generate(p)) for p in prompts]
+    sched.close()
+    monkeypatch.setenv("MXNET_DECODE_ATTN", "kernel")
+
+    def factory():
+        e = DecodeEngine(cfg, params, device=cuda_device, **kw)
+        e.warmup()
+        srv = serve.ServeServer(decode=DecodeScheduler(e, max_new_tokens=6),
+                                port=0)
+        srv.start()
+        return srv
+
+    pool = serve.ReplicaPool.local(factory, 2, probe_interval=0.2).start()
+    front = serve.FleetServer(serve.Router(pool), port=0)
+    front.start()
+    before = tfa.flash_decode_attention.launches
+    got = [None] * len(prompts)
+    try:
+        def stream(i):
+            cli = serve.ServeClient("127.0.0.1", front.port)
+            got[i] = list(cli.generate(prompts[i]))
+            cli.close()
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        front.stop()
+        pool.stop()
+    assert got == want
+    assert tfa.flash_decode_attention.launches > before

@@ -105,3 +105,30 @@ def test_source_imports_no_jax_or_reference(path):
     code = "\n".join(line for line in text.splitlines()
                      if re.match(r"\s*(import|from)\s", line))
     assert not _REF_PKG.search(code), path
+
+
+def test_fleet_obs_bench_and_test_utils_import_alone():
+    """The serving fleet, the autoscaler, the metrics plane, serve_bench
+    and test_utils import with neither JAX nor the reference loaded, and
+    ``mx.obs``/``mx.test_utils`` resolve from the package."""
+    code = ("import sys\n"
+            "import mxnet_tpu_torch.obs, mxnet_tpu_torch.obs.metrics, "
+            "mxnet_tpu_torch.obs.slo, mxnet_tpu_torch.obs.export, "
+            "mxnet_tpu_torch.serve.fleet, mxnet_tpu_torch.serve.autoscale, "
+            "mxnet_tpu_torch.tools.serve_bench, mxnet_tpu_torch.test_utils\n"
+            "import mxnet_tpu_torch as mx\n"
+            "assert mx.obs.metrics.snapshot() and mx.test_utils.list_tpus() "
+            "== []\n"
+            "for n in ('CircuitBreaker', 'LocalReplica', 'ProcReplica', "
+            "'ReplicaPool', 'Router', 'FleetServer', 'Autoscaler', "
+            "'AutoscalePolicy'):\n"
+            "    assert getattr(mx.serve, n) and n in mx.serve.__all__\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'mxnet_tpu' or "
+            "m.startswith('mxnet_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "clean"

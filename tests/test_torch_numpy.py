@@ -281,6 +281,30 @@ def test_ufunc_and_reduction_parity(kind, name, dt):
     _agree(r, t, **tol)
 
 
+_SCALARS = {"int": 2, "float": 1.5, "bool": True}
+_SCALAR_CASES = [(n, d, k, side) for n in BINARY for d in DTYPES
+                 for k in _SCALARS for side in ("left", "right")]
+
+
+@pytest.mark.parametrize("name,dt,kind,side", _SCALAR_CASES,
+                         ids=[f"{n}-{d}-{k}-{s}"
+                              for n, d, k, s in _SCALAR_CASES])
+def test_binary_ufunc_scalar_operand_parity(name, dt, kind, side):
+    """The binary sweep with a Python int, float or bool on either side:
+    the reference's weakly typed scalars set the result dtype."""
+    a, c = _sample(dt, 0), _SCALARS[kind]
+
+    def run(m):
+        x = m.array(a, dtype=dt)
+        return getattr(m, name)(x, c) if side == "left" \
+            else getattr(m, name)(c, x)
+    r, t, raised = _both(run)
+    if raised:
+        return
+    tol = dict(rtol=1e-2, atol=1e-3) if dt == "float16" else {}
+    _agree(r, t, **tol)
+
+
 def _env(m):
     r = onp.random.RandomState(3)
     a = (r.rand(3, 4) * 2 + 0.5).astype("float32")
