@@ -187,11 +187,31 @@ H100): ``python3 chip_smoke.py``. It
    pressure window scales out (the joiner warms on the card and activates
    at the committed version), 2 quiet windows scale back in with a drain,
    under 2 closed-loop clients with 0 errors;
-21. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
+21. drives ``dist_path``, the key-value stores and distributed training:
+   (a) ``kv.create("device")`` and ``"nccl"`` on CUDA tensors (merged
+   pushes, ``row_sparse_pull`` and 2-bit compression bitwise against
+   numpy, a batched Adam on the store within 1e-6 of the ``Updater``
+   applied directly) and ``dist_sync`` at world size 1 on an NCCL group;
+   (b) two ``dist_sync`` workers sharing the card over gloo, started by
+   ``python -m mxnet_tpu_torch.tools.launch -n 2``: the known-value
+   worker, then the full-width LM trained with Adam through
+   ``gluon.Trainer(kvstore="dist_sync")`` at 2 x 2048 tokens a worker
+   (3 steps and a profiled one; the ranks' weights bitwise equal after
+   every step; step 1's summed gradients within 1e-5 of each tensor's
+   largest from one process's on the concatenated 4 x 2048 batch, and
+   its weights within Adam's first-step bound of that process's
+   ``step(2)``; the workers' flash launches counted and reported back);
+   (c) ``dist_async`` known values against the native server built from
+   ``native/ps/ps_server.cc`` and the Python one; (d) elastic
+   ``Module.fit`` (``tests/elastic_worker.py``'s linear regression) in 3
+   workers, one SIGKILLed mid-epoch and restarted from a warm standby:
+   the survivors recut 3 -> 2 -> 3 and the final loss is within 0.25x
+   of a clean ``launch.py -n 3 -e`` run's;
+22. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
    under ``autograd.record`` with a ``Custom`` op in it, an SGD update,
    a CSR ``dot`` and a row-sparse ``retain`` on the card, each against
    the same code on the CPU from the same seed;
-22. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+23. prints each phase's wall time (``timing``), the ``kernels`` JSON line
    and, last, the ``ok`` line. The detection, int8, ONNX and numpy paths
    launch no kernel of the port's own (they run PyTorch's and cuBLAS's).
 
@@ -210,6 +230,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -4361,6 +4382,420 @@ def phase_fleet_path(torch, dev, smi, ckpt):
     return launches
 
 
+DIST_LM = {"vocab": 32000, "units": 768, "layers": 12, "heads": 12,
+           "seq": 2048}    # transformer_lm()'s defaults (hidden 4 x units)
+DIST_LM_STEPS = 3          # timed Trainer steps a worker, then 1 profiled
+DIST_LM_BATCH = 2          # rows of 2048 tokens a worker: 2 x 2 = 4 x 2048
+DIST_WORKER_TIMEOUT = 300  # seconds, any one launch
+DIST_ELASTIC_EPOCHS, DIST_ELASTIC_DELAY = 6, 0.4   # tests/test_elastic.py's
+DIST_LOSS_TOL = 0.25       # tests/test_elastic.py:898-901
+
+
+DIST_GRAD_TOL = 1e-5       # summed gradients, of each tensor's max |g|
+
+
+def _dist_weight_tol(grad_err, lr, beta2=0.999, eps=1e-8):
+    """The weights after one Adam step from the same weights, given the
+    gradients differ by at most ``grad_err``: Adam's first update
+    lr_t * m / (sqrt(v) + eps) moves by at most lr * sqrt(1 - beta2) / eps
+    per unit of gradient (at g = 0: 316 for lr 1e-4), so a gradient
+    rounded differently near zero moves the weight that much; plus 1e-2
+    of the learning rate for the update's own rounding."""
+    return lr * math.sqrt(1 - beta2) / eps * grad_err + 1e-2 * lr
+
+
+def _dist_run(args, timeout=DIST_WORKER_TIMEOUT, env=None):
+    """Run a launcher or worker command from the checkout's root; its
+    output, or a failed check with the tail of it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
+                          env=env or dict(os.environ), timeout=timeout,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    check(proc.returncode == 0, f"{' '.join(args[:4])}... exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}")
+    return proc.stdout
+
+
+_WORKER = ("mxnet_tpu_torch.tools.dist_worker",)
+_LAUNCH = ("mxnet_tpu_torch.tools.launch",)
+
+
+def _dist_local_leg(torch, dev):
+    """(a): the one-process stores on CUDA tensors, and dist_sync at world
+    size 1 on an NCCL group formed in this process."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.kvstore.compression import (dequantize_2bit,
+                                                     quantize_2bit)
+
+    ctx = mx.Context(dev)
+    rng = np.random.RandomState(1)
+    vals = [rng.randn(256, 384).astype(np.float32) for _ in range(4)]
+    out = {}
+    for name in ("device", "nccl"):
+        kv = mx.kv.create(name)
+        kv.init("a", nd.array(vals[0], ctx=ctx))
+        kv.push("a", [nd.array(v, ctx=ctx) for v in vals[1:]])
+        got = nd.zeros(vals[0].shape, ctx=ctx)
+        kv.pull("a", out=got)
+        check(got.context == ctx, f"{name}: the pull left the card")
+        check(np.array_equal(got.asnumpy(), (vals[1] + vals[2]) + vals[3]),
+              f"{name}: merged push is not the sum")
+        rows = nd.zeros((3, 384), ctx=ctx)
+        ids = np.array([255, 0, 17], np.int32)
+        kv.row_sparse_pull("a", out=rows, row_ids=nd.array(ids, ctx=ctx))
+        check(np.array_equal(rows.asnumpy(),
+                             ((vals[1] + vals[2]) + vals[3])[ids]),
+              f"{name}: row_sparse_pull rows differ")
+        # the optimizer on the store: a batched Adam against the Updater
+        # applied directly, key by key
+        kv.set_optimizer(mx.optimizer.create("adam", learning_rate=1e-3))
+        for i in range(3):
+            kv.init(i, nd.array(vals[i], ctx=ctx))
+        kv.push([0, 1, 2], [nd.array(v, ctx=ctx) for v in vals[1:]])
+        outs = [nd.zeros(vals[0].shape, ctx=ctx) for _ in range(3)]
+        kv.pull([0, 1, 2], out=outs)
+        upd = mx.optimizer.Updater(mx.optimizer.create("adam",
+                                                       learning_rate=1e-3))
+        direct = [nd.array(vals[i], ctx=ctx) for i in range(3)]
+        for i in range(3):
+            upd(i, nd.array(vals[i + 1], ctx=ctx), direct[i])
+        adam_err = max(float(np.abs(o.asnumpy() - d.asnumpy()).max())
+                       for o, d in zip(outs, direct))
+        check(adam_err <= 1e-6, f"{name}: batched Adam on the store is "
+              f"{adam_err} from the Updater applied directly")
+        # 2-bit with error feedback, against the numpy quantizer
+        kv2 = mx.kv.create(name)
+        kv2.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        kv2.init("c", nd.zeros(vals[0].shape, ctx=ctx))
+        res = np.zeros(vals[0].shape, np.float32)
+        for v in vals[:2]:
+            kv2.push("c", nd.array(v, ctx=ctx))
+            kv2.pull("c", out=got)
+            res += v
+            want = dequantize_2bit(quantize_2bit(res, 0.5), 0.5,
+                                   res.size).reshape(res.shape)
+            check(np.array_equal(got.asnumpy(), want),
+                  f"{name}: 2-bit push differs from the numpy quantizer")
+        check(kv2._compression._residuals["c"].device == dev,
+              f"{name}: the 2-bit residual left the card")
+        out[name] = {"adam_max_abs_err": adam_err}
+    # dist_sync at world size 1: one rank on its own card forms NCCL
+    env = {"MXNET_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "DMLC_NUM_WORKER": "1", "DMLC_WORKER_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        kv = mx.kv.create("dist_sync")
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        check(kv.backend == backend, f"world size 1 formed {kv.backend}")
+        kv.init("w", nd.array(vals[0], ctx=ctx))
+        kv.push("w", nd.array(vals[1], ctx=ctx))
+        kv.push("w", nd.array(vals[2], ctx=ctx))
+        got = nd.zeros(vals[0].shape, ctx=ctx)
+        kv.pull("w", out=got)
+        check(np.array_equal(got.asnumpy(), vals[1] + vals[2]),
+              "NCCL world-1 push is not the sum")
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        kv.init("c", nd.zeros(vals[0].shape, ctx=ctx))
+        kv.push("c", nd.array(vals[3], ctx=ctx))
+        kv.pull("c", out=got)
+        want = dequantize_2bit(quantize_2bit(vals[3].copy(), 0.5), 0.5,
+                               vals[3].size).reshape(vals[3].shape)
+        check(np.array_equal(got.asnumpy(), want),
+              "NCCL world-1 2-bit push differs from the numpy quantizer")
+        kv.close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["dist_sync_world1"] = {"backend": backend}
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_lm_leg(torch, dev, work):
+    """(b): the full-width LM trained by two workers sharing the card over
+    gloo; then, here, one process's step on the concatenated batch from
+    the same seeded weights (the oracle of step 1)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon import block
+    from mxnet_tpu_torch.models import transformer_lm
+
+    prefix = os.path.join(work, "lm")
+    cuda = dev.type == "cuda"
+    size = [a for k, v in DIST_LM.items() for a in (f"--{k}", str(v))]
+    out = _dist_run([*_LAUNCH, "-n", "2", sys.executable, "-m", *_WORKER,
+                     "lm", "--device", dev.type, *size, "--batch",
+                     str(DIST_LM_BATCH), "--steps", str(DIST_LM_STEPS),
+                     "--lr", str(GLUON_LR), "--seed", str(GLUON_SEED),
+                     "--out", prefix] + (["--profile"] if cuda else []))
+    reports = sorted((json.loads(ln[len("DIST_LM "):])
+                      for ln in out.splitlines()
+                      if ln.startswith("DIST_LM ")), key=lambda r: r["rank"])
+    check(len(reports) == 2, f"LM workers reported {len(reports)}:\n"
+          f"{out[-2000:]}")
+    for r in reports:
+        check(r["backend"] == "gloo" and r["device"].startswith(dev.type),
+              f"rank {r['rank']}: {r['backend']} on {r['device']}")
+        check(all(r["weights_equal"]), f"rank {r['rank']}: weights differ")
+        check(all(math.isfinite(v) for v in r["losses"]),
+              f"rank {r['rank']}: losses {r['losses']}")
+        # a step launches each flash kernel once a layer
+        want = DIST_LM["layers"] * (DIST_LM_STEPS + 1) if cuda else 0
+        for k, n in r["kernel_launches"].items():
+            check(n == want, f"rank {r['rank']}: {k} launched {n}, "
+                  f"not {want}")
+    # the oracle: one process, 4 x 2048 tokens, step(2), same weights
+    start = np.load(prefix + "-start.npz")
+    step1 = np.load(prefix + "-step1.npz")
+    grads1 = np.load(prefix + "-grads1.npz")
+    block._SCOPE.counters = {}
+    mx.random.seed(GLUON_SEED)
+    net = transformer_lm(vocab_size=DIST_LM["vocab"], units=DIST_LM["units"],
+                         hidden_size=4 * DIST_LM["units"],
+                         num_layers=DIST_LM["layers"],
+                         num_heads=DIST_LM["heads"],
+                         max_length=DIST_LM["seq"])
+    net.initialize(ctx=mx.Context(dev))
+    net.hybridize()
+    params = net.collect_params()
+    for k, p in params.items():
+        check(np.array_equal(p.data().asnumpy(), start[k]),
+              f"the seeded weights differ from the workers' at {k}")
+    vocab, seq = DIST_LM["vocab"], DIST_LM["seq"]
+    tokens = np.random.RandomState(GLUON_SEED).randint(
+        0, vocab, (2 * DIST_LM_BATCH, seq))
+    x = nd.array(tokens, ctx=mx.Context(dev), dtype="int32")
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": GLUON_LR})
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), x)
+    loss.backward()
+    grad_errs, worst_g = {}, (0.0, "")
+    for k, p in params.items():
+        want = p.data().grad.asnumpy()
+        grad_errs[k] = float(np.abs(grads1[k] - want).max())
+        share = grad_errs[k] / max(float(np.abs(want).max()), 1e-30)
+        worst_g = max(worst_g, (share, k))
+    check(worst_g[0] <= DIST_GRAD_TOL, f"two workers' summed gradient at "
+          f"{worst_g[1]} is {worst_g[0]} of its max from one process's")
+    trainer.step(DIST_LM_BATCH)
+    worst, worst_key = 0.0, None
+    for k, p in params.items():
+        err = float(np.abs(step1[k] - p.data().asnumpy()).max())
+        tol = _dist_weight_tol(grad_errs[k], GLUON_LR)
+        if err / tol > worst:
+            worst, worst_key = err / tol, k
+    check(worst <= 1.0, f"two-worker step 1 at {worst_key} is {worst} of "
+          "the tolerance from the one-process step")
+    del net, trainer, params, loss
+    if cuda:
+        torch.cuda.empty_cache()
+    r0 = reports[0]
+    timed = slice(1, None)  # the first step forms the group's buffers
+    return {
+        "workers": 2, "backend": "gloo", "tokens_a_worker":
+        DIST_LM_BATCH * seq, "steps": DIST_LM_STEPS,
+        "step_ms": r0["step_ms"], "fwd_bwd_ms": r0["fwd_bwd_ms"],
+        "allreduce_ms": r0["allreduce_ms"], "update_ms": r0["update_ms"],
+        "steady_step_ms": float(np.median(r0["step_ms"][timed])),
+        "steady_allreduce_ms": float(np.median(r0["allreduce_ms"][timed])),
+        "grad_bytes": r0["grad_bytes"],
+        "allreduce_gb_per_s": float(np.median(
+            r0["allreduce_gb_per_s"][timed])),
+        "idle_share_profiled_step": r0["idle_share"],
+        "peak_mem_gb": [r.get("peak_mem_gb") for r in reports],
+        "losses": [r["losses"] for r in reports],
+        "grad_worst_of_max": worst_g[0], "grad_worst_at": worst_g[1],
+        "grad_tolerance": DIST_GRAD_TOL,
+        "step1_worst_of_tolerance": worst, "step1_worst_at": worst_key,
+        "kernel_launches": [r["kernel_launches"] for r in reports],
+    }, {k: sum(r["kernel_launches"][k] for r in reports)
+        for k in ("flash_attention_fwd", "flash_attention_bwd")}
+
+
+def _dist_elastic_leg(torch, dev):
+    """(d): three elastic workers (the reference's linear-regression
+    Module.fit on the card) against the port's server; one is SIGKILLed
+    mid-epoch and restarted. Then the same run, uninjected, through
+    ``launch.py -n 3 -e``."""
+    import signal
+    import threading
+
+    from mxnet_tpu_torch.tools.launch import start_ps_server
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "dist_path")
+    port = _free_port()
+    ps = start_ps_server(port, 3, elastic=True, kind="python")
+    procs, lines = {}, {}
+
+    def spawn(rank, start_after=None):
+        env = dict(os.environ, MXNET_ELASTIC="1",
+                   MXNET_ELASTIC_HEARTBEAT_S="0.2", MXNET_ELASTIC_MISS_K="3",
+                   MXNET_PS_ADDR="127.0.0.1", MXNET_PS_PORT=str(port),
+                   DMLC_NUM_WORKER="3", DMLC_WORKER_ID=str(rank))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *_WORKER, "elastic", "--device",
+             dev.type, "--ckpt-dir", os.path.join(work, "ckpt"), "--epochs",
+             str(DIST_ELASTIC_EPOCHS), "--step-delay",
+             str(DIST_ELASTIC_DELAY)]
+            + (["--start-after", start_after] if start_after else []),
+            cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        buf = []
+        threading.Thread(target=lambda: [buf.append((time.monotonic(),
+                                                     ln.rstrip()))
+                                         for ln in proc.stdout],
+                         daemon=True).start()
+        return proc, buf
+
+    def wait_for(buf, pred, what, timeout=120):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for t, ln in list(buf):
+                if pred(ln):
+                    return t
+            time.sleep(0.05)
+        check(False, f"elastic: {what} never came:\n"
+              + "\n".join(ln for _t, ln in buf[-30:]))
+
+    go = os.path.join(work, "restart")
+    standby = None
+    try:
+        for r in range(3):
+            procs[r] = spawn(r)
+        # the restarted rank 2: a new process, its interpreter and card
+        # context brought up in advance (on the card that start-up outlasts
+        # several of the fleet's 2-part epochs, which the reference's CPU
+        # run does not), joining as a fresh member on the restart signal
+        standby = spawn(2, start_after=go)
+        victim, vbuf = procs[2]
+        wait_for(vbuf, lambda l: l.startswith("CHAOS_STEP 2"),
+                 "the victim's step 2", timeout=180)
+        t_kill = time.monotonic()
+        os.kill(victim.pid, signal.SIGKILL)
+        victim.wait(timeout=30)
+        check(victim.returncode == -signal.SIGKILL, "the victim survived")
+        t_release = wait_for(procs[0][1],
+                             lambda l: l.startswith("EPOCH_START 1 parts=2"),
+                             "the survivors' recut to 2 parts")
+        wait_for(standby[1], lambda l: l == "STANDBY", "the standby")
+        t_restart = time.monotonic()
+        with open(go, "w"):
+            pass
+        procs[2] = standby
+        t_rejoin = wait_for(procs[2][1], lambda l: l.startswith(
+            "EPOCH_START") and "parts=3" in l, "the rejoin at 3 parts",
+            timeout=240)
+        wait_for(procs[0][1], lambda l: l.startswith("EPOCH_START")
+                 and "parts=3" in l, "the survivors' recut back to 3")
+        for r, (proc, buf) in procs.items():
+            proc.wait(timeout=DIST_WORKER_TIMEOUT)
+            check(proc.returncode == 0, f"elastic rank {r} exited "
+                  f"{proc.returncode}:\n"
+                  + "\n".join(ln for _t, ln in buf[-30:]))
+        time.sleep(0.2)  # the readers drain the last lines
+        losses = [float(ln.split()[1]) for _r, (_p, buf) in procs.items()
+                  for _t, ln in buf if ln.startswith("FINAL_LOSS")]
+        check(len(losses) == 3 and len(set(losses)) == 1,
+              f"elastic final losses {losses}")
+        parts = [ln for _t, ln in procs[0][1] if ln.startswith("EPOCH_")]
+        for _r, (_p, buf) in procs.items():
+            check(any("ELASTIC_TIMES" in ln for _t, ln in buf),
+                  "an elastic worker did not finish")
+    finally:
+        for proc, _buf in list(procs.values()) + ([standby] if standby
+                                                  else []):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        ps.terminate()
+        ps.wait(timeout=10)
+        ps.stdout.close()
+    clean = _dist_run([*_LAUNCH, "-n", "3", "-e", sys.executable, "-m",
+                       *_WORKER, "elastic", "--device", dev.type,
+                       "--ckpt-dir", os.path.join(work, "ckpt_clean"),
+                       "--epochs", str(DIST_ELASTIC_EPOCHS), "--step-delay",
+                       str(DIST_ELASTIC_DELAY)])
+    clean_losses = [float(v) for v in
+                    re.findall(r"FINAL_LOSS ([0-9.]+)", clean)]
+    check(len(clean_losses) == 3 and len(set(clean_losses)) == 1,
+          f"clean elastic losses {clean_losses}")
+    check(abs(losses[0] - clean_losses[0])
+          <= DIST_LOSS_TOL * max(clean_losses[0], 1.0),
+          f"injected loss {losses[0]} vs clean {clean_losses[0]}; release "
+          f"{t_release - t_kill} s, rejoin {t_rejoin - t_restart} s, rank "
+          f"0's epochs {parts}")
+    return {"workers": 3, "killed_rank": 2, "release_s": t_release - t_kill,
+            "rejoin_s": t_rejoin - t_restart, "rank0_epochs": parts,
+            "final_loss": losses[0], "clean_final_loss": clean_losses[0],
+            "loss_tolerance": DIST_LOSS_TOL}
+
+
+def phase_dist_path(torch, dev, smi):
+    """The key-value stores and distributed training (A14(a)) on the card:
+    (a) the one-process stores and dist_sync at world size 1 on NCCL,
+    (b) two dist_sync workers over gloo (the known values, then the
+    full-width LM through gluon.Trainer(kvstore="dist_sync")), (c)
+    dist_async against the native and the Python server, (d) elastic
+    dist_sync with a worker killed and restarted. This process holds no
+    model while the workers run. Returns the workers' flash launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "dist_path")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        local = _dist_local_leg(torch, dev)
+        walls["a_local"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        known = _dist_run([*_LAUNCH, "-n", "2", sys.executable, "-m",
+                           *_WORKER, "known", "dist_sync", "--device",
+                           dev.type])
+        share = "2 ranks a card" if dev.type == "cuda" else "no card"
+        check(known.count(f"device={dev.type} backend=gloo: OK") == 2
+              and known.count(f"gloo ({share})") == 2,
+              f"dist_sync known values:\n{known[-2000:]}")
+        lm, launches = _dist_lm_leg(torch, dev, work)
+        walls["b_sync"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for server in ("native", "python"):
+            out = _dist_run([*_LAUNCH, "-n", "2", "-s", "1", "--ps-server",
+                             server, sys.executable, "-m", *_WORKER,
+                             "known", "dist_async", "--device", dev.type])
+            check(out.count(f"mode=dist_async device={dev.type} "
+                            "backend=None: OK") == 2,
+                  f"dist_async ({server}):\n{out[-2000:]}")
+        walls["c_async"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        elastic = _dist_elastic_leg(torch, dev)
+        walls["d_elastic"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "dist_path", "card": smi, "one_process": local,
+          "dist_sync_known_values": f"2 gloo ranks on {dev.type}: OK",
+          "lm_two_workers": lm,
+          "dist_async_known_values": "native and python servers: OK",
+          "elastic": elastic, "leg_wall_s": walls,
+          "kernel_launches": launches})
+    return launches
+
+
 NP_SEED = 3
 NP_TOL = 1e-4              # card vs CPU, relative to each tensor's max
 
@@ -4510,6 +4945,7 @@ def main() -> int:
           "the ssd, quant or onnx path launched an attention kernel")
     served, zoo_ckpt = run(phase_serve_path, torch, dev, smi)
     fleet = run(phase_fleet_path, torch, dev, smi, zoo_ckpt)
+    dist = run(phase_dist_path, torch, dev, smi)
     before = [k.launches for k in own]
     run(phase_np_path, torch, dev, smi)
     check([k.launches for k in own] == before,
@@ -4519,7 +4955,7 @@ def main() -> int:
     flash_launches = {k: train_launches[k] + nd_launches[k]
                       + gluon_launches[k] + estimator_launches[k]
                       + module_launches[k] + served[k] + fleet[k]
-                      for k in train_launches}
+                      + dist[k] for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
@@ -4533,7 +4969,8 @@ def main() -> int:
                       chunk=kern["chunk"]),
         # launches: the training path's (bf16), the nd path's, the gluon
         # path's (f32 and bf16), the estimator path's (f32), the module
-        # path's (f32) and the serve path's LM scoring (f32); the main
+        # path's (f32), the serve path's LM scoring (f32) and the two
+        # dist_sync LM workers' (f32, counted in the workers); the main
         # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
         # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",

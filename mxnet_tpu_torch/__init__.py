@@ -93,15 +93,15 @@ from .context import (Context, cpu, current_context,  # noqa: E402,F401
 
 _SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
                "checkpoint", "contrib", "engine", "executor", "gluon", "image",
-               "initializer", "io", "metric", "model", "models", "module",
-               "monitor", "name", "native", "ndarray", "obs", "operator",
-               "ops", "optimizer", "parallel", "random", "registry", "rnn",
-               "serve", "subgraph", "symbol", "test_utils", "util",
-               "visualization")
+               "initializer", "io", "kvstore", "metric", "model", "models",
+               "module", "monitor", "name", "native", "ndarray", "obs",
+               "operator", "ops", "optimizer", "parallel", "random",
+               "registry", "rnn", "serve", "subgraph", "symbol",
+               "test_utils", "util", "visualization")
 # the reference's short names
 _ALIASES = {"nd": "ndarray", "init": "initializer", "sym": "symbol",
             "mod": "module", "mon": "monitor", "viz": "visualization",
-            "recordio": "io.recordio", "np": "numpy",
+            "recordio": "io.recordio", "np": "numpy", "kv": "kvstore",
             "npx": "numpy_extension"}
 
 

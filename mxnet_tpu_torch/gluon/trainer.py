@@ -2,17 +2,23 @@
 (counterpart of ``mxnet_tpu/gluon/trainer.py``).
 
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size``, reduces
-the gradients across devices (nothing to reduce on one device) and updates
-every parameter that has a gradient in one multi-tensor pass
-(``optimizer.Updater.update_batch``), with the global-norm clip and an
-attached AMP loss scaler folded into it. ``save_states``/``load_states``
-write and read the reference's pickled state layout atomically;
-``get_checkpoint_state``/``set_checkpoint_state`` carry the slots and the
-counters ``save_states`` loses, for a ``checkpoint.CheckpointManager``.
+the gradients through the kvstore and updates every parameter that has a
+gradient in one multi-tensor pass (``optimizer.Updater.update_batch``),
+with the global-norm clip and an attached AMP loss scaler folded into it.
+``save_states``/``load_states`` write and read the reference's pickled
+state layout atomically; ``get_checkpoint_state``/``set_checkpoint_state``
+carry the slots and the counters ``save_states`` loses, for a
+``checkpoint.CheckpointManager``.
 
-Only single-device stores exist in the port: ``kvstore`` ``None``,
-``"device"`` or ``"local"``; the others are queue item A14. The health
-monitor (A15) raises.
+``kvstore``: None, ``"device"`` or ``"local"`` reduce nothing (one
+process, one logical copy per parameter); any other name
+(``kvstore.create``: ``dist_sync``, ``dist_async``, ``nccl``, ...) or a
+``KVStore`` object is made at the first step, each parameter is
+``init``-ed on it, and every step pushes all gradients and pulls back
+their sum. With ``update_on_kvstore=True`` the optimizer runs on the
+store (``set_optimizer``) and the step pulls the updated weights; the
+global-norm clip and an AMP loss scaler cannot ride that update and raise
+``ValueError``. The health monitor (queue item A15) raises.
 """
 from __future__ import annotations
 
@@ -22,19 +28,12 @@ from ..optimizer import Updater, create as opt_create
 
 __all__ = ["Trainer"]
 
-_LOCAL_STORES = (None, "device", "local")
-
-
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None, clip_global_norm=None):
         if hasattr(params, "values"):
             params = list(params.values())
-        if not (kvstore in _LOCAL_STORES):
-            raise MXNetError(f"Trainer: kvstore {kvstore!r}: distributed "
-                             "and multi-device stores (queue item A14) are "
-                             "not ported yet; use 'device', 'local' or None")
         self._params = [p for p in params if p.grad_req != "null"]
         self._all_params = list(params)
         self._scale = 1.0
@@ -45,6 +44,7 @@ class Trainer:
         self._kvstore_kind = kvstore
         self._kvstore = None
         self._update_on_kvstore = update_on_kvstore
+        self._kv_initialized = False
         self._clip_global_norm = clip_global_norm
         self._amp_loss_scaler = None
 
@@ -59,25 +59,69 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def _init_kvstore(self):
+        from ..kvstore import create as kv_create
+
+        kind = self._kvstore_kind
+        if kind is None or (isinstance(kind, str)
+                            and kind in ("device", "local")):
+            # one process, one logical copy per parameter: nothing to
+            # reduce between processes
+            self._kvstore = None
+        else:
+            # a store object gets the same keys (init ignores a key the
+            # caller initialized already); the reference leaves them to
+            # the caller and fails at the first push without them
+            self._kvstore = kv_create(kind) if isinstance(kind, str) \
+                else kind
+            for i, p in enumerate(self._params):
+                self._kvstore.init(i, p.data())
+            if self._update_on_kvstore:
+                self._kvstore.set_optimizer(self._optimizer)
+        if self._kvstore is not None and self._update_on_kvstore and \
+                (self._clip_global_norm or self._amp_loss_scaler is not None):
+            raise ValueError(
+                "clip_global_norm / an attached AMP loss scaler are not "
+                "supported with update_on_kvstore=True — the update runs "
+                "server-side without them; set update_on_kvstore=False")
+        self._kv_initialized = True
+
     # ------------------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by 1/batch_size, reduce, update."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._allreduce_grads()
 
     def _allreduce_grads(self):
-        """One logical copy per parameter on one device: nothing to
-        reduce."""
+        """One batched push and pull over every key: the store sums across
+        processes (dist stores move them in one fused collective)."""
+        if self._kvstore is None:
+            return
+        keys = list(range(len(self._params)))
+        grads = [p.data().grad for p in self._params]
+        self._kvstore.push(keys, grads)
+        if not self._update_on_kvstore:
+            self._kvstore.pull(keys, out=grads)
 
     def update(self, batch_size, ignore_stale_grad=False):
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        if self._kvstore is not None and self._update_on_kvstore:
+            keys = list(range(len(self._params)))
+            self._kvstore.pull(keys, out=[p.data() for p in self._params])
+            return
         idxs, grads, weights = [], [], []
         for i, p in enumerate(self._params):
             g = p.data().grad

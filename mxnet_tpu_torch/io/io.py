@@ -93,7 +93,7 @@ class DataIter:
         raise NotImplementedError(
             f"{type(self).__name__} does not support mid-epoch resume")
 
-    # -- elastic-training hook (the elastic fit loop: queue item A14) -----
+    # -- elastic-training hook (the elastic fit loop, module/base_module.py)
     def set_partition(self, part_index, num_parts):
         """Recut this iterator's rank shard (``part_index`` of
         ``num_parts`` over the FULL dataset). Called at epoch boundaries

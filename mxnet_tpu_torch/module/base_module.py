@@ -1,16 +1,25 @@
 """BaseModule with the high-level ``fit`` loop (counterpart of
 ``mxnet_tpu/module/base_module.py``).
 
-The reference's hooks into planes the port lacks are refused loudly:
-``health=`` (the training-health plane, queue item A15) and an elastic or
-distributed ``kvstore`` (A14). Its fleet-accounting spans and obs
-counters (A15) are left out. ``monitor=`` is accepted and never read, as
-in the reference's ``fit``.
+``fit(kvstore=)`` takes any store name or a ``KVStore`` object, as the
+reference's; an elastic ``DistKVStore`` (``MXNET_ELASTIC=1``) drives the
+elastic loop: join (quarantined after training started, activated at the
+next epoch boundary), the shard recut, the cold co-start broadcast of the
+lead rank's parameters, the mean of every step's gradients over the live
+fleet, the committed-clock tick and the epoch rendezvous.
+
+The reference's hooks into planes the port lacks are refused loudly or
+left out: ``health=`` (the training-health plane, queue item A15) raises;
+its fleet-accounting spans, the quarantined rejoiner's program-cache warm
+and the obs counters (A15) are left out. ``monitor=`` is accepted and
+never read, as in the reference's ``fit``.
 """
 from __future__ import annotations
 
 import logging
 import time
+
+import numpy as np
 
 from .. import metric as metric_mod
 from ..base import MXNetError
@@ -127,11 +136,6 @@ class BaseModule:
         if health is not None:
             raise MXNetError("fit(health=...): the training-health plane "
                              "(queue item A15) is not ported yet")
-        if not isinstance(kvstore, str) or kvstore not in ("local",
-                                                           "device"):
-            raise MXNetError(f"fit(kvstore={kvstore!r}): distributed and "
-                             "elastic stores (queue item A14) are not "
-                             "ported yet; use 'local' or 'device'")
         optimizer_params = optimizer_params or {"learning_rate": 0.01}
 
         from ..checkpoint import CheckpointManager, as_manager
@@ -140,6 +144,28 @@ class BaseModule:
         # end; a caller-supplied manager outlives the fit (only flushed)
         owns_manager = not isinstance(checkpoint, CheckpointManager)
         manager = as_manager(checkpoint)
+
+        # elastic training: membership is resolved before the checkpoint
+        # resume below. A restarted worker lands quarantined, blocks here
+        # until the live fleet's next epoch boundary activates it, then
+        # resumes from the newest shared checkpoint, which the survivors
+        # flushed before that boundary's rendezvous
+        elastic = getattr(kvstore, "elastic", None) \
+            if not isinstance(kvstore, str) else None
+        elastic_info = None
+        if elastic is not None:
+            elastic_info = elastic.ensure_joined()
+            if not elastic_info.active:
+                self.logger.info(
+                    "elastic: quarantined (generation %d, fleet at epoch "
+                    "%d) — waiting for the next epoch boundary",
+                    elastic_info.generation, elastic_info.epoch)
+                elastic_info = elastic.await_activation()
+                self.logger.info(
+                    "elastic: activated at epoch %d generation %d, shard "
+                    "%d/%d", elastic_info.epoch, elastic_info.generation,
+                    elastic_info.part_index, elastic_info.num_parts)
+            self._set_partition(train_data, elastic_info)
 
         if isinstance(resume, bool):  # bool is an int: keep True out of the
             resume = "auto" if resume else "never"  # pinned-step branch
@@ -157,9 +183,12 @@ class BaseModule:
             # put the iterator back exactly as captured — the shuffle order
             # matters even across epochs, because reshuffling permutes it
             # IN PLACE (same RNG state + different starting arrangement =
-            # different epoch order)
-            restored = restore_iterator(train_data, resume_state)
-            mid_epoch = resume_state.nbatch is not None
+            # different epoch order). An elastic rejoin happens at epoch
+            # boundaries only, and the shard from the activation is
+            # authoritative: the checkpoint's cursor is another rank's
+            restored = elastic is None and restore_iterator(train_data,
+                                                            resume_state)
+            mid_epoch = elastic is None and resume_state.nbatch is not None
             if mid_epoch and not restored:
                 self.logger.warning(
                     "checkpoint was taken mid-epoch (batch %d) but the "
@@ -172,6 +201,28 @@ class BaseModule:
                 "resuming from checkpoint step %d (epoch %d%s)",
                 resume_state.global_step, begin_epoch,
                 f", batch {resume_state.nbatch}" if mid_epoch else "")
+        if elastic_info is not None and elastic_info.epoch > begin_epoch:
+            # the fleet is ahead of this worker's newest checkpoint: the
+            # per-step sync averages gradients, never weights, so stale
+            # parameters would silently train another model from here on
+            from ..base import get_env
+
+            if elastic_info.active_count > 1 and not get_env(
+                    "MXNET_ELASTIC_ALLOW_STALE_REJOIN", False, bool):
+                raise MXNetError(
+                    f"elastic: the fleet is at epoch {elastic_info.epoch} "
+                    f"but this worker's newest shared checkpoint resumes "
+                    f"at epoch {begin_epoch} — rejoining with stale "
+                    f"parameters would silently desync the ranks (gradient "
+                    f"sync never re-syncs weights). Share one checkpoint "
+                    f"directory with checkpoint_period=1, or set "
+                    f"MXNET_ELASTIC_ALLOW_STALE_REJOIN=1 to proceed "
+                    f"anyway.")
+            self.logger.warning(
+                "elastic: fleet is at epoch %d but resume found epoch %d — "
+                "fast-forwarding", elastic_info.epoch, begin_epoch)
+            begin_epoch = elastic_info.epoch
+            mid_epoch = False
         if manager is not None and handle_preemption:
             manager.install_signal_handlers()
 
@@ -187,6 +238,14 @@ class BaseModule:
         if resume_state is not None:
             self._restore_training_state(resume_state)
             global_step = resume_state.global_step
+        if (elastic is not None and resume_state is None
+                and elastic_info.active and elastic_info.epoch == 0):
+            # cold co-start: the lead rank's initial parameters, once, for
+            # every co-starting active (gradient sync never re-syncs
+            # weights; a straggler's broadcast is answered from the
+            # released round with the root's values)
+            self._elastic_broadcast_params(
+                kvstore, root=elastic_info.part_index == 0)
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         validation_metric = validation_metric or eval_metric
@@ -213,6 +272,11 @@ class BaseModule:
                 for data_batch in train_data:
                     nbatch += 1
                     self.forward_backward(data_batch)
+                    if elastic is not None:
+                        # the mean over the LIVE fleet: a worker killed
+                        # mid-epoch shrinks the round after K missed
+                        # heartbeats and this returns over the survivors
+                        self._elastic_sync_grads(kvstore)
                     self.update()
                     global_step += 1
                     self.update_metric(eval_metric, data_batch.label)
@@ -227,6 +291,11 @@ class BaseModule:
                         manager.save(self._capture_training_state(
                             epoch, nbatch, global_step, train_data),
                             global_step)
+                    # bounded-staleness async: commit this rank's finished
+                    # step (a no-op in other modes; kvstore may be a name)
+                    tick = getattr(kvstore, "step_complete", None)
+                    if callable(tick):
+                        tick(global_step)
                     if manager is not None and manager.preempted.is_set():
                         # flush a final snapshot after the in-flight batch;
                         # with a non-positionable iterator no mid-epoch point
@@ -268,6 +337,20 @@ class BaseModule:
                     # already committed this exact step
                     manager.save(self._capture_training_state(
                         epoch, None, global_step, train_data), global_step)
+                if elastic is not None:
+                    if manager is not None:
+                        # the boundary snapshot is durable before the
+                        # rendezvous: a worker activated there resumes
+                        # from it
+                        manager.flush()
+                    info = elastic.epoch_end(epoch)
+                    if info.changed:
+                        self.logger.info(
+                            "elastic: membership changed at epoch %d "
+                            "boundary (generation %d) — shard recut to "
+                            "%d/%d", epoch, info.generation,
+                            info.part_index, info.num_parts)
+                        self._set_partition(train_data, info)
                 if eval_data is not None:
                     res = self.score(eval_data, validation_metric,
                                      epoch=epoch,
@@ -324,6 +407,56 @@ class BaseModule:
                 raise ValueError(f"invalid param file {fname}: key {k!r}")
         self.set_params(arg_params, aux_params)
 
+    # -- elastic plumbing -------------------------------------------------
+    @staticmethod
+    def _set_partition(train_data, info):
+        """Recut the iterator to the fleet's shard assignment (an iterator
+        that cannot be recut keeps its construction-time shard)."""
+        if hasattr(train_data, "set_partition"):
+            try:
+                train_data.set_partition(info.part_index, info.num_parts)
+            except NotImplementedError:
+                pass
+
+    def _elastic_broadcast_params(self, kv, root: bool):
+        """One fused broadcast of the lead rank's parameters and aux
+        states into every rank's bound executor (cold co-start only)."""
+        exec_ = getattr(self, "_exec", None)
+        if exec_ is None or not hasattr(kv, "broadcast_arrays"):
+            return
+        names = [n for n in getattr(self, "_param_names", [])
+                 if n in exec_.arg_dict]
+        targets = [exec_.arg_dict[n] for n in names] \
+            + [exec_.aux_dict[n] for n in getattr(self, "_aux_names", [])
+               if n in exec_.aux_dict]
+        if not targets:
+            return
+        # the elastic broadcast rides the host-side PS wire
+        vals = kv.broadcast_arrays([t.asnumpy() for t in targets], root)
+        if not root:
+            for t, v in zip(targets, vals):
+                t._set_data(_host_tensor(v, t))
+
+    def _elastic_sync_grads(self, kv):
+        """The mean of this step's gradients over the live fleet (one
+        fused reduction, ``DistKVStore.allreduce_mean``), written back
+        into the executor's gradient arrays, so every surviving rank
+        applies the same update; the divisor is the count that
+        contributed."""
+        exec_ = getattr(self, "_exec", None)
+        if exec_ is None or not hasattr(kv, "allreduce_mean"):
+            return
+        fixed = getattr(self, "_fixed_param_names", set())
+        names = [n for n in getattr(self, "_param_names", [])
+                 if n not in fixed and exec_.grad_dict.get(n) is not None]
+        if not names:
+            return
+        grads = [exec_.grad_dict[n] for n in names]
+        # the elastic reduce is host-mediated: gradients cross the PS wire
+        means, _n = kv.allreduce_mean([g.asnumpy() for g in grads])
+        for g, m in zip(grads, means):
+            g._set_data(_host_tensor(m, g))
+
     # -- checkpoint plumbing ----------------------------------------------
     def _capture_training_state(self, epoch, nbatch, global_step,
                                 train_data=None, loss_scaler=None):
@@ -349,6 +482,14 @@ class BaseModule:
                           getattr(self, "_optimizer", None), state,
                           ctx=getattr(self, "_context", None))
         restore_rng(state)
+
+def _host_tensor(values, like):
+    """numpy ``values`` as a tensor of ``like``'s dtype on its device."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(values)).to(
+        device=like._data.device, dtype=like._data.dtype)
+
 
 def _as_list(x):
     return x if isinstance(x, (list, tuple)) else [x]

@@ -1,5 +1,5 @@
-"""Build and load the framework-free C++ decoder (counterpart of
-``mxnet_tpu/native.py``).
+"""Build and load the framework-free C++ code of ``native/`` (counterpart
+of ``mxnet_tpu/native.py``).
 
 ``io_lib()`` compiles ``native/io/recordio_jpeg.cc`` of the checkout, as
 it is, with the reference Makefile's flags (``g++ -O2 -std=c++17 -Wall
@@ -11,8 +11,14 @@ toolchain, ``jpeglib.h`` or ``libjpeg`` it returns None and the iterator
 decodes with PIL, the reference's choice; ``io_lib_error()`` says why.
 ``MXNET_NO_NATIVE_BUILD=1`` skips the build.
 
-The reference's parameter-server binary (``ps_server_binary``) belongs
-to distributed training, queue item A14, and is not ported yet.
+``ps_server_binary()`` compiles ``native/ps/ps_server.cc``, as it is,
+with the same flags (``g++ -O2 -std=c++17 -Wall -pthread``) into
+``build/mxnet_tpu_torch/mxtpu_ps_server`` on first use and returns its
+path: the native parameter server that ``tools/launch.py`` starts for
+``dist_async``. It returns None without a toolchain;
+``ps_server_error()`` says why.
+
+Neither build reads or writes ``native/build/``, the reference's.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["io_lib", "io_lib_error", "native_dir", "build_dir"]
+__all__ = ["io_lib", "io_lib_error", "ps_server_binary", "ps_server_error",
+           "native_dir", "build_dir"]
 
 _lock = threading.Lock()
 _cache: dict = {}
@@ -40,17 +47,18 @@ def build_dir() -> str:
     return str(_ROOT / "build" / "mxnet_tpu_torch")
 
 
-def _build_io():
-    """Path of the built library, or (None, reason)."""
-    out = os.path.join(build_dir(), "libmxtpu_io.so")
+def _build(src_rel, out_name, extra_pre, extra_post):
+    """Compile ``native/<src_rel>`` into ``build_dir()/<out_name>``:
+    (path, None), or (None, reason)."""
+    out = os.path.join(build_dir(), out_name)
     if os.path.exists(out):
         return out, None
     if os.environ.get("MXNET_NO_NATIVE_BUILD"):
         return None, "MXNET_NO_NATIVE_BUILD is set"
-    src = os.path.join(native_dir(), "io", "recordio_jpeg.cc")
+    src = os.path.join(native_dir(), *src_rel.split("/"))
     os.makedirs(build_dir(), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = ["g++", *_CXXFLAGS, "-fPIC", "-shared", src, "-ljpeg", "-o", tmp]
+    cmd = ["g++", *_CXXFLAGS, *extra_pre, src, *extra_post, "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=120)
@@ -68,7 +76,8 @@ def io_lib():
     """ctypes CDLL of the IO pipeline, or None if it cannot be built."""
     with _lock:
         if "io" not in _cache:
-            path, err = _build_io()
+            path, err = _build("io/recordio_jpeg.cc", "libmxtpu_io.so",
+                               ["-fPIC", "-shared"], ["-ljpeg"])
             lib = None
             if path:
                 try:
@@ -108,3 +117,19 @@ def io_lib_error():
     """Why ``io_lib()`` returned None (None when it loaded)."""
     io_lib()
     return _cache["io_error"]
+
+
+def ps_server_binary():
+    """Path of the native parameter server built from
+    ``native/ps/ps_server.cc``, or None if it cannot be built."""
+    with _lock:
+        if "ps" not in _cache:
+            _cache["ps"], _cache["ps_error"] = _build(
+                "ps/ps_server.cc", "mxtpu_ps_server", [], [])
+        return _cache["ps"]
+
+
+def ps_server_error():
+    """Why ``ps_server_binary()`` returned None (None when it built)."""
+    ps_server_binary()
+    return _cache["ps_error"]

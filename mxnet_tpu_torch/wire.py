@@ -7,8 +7,8 @@ Both planes share one length-prefixed binary framing
 code, plane, direction, mutating?, dedup discipline, WAL coverage,
 traced?), and the registries raise at import on any duplicate code or
 name, so two planes cannot claim one opcode. ``serve/server.py`` derives
-its ``OP_*`` constants from :data:`SERVE_WIRE`; the parameter server that
-dispatches :data:`PS_WIRE` belongs to the distributed slice (A14).
+its ``OP_*`` constants from :data:`SERVE_WIRE`, the parameter server
+(``kvstore/ps_server.py``, ``kvstore/elastic.py``) from :data:`PS_WIRE`.
 
 Standard library only.
 """

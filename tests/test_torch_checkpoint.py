@@ -466,5 +466,6 @@ def test_fit_refuses_planes_not_ported():
         mod.fit(it, num_epoch=1, health=True)
     # monitor= is accepted and never read, as in the reference's fit
     mod.fit(it, num_epoch=1, monitor=object())
-    with pytest.raises(MXNetError, match="A14"):
-        mod.fit(it, num_epoch=1, kvstore="dist_sync")
+    # a store name is accepted, as in the reference's fit (the distributed
+    # stores are ported; a plain name leaves the update local)
+    mod.fit(it, num_epoch=1, kvstore="dist_sync")

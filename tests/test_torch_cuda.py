@@ -17,7 +17,9 @@ and the batch-serving engine on the card bitwise to ``Module.predict``
 there, as are the replies of a fleet of two card replicas through a kill,
 a restart and a fleet reload; a ``ProcReplica`` child serves on the card,
 and streams relayed by a ``FleetServer`` through the paged kernel equal
-the plain version's.
+the plain version's. The device store on CUDA tensors equals the same
+store on the CPU, and two ``dist_sync`` ranks sharing the card form a
+gloo group and pass the known values on CUDA tensors.
 """
 import math
 
@@ -1571,3 +1573,77 @@ def test_fleet_streams_through_the_paged_kernel_equal_plain(cuda_device,
         pool.stop()
     assert got == want
     assert tfa.flash_decode_attention.launches > before
+
+
+def _device_store_run(ctx):
+    """Merged pushes, a batched optimizer on the store, row_sparse_pull
+    and 2-bit compression through kv.create("device") on ``ctx``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    rng = np.random.RandomState(0)
+    vals = [rng.randn(6, 5).astype(np.float32) for _ in range(4)]
+    got, where = {}, set()
+    kv = mx.kv.create("device")
+    kv.init("a", nd.array(vals[0], ctx=ctx))
+    kv.push("a", [nd.array(v, ctx=ctx) for v in vals[1:]])
+    out = nd.zeros((6, 5), ctx=ctx)
+    kv.pull("a", out=out)
+    got["merged"], where = out.asnumpy(), {out.context}
+    rows = nd.zeros((2, 5), ctx=ctx)
+    kv.row_sparse_pull("a", out=rows, row_ids=nd.array(
+        np.array([5, 1], np.int32), ctx=ctx))
+    got["rows"] = rows.asnumpy()
+    kv2 = mx.kv.create("device")
+    kv2.set_optimizer(mx.optimizer.create("adam", learning_rate=0.1))
+    for i in range(3):
+        kv2.init(i, nd.array(vals[i], ctx=ctx))
+    kv2.push([0, 1, 2], [nd.array(v, ctx=ctx) for v in vals[1:]])
+    outs = [nd.zeros((6, 5), ctx=ctx) for _ in range(3)]
+    kv2.pull([0, 1, 2], out=outs)
+    got["adam"] = [o.asnumpy() for o in outs]
+    direct = [nd.array(vals[i], ctx=ctx) for i in range(3)]
+    upd = mx.optimizer.Updater(mx.optimizer.create("adam",
+                                                   learning_rate=0.1))
+    for i in range(3):
+        upd(i, nd.array(vals[i + 1], ctx=ctx), direct[i])
+    got["adam_direct"] = [d.asnumpy() for d in direct]
+    kv3 = mx.kv.create("nccl")
+    kv3.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kv3.init("c", nd.zeros((6, 5), ctx=ctx))
+    kv3.push("c", nd.array(vals[3], ctx=ctx))
+    kv3.pull("c", out=out)
+    got["two_bit"] = out.asnumpy()
+    where |= {o.context for o in outs} | {kv3._store["c"].context}
+    return got, where
+
+
+def test_device_store_on_card_matches_cpu(cuda_device):
+    import mxnet_tpu_torch as mx
+
+    card, where = _device_store_run(mx.gpu(0))
+    host, _ = _device_store_run(mx.cpu())
+    assert where == {mx.gpu(0)}
+    for k in ("merged", "rows", "two_bit"):
+        np.testing.assert_array_equal(card[k], host[k], err_msg=k)
+    for a, b, c in zip(card["adam"], host["adam"], card["adam_direct"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-6)
+
+
+def test_gloo_two_ranks_share_the_card(cuda_device):
+    """Two dist_sync ranks on one card form a gloo group (NCCL refuses two
+    ranks on one card) and pass the known values on CUDA tensors."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+         sys.executable, "-m", "mxnet_tpu_torch.tools.dist_worker", "known",
+         "dist_sync", "--device", "cuda"], cwd=repo, timeout=300,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    assert proc.returncode == 0, proc.stdout[-3000:]
+    assert proc.stdout.count("device=cuda backend=gloo: OK") == 2
+    assert proc.stdout.count("gloo (2 ranks a card)") == 2

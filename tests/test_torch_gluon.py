@@ -497,8 +497,13 @@ def test_trainer_settings_and_rejections():
     assert tr.learning_rate == 0.3
     tr.set_learning_rate(0.1)
     assert tr.learning_rate == 0.1
-    with pytest.raises(MXNetError, match="A14"):
-        tmx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+    # every store name is accepted (the distributed stores are ported);
+    # the update on the store cannot take the global-norm clip
+    clipped = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                kvstore="dist_sync", update_on_kvstore=True,
+                                clip_global_norm=1.0)
+    with pytest.raises(ValueError, match="update_on_kvstore"):
+        clipped.allreduce_grads()
     with pytest.raises(MXNetError, match="A15"):
         tr.attach_health_monitor()
     state = tr.get_checkpoint_state()

@@ -76,6 +76,11 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.operator, mxnet_tpu_torch.ndarray.sparse, "
             "mxnet_tpu_torch.wire, mxnet_tpu_torch.kvstore, "
             "mxnet_tpu_torch.kvstore.ps_server, "
+            "mxnet_tpu_torch.kvstore.ps_client, "
+            "mxnet_tpu_torch.kvstore.kvstore, mxnet_tpu_torch.kvstore.dist, "
+            "mxnet_tpu_torch.kvstore.elastic, "
+            "mxnet_tpu_torch.kvstore.compression, "
+            "mxnet_tpu_torch.tools.launch, mxnet_tpu_torch.tools.dist_worker, "
             "mxnet_tpu_torch.serve.engine, mxnet_tpu_torch.serve.batcher, "
             "mxnet_tpu_torch.serve.server, mxnet_tpu_torch.serve.client\n"
             "import mxnet_tpu_torch as mx\n"
@@ -84,6 +89,8 @@ def test_import_loads_neither_jax_nor_reference():
             "assert mx.serve.InferenceEngine and mx.serve.DynamicBatcher "
             "and mx.serve.ServeServer and mx.serve.ServeClient "
             "and mx.serve.load and mx.serve.load_params\n"
+            "assert mx.kv.create('device').type == 'device' "
+            "and mx.kvstore.KVStore\n"
             "from mxnet_tpu_torch import nd, autograd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
