@@ -641,6 +641,66 @@ def _err(got, want, tol):
                                    .all())
 
 
+# ring attention's blocks (parallel/ring_attention.py) on mesh_path's
+# dp2 x sp2 LM: B 2, H 12, a rank's 1024 rows, D 64, causal, at the
+# offsets of its own block (0), a block wholly in its past (+1024) and one
+# wholly in its future (-1024: every row dead, out 0, lse -1e30, gradients
+# 0), with the lse cotangent the logsumexp combine sends back
+RING_B, RING_H, RING_S = 2, 12, 1024
+RING_OFFSETS = (0, RING_S, -RING_S)
+
+
+def _flash_ring_offsets(torch, dev, gen, dtype, err_fwd, err_bwd):
+    """flash_attention_fwd/bwd against their plain versions at the ring's
+    offsets with a random nonzero g_lse; returns the worst errors so far."""
+    from mxnet_tpu_torch.ops.flash_attention import (
+        _flash_attention_plain, _flash_bwd_plain, flash_attention_bwd,
+        flash_attention_fwd)
+
+    dname = str(dtype).split(".")[-1]
+    tol_o, tol_g = FA_TOL[dname]
+    b, h, s, d = RING_B, RING_H, RING_S, FA_D
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    g_lse = torch.randn((b, h, s), generator=gen, device=dev)
+    for off in RING_OFFSETS:
+        out, lse = flash_attention_fwd(q, k, v, True, None, off)
+        grads = flash_attention_bwd(q, k, v, out, lse, do, g_lse, True, None,
+                                    off)
+        torch.cuda.synchronize()
+        ref_o, ref_l = _flash_attention_plain(q, k, v, True, None, off)
+        refs = _flash_bwd_plain(q, k, v, out, lse, do, g_lse, True, None,
+                                off)
+        tag = f"{dname} ring block offset={off}"
+        dead = ref_l <= -1e29
+        check(torch.equal(lse <= -1e29, dead),
+              f"{tag}: rows with no visible column differ")
+        if off < 0:
+            check(bool(dead.all()) and not bool(out.float().abs().max() > 0),
+                  f"{tag}: a future block must leave every row dead, out 0")
+        e_o, ok_o = _err(out, ref_o, tol_o)
+        e_l, ok_l = _err(lse[~dead], ref_l[~dead], 2e-5) if \
+            bool((~dead).any()) else (0.0, True)
+        check(ok_o and ok_l, f"{tag}: out err {e_o}, lse err {e_l}")
+        e_g = 0.0
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            check(bool(torch.isfinite(g).all()), f"{tag}: {name} not finite")
+            if off < 0:
+                check(not bool(g.float().abs().max() > 0),
+                      f"{tag}: {name} of a future block must be 0")
+            e, ok = _err(g, r, tol_g)
+            check(ok, f"{tag}: {name} err {e} > {tol_g}")
+            e_g = max(e_g, e)
+        err_fwd, err_bwd = max(err_fwd, e_o, e_l), max(err_bwd, e_g)
+        emit({"phase": "kernel", "kernel": "flash_attention",
+              "dtype": dname, "causal": True, "offset": off, "g_lse": True,
+              "B": b, "H": h, "S": s, "D": d, "out_err": e_o,
+              "lse_err": e_l, "grad_err": e_g,
+              "dead_rows": int(dead.sum()),
+              "tolerance": {"out": tol_o, "lse": 2e-5, "grad": tol_g}})
+    return err_fwd, err_bwd
+
+
 def phase_flash_kernels(torch, dev):
     """flash_attention_fwd/bwd against their plain versions on the strided
     q/k/v views of a (B, S, 3, H, D) projection, per dtype and case;
@@ -694,6 +754,8 @@ def phase_flash_kernels(torch, dev):
                   "out_err": e_o, "lse_err": e_l, "grad_err": e_g,
                   "dead_rows": int(dead.sum()),
                   "tolerance": {"out": tol_o, "lse": 2e-5, "grad": tol_g}})
+        errs["fwd"], errs["bwd"] = _flash_ring_offsets(
+            torch, dev, gen, dtype, errs["fwd"], errs["bwd"])
         # timings on the main path's case
         out, lse = flash_attention_fwd(q, k, v, True)
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -4796,6 +4858,172 @@ def phase_dist_path(torch, dev, smi):
     return launches
 
 
+# mesh_path: meshes of several ranks, one process each, sharing the card
+# over gloo (tools/mesh_worker.py; NCCL refuses two ranks on one card)
+MESH_TIMEOUT = 900         # seconds, any one job
+MESH_LOSS_RTOL = 1e-5      # the f32 step's loss against one process's
+MESH_GRAD_TOL = 2e-4       # each gradient, of its largest magnitude
+MESH_BF16_TOL = 5e-2       # the first bf16 loss against the f32 loss
+MESH_SHARDED = ("qkv_weight", "ffn1_weight", "proj_weight", "ffn2_weight",
+                "embed", "decoder_weight")   # halved by tp 2
+
+
+def _mesh_job(dev, n, scenarios, name):
+    from mxnet_tpu_torch.tools import mesh_worker
+
+    out = os.path.join(_out_dir(), "mesh_path", name)
+    proc = mesh_worker.start_job(n, scenarios, out, device=dev.type)
+    try:
+        res, _log = mesh_worker.job_results(proc, n, scenarios, out,
+                                            MESH_TIMEOUT)
+    except RuntimeError as e:
+        check(False, f"mesh_path {name}: {e}")
+    return res
+
+
+def _mesh_held(tag, r0):
+    """The f32 step on the mesh held to one process's (rank 0's report):
+    each gradient within MESH_GRAD_TOL of its largest magnitude of one
+    process's, or, where the step's f64 gradients were taken (ResNet:
+    BatchNorm makes a conv's gradient a small difference of large terms,
+    which two f32 sums of the batch in other orders round apart), the
+    mesh's worst error against them, as a share of each gradient's
+    largest magnitude, within the larger of MESH_GRAD_TOL and twice one
+    process's worst."""
+    check(r0["loss_rel_err"] <= MESH_LOSS_RTOL,
+          f"{tag}: loss {r0['loss_f32']} vs one process's "
+          f"{r0['loss_one_process']}")
+    if "grad_f64_excess" in r0:
+        check(r0["grad_f64_excess"] <= 1.0,
+              f"{tag}: gradient at {r0['grad_f64_mesh_at']} is "
+              f"{r0['grad_f64_mesh']} of its max from the f64 step's, one "
+              f"process's worst {r0['grad_f64_one']}")
+    else:
+        check(r0["grad_worst_of_max"] <= MESH_GRAD_TOL,
+              f"{tag}: gradient at {r0['grad_worst_at']} is "
+              f"{r0['grad_worst_of_max']} of its max from one process's")
+    check(r0["step1_worst_of_tolerance"] <= 1.0,
+          f"{tag}: step 1 at {r0['step1_worst_at']} is "
+          f"{r0['step1_worst_of_tolerance']} of the tolerance")
+
+
+def _ring_launches(tag, ranks, cuda, s_loc):
+    """Every rank launched both flash kernels at offset 0 (its own block)
+    and at -s_loc (sp index 0: the block of its future) or +s_loc (sp
+    index 1: the block of its past)."""
+    total = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    for r, res in enumerate(ranks):
+        other = str(-s_loc if res["coordinate"]["sp"] == 0 else s_loc)
+        for k, by_off in res["launches"].items():
+            total[k] += sum(by_off.values())
+            if cuda:
+                check(by_off.get("0", 0) > 0 and by_off.get(other, 0) > 0,
+                      f"{tag} rank {r}: {k} launches by offset {by_off}, "
+                      f"wanted 0 and {other}")
+    return total
+
+
+def phase_mesh_path(torch, dev, smi):
+    """Meshes of several ranks sharing the card over gloo, through
+    ``tools/launch.py`` and ``tools/mesh_worker.py``: which collectives
+    gloo takes on the card; (a) the full-width LM on dp2 x sp2 (ring
+    attention on the flash kernels at offsets 0 and +-1024): one f32 step
+    held to one process's on the same batch and weights, 3 bf16 steps and
+    a profiled one, dp replicas bitwise equal after each; (b) the same LM
+    on sp2 x tp2 under bert_sharding_rules(): the f32 step held, the tp
+    shards half the elements; (c) ResNet-50 v1 on dp2 with BatchNorm and
+    with SyncBatchNorm, one f32 step each held to one process's on the
+    whole batch. Returns the flash launches of every rank."""
+    cuda = dev.type == "cuda"
+    walls = {}
+    t0 = time.perf_counter()
+    probe = _mesh_job(dev, 2, ["probe"], "probe")["probe"][0]
+    bad = {k: v for k, v in probe["collectives"].items() if v != "ok"}
+    check(not bad, f"mesh_path: collectives on {probe['device']} over "
+          f"{probe['backend']} failed: {bad}")
+    route = probe["ring_route"]
+    print(f"mesh_path collectives on {probe['device']} over "
+          f"{probe['backend']}: " + ", ".join(
+              f"{k} {v}" for k, v in probe["collectives"].items())
+          + f"; ring exchange route: {route}", flush=True)
+    walls["probe"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    lm = _mesh_job(dev, 4, ["lm_dp2sp2", "lm_sp2tp2"], "lm")
+    walls["lm"] = time.perf_counter() - t0
+    a, b = lm["lm_dp2sp2"], lm["lm_sp2tp2"]
+    _mesh_held("mesh_path (a) dp2 x sp2", a[0])
+    _mesh_held("mesh_path (b) sp2 x tp2", b[0])
+    s_loc = a[0]["seq"] // 2
+    for tag, ranks in (("(a)", a), ("(b)", b)):
+        for r, res in enumerate(ranks):
+            check(all(res["replicas_equal"]), f"mesh_path {tag} rank {r}: "
+                  f"replicas differ after a step: {res['replicas_equal']}")
+            check(res["device"].startswith(dev.type),
+                  f"mesh_path {tag} rank {r} on {res['device']}")
+    for r, res in enumerate(a):
+        losses = res["bf16_losses"]
+        check(all(math.isfinite(v) for v in losses),
+              f"mesh_path (a) rank {r}: bf16 losses {losses}")
+        check(losses == a[0]["bf16_losses"],
+              f"mesh_path (a) rank {r}: bf16 losses differ between ranks")
+    check(abs(a[0]["bf16_losses"][0] - a[0]["loss_f32"]) <= MESH_BF16_TOL,
+          f"mesh_path (a): first bf16 loss {a[0]['bf16_losses'][0]} vs "
+          f"f32 {a[0]['loss_f32']}")
+    for r, res in enumerate(b):
+        for k in MESH_SHARDED:
+            mine, whole = res["shard_bytes"][k]
+            check(2 * mine == whole, f"mesh_path (b) rank {r}: {k} holds "
+                  f"{mine} of {whole} bytes, not half")
+    launches = _ring_launches("mesh_path (a)", a, cuda, s_loc)
+    for k, v in _ring_launches("mesh_path (b)", b, cuda, s_loc).items():
+        launches[k] += v
+
+    t0 = time.perf_counter()
+    zoo = _mesh_job(dev, 2, ["resnet_dp2"], "resnet")["resnet_dp2"]
+    walls["resnet"] = time.perf_counter() - t0
+    for norm in ("BatchNorm", "SyncBatchNorm"):
+        _mesh_held(f"mesh_path (c) ResNet-50 dp2 {norm}", zoo[0][norm])
+        for r, res in enumerate(zoo):
+            check(res[norm]["replicas_equal"],
+                  f"mesh_path (c) {norm} rank {r}: replicas differ")
+    emit({"phase": "mesh_path", "card": smi, "backend": probe["backend"],
+          "collectives": probe["collectives"],
+          "ring_exchange_route": route,
+          "a_dp2_sp2": {
+              "ranks": 4, "batch": a[0]["batch"], "seq": a[0]["seq"],
+              "loss_f32": a[0]["loss_f32"],
+              "loss_rel_err": a[0]["loss_rel_err"],
+              "grad_worst_of_max": a[0]["grad_worst_of_max"],
+              "step1_worst_of_tolerance": a[0]["step1_worst_of_tolerance"],
+              "bf16_losses": a[0]["bf16_losses"],
+              "bf16_step_ms": [r["bf16_step_ms"] for r in a],
+              "profiled_step_ms": [r["profiled_step_ms"] for r in a],
+              "collective_ms": [r["collective_ms"] for r in a],
+              "idle_share": [r["idle_share"] for r in a],
+              "launches_by_offset": [r["launches"] for r in a],
+              "peak_mem_gb": [r.get("peak_mem_gb") for r in a]},
+          "b_sp2_tp2": {
+              "ranks": 4, "loss_f32": b[0]["loss_f32"],
+              "loss_rel_err": b[0]["loss_rel_err"],
+              "grad_worst_of_max": b[0]["grad_worst_of_max"],
+              "step1_worst_of_tolerance": b[0]["step1_worst_of_tolerance"],
+              "shard_bytes": b[0]["shard_bytes"],
+              "launches_by_offset": [r["launches"] for r in b]},
+          "c_resnet_dp2": {
+              "ranks": 2, "batch": zoo[0]["batch"],
+              **{norm: {k: zoo[0][norm][k] for k in (
+                  "loss_f32", "loss_rel_err", "grad_worst_of_max",
+                  "grad_worst_at", "grad_f64_mesh", "grad_f64_one",
+                  "grad_f64_excess", "step1_worst_of_tolerance",
+                  "held_ms")}
+                 for norm in ("BatchNorm", "SyncBatchNorm")}},
+          "tolerance": {"loss_rel": MESH_LOSS_RTOL, "grad": MESH_GRAD_TOL,
+                        "bf16_loss": MESH_BF16_TOL},
+          "job_wall_s": walls, "kernel_launches": launches})
+    return launches
+
+
 NP_SEED = 3
 NP_TOL = 1e-4              # card vs CPU, relative to each tensor's max
 
@@ -4946,6 +5174,7 @@ def main() -> int:
     served, zoo_ckpt = run(phase_serve_path, torch, dev, smi)
     fleet = run(phase_fleet_path, torch, dev, smi, zoo_ckpt)
     dist = run(phase_dist_path, torch, dev, smi)
+    mesh = run(phase_mesh_path, torch, dev, smi)
     before = [k.launches for k in own]
     run(phase_np_path, torch, dev, smi)
     check([k.launches for k in own] == before,
@@ -4955,7 +5184,7 @@ def main() -> int:
     flash_launches = {k: train_launches[k] + nd_launches[k]
                       + gluon_launches[k] + estimator_launches[k]
                       + module_launches[k] + served[k] + fleet[k]
-                      + dist[k] for k in train_launches}
+                      + dist[k] + mesh[k] for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
@@ -4969,8 +5198,9 @@ def main() -> int:
                       chunk=kern["chunk"]),
         # launches: the training path's (bf16), the nd path's, the gluon
         # path's (f32 and bf16), the estimator path's (f32), the module
-        # path's (f32), the serve path's LM scoring (f32) and the two
-        # dist_sync LM workers' (f32, counted in the workers); the main
+        # path's (f32), the serve path's LM scoring (f32), the two
+        # dist_sync LM workers' (f32, counted in the workers) and the mesh
+        # path's ranks' (ring blocks, f32 and bf16); the main
         # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
         # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",

@@ -10,10 +10,12 @@ __all__ = ["SyncBatchNorm", "Identity", "HybridConcurrent", "Concurrent"]
 
 class SyncBatchNorm(BatchNorm):
     """Cross-device BatchNorm through the ``SyncBatchNorm`` op: its
-    variance is E[x^2] - E[x]^2. On one device it has BatchNorm's
-    semantics; statistics across devices need meshes of several devices
-    (queue item A14), which ``make_mesh`` does not build yet.
-    ``num_devices`` is accepted and unused, as the reference's."""
+    variance is E[x^2] - E[x]^2, both moments over the global batch. On a
+    mesh of several ranks (``parallel.ShardedTrainer``) the batch is a
+    ``DTensor`` sharded over ``dp``, and the op's means reduce over every
+    rank's rows, forward and backward; on one device it has BatchNorm's
+    semantics. ``num_devices`` is accepted and unused, as the
+    reference's."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,

@@ -45,7 +45,8 @@ from ..ndarray import NDArray
 from . import elastic as elastic_mod
 from .kvstore import KVStore, _as_list, _copy_into
 
-__all__ = ["DistKVStore", "hierarchical_allreduce", "choose_backend"]
+__all__ = ["DistKVStore", "hierarchical_allreduce", "choose_backend",
+           "join_process_group", "launcher_rank"]
 
 _GROUP_TIMEOUT = datetime.timedelta(seconds=300)
 
@@ -58,6 +59,85 @@ def choose_backend(world_size: int):
         return "gloo", 0
     per_card = -(-int(world_size) // torch.cuda.device_count())
     return ("nccl" if per_card == 1 else "gloo"), per_card
+
+
+def _init_backend(backend: str) -> str:
+    """The ``init_process_group`` backend for ``backend``: a gloo group of
+    ranks on a card is ``parallel/host_staged.py``'s ``gloo_host``, which
+    finishes gloo's work inside each call and moves point-to-point
+    through host copies (gloo's CUDA point-to-point aborts, and its CUDA
+    work crashes ``DTensor``'s functional collectives).
+    ``MXNET_DIST_BACKEND=gloo_host`` picks it without a card too (its
+    tests on the CPU)."""
+    from ..parallel import host_staged
+
+    if backend != "gloo" or not (
+            torch.cuda.is_available()
+            or get_env("MXNET_DIST_BACKEND", "") == host_staged.BACKEND):
+        return backend
+    host_staged.register()
+    return host_staged.BACKEND
+
+
+def launcher_rank():
+    """``(rank, world size)`` from the launcher's environment
+    (``DMLC_WORKER_ID``/``DMLC_NUM_WORKER``, or the ``MXNET_`` names);
+    ``(0, 1)`` outside a job."""
+    rank = int(get_env("DMLC_WORKER_ID",
+                       get_env("MXNET_WORKER_ID", 0, int), int) or 0)
+    n = int(get_env("DMLC_NUM_WORKER",
+                    get_env("MXNET_NUM_WORKER", 1, int), int) or 1)
+    return rank, n
+
+
+def _family(backend: str) -> str:
+    """"nccl" or "gloo" for an ``init_process_group`` backend name."""
+    return "nccl" if "nccl" in str(backend) else "gloo"
+
+
+def join_process_group(rank: int, num_workers: int, who: str = "dist_sync"):
+    """Join the job's ``torch.distributed`` group as ``rank`` of
+    ``num_workers``, forming it at ``MXNET_COORDINATOR`` (or
+    ``DMLC_PS_ROOT_URI`` + ``DMLC_PS_ROOT_PORT``) if this process has none
+    yet, with :func:`choose_backend`'s backend. Returns ``(backend,
+    ranks_per_card, formed_here)``, or None for one worker without a
+    coordinator. A group of another size or rank, a missing coordinator
+    for several workers, or a group that does not form raises
+    ``MXNetError`` (``who`` names the caller)."""
+    import torch.distributed as dist
+
+    backend, per_card = choose_backend(num_workers)
+    if dist.is_initialized():
+        if dist.get_world_size() != num_workers or dist.get_rank() != rank:
+            raise MXNetError(
+                f"a torch.distributed group of world size "
+                f"{dist.get_world_size()} (rank {dist.get_rank()}) is "
+                f"already formed; {who} is rank {rank} of {num_workers}")
+        return _family(dist.get_backend()), per_card, False
+    coord = get_env("MXNET_COORDINATOR", None)
+    if not coord:
+        uri = get_env("DMLC_PS_ROOT_URI", None)
+        port = get_env("DMLC_PS_ROOT_PORT", None)
+        if uri and port:
+            coord = f"{uri}:{port}"
+    if not coord:
+        if num_workers <= 1:
+            return None
+        raise MXNetError(
+            f"{who} needs MXNET_COORDINATOR (or DMLC_PS_ROOT_URI + "
+            "DMLC_PS_ROOT_PORT); launch the workers through "
+            "python -m mxnet_tpu_torch.tools.launch")
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    try:
+        dist.init_process_group(
+            _init_backend(backend), init_method=f"tcp://{coord}",
+            world_size=num_workers, rank=rank, timeout=_GROUP_TIMEOUT)
+    except (RuntimeError, ValueError) as e:
+        raise MXNetError(
+            f"{who} rank {rank} of {num_workers} could not form its "
+            f"{backend} process group at {coord}: {e}") from e
+    return backend, per_card, True
 
 
 def hierarchical_allreduce(session, key: str, flat, group_size: int,
@@ -100,12 +180,7 @@ class DistKVStore(KVStore):
     def __init__(self, kind="dist_sync"):
         super().__init__(kind)
         self._is_async = "async" in kind
-        self._rank = int(get_env("DMLC_WORKER_ID",
-                                 get_env("MXNET_WORKER_ID", 0, int), int)
-                         or 0)
-        self._num_workers = int(get_env("DMLC_NUM_WORKER",
-                                        get_env("MXNET_NUM_WORKER", 1, int),
-                                        int) or 1)
+        self._rank, self._num_workers = launcher_rank()
         self._ps = None
         self._elastic = None
         self._gc = None
@@ -148,46 +223,11 @@ class DistKVStore(KVStore):
 
     # -- the process group -------------------------------------------------
     def _init_process_group(self):
-        coord = get_env("MXNET_COORDINATOR", None)
-        if not coord:
-            uri = get_env("DMLC_PS_ROOT_URI", None)
-            port = get_env("DMLC_PS_ROOT_PORT", None)
-            if uri and port:
-                coord = f"{uri}:{port}"
-        if not coord:
-            if self._num_workers <= 1:
-                return  # one process and no launcher: nothing to reduce
-            raise MXNetError(
-                "dist_sync needs MXNET_COORDINATOR (or DMLC_PS_ROOT_URI + "
-                "DMLC_PS_ROOT_PORT); launch the workers through "
-                "python -m mxnet_tpu_torch.tools.launch")
-        import torch.distributed as dist
-
-        backend, per_card = choose_backend(self._num_workers)
-        if dist.is_initialized():
-            if (dist.get_world_size() != self._num_workers
-                    or dist.get_rank() != self._rank):
-                raise MXNetError(
-                    f"a torch.distributed group of world size "
-                    f"{dist.get_world_size()} (rank {dist.get_rank()}) is "
-                    f"already formed; this store is rank {self._rank} of "
-                    f"{self._num_workers}")
-            backend = dist.get_backend()
-        else:
-            if backend == "nccl":
-                torch.cuda.set_device(self._rank
-                                      % torch.cuda.device_count())
-            try:
-                dist.init_process_group(
-                    backend, init_method=f"tcp://{coord}",
-                    world_size=self._num_workers, rank=self._rank,
-                    timeout=_GROUP_TIMEOUT)
-            except (RuntimeError, ValueError) as e:
-                raise MXNetError(
-                    f"dist_sync rank {self._rank} of {self._num_workers} "
-                    f"could not form its {backend} process group at "
-                    f"{coord}: {e}") from e
-            self._owns_group = True
+        joined = join_process_group(self._rank, self._num_workers,
+                                    who="dist_sync")
+        if joined is None:
+            return  # one process and no launcher: nothing to reduce
+        backend, per_card, self._owns_group = joined
         if backend == "nccl":
             self._coll_device = torch.device(
                 "cuda", self._rank % torch.cuda.device_count())

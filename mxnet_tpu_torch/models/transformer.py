@@ -39,7 +39,10 @@ from ..context import Context, as_device
 from ..gluon import nn as gnn
 from ..gluon.block import HybridBlock
 from ..ndarray.ndarray import invoke_fn
-from ..ops.attention import fused_attention
+from ..base import MXNetError
+from ..ops.attention import fused_attention, sharded_attention
+from ..parallel.mesh import current_mesh
+from ..parallel.ring_attention import sequence_sharded_attention
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "BERTEncoder", "BERTModel", "TransformerLM", "bert_base",
@@ -55,6 +58,21 @@ _LN_EPS = 1e-5  # gluon nn.LayerNorm default
 # ---------------------------------------------------------------------------
 # The Gluon model (the reference's classes)
 # ---------------------------------------------------------------------------
+
+def _whole_dim(x, dim):
+    """``x`` (a ``DTensor``) with dimension ``dim`` unsharded. The layer
+    gathers its fused projection's output, whose tp shards split inside
+    q/k/v, and the ring's output: outside attention the sequence stays
+    whole, since a batch dim sharded over dp flattened with a sequence
+    dim sharded over sp gives a strided sharding whose redistribution
+    plans DTensor searches for at length on meshes of three axes."""
+    from torch.distributed.tensor import Replicate
+
+    dim %= x.ndim
+    pl = [Replicate() if p.is_shard() and p.dim % x.ndim == dim else p
+          for p in x.placements]
+    return x.redistribute(x.device_mesh, pl)
+
 
 class MultiHeadAttention(HybridBlock):
     """Fused-QKV multi-head self-attention."""
@@ -75,18 +93,36 @@ class MultiHeadAttention(HybridBlock):
     def hybrid_forward(self, F, x, mask=None):
         b, s, u = x.shape  # (B, S, U)
         h, d = self._heads, self._units // self._heads
-        qkv = self.qkv(x).reshape((b, s, 3, h, d))
+        mesh = current_mesh()
+        if mesh is not None and not mesh.distributed:
+            mesh = None
+        qkv = self.qkv(x)
+        if mesh is not None:
+            # a tp-sharded fused projection splits inside q/k/v: gather it
+            qkv = invoke_fn(lambda t: _whole_dim(t, -1), [qkv])
+        qkv = qkv.reshape((b, s, 3, h, d))
         q, k, v = F.split(qkv, num_outputs=3, axis=2, squeeze_axis=True)
         q = q.transpose((0, 2, 1, 3))  # (B, H, S, D)
         k = k.transpose((0, 2, 1, 3))
         v = v.transpose((0, 2, 1, 3))
         causal = self._causal
 
-        def attn(qq, kk, vv, mm=None):
-            return fused_attention(qq, kk, vv, mask=mm, causal=causal)
+        if mesh is not None and mesh.shape.get("sp", 1) > 1:
+            if mask is not None:
+                raise MXNetError("MultiHeadAttention: ring attention over "
+                                 "sp takes no mask")
+            out = invoke_fn(
+                lambda qq, kk, vv: _whole_dim(sequence_sharded_attention(
+                    qq, kk, vv, mesh, causal=causal), 2), [q, k, v])
+        else:
+            def attn(qq, kk, vv, mm=None):
+                if mesh is not None:
+                    return sharded_attention(qq, kk, vv, mesh, mask=mm,
+                                             causal=causal)
+                return fused_attention(qq, kk, vv, mask=mm, causal=causal)
 
-        out = invoke_fn(attn, [q, k, v] + ([mask] if mask is not None
-                                           else []))
+            out = invoke_fn(attn, [q, k, v] + ([mask] if mask is not None
+                                               else []))
         out = out.transpose((0, 2, 1, 3)).reshape((b, s, u))
         out = self.proj(out)
         if self._dropout:

@@ -3,7 +3,9 @@
 
 One Executor on one device: ``context`` (default: the current context,
 the card unless a ``with mx.cpu():`` scope is open). A context list takes
-its first device; slicing a batch across devices is queue item A14.
+its first device: data parallelism across devices runs one process per
+device, as the ranks of a job (``kvstore="dist_sync"``, or
+``parallel.ShardedTrainer`` over a mesh).
 ``init_optimizer`` rescales gradients by 1/batch unless told otherwise,
 and ``update`` applies the whole parameter set in one multi-tensor pass
 (``Updater.update_batch``, ``optimizer/fused.py``).

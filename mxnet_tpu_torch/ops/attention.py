@@ -12,6 +12,11 @@ Counterpart of ``mxnet_tpu/ops/attention.py``, with its policy:
 value raises ``MXNetError`` (the reference treats it as auto). The
 threshold 1024 is the reference's, measured on a TPU; it has not been
 measured on the card yet.
+
+On a mesh of several ranks the model's q, k and v are ``DTensor``s:
+:func:`sharded_attention` runs :func:`fused_attention` on each rank's
+shard (B over ``dp``, H over ``tp`` where they divide), so the kernels
+only ever see plain tensors.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 from ..base import MXNetError
 from .flash_attention import flash_attention
 
-__all__ = ["fused_attention", "plain_attention"]
+__all__ = ["fused_attention", "plain_attention", "sharded_attention"]
 
 _FLASH_MIN_SEQ = 1024
 
@@ -68,3 +73,43 @@ def fused_attention(q, k, v, mask=None, causal=False, scale=None, impl=None):
     if use_flash:
         return flash_attention(q, k, v, causal=causal, scale=scale)
     return plain_attention(q, k, v, mask=mask, causal=causal, scale=scale)
+
+
+def sharded_attention(q, k, v, mesh, mask=None, causal=False, scale=None):
+    """:func:`fused_attention` of global (B, H, S, D) ``DTensor``s over
+    ``mesh`` (a ``parallel.Mesh`` of several ranks), computed on each
+    rank's shard: B over ``dp`` and H over ``tp`` where they divide, the
+    rest of the mesh replicated. A mask (B or 1, H or 1, S, S) is sliced
+    the same way. Returns the output as a ``DTensor`` in that
+    sharding."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ..parallel.sharding import NamedSharding, P, _prune
+
+    spec = _prune(P("dp", "tp"), mesh, tuple(q.shape))
+    placements = NamedSharding(mesh, spec).placements
+    dm = mesh.device_mesh
+
+    def local(t, pl):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                                   run_check=False)
+        return t.redistribute(dm, pl).to_local()
+
+    ql, kl, vl = (local(t, placements) for t in (q, k, v))
+    if mask is not None:
+        # a broadcast dim of the mask stays whole
+        mpl = [pl if not pl.is_shard() or mask.shape[pl.dim] == q.shape[
+            pl.dim] else Replicate() for pl in placements]
+        mask = local(mask, mpl)
+    out = fused_attention(ql, kl, vl, mask=mask, causal=causal, scale=scale)
+    return DTensor.from_local(out, dm, placements, run_check=False,
+                              shape=q.shape, stride=_contiguous(q.shape))
+
+
+def _contiguous(shape):
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))

@@ -400,9 +400,11 @@ def _div_sqrt_dim(data):
 
 
 # ---------------------------------------------------------------------------
-# SyncBatchNorm: on one device, BatchNorm with E[x^2] - E[x]^2 statistics.
-# Statistics across devices need meshes of several devices (queue item
-# A14), which make_mesh does not build yet.
+# SyncBatchNorm: BatchNorm with E[x^2] - E[x]^2 statistics of the global
+# batch. On a mesh of several ranks the data is a DTensor sharded over dp
+# (parallel.ShardedTrainer), and the means below reduce over every rank's
+# rows (an all-reduce of the partial sums), forward and backward: the
+# reference's pmean over "dp". On one device they are the device's.
 # ---------------------------------------------------------------------------
 
 def _sync_bn_n_out(kwargs):

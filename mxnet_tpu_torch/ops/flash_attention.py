@@ -7,7 +7,8 @@ yardstick the kernel is held to on the card. A wrapper computes the plain
 version only for a tensor on the CPU (or on ``meta``, where the plain
 version gives the output's shape to symbolic shape inference and nothing
 is computed); on a CUDA tensor it launches its kernel, counts the launch
-in its ``.launches`` and never falls back.
+in its ``.launches`` (and in ``.by_offset``, by causal offset) and never
+falls back.
 
 Flash attention
 ---------------
@@ -380,10 +381,20 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, offset=0,
         raise MXNetError(f"flash_attention_fwd launch failed: cudaError "
                          f"{err}")
     flash_attention_fwd.launches += 1
+    _count_offset(flash_attention_fwd, causal, offset)
     return out, lse
 
 
+def _count_offset(wrapper, causal, offset):
+    """One more launch at this causal offset (``wrapper.by_offset``; the
+    key is None for a non-causal launch): ring attention launches the
+    kernels at offset 0 and +-S."""
+    key = int(offset) if causal else None
+    wrapper.by_offset[key] = wrapper.by_offset.get(key, 0) + 1
+
+
 flash_attention_fwd.launches = 0
+flash_attention_fwd.by_offset = {}
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
@@ -436,10 +447,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
         raise MXNetError(f"flash_attention_bwd launch failed: cudaError "
                          f"{err}")
     flash_attention_bwd.launches += 1
+    _count_offset(flash_attention_bwd, causal, offset)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.by_offset = {}
 
 
 # ---------------------------------------------------------------------------

@@ -195,7 +195,18 @@ def _take(a, indices, axis=0, mode="clip"):
 def _embedding(data, weight, input_dim=None, output_dim=None,
                dtype="float32", sparse_grad=False):
     idx = data.to(torch.int32).long().clamp(0, weight.shape[0] - 1)
-    return weight[idx]
+    placements = getattr(weight, "placements", None)
+    if placements is not None and any(p.is_shard() for p in placements):
+        # a table sharded over a mesh (a DTensor): gathered whole, so that
+        # the lookup and its backward take DTensor's plainest strategies
+        from torch.distributed.tensor import Replicate
+
+        weight = weight.redistribute(weight.device_mesh,
+                                     [Replicate()] * len(placements))
+    # the embedding op, not weight[idx]: its backward is embedding_dense_
+    # backward, which DTensor shards on every version; index_put's (the
+    # indexing backward) fails on torch 2.11 with a batch sharded over dp
+    return torch.nn.functional.embedding(idx, weight)
 
 
 @register("one_hot", differentiable=False, ndarray_inputs=["indices"])

@@ -290,6 +290,12 @@ def _var_mean(x, dims, keepdim):
     (torch would reduce every dim): (0, x)."""
     if not dims:
         return torch.zeros_like(x), x
+    if hasattr(x, "placements"):
+        # a DTensor: torch 2.11 has no sharding rule for var_mean; the
+        # means shard (their partial sums reduce over the ranks)
+        mean = torch.mean(x, dim=dims, keepdim=True)
+        var = torch.mean(torch.square(x - mean), dim=dims, keepdim=keepdim)
+        return var, (mean if keepdim else mean.reshape(var.shape))
     return torch.var_mean(x, dim=dims, correction=0, keepdim=keepdim)
 
 
@@ -320,7 +326,10 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 min_calib_range=None, max_calib_range=None, _train=None):
     """out, or (out, batch mean, batch variance) with ``output_mean_var``.
     The batch statistics are computed in at least f32 and the variance is
-    the biased one; the caller (the Gluon layer) folds them into the
+    the biased one; on a mesh of several ranks they are the global
+    batch's (``data`` is a ``DTensor`` sharded over ``dp``, and the
+    means reduce over every rank's rows), as GSPMD gives the
+    reference; the caller (the Gluon layer) folds them into the
     moving averages, as the reference does. Normalisation runs in the
     data's dtype, so f32 statistics do not promote a bf16 activation."""
     ax = int(axis) % data.ndim
@@ -414,13 +423,22 @@ def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                  pad=(), num_filter=0, num_group=1, workspace=1024,
                  no_bias=False, cudnn_tune=None, cudnn_off=False,
                  layout=None):
-    """N-d convolution, NC + spatial layout, weight (out, in/g, *k)."""
+    """N-d convolution, NC + spatial layout, weight (out, in/g, *k); on
+    a mesh, each rank's rows of a batch-sharded input on their own
+    (``parallel.sharding.batch_local``)."""
+    from ..parallel.sharding import batch_local
+
     nsp = data.ndim - 2
-    return _CONV[nsp](data, weight, None if no_bias else bias,
-                      stride=_spatial(stride, nsp, 1),
-                      padding=_spatial(pad, nsp, 0),
-                      dilation=_spatial(dilate, nsp, 1),
-                      groups=int(num_group))
+
+    def conv(x, w, *b):
+        return _CONV[nsp](x, w, b[0] if b else None,
+                          stride=_spatial(stride, nsp, 1),
+                          padding=_spatial(pad, nsp, 0),
+                          dilation=_spatial(dilate, nsp, 1),
+                          groups=int(num_group))
+
+    has_bias = bias is not None and not no_bias
+    return batch_local(conv, data, weight, *([bias] if has_bias else []))
 
 
 @register("Deconvolution", ndarray_inputs=["data", "weight", "bias"])
@@ -467,6 +485,17 @@ def _sum_pool(x, kernel, stride):
 def _pooling(data, kernel=(), stride=(), pad=(), pool_type="max",
              global_pool=False, pooling_convention="valid", cudnn_off=False,
              p_value=2, count_include_pad=True, layout=None):
+    """:func:`_pool`; on a mesh, each rank's rows of a batch-sharded
+    input on their own (``parallel.sharding.batch_local``)."""
+    from ..parallel.sharding import batch_local
+
+    return batch_local(lambda x: _pool(
+        x, kernel, stride, pad, pool_type, global_pool, pooling_convention,
+        p_value, count_include_pad), data)
+
+
+def _pool(data, kernel, stride, pad, pool_type, global_pool,
+          pooling_convention, p_value, count_include_pad):
     """max, avg, sum and lp pooling over 1-3 spatial dims. ``valid``
     windows fit the symmetrically padded input; ``full`` (ceil) windows
     may run past it, the right edge padded to fit, as in the reference.

@@ -6,8 +6,10 @@ None per array dimension, as ``jax.sharding.PartitionSpec`` does, and a
 :class:`NamedSharding` pairs a spec with its mesh. Specs are pruned
 against the mesh as in the reference: an axis the mesh lacks, or whose
 size does not divide the dimension, becomes None, so one rule table
-serves every mesh. On the port's one-device meshes each spec therefore
-places the whole array on the one device.
+serves every mesh. A :class:`NamedSharding`'s ``placements`` are the
+pruned spec as ``DTensor`` placements, one per mesh dimension:
+``Shard(d)`` where the spec puts that axis on array dimension ``d``,
+``Replicate()`` elsewhere.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .mesh import Mesh
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "ShardingRules",
-           "param_sharding", "batch_sharding", "replicated"]
+           "param_sharding", "batch_sharding", "replicated", "batch_local"]
 
 
 class PartitionSpec(tuple):
@@ -41,10 +43,25 @@ class NamedSharding:
         self.spec = spec
 
     @property
-    def device(self):
-        """The device that holds the array (the port's meshes have
-        one)."""
-        return self.mesh.devices.flat[0]
+    def placements(self):
+        """One ``DTensor`` placement per mesh dimension. Axes that share
+        an array dimension shard it in mesh order, as a tuple of axes in
+        the mesh's order does in the reference; another order raises."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        dims = {}
+        for i, part in enumerate(self.spec):
+            axs = part if isinstance(part, tuple) else (part,)
+            for a in axs:
+                if a is not None:
+                    dims[a] = i
+            named = [a for a in axs if a is not None]
+            if named != sorted(named, key=self.mesh.axis_names.index):
+                raise ValueError(
+                    f"{self.spec!r}: axes {tuple(named)} shard one dimension "
+                    f"out of the mesh's order {self.mesh.axis_names}")
+        return tuple(Shard(dims[a]) if a in dims else Replicate()
+                     for a in self.mesh.axis_names)
 
     def __repr__(self):
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
@@ -120,3 +137,30 @@ def batch_sharding(mesh: Mesh, spec: P = P("dp"),
     """Sharding for a batch-leading array; ``shape`` prunes axes that do
     not divide the corresponding dim."""
     return NamedSharding(mesh, _prune(spec, mesh, shape))
+
+
+def batch_local(fn, data, *params):
+    """``fn(data, *params)`` for an op that treats each row of the batch
+    (dim 0) on its own, such as a convolution or a pooling. When ``data``
+    is a ``DTensor`` sharded over the batch dim only and ``params`` are
+    replicated, each rank runs ``fn`` on its own rows (the parameters'
+    gradients are partial sums over the batch's mesh dims) and the result
+    keeps ``data``'s placements: DTensor's rule for strided, padded
+    convolutions refuses a batch-sharded input on torch 2.11. Any other
+    input goes to ``fn`` as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(data, DTensor):
+        return fn(data, *params)
+    pl = data.placements
+    if any(p.is_partial() or (p.is_shard() and p.dim % data.ndim != 0)
+           for p in pl) or any(
+               isinstance(q, DTensor) and not all(r.is_replicate()
+                                                  for r in q.placements)
+               for q in params):
+        return fn(data, *params)
+    grads = [Partial() if p.is_shard() else Replicate() for p in pl]
+    local = [q.to_local(grad_placements=grads) if isinstance(q, DTensor)
+             else q for q in params]
+    out = fn(data.to_local(), *local)
+    return DTensor.from_local(out, data.device_mesh, pl, run_check=False)

@@ -24,7 +24,7 @@ Layers
   scaling of a pool (``autoscale.py``).
 
 The persisted programs of :func:`ship_programs` are queue item A15 of the
-port; mesh-sliced pools (``ReplicaPool.sharded``) are A14.
+port; mesh-sliced pools (``ReplicaPool.sharded``) are A14(c).
 
 Typical session::
 

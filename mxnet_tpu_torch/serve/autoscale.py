@@ -32,7 +32,7 @@ The windowed burn reads the router's ``fleet.request_latency_seconds``
 histogram and ``fleet.request_deadline_exceeded`` counter, which the
 router records while ``obs`` is enabled. A pool on mesh slices
 (``ReplicaPool.sharded``, the reference's default scale-out factory) is
-queue item A14 of the port: a pool here passes ``factory=``.
+queue item A14(c) of the port: a pool here passes ``factory=``.
 """
 from __future__ import annotations
 
@@ -186,7 +186,7 @@ class Autoscaler:
     factory : callable, optional
         Zero-arg callable returning a fresh replica handle for scale-out.
         Required: the reference's default, ``pool.new_sharded_handle`` of
-        a mesh-sliced pool, is queue item A14 of the port.
+        a mesh-sliced pool, is queue item A14(c) of the port.
     policy / slo
         Decision policy and the SLO monitor whose ``burn_window`` supplies
         the windowed burn signal (defaults: :class:`AutoscalePolicy()`,

@@ -27,7 +27,7 @@ launches the flash forward kernel):
 
 Differences from the reference, each raising :class:`MXNetError` where it
 applies: ``mesh=``, ``rules=`` and ``data_spec=`` (sharded serving) belong
-to queue item A14; ``progcache_dir=`` and ``save_programs`` (persisted
+to queue item A14(c); ``progcache_dir=`` and ``save_programs`` (persisted
 programs), and the ``lint="error"`` pre-flight (``Symbol.lint``) to A15.
 The default ``lint="warn"`` warns once that the pre-flight did not run
 (``lint_report`` stays None). ``warmup`` runs its buckets one after the
@@ -167,7 +167,8 @@ class InferenceEngine:
             if val is not None:
                 raise MXNetError(
                     f"InferenceEngine({name}=): sharded serving over a "
-                    "device mesh is queue item A14 of the port")
+                    "device mesh is queue item A14(c) of the "
+                    "port")
         if progcache_dir is not None:
             raise MXNetError("InferenceEngine(progcache_dir=): persisted "
                              "programs are queue item A15 of the port")

@@ -50,7 +50,7 @@ and ``fleet.request_latency_seconds`` histograms go into ``obs.metrics``
 them. The reference's fleet spans, events and tail notes, its
 ``MXNET_CHAOS_KILL_REPLICA<i>`` kill points, the child's span stream
 (``obs_dir=``) and the program cache (``progcache_dir=``) are queue item
-A15 of the port; the mesh-sliced pools (``ReplicaPool.sharded``) are A14.
+A15 of the port; the mesh-sliced pools (``ReplicaPool.sharded``) are A14(c).
 Each raises naming its item.
 """
 from __future__ import annotations
@@ -364,7 +364,7 @@ class ReplicaPool:
         # membership generation: bumped on every activate/leave —
         # autoscale events are generation deltas
         self.generation = 0
-        # mesh-sliced pools (ReplicaPool.sharded) are queue item A14: a
+        # mesh-sliced pools (ReplicaPool.sharded) are queue item A14(c): a
         # pool here never has a slice factory
         self._make_server: Optional[Callable] = None
 
@@ -384,19 +384,19 @@ class ReplicaPool:
     def sharded(cls, make_server: Callable, groups: Optional[int] = None, *,
                 mesh=None, start: Optional[int] = None,
                 **kw) -> "ReplicaPool":
-        """Data-parallel replica groups on mesh slices: queue item A14 of
+        """Data-parallel replica groups on mesh slices: queue item A14(c) of
         the port (a device mesh over several cards)."""
         raise MXNetError("ReplicaPool.sharded: replica groups on mesh "
-                         "slices are queue item A14 of the port")
+                         "slices are queue item A14(c) of the port")
 
     def new_sharded_handle(self) -> LocalReplica:
         raise MXNetError("ReplicaPool.new_sharded_handle: mesh-sliced pools "
-                         "are queue item A14 of the port")
+                         "are queue item A14(c) of the port")
 
     @property
     def spare_slices(self) -> int:
         raise MXNetError("ReplicaPool.spare_slices: mesh-sliced pools are "
-                         "queue item A14 of the port")
+                         "queue item A14(c) of the port")
 
     # -- lifecycle ------------------------------------------------------
     def start(self, wait_ready: bool = True) -> "ReplicaPool":

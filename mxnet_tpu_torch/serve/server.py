@@ -549,14 +549,14 @@ def main(argv=None):  # pragma: no cover - CLI shim
                          "port: raises when given)")
     ap.add_argument("--tp", type=int, default=0,
                     help="tensor-parallel engine over N devices (queue item "
-                         "A14 of the port: raises above 0)")
+                         "A14(c) of the port: raises above 0)")
     args = ap.parse_args(argv)
     if args.progcache_dir:
         raise ServeError("--progcache-dir: persisted programs are queue "
                          "item A15 of the port")
     if args.tp:
         raise ServeError("--tp: a tensor-parallel engine over a device mesh "
-                         "is queue item A14 of the port")
+                         "is queue item A14(c) of the port")
 
     from . import load
 

@@ -26,7 +26,7 @@ child from spawn to ready, twice.
 
 Every leg runs on the card unless ``--device cpu`` is given; without a
 card and without it, building the engine raises. The mesh-scaling and
-autoscaled-ramp legs (``--scale``, ``--ramp``) are queue item A14 of the
+autoscaled-ramp legs (``--scale``, ``--ramp``) are queue item A14(c) of the
 port; the telemetry-overhead legs (``--obs-overhead``, ``--wire-hop``,
 ``--prof-overhead``) are A15. Each raises naming its item.
 
@@ -514,20 +514,20 @@ def _closed_drive(addr, payload, clients, duration, deadline_ms=None):
 
 def run_scale_bench(*args, **kwargs):
     """Closed-loop qps through tensor-parallel replica groups on mesh
-    slices: queue item A14 of the port."""
+    slices: queue item A14(c) of the port."""
     from ..base import MXNetError
 
     raise MXNetError("serve_bench --scale: replica groups on mesh slices "
-                     "are queue item A14 of the port")
+                     "are queue item A14(c) of the port")
 
 
 def run_ramp_bench(*args, **kwargs):
     """An open-loop ramp against an autoscaled mesh-sliced fleet: queue
-    item A14 of the port."""
+    item A14(c) of the port."""
     from ..base import MXNetError
 
     raise MXNetError("serve_bench --ramp: the autoscaled mesh-sliced fleet "
-                     "is queue item A14 of the port")
+                     "is queue item A14(c) of the port")
 
 
 def _a15(what):
@@ -725,7 +725,7 @@ def main(argv=None):
                          "streams with churn through the paged-KV engine "
                          "and the streaming wire (always prints JSON; "
                          "exits 1 on a program-bound break or a page leak)")
-    for flag, item in (("--scale", "A14"), ("--ramp", "A14"),
+    for flag, item in (("--scale", "A14(c)"), ("--ramp", "A14(c)"),
                        ("--obs-overhead", "A15"), ("--wire-hop", "A15"),
                        ("--prof-overhead", "A15")):
         ap.add_argument(flag, action="store_true",

@@ -325,6 +325,42 @@ def test_flash_kernels_match_plain(cuda_device, dtype, tol, gtol, causal,
 
 
 @pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 2e-5, 5e-4),
+                                            (torch.bfloat16, 2e-2, 2e-2)])
+@pytest.mark.parametrize("offset", [0, 128, -128],
+                         ids=["diagonal", "past_block", "future_block"])
+def test_flash_kernels_at_ring_offsets_with_lse_cotangent(cuda_device, dtype,
+                                                          tol, gtol, offset):
+    """Ring attention's blocks (a rank's S rows against one visiting
+    block): offset 0, +S (every key visible) and -S (every row dead: out
+    0, lse -1e30, gradients 0), with a random nonzero lse cotangent in the
+    backward, as the logsumexp combine sends it."""
+    s = 128
+    q, k, v, do = _qkv(cuda_device, dtype, 2, 3, s, 64, seed=31)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(32)
+    g_lse = torch.randn((2, 3, s), generator=gen, device=cuda_device)
+    out, lse = tfa.flash_attention_fwd(q, k, v, True, None, offset)
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, do, g_lse, True,
+                                    None, offset)
+    torch.cuda.synchronize()
+    ref_o, ref_l = tfa._flash_attention_plain(q, k, v, True, None, offset)
+    _assert_near(out, ref_o, tol)
+    dead = ref_l <= -1e29
+    assert torch.equal(lse <= -1e29, dead)
+    if offset < 0:
+        assert bool(dead.all()) and not bool(out.float().abs().max() > 0)
+    else:
+        _assert_near(lse[~dead], ref_l[~dead], 2e-5)
+    refs = tfa._flash_bwd_plain(q, k, v, out, lse, do, g_lse, True, None,
+                                offset)
+    for g, r in zip(grads, refs):
+        assert torch.isfinite(g).all()
+        _assert_near(g, r, gtol)
+        if offset < 0:
+            assert not bool(g.float().abs().max() > 0)
+
+
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 2e-5, 5e-4),
                                             (torch.bfloat16, 2e-2, 2e-2),
                                             (torch.float16, 2e-2, 2e-2)])
 @pytest.mark.parametrize("causal", [True, False])

@@ -81,6 +81,8 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.kvstore.elastic, "
             "mxnet_tpu_torch.kvstore.compression, "
             "mxnet_tpu_torch.tools.launch, mxnet_tpu_torch.tools.dist_worker, "
+            "mxnet_tpu_torch.parallel.ring_attention, "
+            "mxnet_tpu_torch.tools.mesh_worker, "
             "mxnet_tpu_torch.serve.engine, mxnet_tpu_torch.serve.batcher, "
             "mxnet_tpu_torch.serve.server, mxnet_tpu_torch.serve.client\n"
             "import mxnet_tpu_torch as mx\n"

@@ -17,6 +17,9 @@ own cases (``tests/test_parallel.py:77, 185, 222, 255, 284, 328``) run
 through the port beside them, and so do ``bench.py``'s ResNet and BERT
 trainer set-ups (at small sizes).
 """
+import contextlib
+import warnings
+
 import jax
 import numpy as np
 import pytest
@@ -33,8 +36,16 @@ from mxnet_tpu_torch.gluon.utils import set_params_from_numpy
 from mxnet_tpu_torch.models import (bert_sharding_rules, bert_tiny,
                                     transformer_lm)
 from mxnet_tpu_torch.parallel import P
+from torch.distributed.tensor import Replicate
 
 torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def _no_warning():
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        yield
 
 TOL = 1e-5
 LATER_LOSS_RTOL = 1e-4
@@ -190,9 +201,18 @@ def test_make_mesh_one_device():
 @pytest.mark.parametrize("axes", [{"dp": 2}, {"dp": 2, "tp": 4},
                                   {"sp": 8}, {"dp": -1}])
 def test_multi_device_mesh_raises_naming_a14(axes):
+    """Meshes of several devices (queue item A14) are rank arrays now;
+    their DeviceMesh needs a job of that many ranks, and outside one it
+    raises, naming the launcher."""
     devices = [torch.device("cpu")] * 8
-    with pytest.raises(MXNetError, match="A14"):
-        par.make_mesh(axes, devices=devices)
+    with pytest.warns(UserWarning) if -1 not in axes.values() and \
+            np.prod(list(axes.values())) < 8 else _no_warning():
+        mesh = par.make_mesh(axes, devices=devices)
+    want = {a: (8 if v == -1 else v) for a, v in axes.items()}
+    assert par.mesh_axes(mesh) == want
+    assert mesh.distributed
+    with pytest.raises(MXNetError, match="mxnet_tpu_torch.tools.launch"):
+        mesh.device_mesh
 
 
 def test_sharding_rules_prune_to_replicated_on_one_device():
@@ -210,7 +230,7 @@ def test_sharding_rules_prune_to_replicated_on_one_device():
     assert par.replicated(mesh).spec == P()
     sh = par.param_sharding(mesh, rules, {"a_ffn1_weight": (8, 4)})
     assert sh["a_ffn1_weight"].spec == P()
-    assert sh["a_ffn1_weight"].device == torch.device("cpu")
+    assert sh["a_ffn1_weight"].placements == (Replicate(),)
     # the same names and specs as the reference's table
     jrules = jmx.models.bert_sharding_rules()
     assert [(p.pattern, tuple(s)) for p, s in rules.rules] == \

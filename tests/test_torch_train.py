@@ -368,14 +368,16 @@ def test_trainer_settings_and_rejections():
     with pytest.raises(ValueError, match="not in"):
         ShardedTrainer(lm, loss, optimizer="lamb")
     # the reference's mesh and specs are taken on one device; two devices
-    # are a later slice (queue item A14)
+    # (queue item A14) are two ranks of a job, and outside one the
+    # trainer raises, naming the launcher
     with tmx.cpu():
         mesh = make_mesh({"dp": 1})
     tr = ShardedTrainer(lm, loss, mesh, input_specs=("dp",),
                         label_specs=("dp",))
     assert tr.device == torch.device("cpu")
-    with pytest.raises(MXNetError, match="A14"):
-        make_mesh({"dp": 2}, devices=[torch.device("cpu")] * 2)
+    two = make_mesh({"dp": 2}, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(MXNetError, match="mxnet_tpu_torch.tools.launch"):
+        ShardedTrainer(lm, loss, two)
     with pytest.raises(ValueError, match="grad_accum"):
         ShardedTrainer(lm, loss, grad_accum=0)
 
