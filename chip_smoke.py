@@ -4886,18 +4886,26 @@ def _mesh_held(tag, r0):
     each gradient within MESH_GRAD_TOL of its largest magnitude of one
     process's, or, where the step's f64 gradients were taken (ResNet:
     BatchNorm makes a conv's gradient a small difference of large terms,
-    which two f32 sums of the batch in other orders round apart), the
-    mesh's worst error against them, as a share of each gradient's
-    largest magnitude, within the larger of MESH_GRAD_TOL and twice one
-    process's worst."""
+    which two f32 sums of the batch in other orders round apart), each
+    gradient's error against them, as a share of its largest magnitude,
+    within the larger of MESH_GRAD_TOL and ``GRAD_F64_K`` times one
+    process's error at the same gradient, and the same step in f64 on
+    the mesh within ``GRAD_F64_STEP_TOL`` of one process's
+    (``tools/mesh_worker.py``)."""
+    from mxnet_tpu_torch.tools import mesh_worker
+
     check(r0["loss_rel_err"] <= MESH_LOSS_RTOL,
           f"{tag}: loss {r0['loss_f32']} vs one process's "
           f"{r0['loss_one_process']}")
     if "grad_f64_excess" in r0:
+        at = r0["grad_f64_excess_at"]
+        mesh, one = r0["grad_f64_leaves"][at]
         check(r0["grad_f64_excess"] <= 1.0,
-              f"{tag}: gradient at {r0['grad_f64_mesh_at']} is "
-              f"{r0['grad_f64_mesh']} of its max from the f64 step's, one "
-              f"process's worst {r0['grad_f64_one']}")
+              f"{tag}: gradient {at} is {mesh} of its max from the f64 "
+              f"step's, one process's {one}")
+        check(r0["grad_f64_step_of_max"] <= mesh_worker.GRAD_F64_STEP_TOL,
+              f"{tag}: the mesh's f64 gradient {r0['grad_f64_step_at']} is "
+              f"{r0['grad_f64_step_of_max']} of its max from one process's")
     else:
         check(r0["grad_worst_of_max"] <= MESH_GRAD_TOL,
               f"{tag}: gradient at {r0['grad_worst_at']} is "
@@ -4934,6 +4942,8 @@ def phase_mesh_path(torch, dev, smi):
     shards half the elements; (c) ResNet-50 v1 on dp2 with BatchNorm and
     with SyncBatchNorm, one f32 step each held to one process's on the
     whole batch. Returns the flash launches of every rank."""
+    from mxnet_tpu_torch.tools import mesh_worker
+
     cuda = dev.type == "cuda"
     walls = {}
     t0 = time.perf_counter()
@@ -5015,10 +5025,14 @@ def phase_mesh_path(torch, dev, smi):
               **{norm: {k: zoo[0][norm][k] for k in (
                   "loss_f32", "loss_rel_err", "grad_worst_of_max",
                   "grad_worst_at", "grad_f64_mesh", "grad_f64_one",
-                  "grad_f64_excess", "step1_worst_of_tolerance",
+                  "grad_f64_excess", "grad_f64_excess_at",
+                  "grad_f64_step_of_max", "grad_f64_step_at",
+                  "step1_worst_of_tolerance",
                   "held_ms")}
                  for norm in ("BatchNorm", "SyncBatchNorm")}},
           "tolerance": {"loss_rel": MESH_LOSS_RTOL, "grad": MESH_GRAD_TOL,
+                        "grad_f64_k": mesh_worker.GRAD_F64_K,
+                        "grad_f64_step": mesh_worker.GRAD_F64_STEP_TOL,
                         "bf16_loss": MESH_BF16_TOL},
           "job_wall_s": walls, "kernel_launches": launches})
     return launches

@@ -8,7 +8,8 @@ over the PS wire (counterpart of ``mxnet_tpu/kvstore/dist.py``).
   ``MXNET_COORDINATOR``, or ``DMLC_PS_ROOT_URI`` + ``DMLC_PS_ROOT_PORT``;
   ``tools/launch.py`` sets them). The backend follows from the ranks that
   share a card: NCCL when each rank has a card of its own, gloo when ranks
-  share one (NCCL refuses two ranks on one card) or there is no card.
+  share one (NCCL refuses two ranks on one card) or there is no card,
+  formed as ``parallel/host_staged.py``'s ``gloo_host`` group.
   gloo's ``all_reduce`` and ``broadcast`` take CUDA tensors, so values
   stay on their device; its ``all_gather`` takes host tensors, so the
   2-bit codes are gathered as host bytes. A rank that cannot form the
@@ -62,18 +63,15 @@ def choose_backend(world_size: int):
 
 
 def _init_backend(backend: str) -> str:
-    """The ``init_process_group`` backend for ``backend``: a gloo group of
-    ranks on a card is ``parallel/host_staged.py``'s ``gloo_host``, which
-    finishes gloo's work inside each call and moves point-to-point
-    through host copies (gloo's CUDA point-to-point aborts, and its CUDA
-    work crashes ``DTensor``'s functional collectives).
-    ``MXNET_DIST_BACKEND=gloo_host`` picks it without a card too (its
-    tests on the CPU)."""
+    """The ``init_process_group`` backend for ``backend``: every gloo group
+    is ``parallel/host_staged.py``'s ``gloo_host``, which finishes gloo's
+    work inside each call and moves point-to-point through host copies
+    (gloo's CUDA point-to-point aborts, and its CUDA work crashes
+    ``DTensor``'s functional collectives), so ranks on the CPU and ranks
+    sharing a card take one route."""
     from ..parallel import host_staged
 
-    if backend != "gloo" or not (
-            torch.cuda.is_available()
-            or get_env("MXNET_DIST_BACKEND", "") == host_staged.BACKEND):
+    if backend != "gloo":
         return backend
     host_staged.register()
     return host_staged.BACKEND

@@ -1,24 +1,26 @@
-"""A ``torch.distributed`` process group for ranks that share a card: gloo,
-with its work finished inside each call and point-to-point staged
-through host memory.
+"""The ``torch.distributed`` process group of every gloo job: gloo, with
+its work finished inside each call and point-to-point staged through
+host memory.
 
-NCCL refuses two ranks on one card, so such ranks form a gloo group. On
-CUDA tensors gloo's collectives are right when waited on where they are
-called (``dist.all_reduce``, ``all_gather_into_tensor``,
-``reduce_scatter_tensor``, ``all_to_all_single``), but the functional
-collectives that ``DTensor`` redistributes with crash in ``wait_tensor``
-on gloo's CUDA work (a segmentation fault), and gloo's point-to-point
-transport aborts the process on a CUDA tensor (``gloo::IoException``,
-writev "Bad address"; NVIDIA H100, torch 2.11). So
-``kvstore.dist.join_process_group`` forms those groups with the
-``gloo_host`` backend, :class:`HostStagedGloo`: a Python process group
-(the only kind PyTorch lets Python implement, so it serves every device)
-over a gloo group of its own. Each collective runs gloo's and waits for
-it before returning completed work; a send or receive moves a host copy
-and returns at once, its work copying a received block back when waited
-on. The collectives run one at a time, in the order every rank calls
-them, as gloo's do. Both the old and the new names of the overridable
-collectives are defined, for the PyTorch versions on either side.
+NCCL refuses two ranks on one card, so such ranks form a gloo group, as
+ranks on the CPU do. On CUDA tensors gloo's collectives are right when
+waited on where they are called (``dist.all_reduce``,
+``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_to_all_single``), but the functional collectives that ``DTensor``
+redistributes with crash in ``wait_tensor`` on gloo's CUDA work (a
+segmentation fault), and gloo's point-to-point transport aborts the
+process on a CUDA tensor (``gloo::IoException``, writev "Bad address";
+NVIDIA H100, torch 2.11). So ``kvstore.dist.join_process_group`` forms
+every gloo group with the ``gloo_host`` backend, :class:`HostStagedGloo`,
+on the CPU too, so that the CPU's jobs take the card's route: a Python
+process group (the only kind PyTorch lets Python implement, so it serves
+every device) over a gloo group of its own. Each collective runs gloo's
+and waits for it before returning completed work; a send or receive
+moves a host copy and returns at once, its work copying a received block
+back when waited on. The collectives run one at a time, in the order
+every rank calls them, as gloo's do. Both the old and the new names of
+the overridable collectives are defined, for the PyTorch versions on
+either side.
 """
 from __future__ import annotations
 

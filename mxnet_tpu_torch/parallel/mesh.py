@@ -14,9 +14,10 @@ reference's axis order (``pp``, ``dp``, ``sp``, ``tp``, ``ep``; ``tp``
 innermost), beside the ``torch.device`` of each rank. Its
 ``torch.distributed`` ``DeviceMesh``, over which parameters and batches
 become ``DTensor``s (the counterpart of GSPMD's shardings), is made at
-first use: every rank of the world takes part in forming it. So a rank
-array can be pruned against and sliced (:func:`mesh_slices`) without
-processes. ``mesh_scope`` lets model code find the active mesh, as the
+first use, the job's group with it: every rank of the world takes part
+in forming them; building a mesh or counting devices forms nothing. So
+a rank array can be pruned against and sliced (:func:`mesh_slices`)
+without processes. ``mesh_scope`` lets model code find the active mesh, as the
 reference's attention layers do.
 """
 from __future__ import annotations
@@ -38,21 +39,32 @@ __all__ = ["Mesh", "make_mesh", "mesh_axes", "local_device_count",
 AXIS_ORDER = ("pp", "dp", "sp", "tp", "ep")
 
 
-def world():
-    """``(rank, world size)`` of this process: those of the
-    ``torch.distributed`` group, which is formed here from the launcher's
-    environment if the job has several workers; ``(0, 1)`` outside a
-    job."""
+def _job():
+    """``(rank, world size)`` of this process, forming nothing: those of
+    the ``torch.distributed`` group if one is formed, else the launcher's
+    environment's; ``(0, 1)`` outside a job."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
-    from ..kvstore.dist import join_process_group, launcher_rank
+    from ..kvstore.dist import launcher_rank
 
     rank, n = launcher_rank()
-    if n > 1:
-        join_process_group(rank, n, who="make_mesh")
     return (rank, n) if n > 1 else (0, 1)
+
+
+def world():
+    """``(rank, world size)`` of this process, as :func:`_job`, with the
+    job's ``torch.distributed`` group formed here from the launcher's
+    environment if it has several workers and none is formed yet."""
+    import torch.distributed as dist
+
+    rank, n = _job()
+    if n > 1 and not dist.is_initialized():
+        from ..kvstore.dist import join_process_group
+
+        join_process_group(rank, n, who="make_mesh")
+    return rank, n
 
 
 def _rank_device(rank: int) -> torch.device:
@@ -104,7 +116,7 @@ class Mesh:
         """The device of this process's rank in the mesh."""
         if not self.distributed:
             return self.devices.flat[0]
-        rank, _ = world()
+        rank, _ = _job()
         hit = np.flatnonzero(self.ranks.ravel() == rank)
         if not hit.size:
             raise MXNetError(f"rank {rank} is not in {self!r}")
@@ -143,8 +155,9 @@ class Mesh:
 
 
 def local_device_count() -> int:
-    """The devices a mesh can span: the job's ranks (1 outside a job)."""
-    return world()[1]
+    """The devices a mesh can span: the job's ranks (1 outside a job).
+    A query: it forms no group."""
+    return _job()[1]
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None, devices=None) -> Mesh:
@@ -152,12 +165,12 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, devices=None) -> Mesh:
 
     ``devices`` lists the members: ranks (ints) or one ``torch.device``
     per rank (rank ``i`` is the ``i``-th); the default is every rank of
-    the job, each on its device (:func:`world`, :func:`_rank_device`).
+    the job, each on its device (:func:`_job`, :func:`_rank_device`).
     A single ``-1`` axis absorbs the remaining ranks; a mesh smaller than
     the members takes the first ones and warns; a larger one raises
     ``ValueError``. Axes are laid out in AXIS_ORDER, ``tp`` innermost."""
     if devices is None:
-        _rank, n_world = world()
+        _rank, n_world = _job()
         devices = list(range(n_world))
     devices = list(devices)
     n = len(devices)

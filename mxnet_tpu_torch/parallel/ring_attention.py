@@ -21,10 +21,10 @@ chosen in one place, :func:`exchange_route`, by the ``sp`` group's
 backend and the tensors' device:
 
 - ``nccl``: ``batch_isend_irecv`` on the device tensors;
-- ``gloo`` on CPU tensors: ``isend``/``irecv``;
-- ``gloo_host`` (ranks sharing a card, ``parallel/host_staged.py``):
-  ``isend``/``irecv``, which that group moves through host copies
-  (gloo's own point-to-point transport aborts on CUDA tensors).
+- ``gloo_host`` (every gloo group: ranks sharing a card or on the CPU,
+  ``parallel/host_staged.py``): ``isend``/``irecv``, which that group
+  moves through host copies (gloo's own point-to-point transport aborts
+  on CUDA tensors).
 
 :func:`sequence_sharded_attention` is the global-view entry point of the
 model code: given (B, H, S, D) ``DTensor``s over a mesh, it takes each
@@ -100,11 +100,10 @@ def _combine(o, lse, o_blk, lse_blk):
 
 def exchange_route(group, device: torch.device) -> str:
     """How the ring moves a block between the ranks of ``group``:
-    ``"nccl"`` (device point-to-point), ``"gloo"`` (CPU tensors) or
-    ``"gloo_host"`` (device tensors through the ``gloo_host`` group of
-    ranks sharing a card, which moves them through host copies). A
-    plain gloo group with device tensors, or any other backend, raises:
-    gloo's own point-to-point aborts the process on CUDA tensors."""
+    ``"nccl"`` (device point-to-point) or ``"gloo_host"`` (the
+    ``gloo_host`` group that every gloo job forms, which moves blocks
+    through host copies). Any other backend raises: gloo's own
+    point-to-point aborts the process on CUDA tensors."""
     import torch.distributed as dist
 
     backend = str(dist.get_backend(group))
@@ -112,8 +111,6 @@ def exchange_route(group, device: torch.device) -> str:
         return "nccl"
     if "gloo_host" in backend:
         return "gloo_host"
-    if "gloo" in backend and device.type == "cpu":
-        return "gloo"
     raise MXNetError(f"ring attention: no neighbour exchange of {device} "
                      f"tensors over a {backend!r} process group (form it "
                      "with kvstore.dist.join_process_group)")

@@ -457,6 +457,12 @@ LM_BATCH, LM_LR = 4, 1e-4       # chip_smoke.py's train_path: 4 x 2048, Adam
 LM_BF16_STEPS = 3               # then one profiled
 ZOO_BATCH, ZOO_SIZE = 64, 224   # bench.py's ResNet-50 step
 GRAD_TOL = 2e-4                 # of each gradient's largest magnitude
+# where the step's f64 gradients are taken: each leaf's error against them
+# may reach GRAD_F64_K times one process's error at the same leaf
+GRAD_F64_K = 3.0
+# the same step in f64 on the mesh against one process's, each gradient
+# of its largest magnitude
+GRAD_F64_STEP_TOL = 1e-6
 
 
 def _flash():
@@ -577,10 +583,11 @@ def _held(run, tr, tr1, batch, launches, grads64=None):
     global batch from the same weights (rank 0 checks): loss, every
     gradient, and the weights after the update. With ``grads64`` (the
     same step's gradients in f64), each f32 gradient is also measured
-    against them, as a share of its largest magnitude:
-    ``grad_f64_excess`` is the mesh's worst share over the larger of
-    GRAD_TOL and twice one process's worst share. Returns the
-    metrics."""
+    against them, as a share of its largest magnitude, the mesh's and one
+    process's at every leaf (``grad_f64_leaves``): ``grad_f64_excess`` is
+    the largest over the leaves of the mesh's share over the larger of
+    GRAD_TOL and GRAD_F64_K times one process's share at that leaf.
+    Returns the metrics."""
     loss, grads, _aux = launches(tr.value_and_grad, *batch)
     grads = {n: _full(g) for n, g in grads.items()}
     out = {}
@@ -590,8 +597,7 @@ def _held(run, tr, tr1, batch, launches, grads64=None):
         out["loss_one_process"] = float(loss1)
         out["loss_rel_err"] = abs(out["loss_f32"] - float(loss1)) / \
             abs(float(loss1))
-        worst, errs = (0.0, ""), {}
-        f64 = {"mesh": (0.0, ""), "one": (0.0, "")}
+        worst, errs, leaves = (0.0, ""), {}, {}
         for n, g in grads.items():
             want = grads1[n].float()
             errs[n] = float((g.float() - want).abs().max())
@@ -600,16 +606,18 @@ def _held(run, tr, tr1, batch, launches, grads64=None):
             if grads64 is not None:
                 exact = grads64[n]
                 top = max(float(exact.abs().max()), 1e-30)
-                e_mesh = float((g.double() - exact).abs().max()) / top
-                e_one = float((want.double() - exact).abs().max()) / top
-                f64["mesh"] = max(f64["mesh"], (e_mesh, n))
-                f64["one"] = max(f64["one"], (e_one, n))
+                leaves[n] = [float((g.double() - exact).abs().max()) / top,
+                             float((want.double() - exact).abs().max())
+                             / top]
         out["grad_worst_of_max"], out["grad_worst_at"] = worst
         if grads64 is not None:
-            for k, (v, n) in f64.items():
-                out[f"grad_f64_{k}"], out[f"grad_f64_{k}_at"] = v, n
-            out["grad_f64_excess"] = f64["mesh"][0] / max(
-                GRAD_TOL, 2 * f64["one"][0])
+            out["grad_f64_leaves"] = leaves  # [mesh's share, one's]
+            out["grad_f64_excess"], out["grad_f64_excess_at"] = max(
+                (m / max(GRAD_TOL, GRAD_F64_K * o), n)
+                for n, (m, o) in leaves.items())
+            for k, i in (("mesh", 0), ("one", 1)):
+                out[f"grad_f64_{k}"], out[f"grad_f64_{k}_at"] = max(
+                    (v[i], n) for n, v in leaves.items())
         del grads1
     del grads
     launches(tr.step, *batch)
@@ -631,13 +639,13 @@ def _held(run, tr, tr1, batch, launches, grads64=None):
     return out
 
 
-def _lm_case(run, axes, rules):
+def _lm_case(run, axes, rules, bf16):
     from mxnet_tpu_torch import parallel as par
     from mxnet_tpu_torch.models import bert_sharding_rules, transformer_lm
 
     mx, torch = run.mx, run.torch
     kw = json.loads(os.environ.get("MXNET_MESH_LM", "{}"))
-    batch = int(os.environ.get("MXNET_MESH_LM_BATCH", LM_BATCH))
+    batch = LM_BATCH
     mesh = par.make_mesh(axes)
     rules = bert_sharding_rules() if rules else None
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
@@ -675,7 +683,7 @@ def _lm_case(run, axes, rules):
             s_[0] += loc.numel() * loc.element_size()
             s_[1] += v.numel() * v.element_size()
     out["shard_bytes"] = shards  # [this rank's bytes, the whole tensors']
-    if not os.environ.get("MXNET_MESH_LM_F32_ONLY"):
+    if bf16:
         del tr
         if run.device == "cuda":
             torch.cuda.empty_cache()
@@ -699,16 +707,12 @@ def _lm_case(run, axes, rules):
 
 @scenario
 def sc_lm_dp2sp2(run):
-    return _lm_case(run, {"dp": 2, "sp": 2}, rules=False)
+    return _lm_case(run, {"dp": 2, "sp": 2}, rules=False, bf16=True)
 
 
 @scenario
 def sc_lm_sp2tp2(run):
-    os.environ["MXNET_MESH_LM_F32_ONLY"] = "1"
-    try:
-        return _lm_case(run, {"sp": 2, "tp": 2}, rules=True)
-    finally:
-        del os.environ["MXNET_MESH_LM_F32_ONLY"]
+    return _lm_case(run, {"sp": 2, "tp": 2}, rules=True, bf16=False)
 
 
 def _sync_bn_net(net, mx):
@@ -735,9 +739,7 @@ def sc_resnet_dp2(run):
     from mxnet_tpu_torch.gluon.model_zoo import get_model
 
     mx = run.mx
-    batch = int(os.environ.get("MXNET_MESH_ZOO_BATCH", ZOO_BATCH))
-    size = int(os.environ.get("MXNET_MESH_ZOO_SIZE", ZOO_SIZE))
-    model = os.environ.get("MXNET_MESH_ZOO_MODEL", "resnet50_v1")
+    batch, size, model = ZOO_BATCH, ZOO_SIZE, "resnet50_v1"
     rng = np.random.RandomState(run.seed)
     x = run.nd(rng.rand(batch, 3, size, size).astype(np.float32))
     y = run.nd(rng.randint(0, 1000, batch).astype(np.int32))
@@ -756,28 +758,37 @@ def sc_resnet_dp2(run):
                 optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
                                   "wd": 1e-4})
 
+        def grads_f64(mesh_):
+            # the step's gradients in f64 from the same weights
+            tr64 = trainer(mesh_)
+            tr64.param_vals = {n: v.double()
+                               for n, v in tr64.param_vals.items()}
+            _l, g, _a = tr64.value_and_grad(x.astorch().double(), y)
+            return {n: _full(v) for n, v in g.items()}
+
         tr = trainer(mesh)
         one_mesh = par.make_mesh({"dp": 1}, devices=[mesh.local_device])
         one = trainer(one_mesh) if _rank() == 0 else None
-        grads64 = None
-        if _rank() == 0:
-            # the step's exact gradients: a BatchNorm net's conv gradients
-            # are small differences of large terms, which two f32 sums of
-            # the batch in other orders round apart
-            tr64 = trainer(one_mesh)
-            tr64.param_vals = {n: v.double()
-                               for n, v in tr64.param_vals.items()}
-            _l, grads64, _a = tr64.value_and_grad(
-                x.astorch().double(), y)
-            del tr64
+        # the step's exact gradients: a BatchNorm net's conv gradients are
+        # small differences of large terms, which two f32 sums of the
+        # batch in other orders round apart
+        grads64 = grads_f64(one_mesh) if _rank() == 0 else None
         launches = _Launches()
         res, ms = _host_ms(run, _held, run, tr, one, (x, y), launches,
                            grads64)
-        del grads64
         res["held_ms"] = ms
         res["replicas_equal"] = _replicas_equal(run, tr, mesh)
-        out[norm] = res
         del tr, one
+        # the mesh's f64 step, where rounding no longer hides a fault of
+        # the cross-rank backward, against one process's
+        mesh64 = grads_f64(mesh)
+        if _rank() == 0:
+            res["grad_f64_step_of_max"], res["grad_f64_step_at"] = max(
+                (float((g - grads64[n]).abs().max())
+                 / max(float(grads64[n].abs().max()), 1e-30), n)
+                for n, g in mesh64.items())
+        del grads64, mesh64
+        out[norm] = res
     if run.device == "cuda":
         out["peak_mem_gb"] = run.torch.cuda.max_memory_allocated() / 1e9
     return out
@@ -878,7 +889,7 @@ def main(argv=None) -> int:
     elif not torch.cuda.is_available():
         raise SystemExit("mesh_worker: --device cuda but CUDA is not "
                          "available")
-    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.kvstore.dist import join_process_group, launcher_rank
 
     inputs = np.load(args.inputs) if args.inputs else None
     os.makedirs(args.out, exist_ok=True)
@@ -886,7 +897,7 @@ def main(argv=None) -> int:
 
     ctx = mx.gpu(0) if args.device == "cuda" else mx.cpu()
     with ctx:
-        par.local_device_count()  # forms the job's group
+        join_process_group(*launcher_rank(), who="mesh_worker")
         rank = _rank()
         for name in args.scenarios:
             run = _Run(name, args.device, inputs, args.seed)

@@ -376,12 +376,11 @@ STAGED = ["probe", "lm_dp2sp2", "lm_sp2tp2"]
 @pytest.fixture(scope="module")
 def staged_job(tmp_path_factory):
     """4 ranks whose group is ``parallel/host_staged.py``'s ``gloo_host``
-    (the group of ranks sharing a card; here on CPU tensors), running the
-    smoke's probe and LM scenarios on a small LM."""
+    (the group of every gloo job, ranks sharing a card too; here on CPU
+    tensors), running the smoke's probe and LM scenarios on a small LM."""
     work = str(tmp_path_factory.mktemp("staged"))
     return run_job(4, STAGED, work, {}, lambda: None,
-                   env={"MXNET_DIST_BACKEND": "gloo_host",
-                        "MXNET_MESH_LM": SMALL_LM})[0]
+                   env={"MXNET_MESH_LM": SMALL_LM})[0]
 
 
 def test_staged_group_probe(staged_job):
