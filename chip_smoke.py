@@ -1864,17 +1864,33 @@ MODULE_LR = 1e-4
 MODULE_ZOO_BATCH, MODULE_ZOO_STEPS = 32, 3
 MODULE_LM_KW = {}                       # transformer_lm() at its defaults
 MODULE_ZOO_MODEL = "resnet50_v1"
+# the timed steps' loss from SoftmaxOutput's probabilities: at lr 0.1 a
+# target's probability can underflow to 0 in f32 (its -log then inf: an
+# H100 run read inf at ResNet-50's step 5), so it is scored with
+# metric.CrossEntropy's eps; the outputs themselves must be finite and
+# normalised
+MODULE_CE_EPS, MODULE_PROB_SUM_TOL = 1e-12, 1e-3
 
 
 def _module_step(torch, mod, batch):
     """One Module training step: forward_backward, update; returns the
-    mean cross-entropy of the batch from SoftmaxOutput's probabilities
-    (one host read)."""
+    mean cross-entropy of the batch from SoftmaxOutput's probabilities,
+    scored as ``metric.CrossEntropy`` scores them (``-log(p + eps)``, eps
+    MODULE_CE_EPS), and fails unless every probability is finite and each
+    row sums to 1 within MODULE_PROB_SUM_TOL (one host read)."""
     mod.forward_backward(batch)
     mod.update()
     probs = mod.get_outputs()[0].astorch()
     lab = batch.label[0].astorch().reshape(-1).long()
-    return float(-torch.log(probs.gather(1, lab[:, None])).mean())
+    finite, sum_err, loss = torch.stack([
+        torch.isfinite(probs).all().float(),
+        (probs.sum(1) - 1).abs().max(),
+        -torch.log(probs.gather(1, lab[:, None]) + MODULE_CE_EPS).mean(),
+    ]).tolist()
+    check(finite == 1.0 and sum_err <= MODULE_PROB_SUM_TOL,
+          f"Module outputs: finite {finite == 1.0}, rows sum to 1 within "
+          f"{sum_err}")
+    return loss
 
 
 # fold_bn on the traced ResNet-50: 53 BatchNorms, and the folded predict
