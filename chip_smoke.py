@@ -207,11 +207,27 @@ H100): ``python3 chip_smoke.py``. It
    workers, one SIGKILLed mid-epoch and restarted from a warm standby:
    the survivors recut 3 -> 2 -> 3 and the final loss is within 0.25x
    of a clean ``launch.py -n 3 -e`` run's;
-22. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
+22. drives ``serve_mesh_path``, sharded serving, every rank sharing the
+   card over gloo: (a) the full-width LM traced with batch 0 outside any
+   mesh scope, served by ``InferenceEngine(mesh=make_mesh({"tp": 2}),
+   rules=bert_sharding_rules())`` in a 2-rank job, scored at 1 and 2
+   rows within 1e-4 of one process's largest |logit|, a repeat bitwise,
+   each rank's QKV shards half the rows, a two-phase reload held the same
+   way with no new program, a reshaped reload refused, 12 flash forward
+   launches a forward on each rank; (b) ResNet-50 v1 from ``serve_path``'s
+   checkpoints in ``ReplicaPool.sharded`` on a dp 2 x tp 2 plan (two
+   groups of two ranks, replicated parameters) behind ``Router`` and
+   ``FleetServer``, 4 clients of 1-32 rows for 5 s with ``pool.kill(0)``
+   a third of the way in: every reply bitwise ``Module.predict``'s, 0
+   errors, the group back with new pids and none of the old alive, card
+   memory within one group's parameter bytes; (c) ``Autoscaler(pool,
+   router)`` with its default factory out onto the spare slice and back
+   in with a drain (spare slices 1 -> 0 -> 1), 0 errors;
+23. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
    under ``autograd.record`` with a ``Custom`` op in it, an SGD update,
    a CSR ``dot`` and a row-sparse ``retain`` on the card, each against
    the same code on the CPU from the same seed;
-23. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+24. prints each phase's wall time (``timing``), the ``kernels`` JSON line
    and, last, the ``ok`` line. The detection, int8, ONNX and numpy paths
    launch no kernel of the port's own (they run PyTorch's and cuBLAS's).
 
@@ -4423,7 +4439,7 @@ def phase_fleet_path(torch, dev, smi, ckpt):
     LM streamed through a fleet with a failover, (c) the autoscaler out
     to two replicas and back. ``obs`` records the fleet's metrics for
     the phase. Returns the port kernels' launches counted from 0 at the
-    phase's start; deletes ``serve_path``'s checkpoints."""
+    phase's start."""
     from mxnet_tpu_torch import obs
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd,
@@ -4443,11 +4459,6 @@ def phase_fleet_path(torch, dev, smi, ckpt):
         if not was:
             obs.disable()
         obs.reset()
-        prefix = ckpt["prefix"]
-        for f in (f"{prefix}-0001.params", f"{prefix}-0002.params",
-                  f"{prefix}-symbol.json"):
-            if os.path.exists(f):
-                os.remove(f)
     launches = {k.__name__: k.launches for k in own}
     check(launches["flash_attention_bwd"] == 0,
           "the fleet launched the flash backward kernel")
@@ -4493,6 +4504,16 @@ def _dist_run(args, timeout=DIST_WORKER_TIMEOUT, env=None):
     check(proc.returncode == 0, f"{' '.join(args[:4])}... exited "
           f"{proc.returncode}:\n{proc.stdout[-3000:]}")
     return proc.stdout
+
+
+def _dist_runs(*argvs):
+    """``_dist_run`` of independent jobs at once; their outputs, in order
+    (a failed one raises once all have ended)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(argvs)) as ex:
+        futs = [ex.submit(_dist_run, a) for a in argvs]
+    return [f.result() for f in futs]
 
 
 _WORKER = ("mxnet_tpu_torch.tools.dist_worker",)
@@ -4706,15 +4727,22 @@ def _dist_lm_leg(torch, dev, work):
 def _dist_elastic_leg(torch, dev):
     """(d): three elastic workers (the reference's linear-regression
     Module.fit on the card) against the port's server; one is SIGKILLed
-    mid-epoch and restarted. Then the same run, uninjected, through
+    mid-epoch and restarted. Beside it, the same run uninjected, through
     ``launch.py -n 3 -e``."""
     import signal
     import threading
+    from concurrent.futures import ThreadPoolExecutor
 
     from mxnet_tpu_torch.tools.launch import start_ps_server
 
     root = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(root, "build", "dist_path")
+    beside = ThreadPoolExecutor(1)
+    clean_run = beside.submit(_dist_run, [
+        *_LAUNCH, "-n", "3", "-e", sys.executable, "-m", *_WORKER,
+        "elastic", "--device", dev.type, "--ckpt-dir",
+        os.path.join(work, "ckpt_clean"), "--epochs",
+        str(DIST_ELASTIC_EPOCHS), "--step-delay", str(DIST_ELASTIC_DELAY)])
     port = _free_port()
     ps = start_ps_server(port, 3, elastic=True, kind="python")
     procs, lines = {}, {}
@@ -4802,11 +4830,8 @@ def _dist_elastic_leg(torch, dev):
         ps.terminate()
         ps.wait(timeout=10)
         ps.stdout.close()
-    clean = _dist_run([*_LAUNCH, "-n", "3", "-e", sys.executable, "-m",
-                       *_WORKER, "elastic", "--device", dev.type,
-                       "--ckpt-dir", os.path.join(work, "ckpt_clean"),
-                       "--epochs", str(DIST_ELASTIC_EPOCHS), "--step-delay",
-                       str(DIST_ELASTIC_DELAY)])
+        beside.shutdown(wait=True)
+    clean = clean_run.result()
     clean_losses = [float(v) for v in
                     re.findall(r"FINAL_LOSS ([0-9.]+)", clean)]
     check(len(clean_losses) == 3 and len(set(clean_losses)) == 1,
@@ -4852,10 +4877,12 @@ def phase_dist_path(torch, dev, smi):
         lm, launches = _dist_lm_leg(torch, dev, work)
         walls["b_sync"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        for server in ("native", "python"):
-            out = _dist_run([*_LAUNCH, "-n", "2", "-s", "1", "--ps-server",
+        servers = ("native", "python")  # two jobs at once
+        outs = _dist_runs(*[[*_LAUNCH, "-n", "2", "-s", "1", "--ps-server",
                              server, sys.executable, "-m", *_WORKER,
-                             "known", "dist_async", "--device", dev.type])
+                             "known", "dist_async", "--device", dev.type]
+                            for server in servers])
+        for server, out in zip(servers, outs):
             check(out.count(f"mode=dist_async device={dev.type} "
                             "backend=None: OK") == 2,
                   f"dist_async ({server}):\n{out[-2000:]}")
@@ -4963,7 +4990,10 @@ def phase_mesh_path(torch, dev, smi):
     cuda = dev.type == "cuda"
     walls = {}
     t0 = time.perf_counter()
-    probe = _mesh_job(dev, 2, ["probe"], "probe")["probe"][0]
+    # the probe shares the 2-rank job of (c)
+    two = _mesh_job(dev, 2, ["probe", "resnet_dp2"], "resnet")
+    walls["probe_resnet"] = time.perf_counter() - t0
+    probe, zoo = two["probe"][0], two["resnet_dp2"]
     bad = {k: v for k, v in probe["collectives"].items() if v != "ok"}
     check(not bad, f"mesh_path: collectives on {probe['device']} over "
           f"{probe['backend']} failed: {bad}")
@@ -4972,7 +5002,6 @@ def phase_mesh_path(torch, dev, smi):
           f"{probe['backend']}: " + ", ".join(
               f"{k} {v}" for k, v in probe["collectives"].items())
           + f"; ring exchange route: {route}", flush=True)
-    walls["probe"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     lm = _mesh_job(dev, 4, ["lm_dp2sp2", "lm_sp2tp2"], "lm")
@@ -5005,9 +5034,6 @@ def phase_mesh_path(torch, dev, smi):
     for k, v in _ring_launches("mesh_path (b)", b, cuda, s_loc).items():
         launches[k] += v
 
-    t0 = time.perf_counter()
-    zoo = _mesh_job(dev, 2, ["resnet_dp2"], "resnet")["resnet_dp2"]
-    walls["resnet"] = time.perf_counter() - t0
     for norm in ("BatchNorm", "SyncBatchNorm"):
         _mesh_held(f"mesh_path (c) ResNet-50 dp2 {norm}", zoo[0][norm])
         for r, res in enumerate(zoo):
@@ -5052,6 +5078,275 @@ def phase_mesh_path(torch, dev, smi):
                         "bf16_loss": MESH_BF16_TOL},
           "job_wall_s": walls, "kernel_launches": launches})
     return launches
+
+
+# serve_mesh_path: sharded serving (serve/group.py); every rank shares the
+# card over gloo_host (NCCL refuses two ranks on one card)
+SERVE_MESH_TOL = 1e-4      # (a) the tp-2 logits, of one process's max |logit|
+SERVE_MESH_PLAN = {"dp": 2, "tp": 2}
+SERVE_MESH_SECONDS = 5.0   # (b)'s closed loop; the kill lands at 1/3
+SERVE_MESH_CLIENTS = 2     # (c)'s closed loop
+
+
+def _card_used(torch, dev):
+    """Bytes in use on the card, every process's (0 off the card)."""
+    if dev.type != "cuda":
+        return 0
+    free, total = torch.cuda.mem_get_info(dev)
+    return total - free
+
+
+def _serve_mesh_lm(dev, cfg_layers):
+    """(a) the LM on tp 2 (``mesh_worker serve_lm_tp2``): returns its
+    record and each rank's flash forward launches."""
+    from mxnet_tpu_torch.tools import mesh_worker
+
+    t0 = time.perf_counter()
+    r0, peer = _mesh_job(dev, 2, ["serve_lm_tp2"], "serve_lm")["serve_lm_tp2"]
+    wall = time.perf_counter() - t0
+    errs = r0["err_of_max_logit"]
+    for key, err in errs.items():
+        # NaN fails too
+        check(err <= SERVE_MESH_TOL, f"serve_mesh_path (a) {key}: {err} "
+              "of one process's largest |logit|")
+    check(r0["repeat_bitwise"], "serve_mesh_path (a): a repeated call "
+          "differs")
+    check(r0["warmup"] == mesh_worker.SERVE_LM_ROWS,
+          f"serve_mesh_path (a): warmup ran {r0['warmup']}")
+    check(r0["reload_moved"],
+          "serve_mesh_path (a): the reload did not move the logits")
+    check(r0["compiles_after_reload"] == 0 and r0["num_programs"] ==
+          mesh_worker.SERVE_LM_ROWS, "serve_mesh_path (a): the reload added "
+          f"{r0['compiles_after_reload']} programs")
+    check("aval mismatch" in r0["aval_error"],
+          f"serve_mesh_path (a): a reshaped reload gave {r0['aval_error']!r}")
+    qkv = [n for n in r0["leader_shards"] if n.endswith("qkv_weight")]
+    check(len(qkv) == cfg_layers, f"serve_mesh_path (a): {len(qkv)} sharded "
+          "QKV weights")
+    for who, shards in (("rank 0", r0["leader_shards"]),
+                        ("rank 1", peer["shards"])):
+        for n in qkv:
+            check(2 * shards[n][0] == r0["whole_shapes"][n][0],
+                  f"serve_mesh_path (a) {who}: {n} holds {shards[n]} of "
+                  f"{r0['whole_shapes'][n]}")
+    # warmup (1 and 2 rows), 1 and 2 rows, a repeat, the profiled call,
+    # the reloaded call
+    forwards = 2 * mesh_worker.SERVE_LM_ROWS + 3
+    launches = [r0["flash_fwd_launches"], peer["flash_fwd_launches"]]
+    if dev.type == "cuda":
+        check(launches == [cfg_layers * forwards] * 2,
+              f"serve_mesh_path (a): flash forward launches {launches}, "
+              f"want {cfg_layers} layers x {forwards} forwards a rank")
+    rec = {"ranks": 2, "rules": "bert_sharding_rules", "seq": r0["seq"],
+           "vocab": r0["vocab"], "err_of_max_logit": errs,
+           "tolerance": SERVE_MESH_TOL, "infer_ms": {"1": r0["ms1"],
+                                                     "2": r0["ms2"]},
+           "profiled_ms": r0["profiled_ms"],
+           "collective_ms": r0["collective_ms"],
+           "idle_share": r0["idle_share"], "sharded_params":
+           r0["sharded_params"], "flash_fwd_launches": launches,
+           "forwards_a_rank": forwards, "job_wall_s": wall}
+    return rec, sum(launches)
+
+
+def _group_pool(serve, ckpt, dev, start=None, **kw):
+    """ResNet-50 from checkpoint 1 on SERVE_MESH_PLAN's slices, each group
+    a job of ranks sharing ``dev`` (``mesh_worker.zoo_server``)."""
+    import functools
+
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.tools import mesh_worker
+
+    n = SERVE_MESH_PLAN["dp"] * SERVE_MESH_PLAN["tp"]
+    plan = par.make_mesh(SERVE_MESH_PLAN, devices=[dev] * n)
+    make = functools.partial(mesh_worker.zoo_server, ckpt["prefix"], 1,
+                             SERVE_BUCKETS, ckpt["shape"])
+    return serve.ReplicaPool.sharded(make, mesh=plan, start=start,
+                                     ready_timeout=FLEET_WAIT_S,
+                                     probe_interval=0.2, **kw).start()
+
+
+def _serve_mesh_pool(torch, dev, ckpt):
+    """(b) ``ReplicaPool.sharded`` on SERVE_MESH_PLAN behind ``Router`` and
+    ``FleetServer``: SERVE_CLIENTS closed-loop clients of 1-32 rows for
+    SERVE_MESH_SECONDS, ``pool.kill(0)`` at a third; every reply bitwise
+    ``Module.predict``'s at its bucket."""
+    import gc
+
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.serve.group import pid_alive
+
+    t0 = time.perf_counter()
+    pool = _group_pool(serve, ckpt, dev)
+    up_s = time.perf_counter() - t0
+    router = serve.Router(pool)
+    front = serve.FleetServer(router, port=0)
+    front.start()
+    refs = {0: ckpt["refs"][0]}
+    try:
+        check(len(pool.ready_members()) == SERVE_MESH_PLAN["dp"],
+              f"{len(pool.ready_members())} groups ready")
+        old = [list(m.handle.pids) for m in pool.members()]
+        check(all(len(p) == SERVE_MESH_PLAN["tp"] for p in old),
+              f"group pids {old}")
+        gc.collect()
+
+        def events(loop):
+            victim = pool.members()[0]
+            time.sleep(SERVE_MESH_SECONDS / 3)
+            # at the kill, after traffic: the groups' allocator caches
+            # have grown with it, as the restarted group's will have
+            loop["mem_before"] = _card_used(torch, dev)
+            loop["t_kill"] = time.perf_counter()
+            pool.kill(0)
+            _wait_for(lambda: victim.restarts >= 1
+                      and victim.state == "ready", "group 0's restart")
+            loop["t_recovered"] = time.perf_counter()
+            loop["until"] = max(loop["until"],
+                                time.perf_counter() + FLEET_TAIL_S)
+
+        loop = _closed_loop(serve, front.port, ckpt["qx"], refs,
+                            SERVE_MESH_SECONDS, events=events)
+        new = list(pool.members()[0].handle.pids)
+        left = [p for p in old[0] if pid_alive(p)]
+        fstats = router.stats()
+        mem_before, mem_after = loop["mem_before"], _card_used(torch, dev)
+    finally:
+        front.stop()
+        pool.stop()
+    check(not loop["errors"], f"sharded pool errors: {loop['errors'][:3]}")
+    check(not loop["mismatches"], f"{len(loop['mismatches'])} sharded pool "
+          f"replies not bitwise Module.predict's, first "
+          f"{loop['mismatches'][:3]}")
+    check(len(new) == SERVE_MESH_PLAN["tp"] and not set(new) & set(old[0]),
+          f"group 0 came back as {new}, was {old[0]}")
+    check(not left, f"ranks {left} of the killed group still run")
+    group_bytes = 4 * ckpt["params"] * SERVE_MESH_PLAN["tp"]
+    check(abs(mem_after - mem_before) < group_bytes,
+          f"card memory {mem_before} B before the kill, {mem_after} B after "
+          f"the restart: more than one group's {group_bytes} B of "
+          "parameters apart")
+    res = _loop_summary(loop)
+    res.update({"plan": SERVE_MESH_PLAN, "clients": SERVE_CLIENTS,
+                "bring_up_s": up_s,
+                "kill_at_s": loop["t_kill"] - loop["t_start"],
+                "recovery_s": loop["t_recovered"] - loop["t_kill"],
+                "pids_before": old[0], "pids_after": new,
+                "failovers": fstats["failovers"],
+                "memory_before_kill_b": mem_before,
+                "memory_after_b": mem_after, "group_param_bytes": group_bytes,
+                "compare": "bitwise vs Module.predict at the reply's bucket, "
+                           "cuDNN deterministic"})
+    return res
+
+
+def _serve_mesh_scale(dev, ckpt):
+    """(c) ``Autoscaler(pool, router)`` with its default factory over a
+    sharded pool started with 1 of SERVE_MESH_PLAN's groups, under
+    SERVE_MESH_CLIENTS closed-loop clients: a pressure window scales out
+    onto the spare slice, SCALE_HYSTERESIS quiet windows scale back in
+    with a drain."""
+    from mxnet_tpu_torch import serve
+
+    pool = _group_pool(serve, ckpt, dev, start=1)
+    router = serve.Router(pool)
+    front = serve.FleetServer(router, port=0)
+    front.start()
+    rec = {"spare": [pool.spare_slices]}
+    try:
+        scaler = serve.Autoscaler(
+            pool, router, policy=serve.AutoscalePolicy(
+                min_replicas=1, max_replicas=SERVE_MESH_PLAN["dp"],
+                hysteresis=SCALE_HYSTERESIS, cooldown_s=0.0,
+                scale_in_cooldown_s=0.0), drain_timeout=FLEET_WAIT_S)
+
+        def events(loop):
+            time.sleep(FLEET_TAIL_S)
+            t0 = time.perf_counter()
+            rec["out"] = scaler.tick(signals={"ready": 1,
+                                              "burn": 5.0})["action"]
+            _wait_for(lambda: len(pool.ready_members()) == 2,
+                      "the joining group's activation")
+            rec["join_s"] = time.perf_counter() - t0
+            rec["spare"].append(pool.spare_slices)
+            time.sleep(FLEET_TAIL_S)
+            for _ in range(SCALE_HYSTERESIS):
+                d = scaler.tick(signals={"ready": 2, "burn": 0.0})
+            rec["in"] = d["action"]
+            t0 = time.perf_counter()
+            scaler._leave_thread.join(timeout=FLEET_WAIT_S)
+            rec["leave_s"] = time.perf_counter() - t0
+            rec["spare"].append(pool.spare_slices)
+            loop["until"] = time.perf_counter() + FLEET_TAIL_S
+
+        loop = _closed_loop(serve, front.port, ckpt["qx"],
+                            {0: ckpt["refs"][0]}, 600.0, events=events,
+                            clients=SERVE_MESH_CLIENTS)
+        ready = len(pool.ready_members())
+    finally:
+        front.stop()
+        pool.stop()
+    check(not loop["errors"], f"sharded scale errors: {loop['errors'][:3]}")
+    check(not loop["mismatches"], f"{len(loop['mismatches'])} replies not "
+          "bitwise Module.predict's during the sharded scale events")
+    check(rec.get("out") == "scale_out" and rec.get("in") == "scale_in",
+          f"decisions {rec.get('out')}, {rec.get('in')}")
+    check(rec["spare"] == [1, 0, 1] and ready == 1,
+          f"spare slices {rec['spare']}, {ready} groups ready after")
+    check([e["action"] for e in scaler.events] == ["scale_out", "scale_in"],
+          f"scale events {scaler.events}")
+    res = _loop_summary(loop)
+    res.update({"clients": SERVE_MESH_CLIENTS, "join_s": rec["join_s"],
+                "leave_s": rec["leave_s"], "spare_slices": rec["spare"],
+                "events": [e["action"] for e in scaler.events]})
+    return res
+
+
+def phase_serve_mesh_path(torch, dev, smi, ckpt):
+    """Sharded serving, every rank sharing the card over gloo:
+    (a) the full-width LM, traced with batch 0 outside any mesh scope, on
+    tp 2 under ``bert_sharding_rules()`` in a 2-rank job
+    (``mesh_worker serve_lm_tp2``): scored at 1 and 2 rows within
+    SERVE_MESH_TOL of one process's unsharded engine, a repeat bitwise,
+    each rank's QKV shards half the rows, a two-phase reload to scaled
+    weights held the same way with no new program, a reshaped reload
+    refused, 12 flash forward launches a forward on each rank; (b)
+    ResNet-50 v1 from ``serve_path``'s checkpoints in
+    ``ReplicaPool.sharded`` on a dp 2 x tp 2 plan (4 ranks) behind
+    ``Router`` and ``FleetServer`` with a group kill; (c) the
+    ``Autoscaler``'s default factory out onto the spare slice and back.
+    Returns the flash launches of (a)'s ranks; deletes ``serve_path``'s
+    checkpoints."""
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     flash_decode_attention)
+
+    own = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention)
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        lm, lm_launches = _serve_mesh_lm(dev, 12)
+        walls["a"] = time.perf_counter() - t0
+        before = [k.launches for k in own]
+        with _PinnedCudnn(torch):
+            t0 = time.perf_counter()
+            pool = _serve_mesh_pool(torch, dev, ckpt)
+            walls["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            scale = _serve_mesh_scale(dev, ckpt)
+            walls["c"] = time.perf_counter() - t0
+        check([k.launches for k in own] == before,
+              "the sharded ResNet pools launched an attention kernel here")
+    finally:
+        prefix = ckpt["prefix"]
+        for f in (f"{prefix}-0001.params", f"{prefix}-0002.params",
+                  f"{prefix}-symbol.json"):
+            if os.path.exists(f):
+                os.remove(f)
+    emit({"phase": "serve_mesh_path", "card": smi, "a_lm_tp2": lm,
+          "b_sharded_pool": pool, "c_autoscale": scale,
+          "leg_wall_s": walls})
+    return {"flash_attention_fwd": lm_launches, "flash_attention_bwd": 0}
 
 
 NP_SEED = 3
@@ -5205,6 +5500,7 @@ def main() -> int:
     fleet = run(phase_fleet_path, torch, dev, smi, zoo_ckpt)
     dist = run(phase_dist_path, torch, dev, smi)
     mesh = run(phase_mesh_path, torch, dev, smi)
+    serve_mesh = run(phase_serve_mesh_path, torch, dev, smi, zoo_ckpt)
     before = [k.launches for k in own]
     run(phase_np_path, torch, dev, smi)
     check([k.launches for k in own] == before,
@@ -5214,7 +5510,8 @@ def main() -> int:
     flash_launches = {k: train_launches[k] + nd_launches[k]
                       + gluon_launches[k] + estimator_launches[k]
                       + module_launches[k] + served[k] + fleet[k]
-                      + dist[k] + mesh[k] for k in train_launches}
+                      + dist[k] + mesh[k] + serve_mesh[k]
+                      for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
@@ -5229,8 +5526,9 @@ def main() -> int:
         # launches: the training path's (bf16), the nd path's, the gluon
         # path's (f32 and bf16), the estimator path's (f32), the module
         # path's (f32), the serve path's LM scoring (f32), the two
-        # dist_sync LM workers' (f32, counted in the workers) and the mesh
-        # path's ranks' (ring blocks, f32 and bf16); the main
+        # dist_sync LM workers' (f32, counted in the workers), the mesh
+        # path's ranks' (ring blocks, f32 and bf16) and the sharded
+        # serving path's tp-2 ranks' (f32, 6 of 12 heads each); the main
         # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
         # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",

@@ -93,11 +93,13 @@ def _family(backend: str) -> str:
     return "nccl" if "nccl" in str(backend) else "gloo"
 
 
-def join_process_group(rank: int, num_workers: int, who: str = "dist_sync"):
+def join_process_group(rank: int, num_workers: int, who: str = "dist_sync",
+                       timeout: datetime.timedelta = _GROUP_TIMEOUT):
     """Join the job's ``torch.distributed`` group as ``rank`` of
     ``num_workers``, forming it at ``MXNET_COORDINATOR`` (or
     ``DMLC_PS_ROOT_URI`` + ``DMLC_PS_ROOT_PORT``) if this process has none
-    yet, with :func:`choose_backend`'s backend. Returns ``(backend,
+    yet, with :func:`choose_backend`'s backend; ``timeout`` bounds its
+    rendezvous and each collective's wait. Returns ``(backend,
     ranks_per_card, formed_here)``, or None for one worker without a
     coordinator. A group of another size or rank, a missing coordinator
     for several workers, or a group that does not form raises
@@ -130,7 +132,7 @@ def join_process_group(rank: int, num_workers: int, who: str = "dist_sync"):
     try:
         dist.init_process_group(
             _init_backend(backend), init_method=f"tcp://{coord}",
-            world_size=num_workers, rank=rank, timeout=_GROUP_TIMEOUT)
+            world_size=num_workers, rank=rank, timeout=timeout)
     except (RuntimeError, ValueError) as e:
         raise MXNetError(
             f"{who} rank {rank} of {num_workers} could not form its "

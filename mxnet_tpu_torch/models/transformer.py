@@ -61,8 +61,7 @@ _LN_EPS = 1e-5  # gluon nn.LayerNorm default
 
 def _whole_dim(x, dim):
     """``x`` (a ``DTensor``) with dimension ``dim`` unsharded. The layer
-    gathers its fused projection's output, whose tp shards split inside
-    q/k/v, and the ring's output: outside attention the sequence stays
+    gathers the ring's output: outside attention the sequence stays
     whole, since a batch dim sharded over dp flattened with a sequence
     dim sharded over sp gives a strided sharding whose redistribution
     plans DTensor searches for at length on meshes of three axes."""
@@ -72,6 +71,17 @@ def _whole_dim(x, dim):
     pl = [Replicate() if p.is_shard() and p.dim % x.ndim == dim else p
           for p in x.placements]
     return x.redistribute(x.device_mesh, pl)
+
+
+def _run_mesh(t):
+    """The mesh of the running scope when ``t`` is a ``DTensor`` over its
+    ranks, else None (plain tensors attend on their own device)."""
+    mesh = current_mesh()
+    if mesh is None or not mesh.distributed:
+        return None
+    from torch.distributed.tensor import DTensor
+
+    return mesh if isinstance(t, DTensor) else None
 
 
 class MultiHeadAttention(HybridBlock):
@@ -93,36 +103,32 @@ class MultiHeadAttention(HybridBlock):
     def hybrid_forward(self, F, x, mask=None):
         b, s, u = x.shape  # (B, S, U)
         h, d = self._heads, self._units // self._heads
-        mesh = current_mesh()
-        if mesh is not None and not mesh.distributed:
-            mesh = None
-        qkv = self.qkv(x)
-        if mesh is not None:
-            # a tp-sharded fused projection splits inside q/k/v: gather it
-            qkv = invoke_fn(lambda t: _whole_dim(t, -1), [qkv])
-        qkv = qkv.reshape((b, s, 3, h, d))
+        # a tp-sharded fused projection is gathered by the reshape
+        # (ops/matrix.py), where its shards would cut through q/k/v
+        qkv = self.qkv(x).reshape((b, s, 3, h, d))
         q, k, v = F.split(qkv, num_outputs=3, axis=2, squeeze_axis=True)
         q = q.transpose((0, 2, 1, 3))  # (B, H, S, D)
         k = k.transpose((0, 2, 1, 3))
         v = v.transpose((0, 2, 1, 3))
         causal = self._causal
 
-        if mesh is not None and mesh.shape.get("sp", 1) > 1:
-            if mask is not None:
-                raise MXNetError("MultiHeadAttention: ring attention over "
-                                 "sp takes no mask")
-            out = invoke_fn(
-                lambda qq, kk, vv: _whole_dim(sequence_sharded_attention(
-                    qq, kk, vv, mesh, causal=causal), 2), [q, k, v])
-        else:
-            def attn(qq, kk, vv, mm=None):
-                if mesh is not None:
-                    return sharded_attention(qq, kk, vv, mesh, mask=mm,
-                                             causal=causal)
-                return fused_attention(qq, kk, vv, mask=mm, causal=causal)
+        def attn(qq, kk, vv, mm=None):
+            # the mesh is looked up when the layer runs, so a graph traced
+            # outside a mesh scope attends over the one it runs under
+            mesh = _run_mesh(qq)
+            if mesh is not None and mesh.shape.get("sp", 1) > 1:
+                if mm is not None:
+                    raise MXNetError("MultiHeadAttention: ring attention "
+                                     "over sp takes no mask")
+                return _whole_dim(sequence_sharded_attention(
+                    qq, kk, vv, mesh, causal=causal), 2)
+            if mesh is not None:
+                return sharded_attention(qq, kk, vv, mesh, mask=mm,
+                                         causal=causal)
+            return fused_attention(qq, kk, vv, mask=mm, causal=causal)
 
-            out = invoke_fn(attn, [q, k, v] + ([mask] if mask is not None
-                                               else []))
+        out = invoke_fn(attn, [q, k, v] + ([mask] if mask is not None
+                                           else []))
         out = out.transpose((0, 2, 1, 3)).reshape((b, s, u))
         out = self.proj(out)
         if self._dropout:

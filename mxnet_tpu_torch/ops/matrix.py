@@ -78,13 +78,46 @@ def _infer_reshape(data_shape, shape, reverse=False):
     return tuple(out)
 
 
+# (input shape, output shape, placements) -> the placements a DTensor
+# takes before that reshape, for the reshapes DTensor cannot shard through
+_GATHER_BEFORE: dict = {}
+
+
+def _reshape_dtensor(data, shape):
+    """``data`` (a ``DTensor``) reshaped to ``shape``. Where ``DTensor``
+    cannot keep a shard through the reshape (a tp-sharded fused QKV
+    projection split into (3, heads, dim): its shards cut through q, k
+    and v), every mesh dimension sharding an array dimension past the
+    unchanged leading ones is gathered first, as GSPMD's reshape does;
+    the others keep their shards."""
+    key = (tuple(data.shape), shape, tuple(data.placements))
+    pl = _GATHER_BEFORE.get(key)
+    if pl is None:
+        try:
+            return torch.reshape(data, shape)
+        except RuntimeError:
+            from torch.distributed.tensor import Replicate
+
+            keep = 0
+            while (keep < min(data.ndim, len(shape))
+                   and data.shape[keep] == shape[keep]):
+                keep += 1
+            pl = _GATHER_BEFORE[key] = tuple(
+                Replicate() if p.is_shard() and p.dim % data.ndim >= keep
+                else p for p in data.placements)
+    return torch.reshape(data.redistribute(data.device_mesh, pl), shape)
+
+
 @register("Reshape", aliases=["reshape"], ndarray_inputs=["data"])
 def _reshape(data, shape=None, reverse=False, target_shape=None,
              keep_highest=False):
     if shape is None and target_shape is not None:  # legacy param
         shape = target_shape
-    return torch.reshape(data, _infer_reshape(tuple(data.shape), tuple(shape),
-                                              reverse=bool(reverse)))
+    shape = _infer_reshape(tuple(data.shape), tuple(shape),
+                           reverse=bool(reverse))
+    if hasattr(data, "placements"):
+        return _reshape_dtensor(data, shape)
+    return torch.reshape(data, shape)
 
 
 @register("Flatten", aliases=["flatten"], ndarray_inputs=["data"])

@@ -6,7 +6,8 @@ Gluon block as a function of its parameters), :mod:`train_step`
 (``ShardedTrainer``: forward, backward and update of a Gluon block on
 ``dp``/``sp``/``tp`` meshes) and :mod:`ring_attention` (sequence
 parallelism over ``sp``). One process runs each mesh device; the serving
-plane's sharded replicas are queue item A14(c)."""
+plane's sharded engines and replica groups are ``serve/engine.py``'s and
+``serve/group.py``'s."""
 from .mesh import (Mesh, make_mesh, mesh_axes,  # noqa: F401
                    local_device_count, mesh_scope, current_mesh,
                    mesh_slices)

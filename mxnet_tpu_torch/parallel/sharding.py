@@ -19,7 +19,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .mesh import Mesh
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "ShardingRules",
-           "param_sharding", "batch_sharding", "replicated", "batch_local"]
+           "param_sharding", "batch_sharding", "replicated", "batch_local",
+           "shard_local", "is_replicated"]
 
 
 class PartitionSpec(tuple):
@@ -137,6 +138,26 @@ def batch_sharding(mesh: Mesh, spec: P = P("dp"),
     """Sharding for a batch-leading array; ``shape`` prunes axes that do
     not divide the corresponding dim."""
     return NamedSharding(mesh, _prune(spec, mesh, shape))
+
+
+def is_replicated(placements) -> bool:
+    return all(p.is_replicate() for p in placements)
+
+
+def shard_local(full, mesh: Mesh, placements):
+    """This rank's piece of ``full`` (a tensor every rank of ``mesh``
+    holds whole) as a ``DTensor`` with ``placements``."""
+    from torch.distributed.tensor import DTensor
+
+    dm = mesh.device_mesh
+    coord = dm.get_coordinate()
+    local = full
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            local = local.chunk(dm.size(i), dim=pl.dim)[coord[i]]
+    return DTensor.from_local(local.contiguous(), dm, list(placements),
+                              run_check=False, shape=full.shape,
+                              stride=full.contiguous().stride())
 
 
 def batch_local(fn, data, *params):

@@ -68,7 +68,7 @@ from ..optimizer import create as _opt_create
 from ..optimizer.fused import lower_update
 from .functional import functionalize
 from .mesh import Mesh, make_mesh, mesh_scope
-from .sharding import P, ShardingRules, batch_sharding
+from .sharding import P, ShardingRules, batch_sharding, shard_local
 
 __all__ = ["ShardedTrainer"]
 
@@ -161,17 +161,7 @@ class ShardedTrainer:
     def _place(self, full, placements):
         """This rank's piece of ``full`` (a tensor every rank holds) as a
         ``DTensor`` with ``placements``."""
-        from torch.distributed.tensor import DTensor
-
-        dm = self.mesh.device_mesh
-        coord = dm.get_coordinate()
-        local = full
-        for i, pl in enumerate(placements):
-            if pl.is_shard():
-                local = local.chunk(dm.size(i), dim=pl.dim)[coord[i]]
-        return DTensor.from_local(local.contiguous(), dm, list(placements),
-                                  run_check=False, shape=full.shape,
-                                  stride=full.contiguous().stride())
+        return shard_local(full, self.mesh, placements)
 
     def _broadcast(self, tensors):
         """The first rank's values of ``tensors`` on every rank of the

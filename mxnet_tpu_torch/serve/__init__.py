@@ -23,8 +23,13 @@ Layers
 - :class:`Autoscaler` / :class:`AutoscalePolicy` — SLO-driven elastic
   scaling of a pool (``autoscale.py``).
 
-The persisted programs of :func:`ship_programs` are queue item A15 of the
-port; mesh-sliced pools (``ReplicaPool.sharded``) are A14(c).
+An engine sharded over a mesh of several ranks (``InferenceEngine(mesh=,
+rules=, data_spec=)``) runs in every rank of its job, rank 0 leading
+(``group.py``); ``ReplicaPool.sharded`` serves such groups, each a job of
+its own on a slice of the mesh, and ``python -m
+mxnet_tpu_torch.serve.server --tp N`` starts its own N ranks. The
+persisted programs of :func:`ship_programs` are queue item A15 of the
+port.
 
 Typical session::
 
@@ -171,7 +176,7 @@ def load(path: str, epoch: Optional[int] = None, symbol=None, *,
     """Build an :class:`InferenceEngine` from any trained artifact (see
     the module docstring for the three kinds). Extra kwargs go to the
     engine (``max_batch_size``, ``buckets``, ``data_names``, ``lint``,
-    ``ctx``)."""
+    ``ctx``, ``mesh``, ``rules``, ``data_spec``)."""
     sym, arg, aux = _load_artifact(path, epoch, symbol, prefix)
     return InferenceEngine(sym, arg, aux, **engine_kwargs)
 

@@ -31,8 +31,8 @@ Two layers, split so that the policy is testable as a pure function:
 The windowed burn reads the router's ``fleet.request_latency_seconds``
 histogram and ``fleet.request_deadline_exceeded`` counter, which the
 router records while ``obs`` is enabled. A pool on mesh slices
-(``ReplicaPool.sharded``, the reference's default scale-out factory) is
-queue item A14(c) of the port: a pool here passes ``factory=``.
+(``ReplicaPool.sharded``) scales out onto its spare slices by default
+(``pool.new_sharded_handle``); any other pool passes ``factory=``.
 """
 from __future__ import annotations
 
@@ -185,8 +185,8 @@ class Autoscaler:
         SLO monitor; the pool executes joins and leaves).
     factory : callable, optional
         Zero-arg callable returning a fresh replica handle for scale-out.
-        Required: the reference's default, ``pool.new_sharded_handle`` of
-        a mesh-sliced pool, is queue item A14(c) of the port.
+        Default: ``pool.new_sharded_handle`` for sharded pools (the next
+        spare mesh slice) — a non-sharded pool must pass one.
     policy / slo
         Decision policy and the SLO monitor whose ``burn_window`` supplies
         the windowed burn signal (defaults: :class:`AutoscalePolicy()`,

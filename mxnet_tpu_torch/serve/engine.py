@@ -25,18 +25,33 @@ launches the flash forward kernel):
   flight keeps the :class:`_ParamSet` it started with, so a reply is
   computed entirely with the old parameters or entirely with the new.
 
+- **Sharded serving** (``mesh=``, ``rules=``, ``data_spec=``): on a mesh
+  of several ranks (``parallel/mesh.py``: one process each) the engine
+  runs on every rank. The parameters are ``DTensor``s placed by the
+  ``rules`` table (specs that do not fit the mesh prune to replicated),
+  the batch is replicated or sharded over ``dp`` by ``data_spec``, and
+  each bucket runs under ``mesh_scope(mesh)``, so model code finds the
+  mesh; the collectives follow from the placements. Rank 0 of the mesh
+  leads: the caller's engine. The other ranks follow it
+  (``serve/group.py``): their constructor does not return, and every
+  operation that touches the mesh is announced by the leader first. A
+  bucket whose parameters and batch are all replicated touches no mesh:
+  the leader computes it alone, as one process would. A reload keeps the
+  placements. On a mesh of one rank the engine is the unsharded one.
+
 Differences from the reference, each raising :class:`MXNetError` where it
-applies: ``mesh=``, ``rules=`` and ``data_spec=`` (sharded serving) belong
-to queue item A14(c); ``progcache_dir=`` and ``save_programs`` (persisted
-programs), and the ``lint="error"`` pre-flight (``Symbol.lint``) to A15.
-The default ``lint="warn"`` warns once that the pre-flight did not run
-(``lint_report`` stays None). ``warmup`` runs its buckets one after the
-other on the calling thread. The reference's obs spans and counters wait
-for A15. ``ctx=`` places the engine (default: the current context, the
-card unless a ``with mx.cpu():`` scope is open).
+applies: ``progcache_dir=`` and ``save_programs`` (persisted programs),
+and the ``lint="error"`` pre-flight (``Symbol.lint``) belong to queue
+item A15. The default ``lint="warn"`` warns once that the pre-flight did
+not run (``lint_report`` stays None). ``warmup`` runs its buckets one
+after the other on the calling thread. The reference's obs spans and
+counters wait for A15. ``ctx=`` places an engine without a mesh (default:
+the current context, the card unless a ``with mx.cpu():`` scope is open);
+a mesh places it on its rank's device.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -46,6 +61,8 @@ import torch
 
 from ..base import MXNetError, dtype_name
 from ..ndarray.serialization import host_array
+from ..parallel.sharding import is_replicated
+from .group import OP_ABORT, OP_COMMIT, OP_PREPARE, OP_RELOAD
 
 __all__ = ["InferenceEngine", "ServeError", "RequestRejected",
            "DeadlineExceeded", "Draining", "default_buckets"]
@@ -91,6 +108,13 @@ def _sig_of(arrays) -> tuple:
 
 def _aval(t: torch.Tensor) -> tuple:
     return tuple(t.shape), dtype_name(t.dtype)
+
+
+def _shape_of(v) -> tuple:
+    s = getattr(v, "shape", None)
+    if s is None:
+        s = np.asarray(v).shape
+    return tuple(int(d) for d in s)
 
 
 def default_buckets(max_batch_size: int) -> List[int]:
@@ -146,8 +170,21 @@ class InferenceEngine:
         "warn" warns that it did not run, "off" runs nothing.
     pad_value : float
         Fill of the padding rows.
+    mesh : parallel.Mesh, optional
+        Shard the engine over a mesh (one replica group's slice,
+        ``parallel.mesh_slices``): a mesh of several ranks spans its whole
+        job, every rank builds the engine, and only rank 0 of the mesh
+        returns from the constructor (see the module's docstring). Rank
+        0's parameter values are the ones served.
+    rules : parallel.ShardingRules, optional
+        Parameter name -> PartitionSpec table (default: everything
+        replicated); specs naming axes the mesh lacks, or not dividing a
+        dimension, prune to replicated.
+    data_spec : PartitionSpec, optional
+        Spec of the request batches (default ``P("dp")``, pruned per
+        bucket shape: a pure-``tp`` slice replicates the batch).
     ctx : Context or device, optional
-        Where the parameters live and the batches run.
+        Where the parameters live and the batches run, without a mesh.
     """
 
     def __init__(self, symbol, arg_params, aux_params=None, *,
@@ -162,13 +199,6 @@ class InferenceEngine:
         from ..context import as_device, current_context
         from ..executor import _build_graph_fn
 
-        for name, val in (("mesh", mesh), ("rules", rules),
-                          ("data_spec", data_spec)):
-            if val is not None:
-                raise MXNetError(
-                    f"InferenceEngine({name}=): sharded serving over a "
-                    "device mesh is queue item A14(c) of the "
-                    "port")
         if progcache_dir is not None:
             raise MXNetError("InferenceEngine(progcache_dir=): persisted "
                              "programs are queue item A15 of the port")
@@ -183,8 +213,12 @@ class InferenceEngine:
                           "is queue item A15 of the port", stacklevel=2)
 
         self.symbol = symbol
-        self.device = (as_device(ctx) if ctx is not None
-                       else current_context().torch_device())
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.local_device
+        else:
+            self.device = (as_device(ctx) if ctx is not None
+                           else current_context().torch_device())
         self._data_names = list(data_names)
         if buckets is None:
             buckets = default_buckets(max_batch_size)
@@ -225,16 +259,39 @@ class InferenceEngine:
                 "untrained BatchNorm served with default stats is a silent "
                 "accuracy bug; export the full checkpoint")
 
+        # the placement is resolved here, once: a reload lands with the
+        # same shardings, and a bucket's batch placement is cached by shape
+        self._data_spec = data_spec
+        self._param_sh: Dict[str, object] = {}
+        self._data_pl: Dict[tuple, tuple] = {}
+        self._channel = None
+        if mesh is not None:
+            from ..parallel.sharding import ShardingRules
+
+            rules = rules or ShardingRules()
+            self._rules = rules
+            for n in self._param_names:
+                self._param_sh[n] = rules.sharding_for(
+                    n, mesh, _shape_of(arg_params[n]))
+            if mesh.distributed:
+                from .group import Channel
+
+                self._channel = Channel(mesh, self.device)
+        self._replicated = all(is_replicated(sh.placements)
+                               for sh in self._param_sh.values())
+
         self._lock = threading.Lock()
         self._staged: Optional[_ParamSet] = None  # prepared, not serving
-        self._params = _ParamSet(
-            0,
-            tuple(_to_device(arg_params[n], self.device)
-                  for n in self._param_names),
-            tuple(_to_device(aux_params[n], self.device)
-                  for n in self._aux_names))
-        self._param_avals = tuple(_aval(v) for v in self._params.arg_vals)
-        self._aux_avals = tuple(_aval(v) for v in self._params.aux_vals)
+        args = [_to_device(arg_params[n], self.device)
+                for n in self._param_names]
+        auxs = [_to_device(aux_params[n], self.device)
+                for n in self._aux_names]
+        if self._channel is not None:
+            self._channel.share(args + auxs)  # rank 0's values everywhere
+        self._param_avals = tuple(_aval(v) for v in args)
+        self._aux_avals = tuple(_aval(v) for v in auxs)
+        self._specs = [(tuple(v.shape), v.dtype) for v in args + auxs]
+        self._params = self._param_set(0, args, auxs)
 
         # the Executor's own graph function: Module.predict at batch B and
         # this engine's bucket B run the same ops on the same shapes
@@ -252,6 +309,11 @@ class InferenceEngine:
         self._free_cache: Dict[tuple, tuple] = {}
         self.exec_count = 0
         self.cache_hits = 0
+        if self._channel is not None and not self._channel.is_leader:
+            from .group import PeerExit
+
+            self._channel.follow(self)
+            raise PeerExit(self)
 
     # ------------------------------------------------------------------
     # properties / stats
@@ -273,7 +335,7 @@ class InferenceEngine:
     def stats(self) -> dict:
         staged = self._staged
         with self._stat_lock:
-            return {
+            out = {
                 "version": self.version,
                 "staged_version": (staged.version if staged is not None
                                    else None),
@@ -285,6 +347,73 @@ class InferenceEngine:
                 "cache_hits": self.cache_hits,
                 "device": str(self.device),
             }
+        if self.mesh is not None:
+            out["mesh"] = self.mesh.shape
+            out["mesh_devices"] = self.mesh.size
+            out["sharded_params"] = sum(
+                1 for sh in self._param_sh.values()
+                if any(ax is not None for ax in sh.spec))
+        return out
+
+    # ------------------------------------------------------------------
+    # placement
+    # ------------------------------------------------------------------
+    def _param_set(self, version: int, args, auxs) -> _ParamSet:
+        """A generation from whole tensors on the device: on a mesh of
+        several ranks each parameter that its rule shards becomes this
+        rank's ``DTensor`` piece; replicated ones and aux states stay
+        plain (replicated where they meet a ``DTensor``)."""
+        if self._channel is not None:
+            from ..parallel.sharding import shard_local
+
+            args = [v if is_replicated(sh.placements)
+                    else shard_local(v, self.mesh, sh.placements)
+                    for v, sh in zip(args, (self._param_sh[n]
+                                            for n in self._param_names))]
+        return _ParamSet(version, tuple(args), tuple(auxs))
+
+    def _data_placements(self, shape: tuple) -> tuple:
+        """A batch array's placements: ``data_spec`` pruned against the
+        mesh and this bucket's shape."""
+        pl = self._data_pl.get(shape)
+        if pl is None:
+            from ..parallel.sharding import P, batch_sharding
+
+            spec = self._data_spec if self._data_spec is not None \
+                else P("dp")
+            pl = self._data_pl[shape] = batch_sharding(
+                self.mesh, spec, shape).placements
+        return pl
+
+    def _on_mesh(self, shapes) -> bool:
+        """Whether a bucket of these batch shapes touches the mesh: some
+        parameter or the batch is sharded. A replicated bucket is one
+        process's computation, which the leader runs alone."""
+        return self._channel is not None and not (
+            self._replicated and all(is_replicated(self._data_placements(s))
+                                     for s in shapes))
+
+    def _lead(self, op: int, ints=(), arrays=()):
+        """On a mesh of several ranks: announce ``op`` to the peers and
+        hold the group for the block (``serve/group.py``)."""
+        if self._channel is None:
+            return contextlib.nullcontext()
+        return self._channel.lead(op, ints, arrays)
+
+    def _scope(self, on_mesh: bool):
+        """The mesh scope of a bucket; on the mesh, plain tensors beside
+        ``DTensor``s count as replicated."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            from ..parallel.mesh import mesh_scope
+
+            stack.enter_context(mesh_scope(self.mesh))
+        if on_mesh:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+
+            stack.enter_context(implicit_replication())
+        return stack
 
     # ------------------------------------------------------------------
     # bucketing
@@ -324,6 +453,30 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # execution
     # ------------------------------------------------------------------
+    def _forward(self, tensors, snapshot: _ParamSet, bucket: int,
+                 on_mesh: bool) -> list:
+        """One bucket's outputs, whole, from its padded batch (tensors on
+        the device, every rank's whole batch when ``on_mesh``)."""
+        shapes = [tuple(t.shape) for t in tensors]
+        arg_vals: List = [None] * self._n_args
+        for slot, v in zip(self._param_slots, snapshot.arg_vals):
+            arg_vals[slot] = v
+        for slot, v in zip(self._free_slots, self._free_vals(bucket, shapes)):
+            arg_vals[slot] = v
+        if on_mesh:
+            from ..parallel.sharding import shard_local
+
+            tensors = [shard_local(t, self.mesh, self._data_placements(s))
+                       for t, s in zip(tensors, shapes)]
+        for slot, t in zip(self._data_slots, tensors):
+            arg_vals[slot] = t
+        with torch.no_grad(), self._scope(on_mesh):
+            outs, _new_aux = self._fn(arg_vals, list(snapshot.aux_vals))
+            if on_mesh:  # every rank takes part in the gather
+                outs = [o.full_tensor() if hasattr(o, "full_tensor") else o
+                        for o in outs]
+        return list(outs)
+
     def infer(self, inputs, n_valid: Optional[int] = None
               ) -> Tuple[list, int]:
         """Run one (possibly padded) batch. ``inputs``: one array per data
@@ -335,6 +488,7 @@ class InferenceEngine:
         oversized request may straddle a reload.
         """
         from ..executor import _tensor
+        from .group import OP_FORWARD
 
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
@@ -371,26 +525,21 @@ class InferenceEngine:
                 [a, np.full((pad,) + a.shape[1:], self._pad_value, a.dtype)],
                 axis=0) for a in arrays]
         sig = _sig_of(arrays)
-        free_vals = self._free_vals(bucket, [tuple(a.shape) for a in arrays])
-        snapshot = self._params  # atomic: old or new, never mixed
-
-        arg_vals: List = [None] * self._n_args
-        for slot, v in zip(self._param_slots, snapshot.arg_vals):
-            arg_vals[slot] = v
-        for slot, v in zip(self._free_slots, free_vals):
-            arg_vals[slot] = v
-        for slot, a in zip(self._data_slots, arrays):
-            arg_vals[slot] = _tensor(a, self.device)
-        with self._stat_lock:
-            if sig not in self._programs:
-                self._programs[sig] = 0
-                self.compile_log.append({
-                    "sig": sig, "bucket": bucket,
-                    "param_avals": self._param_avals,
-                    "version_at_compile": snapshot.version,
-                    "cache_hit": False})
-        with torch.no_grad():
-            outs, _new_aux = self._fn(arg_vals, list(snapshot.aux_vals))
+        tensors = [_tensor(a, self.device) for a in arrays]
+        on_mesh = self._on_mesh([tuple(a.shape) for a in arrays])
+        with (self._lead(OP_FORWARD, [bucket], tensors) if on_mesh
+              else contextlib.nullcontext()):
+            # taken inside the announcement: the peers serve the same one
+            snapshot = self._params  # atomic: old or new, never mixed
+            with self._stat_lock:
+                if sig not in self._programs:
+                    self._programs[sig] = 0
+                    self.compile_log.append({
+                        "sig": sig, "bucket": bucket,
+                        "param_avals": self._param_avals,
+                        "version_at_compile": snapshot.version,
+                        "cache_hit": False})
+            outs = self._forward(tensors, snapshot, bucket, on_mesh)
         # on the host (numpy, or CPU bfloat16): the batch's one wait
         host = [host_array(o) for o in outs]
         with self._stat_lock:
@@ -429,22 +578,62 @@ class InferenceEngine:
         raise MXNetError("InferenceEngine.save_programs: persisted programs "
                          "are queue item A15 of the port")
 
+    def close(self) -> None:
+        """Stop the peers of a sharded engine (the leader's call; their
+        constructors raise ``PeerExit``). Idempotent; no-op elsewhere."""
+        from . import group
+
+        ch = self._channel
+        if ch is None or not ch.is_leader or ch.broken:
+            return
+        group.stopping()
+        with ch.lead(group.OP_STOP):
+            ch.broken = "stopped"
+
+    # ------------------------------------------------------------------
+    # a peer's side of the announced operations
+    # ------------------------------------------------------------------
+    def _follow_op(self, op: int, ints, arrays) -> None:
+        from . import group
+
+        if op == group.OP_FORWARD:
+            self._forward(arrays, self._params, ints[0], True)
+        elif op in (group.OP_PREPARE, group.OP_RELOAD):
+            vals = [torch.empty(s, dtype=d, device=self.device)
+                    for s, d in self._specs]
+            self._channel.share(vals)
+            k = len(self._param_names)
+            new = self._param_set(ints[0], vals[:k], vals[k:])
+            with self._lock:
+                if op == group.OP_PREPARE:
+                    self._staged = new
+                else:
+                    self._params = new
+        elif op == group.OP_COMMIT:
+            self._commit()
+        elif op == group.OP_ABORT:
+            with self._lock:
+                self._staged = None
+        else:
+            raise ServeError(f"unknown group operation {op}")
+
     # ------------------------------------------------------------------
     # hot reload
     # ------------------------------------------------------------------
     def _validated_param_set(self, arg_params, aux_params):
         """Names, shapes and dtypes must match the serving set. Returns the
-        device-resident ``(new_args, new_aux)``, built before any swap."""
+        whole ``(new_args, new_aux)`` tensors on the device, built before
+        any swap."""
         arg_params = dict(arg_params or {})
         aux_params = dict(aux_params or {})
         missing = [n for n in self._param_names if n not in arg_params]
         missing += [n for n in self._aux_names if n not in aux_params]
         if missing:
             raise ServeError(f"reload missing parameters: {missing}")
-        new_args = tuple(_to_device(arg_params[n], self.device)
-                         for n in self._param_names)
-        new_aux = tuple(_to_device(aux_params[n], self.device)
-                        for n in self._aux_names)
+        new_args = [_to_device(arg_params[n], self.device)
+                    for n in self._param_names]
+        new_aux = [_to_device(aux_params[n], self.device)
+                   for n in self._aux_names]
         for names, vals, avals in (
                 (self._param_names, new_args, self._param_avals),
                 (self._aux_names, new_aux, self._aux_avals)):
@@ -458,41 +647,56 @@ class InferenceEngine:
                         "changed architecture")
         return new_args, new_aux
 
+    def _install(self, op: int, arg_params, aux_params, version) -> int:
+        """Validate, announce, share and place a new generation; stage it
+        (OP_PREPARE) or serve it (OP_RELOAD). Returns its version."""
+        new_args, new_aux = self._validated_param_set(arg_params, aux_params)
+        with self._lock:
+            v = int(version) if version is not None \
+                else self._params.version + 1
+        with self._lead(op, [v]):
+            if self._channel is not None:
+                self._channel.share(new_args + new_aux)
+            new = self._param_set(v, new_args, new_aux)
+            with self._lock:
+                if op == OP_PREPARE:
+                    self._staged = new
+                else:
+                    self._params = new
+        return v
+
     def prepare_reload(self, arg_params, aux_params=None, *,
                        version: Optional[int] = None) -> int:
         """Phase one of a two-phase reload: validate and place the new
         generation now, and stage it without flipping; :meth:`commit_reload`
         is then a pointer swap. ``version`` pins the staged generation
         number (default current + 1). Returns the staged version."""
-        new_args, new_aux = self._validated_param_set(arg_params, aux_params)
-        with self._lock:
-            v = int(version) if version is not None \
-                else self._params.version + 1
-            self._staged = _ParamSet(v, new_args, new_aux)
-        return v
+        return self._install(OP_PREPARE, arg_params, aux_params, version)
 
-    def commit_reload(self) -> int:
-        """Phase two: flip the staged generation live. Raises when nothing
-        is staged. Returns the now-serving version."""
+    def _commit(self) -> int:
         with self._lock:
             if self._staged is None:
                 raise ServeError("no prepared reload to commit")
             self._params, self._staged = self._staged, None
             return self._params.version
 
+    def commit_reload(self) -> int:
+        """Phase two: flip the staged generation live. Raises when nothing
+        is staged. Returns the now-serving version."""
+        if self._staged is None:
+            raise ServeError("no prepared reload to commit")
+        with self._lead(OP_COMMIT):
+            return self._commit()
+
     def abort_reload(self) -> None:
         """Discard a staged generation (idempotent)."""
-        with self._lock:
-            self._staged = None
+        with self._lead(OP_ABORT):
+            with self._lock:
+                self._staged = None
 
     def reload(self, arg_params, aux_params=None, *,
                version: Optional[int] = None) -> int:
         """Swap in a new parameter generation without dropping in-flight
         work (single-replica path); the staged slot is untouched. Returns
         the new version."""
-        new_args, new_aux = self._validated_param_set(arg_params, aux_params)
-        with self._lock:
-            v = int(version) if version is not None \
-                else self._params.version + 1
-            self._params = _ParamSet(v, new_args, new_aux)
-        return v
+        return self._install(OP_RELOAD, arg_params, aux_params, version)

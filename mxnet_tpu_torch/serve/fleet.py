@@ -8,9 +8,12 @@ Layers (bottom up):
 
 - **Replica handles** — :class:`LocalReplica` (an in-process
   :class:`~mxnet_tpu_torch.serve.server.ServeServer`, "killed" by severing
-  its sockets — crash-equivalent to a client) and :class:`ProcReplica` (a
+  its sockets — crash-equivalent to a client), :class:`ProcReplica` (a
   real subprocess, ``python -m mxnet_tpu_torch.serve.server``, killed with
-  SIGKILL). One supervision/routing code path covers both.
+  SIGKILL) and :class:`GroupReplica` (a replica group: the ranks of a
+  sharded engine on one slice of a mesh, a job of their own
+  (``serve/group.py``), killed as a unit). One supervision/routing code
+  path covers all three.
 - :class:`ReplicaPool` — supervision: liveness via the health/readiness
   probes, restart-with-capped-backoff+jitter on death
   (``base.capped_backoff``), and **target tracking**: a replica restarted
@@ -50,8 +53,9 @@ and ``fleet.request_latency_seconds`` histograms go into ``obs.metrics``
 them. The reference's fleet spans, events and tail notes, its
 ``MXNET_CHAOS_KILL_REPLICA<i>`` kill points, the child's span stream
 (``obs_dir=``) and the program cache (``progcache_dir=``) are queue item
-A15 of the port; the mesh-sliced pools (``ReplicaPool.sharded``) are A14(c).
-Each raises naming its item.
+A15 of the port, each raising naming its item. ``ReplicaPool.sharded``
+takes a picklable ``make_server`` (a module-level function or a
+``functools.partial`` of one): it runs in every rank of each group.
 """
 from __future__ import annotations
 
@@ -59,10 +63,12 @@ import contextlib
 import gc
 import os
 import queue
+import select
 import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -76,8 +82,8 @@ from .client import ServeClient
 from .engine import (DeadlineExceeded, Draining, RequestRejected, ServeError)
 from .server import ServeServer
 
-__all__ = ["CircuitBreaker", "LocalReplica", "ProcReplica", "ReplicaPool",
-           "Router", "FleetServer"]
+__all__ = ["CircuitBreaker", "LocalReplica", "ProcReplica", "GroupReplica",
+           "ReplicaPool", "Router", "FleetServer"]
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +229,10 @@ class ProcReplica:
     """Subprocess replica: ``python -m mxnet_tpu_torch.serve.server
     <model>`` on a pre-picked port, started with ``subprocess.Popen`` (a
     fresh interpreter, never a fork of a parent that may hold a CUDA
-    context). ``kill()`` is a real SIGKILL. The child serves on the card
-    unless its environment pins ``MXNET_SERVE_PLATFORM=cpu``.
+    context), in a session of its own. ``kill()`` is a real SIGKILL of the
+    session's process group, so it reaches the ranks a ``--tp`` child
+    starts. The child serves on the card unless its environment pins
+    ``MXNET_SERVE_PLATFORM=cpu``.
 
     The reference's per-replica chaos (``MXNET_CHAOS_KILL_REPLICA<i>``), the
     child's span stream (``obs_dir=``) and its program cache
@@ -255,22 +263,16 @@ class ProcReplica:
 
     def start(self) -> Tuple[str, int]:
         port = _free_port()
-        env = dict(os.environ)
+        env = _job_env()
         env.update(self._env)
-        # the child must import mxnet_tpu_torch regardless of the cwd
-        pkg_root = os.path.dirname(os.path.dirname(
-            os.path.dirname(os.path.abspath(__file__))))
-        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
-        if obs.enabled():
-            # the whole fleet records metrics or none of it does
-            env.setdefault("MXNET_OBS", "1")
         out = open(self._log_path, "ab") if self._log_path \
             else subprocess.DEVNULL
         try:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "mxnet_tpu_torch.serve.server",
                  self.model, "--port", str(port)] + self._args,
-                env=env, stdout=out, stderr=subprocess.STDOUT)
+                env=env, stdout=out, stderr=subprocess.STDOUT,
+                start_new_session=True)
         finally:
             if out is not subprocess.DEVNULL:
                 out.close()
@@ -280,18 +282,162 @@ class ProcReplica:
         return self.proc is not None and self.proc.poll() is None
 
     def kill(self) -> None:
-        if self.alive():
-            os.kill(self.proc.pid, signal.SIGKILL)
+        if self.proc is not None:
+            _signal_group(self.proc, signal.SIGKILL)
 
     def stop(self) -> None:
         if self.proc is not None:
-            if self.proc.poll() is None:
-                self.proc.terminate()
-                try:
-                    self.proc.wait(timeout=5)
-                except subprocess.TimeoutExpired:
-                    self.proc.kill()
-            self.proc.wait()  # reap
+            _stop_group(self.proc)
+
+
+def _signal_group(proc, sig) -> None:
+    """``sig`` to the process group of ``proc``, a session leader."""
+    try:
+        os.killpg(proc.pid, sig)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+def _stop_group(proc, pids: Sequence[int] = (), timeout: float = 5.0):
+    """SIGTERM the session of ``proc``, SIGKILL it after ``timeout``, reap
+    ``proc`` and wait until none of ``pids`` runs."""
+    from .group import pid_alive
+
+    if proc.poll() is None:
+        _signal_group(proc, signal.SIGTERM)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
+    _signal_group(proc, signal.SIGKILL)
+    proc.wait()
+    deadline = time.monotonic() + timeout
+    while any(pid_alive(p) for p in pids):
+        if time.monotonic() > deadline:
+            raise ServeError(f"ranks {[p for p in pids if pid_alive(p)]} "
+                             "outlived their group's kill")
+        time.sleep(0.02)
+
+
+def _job_env() -> dict:
+    """A child replica's environment: this process's, without the
+    launcher's job variables (a ``--tp`` child or a replica group forms a
+    job of its own), with the repo root on ``PYTHONPATH`` (the child
+    imports the port whatever its cwd) and ``MXNET_OBS`` when ``obs`` is
+    on (the whole fleet records metrics or none of it does)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DMLC_NUM_WORKER", "DMLC_WORKER_ID",
+                        "MXNET_COORDINATOR", "DMLC_PS_ROOT_URI",
+                        "DMLC_PS_ROOT_PORT", "MXNET_WORKER_ID",
+                        "MXNET_NUM_WORKER")}
+    pkg_root = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+    if obs.enabled():
+        env.setdefault("MXNET_OBS", "1")
+    return env
+
+
+class GroupReplica:
+    """A replica group: ``make_server(submesh)`` in every rank of a job of
+    ``mesh.size`` processes (``python -m mxnet_tpu_torch.serve.group``),
+    the leader's server the replica's address. ``start()`` starts the
+    leader in a new session (it starts its peers) and returns once the
+    leader's factory returned and its server listens, or raises with the
+    tail of the group's output; ``kill()`` SIGKILLs the session's process
+    group; ``stop()`` ends it and waits until no rank of it runs.
+    ``mesh`` is the slice (its ranks renumbered from 0 in the group's
+    job); ``env`` is added to the ranks' environment; ``pids`` holds the
+    ranks' pids once started."""
+
+    def __init__(self, make_server: Callable, mesh, *,
+                 env: Optional[dict] = None, start_timeout: float = 600.0):
+        from .group import group_payload
+
+        self._payload = group_payload(make_server, mesh)
+        self.mesh = mesh
+        self._env = dict(env or {})
+        self.start_timeout = float(start_timeout)
+        self.proc: Optional[subprocess.Popen] = None
+        self.pids: List[int] = []
+        self._log = None
+        self._stops = 0  # a stop during a start ends what it started
+        self.idx = -1  # assigned by the pool
+
+    def start(self) -> Tuple[str, int]:
+        stops = self._stops
+        env = _job_env()
+        env.update(self._env)
+        self._log = tempfile.TemporaryFile()
+        r, w = os.pipe()
+        try:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "mxnet_tpu_torch.serve.group",
+                 "--ranks", str(self.mesh.size), "--report-fd", str(w)],
+                env=env, stdin=subprocess.PIPE, stdout=self._log,
+                stderr=subprocess.STDOUT, pass_fds=(w,),
+                start_new_session=True)
+        finally:
+            os.close(w)
+        try:
+            self.proc.stdin.write(self._payload)
+            self.proc.stdin.close()
+            line = self._read_report(r)
+        finally:
+            os.close(r)
+        if line:
+            port, *self.pids = (int(v) for v in line.split())
+        if not line or self._stops != stops:
+            tail = self._log_tail()
+            self.stop()
+            raise ServeError(f"replica group on {self.mesh!r} stopped or "
+                             f"ended before serving:\n{tail}")
+        return ("127.0.0.1", port)
+
+    def _read_report(self, fd: int) -> str:
+        buf = b""
+        deadline = time.monotonic() + self.start_timeout
+        while not buf.endswith(b"\n"):
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return ""
+            ready, _, _ = select.select([fd], [], [], min(left, 1.0))
+            if ready:
+                chunk = os.read(fd, 4096)
+                if not chunk:
+                    return ""  # the leader died
+                buf += chunk
+        return buf.decode().strip()
+
+    def _log_tail(self, n: int = 4000) -> str:
+        """The end of the group's output (all ranks')."""
+        if self._log is None:
+            return ""
+        self._log.seek(0, os.SEEK_END)
+        size = self._log.tell()
+        self._log.seek(max(0, size - n))
+        return self._log.read().decode("utf-8", "replace")
+
+    def alive(self) -> bool:
+        from .group import pid_alive
+
+        return (self.proc is not None and self.proc.poll() is None
+                and all(pid_alive(p) for p in self.pids))
+
+    def kill(self) -> None:
+        if self.proc is not None:
+            _signal_group(self.proc, signal.SIGKILL)
+
+    def stop(self) -> None:
+        self._stops += 1
+        if self.proc is not None:
+            try:
+                _stop_group(self.proc, self.pids)
+            finally:
+                self.proc = None
+                if self._log is not None:
+                    self._log.close()
+                    self._log = None
 
 
 # ---------------------------------------------------------------------------
@@ -364,9 +510,11 @@ class ReplicaPool:
         # membership generation: bumped on every activate/leave —
         # autoscale events are generation deltas
         self.generation = 0
-        # mesh-sliced pools (ReplicaPool.sharded) are queue item A14(c): a
-        # pool here never has a slice factory
+        # mesh-slice allocator (ReplicaPool.sharded): slices freed by
+        # scale-in are reused by the next scale-out
         self._make_server: Optional[Callable] = None
+        self._spare_slices: List = []
+        self._group_kw: dict = {}
 
     @classmethod
     def local(cls, factory: Callable[[], ServeServer], n: int,
@@ -383,20 +531,69 @@ class ReplicaPool:
     @classmethod
     def sharded(cls, make_server: Callable, groups: Optional[int] = None, *,
                 mesh=None, start: Optional[int] = None,
-                **kw) -> "ReplicaPool":
-        """Data-parallel replica groups on mesh slices: queue item A14(c) of
-        the port (a device mesh over several cards)."""
-        raise MXNetError("ReplicaPool.sharded: replica groups on mesh "
-                         "slices are queue item A14(c) of the port")
+                env: Optional[dict] = None, **kw) -> "ReplicaPool":
+        """Data-parallel replica groups on mesh slices: split ``mesh`` along
+        its ``dp`` axis (``parallel.mesh_slices``) and supervise one
+        :class:`GroupReplica` per slice, a job of the slice's ranks, each
+        of which calls ``make_server(submesh)``: it must return a
+        *started* :class:`ServeServer` whose engine was built with
+        ``mesh=submesh`` (on the other ranks that constructor does not
+        return). ``make_server`` must be picklable (a module-level
+        function or a ``functools.partial`` of one); a closure raises
+        ``MXNetError``.
 
-    def new_sharded_handle(self) -> LocalReplica:
-        raise MXNetError("ReplicaPool.new_sharded_handle: mesh-sliced pools "
-                         "are queue item A14(c) of the port")
+        ``start`` (default: all ``groups``) brings up only the first
+        ``start`` slices; the rest stay spare for elastic scale-out
+        (:meth:`new_sharded_handle` / ``serve/autoscale.py``). Default
+        mesh: ``make_mesh({"dp": groups, "tp": -1})`` over this host's
+        devices (its cards, or the CPU inside ``with mx.cpu():``). A mesh
+        may list one device several times: its ranks share it. ``env``
+        is added to each rank's environment."""
+        import torch
+
+        from ..context import current_context
+        from ..parallel import make_mesh, mesh_slices
+        from .group import check_factory
+
+        check_factory(make_server)
+        if mesh is None:
+            if not groups:
+                raise ValueError("pass groups= or mesh=")
+            if current_context().device_type == "gpu":
+                devices = [torch.device("cuda", i)
+                           for i in range(torch.cuda.device_count())]
+            else:
+                devices = [torch.device("cpu")]
+            mesh = make_mesh({"dp": int(groups), "tp": -1}, devices=devices)
+        slices = mesh_slices(mesh, "dp")
+        if start is None:
+            start = len(slices)
+        start = max(1, min(int(start), len(slices)))
+        group_kw = {"env": env,
+                    "start_timeout": kw.get("ready_timeout", 120.0)}
+        pool = cls([GroupReplica(make_server, sub, **group_kw)
+                    for sub in slices[:start]], **kw)
+        pool._make_server = make_server
+        pool._group_kw = group_kw
+        pool._spare_slices = list(slices[start:])
+        return pool
+
+    def new_sharded_handle(self) -> GroupReplica:
+        """Allocate a spare mesh slice and return a replica handle bound to
+        it — the autoscaler's scale-out factory for sharded pools. Raises
+        :class:`ServeError` when every slice is in use."""
+        if self._make_server is None:
+            raise ServeError("not a sharded pool (use ReplicaPool.sharded)")
+        with self._lock:
+            if not self._spare_slices:
+                raise ServeError("no spare mesh slices (fleet at capacity)")
+            sub = self._spare_slices.pop(0)
+        return GroupReplica(self._make_server, sub, **self._group_kw)
 
     @property
     def spare_slices(self) -> int:
-        raise MXNetError("ReplicaPool.spare_slices: mesh-sliced pools are "
-                         "queue item A14(c) of the port")
+        with self._lock:
+            return len(self._spare_slices)
 
     # -- lifecycle ------------------------------------------------------
     def start(self, wait_ready: bool = True) -> "ReplicaPool":
@@ -532,6 +729,11 @@ class ReplicaPool:
         # frozen last values
         for g in ("queue_depth", "occupancy", "breaker_state"):
             obs.metrics.remove(f"fleet.replica{idx}.{g}")
+        # return the mesh slice (sharded pools) for the next scale-out
+        sub = getattr(m.handle, "mesh", None)
+        if sub is not None and self._make_server is not None:
+            with self._lock:
+                self._spare_slices.append(sub)
         self._gauge()
         return drained
 
@@ -559,7 +761,7 @@ class ReplicaPool:
         return {"replicas": len(self._members),
                 "ready": len(self.ready_members()),
                 "generation": self.generation,
-                "spare_slices": 0,
+                "spare_slices": self.spare_slices,
                 "target_version": self._target[3] if self._target else None,
                 "restarts": sum(m.restarts for m in self._members),
                 "members": members}

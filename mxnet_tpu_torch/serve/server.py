@@ -548,20 +548,25 @@ def main(argv=None):  # pragma: no cover - CLI shim
                     help="persistent program cache (queue item A15 of the "
                          "port: raises when given)")
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor-parallel engine over N devices (queue item "
-                         "A14(c) of the port: raises above 0)")
+                    help="tensor-parallel engine over N ranks (mesh axis "
+                         "'tp', parameters replicated on the CLI path): "
+                         "inside a job of N ranks (tools/launch.py) each "
+                         "rank is one, outside one this process starts "
+                         "the other N-1; rank 0 serves")
     args = ap.parse_args(argv)
     if args.progcache_dir:
         raise ServeError("--progcache-dir: persisted programs are queue "
                          "item A15 of the port")
-    if args.tp:
-        raise ServeError("--tp: a tensor-parallel engine over a device mesh "
-                         "is queue item A14(c) of the port")
 
     from . import load
 
+    ctx = _serve_context()
+    engine_kw = {"ctx": ctx}
+    if args.tp:
+        engine_kw["mesh"] = _tp_mesh(args.tp, ctx, argv)
+    # a peer rank of --tp does not return from here (serve/group.py)
     engine = load(args.model, epoch=args.epoch,
-                  max_batch_size=args.max_batch_size, ctx=_serve_context())
+                  max_batch_size=args.max_batch_size, **engine_kw)
     if args.warmup_shape:
         feat = tuple(int(d) for d in args.warmup_shape.split(",") if d)
         engine.warmup(feat)
@@ -570,6 +575,34 @@ def main(argv=None):  # pragma: no cover - CLI shim
                       max_queue=args.max_queue)
     print(f"ServeServer listening on :{srv.port}", flush=True)
     srv.serve_forever()
+    engine.close()
+
+
+def _tp_mesh(tp: int, ctx, argv):
+    """The ``{"tp": tp}`` mesh of ``--tp``, over the job's ranks: those of
+    the launcher's job, or, outside one, this process and ``tp - 1``
+    peers it starts with the same arguments (``group.spawn_peers``)."""
+    import sys
+
+    from ..kvstore.dist import join_process_group, launcher_rank
+    from ..parallel import make_mesh
+    from . import group
+
+    rank, n = launcher_rank()
+    if n == 1 and tp > 1:
+        group.spawn_peers(tp, [sys.executable, "-m",
+                               "mxnet_tpu_torch.serve.server",
+                               *(sys.argv[1:] if argv is None else argv)])
+        rank, n = 0, tp
+    if n != tp:
+        raise ServeError(f"--tp {tp} in a job of {n} ranks")
+    if rank:
+        group.watch_parent()
+    if tp > 1:
+        join_process_group(rank, tp, who="server --tp",
+                           timeout=group.SERVE_GROUP_TIMEOUT)
+    with ctx:
+        return make_mesh({"tp": tp})
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -37,7 +37,16 @@ Scenarios:
   ``sp2 x tp2`` under ``bert_sharding_rules()`` (f32 step held, the
   bytes of each rank's shards), and ResNet-50 v1 on ``dp2`` with
   ``BatchNorm`` and with ``SyncBatchNorm`` (f32 step held to one
-  process's on the whole batch). Rank 0 computes the one-process step.
+  process's on the whole batch). Rank 0 computes the one-process step;
+- ``serve_mlp_tp2``, ``serve_mlp_tp4``, ``serve_mlp_dp2tp2``: a sharded
+  ``InferenceEngine`` (``tests/test_serve_mesh.py``'s MLP and rules) on
+  the job's ranks: warmup, every bucket, a chunked request, repeats, a
+  two-phase reload and an aval drift; ``serve_lm_tp2``: the LM traced to
+  a Symbol outside any mesh scope, served on tp 2 under
+  ``bert_sharding_rules()``, beside one process's engine (rank 0). A
+  peer rank reports its shards. The replica-group factories
+  ``mlp_server`` and ``zoo_server`` (``ReplicaPool.sharded`` takes them
+  through ``functools.partial``) live here too.
 
 Exit code 0 means every scenario ran; the checks against the references
 are the caller's.
@@ -798,14 +807,258 @@ def sc_resnet_dp2(run):
 # starting a job and reading its results
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# sharded serving: engines on a job's ranks, and replica-group factories
+# ---------------------------------------------------------------------------
+
+# the graphs of tests/test_serve_mesh.py:_mlp ("mlp") and of
+# tests/test_autoscale.py:_tiny_pool_and_router ("fc"), by input features
+SERVE_FEATURES = {"mlp": 32, "fc": 4}
+
+
+def serve_symbol(sym, kind):
+    data = sym.Variable("data")
+    if kind == "fc":
+        return sym.FullyConnected(data, num_hidden=16, no_bias=True,
+                                  name="fc")
+    net = sym.FullyConnected(data, num_hidden=64, name="fc1")
+    net = sym.Activation(net, act_type="relu", name="relu1")
+    net = sym.FullyConnected(net, num_hidden=8, name="fc2")
+    return sym.softmax(net, name="prob")
+
+
+def serve_rules(par, kind):
+    """The reference tests' rules: fc1 row-parallel and fc2 column-
+    parallel (one all-reduce at fc2's output), or the one fc's rows."""
+    if kind == "fc":
+        return par.ShardingRules([("fc_weight", par.P("tp"))])
+    return par.ShardingRules([("fc1_weight|fc1_bias", par.P("tp")),
+                              ("fc2_weight", par.P(None, "tp"))])
+
+
+def mlp_server(kind, params_path, max_batch_size, submesh, warmup=True):
+    """A replica group's ``make_server`` (bind the leading arguments with
+    ``functools.partial``): ``kind``'s graph with the parameters of the
+    ``.npz`` at ``params_path``, sharded by :func:`serve_rules` over
+    ``submesh``, every bucket warmed, behind a started ``ServeServer``."""
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch import symbol as sym
+
+    arg = dict(np.load(params_path))
+    eng = serve.InferenceEngine(serve_symbol(sym, kind), arg,
+                                max_batch_size=max_batch_size, lint="off",
+                                mesh=submesh, rules=serve_rules(par, kind))
+    if warmup:
+        eng.warmup((SERVE_FEATURES[kind],))
+    srv = serve.ServeServer(eng, port=0, max_linger_ms=0.0)
+    srv.start()
+    return srv
+
+
+def zoo_server(prefix, epoch, buckets, shape, submesh):
+    """A replica group's ``make_server`` for a ``Module`` checkpoint (the
+    smoke's ResNet-50): replicated parameters (the empty rule table),
+    every bucket warmed, cuDNN's deterministic algorithms, behind a
+    started ``ServeServer``."""
+    import torch
+
+    from mxnet_tpu_torch import serve
+
+    torch.backends.cudnn.deterministic = True
+    eng = serve.load(prefix, epoch=epoch, buckets=buckets, lint="off",
+                     mesh=submesh)
+    eng.warmup(tuple(shape))
+    srv = serve.ServeServer(eng, port=0, max_linger_ms=2.0)
+    srv.start()
+    return srv
+
+
+def _peer_report(engine):
+    """What a peer rank reports of its engine: the shape of each sharded
+    parameter's local piece, its version, the flash launches of this
+    process."""
+    shards = {n: list(v.to_local().shape)
+              for n, v in zip(engine._param_names, engine._params.arg_vals)
+              if hasattr(v, "to_local")}
+    return {"peer": True, "shards": shards, "version": engine.version,
+            "flash_fwd_launches": _flash()[0].launches}
+
+
+def _engine(report, *args, **kw):
+    """``InferenceEngine(*args, **kw)`` on every rank: the leader's engine,
+    or None on a peer once its leader closed it (its report in
+    ``report``)."""
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.serve.group import PeerExit
+
+    try:
+        return serve.InferenceEngine(*args, **kw)
+    except PeerExit as e:
+        report.update(_peer_report(e.engine))
+        return None
+
+
+def _serve_mlp_case(run, axes):
+    """tests/test_serve_mesh.py:117-190 on ``axes``: warmup, every bucket,
+    a chunked 19-row request, repeats, the stats, a two-phase reload to
+    doubled parameters and an aval drift."""
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.serve import ServeError
+
+    arg = run.params()
+    res = {}
+    eng = _engine(res, serve_symbol(sym, "mlp"), arg, max_batch_size=8,
+                  lint="off", mesh=par.make_mesh(axes),
+                  rules=serve_rules(par, "mlp"))
+    if eng is None:
+        return res
+    res["warmup"] = eng.warmup((32,))
+    compiles = len(eng.compile_log)
+    for n in range(1, 9):
+        res[f"out{n}"] = eng.predict(run.arr(f"x{n}"))
+    res["big"] = eng.predict(run.arr("big"))
+    res["repeats_bitwise"] = all(
+        np.array_equal(eng.predict(run.arr("x5")), res["out5"])
+        for _ in range(3))
+    st = eng.stats()
+    res.update({"mesh": st["mesh"], "mesh_devices": st["mesh_devices"],
+                "sharded_params": st["sharded_params"],
+                "num_programs": eng.num_programs,
+                "buckets": len(eng.buckets),
+                "compiles_added": len(eng.compile_log) - compiles})
+    arg2 = {k: np.asarray(v) * 2.0 for k, v in arg.items()}
+    res["staged"] = eng.prepare_reload(arg2)
+    res["version_while_staged"] = eng.version
+    res["committed"] = eng.commit_reload()
+    res["reloaded"] = eng.predict(run.arr("x3"))
+    res["compiles_after_reload"] = len(eng.compile_log) - compiles
+    bad = dict(arg2)
+    bad["fc1_weight"] = np.zeros((32, 64), np.float32)
+    try:
+        eng.prepare_reload(bad)
+        res["aval_error"] = ""
+    except ServeError as e:
+        res["aval_error"] = str(e)
+    res["leader_shards"] = _peer_report(eng)["shards"]
+    eng.close()
+    return res
+
+
+@scenario
+def sc_serve_mlp_tp2(run):
+    return _serve_mlp_case(run, {"tp": 2})
+
+
+@scenario
+def sc_serve_mlp_tp4(run):
+    return _serve_mlp_case(run, {"tp": 4})
+
+
+@scenario
+def sc_serve_mlp_dp2tp2(run):
+    return _serve_mlp_case(run, {"dp": 2, "tp": 2})
+
+
+SERVE_LM_ROWS = 2              # scored at 1 and 2 rows
+SERVE_LM_RELOAD_SCALE = 1.05   # the reload's changed weights
+
+
+@scenario
+def sc_serve_lm_tp2(run):
+    """The LM traced to a Symbol outside any mesh scope (batch 0), served
+    on tp 2 under ``bert_sharding_rules()``: warmup, 1 and 2 rows, a
+    repeat, one profiled forward, a reload to weights scaled by
+    SERVE_LM_RELOAD_SCALE and an aval drift; then (the leader) one
+    process's unsharded engine on the same tokens and weights, before and
+    after the same reload. The parameters are the inputs' (by structural
+    name, with ``MXNET_MESH_LM`` the LM's kwargs) or drawn from the
+    seed (``transformer_lm()`` at its defaults)."""
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.gluon.utils import set_params_from_numpy
+    from mxnet_tpu_torch.models import bert_sharding_rules, transformer_lm
+
+    mx = run.mx
+    kw = json.loads(os.environ.get("MXNET_MESH_LM", "{}"))
+    net = _seeded(run, lambda: transformer_lm(**kw))
+    if run._inputs is not None:
+        set_params_from_numpy(net, run.params())
+    seq, vocab = kw.get("max_length", 2048), kw.get("vocab_size", 32000)
+    tokens = np.random.RandomState(run.seed).randint(
+        0, vocab, (SERVE_LM_ROWS, seq)).astype(np.float32)
+    with mx.name.NameManager():
+        logits = net(sym.var("data", shape=(0, seq)))  # 0: any batch
+    arg = {p.name: p.data() for p in net.collect_params().values()}
+    buckets = tuple(range(1, SERVE_LM_ROWS + 1))
+    res = {"seq": seq, "vocab": vocab, "device": str(run.ctx)}
+    fwd = _flash()[0]
+    fwd.launches = 0
+    eng = _engine(res, logits, arg, buckets=buckets, lint="off",
+                  mesh=par.make_mesh({"tp": 2}), rules=bert_sharding_rules())
+    if eng is None:
+        return res
+    res["warmup"] = eng.warmup((seq,))
+    for n in buckets:
+        res[f"out{n}"], ms = _host_ms(run, eng.predict, tokens[:n])
+        res[f"ms{n}"] = ms
+    top = res[f"out{SERVE_LM_ROWS}"]
+    res["repeat_bitwise"] = bool(np.array_equal(
+        eng.predict(tokens), top))
+    wall, coll, idle = _profiled(run, eng.predict, tokens)
+    res.update({"profiled_ms": wall, "collective_ms": coll,
+                "idle_share": idle})
+    compiles = len(eng.compile_log)
+    arg2 = {k: v.asnumpy() * SERVE_LM_RELOAD_SCALE for k, v in arg.items()}
+    res["staged"] = eng.prepare_reload(arg2)
+    res["committed"] = eng.commit_reload()
+    res["reloaded"] = eng.predict(tokens)
+    res["compiles_after_reload"] = len(eng.compile_log) - compiles
+    bad = dict(arg2)
+    name = next(n for n in bad if n.endswith("qkv_weight"))
+    bad[name] = bad[name].T.copy()
+    try:
+        eng.prepare_reload(bad)
+        res["aval_error"] = ""
+    except serve.ServeError as e:
+        res["aval_error"] = str(e)
+    res.update({"leader_shards": _peer_report(eng)["shards"],
+                "flash_fwd_launches": fwd.launches,
+                "num_programs": eng.num_programs,
+                "stats_mesh": eng.stats()["mesh"],
+                "sharded_params": eng.stats()["sharded_params"],
+                "whole_shapes": {n: list(v.shape) for n, v in zip(
+                    eng._param_names, eng._params.arg_vals)}})
+    eng.close()
+    del eng
+    one = serve.InferenceEngine(logits, arg, buckets=buckets, lint="off",
+                                ctx=run.ctx)
+    for n in buckets:
+        res[f"one{n}"] = one.predict(tokens[:n])
+    one.reload(arg2)
+    res["one_reloaded"] = one.predict(tokens)
+    pairs = [(f"out{n}", f"one{n}") for n in buckets] + [
+        ("reloaded", "one_reloaded")]
+    res["err_of_max_logit"] = {
+        k: float(np.abs(res[k] - res[o]).max() / np.abs(res[o]).max())
+        for k, o in pairs}
+    res["reload_moved"] = not np.allclose(res["reloaded"], top)
+    if run._inputs is None:  # the full-width logits stay here (GBs)
+        for k, o in pairs:
+            del res[k], res[o]
+    return res
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
 def start_job(n, scenarios, out_dir, device="cuda", inputs=None, seed=0,
               env=None):
-    """Start ``n`` ranks of this program through ``tools/launch.py``;
-    returns the ``Popen`` (its output piped). ``inputs``: a dict of numpy
+    """Start ``n`` ranks of this program through ``tools/launch.py``, in a
+    session of their own; returns the ``Popen`` (its output piped). ``inputs``: a dict of numpy
     arrays, saved beside ``out_dir``."""
     import subprocess
 
@@ -829,20 +1082,23 @@ def start_job(n, scenarios, out_dir, device="cuda", inputs=None, seed=0,
            *args, *scenarios]
     return subprocess.Popen(cmd, cwd=_REPO, env=full_env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+                            text=True, start_new_session=True)
 
 
 def job_results(proc, n, scenarios, out_dir, timeout):
     """Wait for a job from :func:`start_job`: ``({scenario: [rank 0's
     result, ...]}, its output)``, each result its arrays and its JSON
     fields in one dict. A job that fails or outlasts ``timeout`` seconds
-    raises ``RuntimeError`` with the tail of its output."""
+    (then its session is killed) raises ``RuntimeError`` with the tail of
+    its output."""
     import subprocess
 
     try:
         log, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
-        proc.kill()
+        import signal
+
+        os.killpg(proc.pid, signal.SIGKILL)  # the launcher and its ranks
         log, _ = proc.communicate()
         raise RuntimeError(f"mesh job outlasted {timeout} s:\n"
                            f"{log[-4000:]}")

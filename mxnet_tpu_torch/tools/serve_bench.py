@@ -24,11 +24,19 @@ after the kill-to-recovery window; ``--decode`` streams tokens with churn
 through the paged-KV decode engine; ``--cold`` times a ``ProcReplica``
 child from spawn to ready, twice.
 
+``--scale`` drives closed-loop load through data-parallel replica groups
+(``ReplicaPool.sharded``: each group a job of ``--tp`` ranks serving a
+tensor-parallel engine) on dp 1/2/4 slices of a ``dp x tp`` plan and
+reports qps per group count; ``--ramp`` climbs an open-loop load from
+``--qps-lo`` to ``--qps-hi`` against a sharded fleet the ``Autoscaler``
+grows from one group toward ``--groups``, and reports every scale event
+and the shed count. A plan's ranks share the host's cards round-robin
+(or its CPU with ``--device cpu``).
+
 Every leg runs on the card unless ``--device cpu`` is given; without a
-card and without it, building the engine raises. The mesh-scaling and
-autoscaled-ramp legs (``--scale``, ``--ramp``) are queue item A14(c) of the
-port; the telemetry-overhead legs (``--obs-overhead``, ``--wire-hop``,
-``--prof-overhead``) are A15. Each raises naming its item.
+card and without it, building the engine raises. The telemetry-overhead
+legs (``--obs-overhead``, ``--wire-hop``, ``--prof-overhead``) are queue
+item A15 of the port and raise naming it.
 
 Run: ``python -m mxnet_tpu_torch.tools.serve_bench --chaos --json``.
 """
@@ -512,22 +520,248 @@ def _closed_drive(addr, payload, clients, duration, deadline_ms=None):
     return sorted(lats), shed[0], errors[0], time.perf_counter() - t_start
 
 
-def run_scale_bench(*args, **kwargs):
-    """Closed-loop qps through tensor-parallel replica groups on mesh
-    slices: queue item A14(c) of the port."""
-    from ..base import MXNetError
+def _serve_rules(model):
+    """Tensor-parallel rules of the bench models: the mlp gets the
+    Megatron split (fc1 row-parallel, fc2 column-parallel: one all-reduce
+    at the output); zoo models serve replicated parameters."""
+    from ..parallel import P, ShardingRules
 
-    raise MXNetError("serve_bench --scale: replica groups on mesh slices "
-                     "are queue item A14(c) of the port")
+    if model == "mlp":
+        return ShardingRules([("fc1_weight|fc1_bias", P("tp")),
+                              ("fc2_weight", P(None, "tp"))])
+    return ShardingRules()
 
 
-def run_ramp_bench(*args, **kwargs):
-    """An open-loop ramp against an autoscaled mesh-sliced fleet: queue
-    item A14(c) of the port."""
-    from ..base import MXNetError
+def _sharded_server(model, max_batch_size, max_linger_ms, device, submesh):
+    """A replica group's ``make_server`` (module level: it runs in every
+    rank of the group): the bench model on ``submesh``, warmed, behind a
+    started ``ServeServer``."""
+    from .. import serve
 
-    raise MXNetError("serve_bench --ramp: the autoscaled mesh-sliced fleet "
-                     "is queue item A14(c) of the port")
+    net, arg, aux, feat = _build_model(model, device=device)
+    engine = serve.InferenceEngine(net, arg, aux,
+                                   max_batch_size=max_batch_size,
+                                   lint="off", mesh=submesh,
+                                   rules=_serve_rules(model))
+    engine.warmup(feat)
+    srv = serve.ServeServer(engine, port=0, max_linger_ms=max_linger_ms)
+    srv.start()
+    return srv
+
+
+def _plan(groups, tp, device):
+    """A ``dp x tp`` mesh of device slots: the host's cards round-robin,
+    or the CPU."""
+    import torch
+
+    from .. import parallel as par
+
+    need = int(groups) * int(tp)
+    if _ctx(device).device_type == "gpu":
+        cards = torch.cuda.device_count()
+        if not cards:
+            from ..base import MXNetError
+
+            raise MXNetError("serve_bench: no CUDA card (pass --device cpu)")
+        slots = [torch.device("cuda", i % cards) for i in range(need)]
+    else:
+        slots = [torch.device("cpu")] * need
+    return par.make_mesh({"dp": int(groups), "tp": int(tp)}, devices=slots)
+
+
+def _sharded_fleet(model, mesh, *, start=None, max_batch_size=8,
+                   max_linger_ms=1.0, probe_interval=0.15, device="gpu"):
+    """(pool, router, front, feat): data-parallel replica groups on the
+    mesh's dp slices, each serving a tensor-parallel engine, behind one
+    FleetServer front."""
+    import functools
+
+    from ..serve.fleet import FleetServer, ReplicaPool, Router
+
+    feat = (32,) if model == "mlp" else (3,) + (int(os.environ.get(
+        "SERVE_BENCH_IMAGE_SIZE", 32)),) * 2
+    make_server = functools.partial(_sharded_server, model, max_batch_size,
+                                    max_linger_ms, device)
+    pool = ReplicaPool.sharded(make_server, mesh=mesh, start=start,
+                               probe_interval=probe_interval,
+                               backoff_base=0.1, backoff_cap=1.0)
+    pool.start()
+    router = Router(pool)
+    front = FleetServer(router, port=0)
+    front.start()
+    return pool, router, front, feat
+
+
+def run_scale_bench(model="mlp", groups_list=(1, 2, 4), tp=2, duration=4.0,
+                    clients=16, max_batch_size=8, request_rows=4,
+                    max_linger_ms=1.0, device="gpu"):
+    """serve qps against the number of data-parallel replica groups: for
+    each ``groups`` a ``dp x tp`` plan is sliced into tensor-parallel
+    replica groups (one engine per slice, its parameters shard-resident),
+    closed-loop load runs through one FleetServer front, and the report
+    carries qps per group count and the ``scaling_dp<g>`` ratios (qps over
+    the first count's)."""
+    rng = np.random.RandomState(1)
+    results = {}
+    for groups in groups_list:
+        pool, router, front, feat = _sharded_fleet(
+            model, _plan(groups, tp, device), max_batch_size=max_batch_size,
+            max_linger_ms=max_linger_ms, device=device)
+        try:
+            payload = rng.rand(request_rows, *feat).astype(np.float32)
+            lat, shed, errors, wall = _closed_drive(
+                ("127.0.0.1", front.port), payload, clients, duration)
+            results[str(groups)] = {
+                "qps": round(len(lat) * request_rows / wall, 2),
+                "p50_ms": round(_percentile(lat, 0.50) * 1e3, 3)
+                if lat else None,
+                "p99_ms": round(_percentile(lat, 0.99) * 1e3, 3)
+                if lat else None,
+                "completed": len(lat), "shed": shed, "errors": errors,
+                "ready_replicas": len(pool.ready_members()),
+            }
+        finally:
+            front.stop()
+            pool.stop()
+    host_cores = len(os.sched_getaffinity(0)) \
+        if hasattr(os, "sched_getaffinity") else (os.cpu_count() or 1)
+    out = {"mode": "scale", "model": model, "tp": tp, "clients": clients,
+           "duration_s": duration, "request_rows": request_rows,
+           "max_batch_size": max_batch_size, "host_cores": host_cores,
+           "groups": results}
+    base = results.get(str(groups_list[0]), {}).get("qps")
+    for g in groups_list[1:]:
+        q = results.get(str(g), {}).get("qps")
+        if base and q:
+            out[f"scaling_dp{g}"] = round(q / base, 2)
+    max_g = max(int(g) for g in groups_list)
+    if host_cores < max_g:
+        # the ranks share the host's cores (and, on one card, the card):
+        # compute-bound scaling caps below the group count
+        out["note"] = (f"host has {host_cores} cores for {max_g} replica "
+                       f"groups; compute-bound scaling caps at "
+                       f"~{host_cores}x — run on >= {max_g} cores or real "
+                       "devices for the near-linear check")
+    return out
+
+
+def run_ramp_bench(model="mlp", duration=14.0, qps_lo=30.0, qps_hi=450.0,
+                   groups=4, tp=2, start_replicas=1, max_batch_size=8,
+                   max_linger_ms=4.0, deadline_ms=2000.0, interval=0.4,
+                   request_rows=4, device="gpu"):
+    """An open-loop load ramp against an autoscaled sharded fleet: offered
+    qps climbs linearly lo -> hi over the run while the Autoscaler (its
+    default factory, the pool's spare slices) watches windowed burn,
+    queue depth and occupancy and grows the pool from ``start_replicas``
+    toward ``groups``. Reports the scale events (times and reasons),
+    shed and error counts and per-third latency windows."""
+    from .. import serve
+    from ..serve.autoscale import Autoscaler, AutoscalePolicy
+
+    pool, router, front, feat = _sharded_fleet(
+        model, _plan(groups, tp, device), start=start_replicas,
+        max_batch_size=max_batch_size, max_linger_ms=max_linger_ms,
+        device=device)
+    policy = AutoscalePolicy(min_replicas=start_replicas,
+                             max_replicas=groups,
+                             queue_out=max(2.0, max_batch_size / 2),
+                             occupancy_out=0.85, burn_out=1.0,
+                             hysteresis=4, cooldown_s=2.0,
+                             scale_in_cooldown_s=10.0)
+    scaler = Autoscaler(pool, router, policy=policy,
+                        interval=interval).start()
+
+    rng = np.random.RandomState(1)
+    payload = rng.rand(request_rows, *feat).astype(np.float32)
+    addr = ("127.0.0.1", front.port)
+    lock = threading.Lock()
+    records: list = []  # (t_sent, outcome, latency)
+    pool_clients = [serve.ServeClient(*addr) for _ in range(8)]
+    free = list(range(len(pool_clients)))
+
+    def fire(idx, t_sent):
+        t0 = time.perf_counter()
+        try:
+            pool_clients[idx].infer(payload, deadline_ms=deadline_ms)
+            outcome = "ok"
+        except (serve.RequestRejected, serve.Draining):
+            outcome = "shed"
+        except serve.DeadlineExceeded:
+            outcome = "deadline"
+        except serve.ServeError:
+            outcome = "error"
+        with lock:
+            records.append((t_sent, outcome, time.perf_counter() - t0))
+            free.append(idx)
+
+    t_mono0 = time.monotonic()  # scaler events are monotonic-stamped
+    t_start = time.perf_counter()
+    inflight = []
+    ready_timeline = [(0.0, len(pool.ready_members()))]
+    try:
+        while time.perf_counter() < t_start + duration:
+            t = time.perf_counter() - t_start
+            qps = qps_lo + (qps_hi - qps_lo) * min(t / duration, 1.0)
+            time.sleep(rng.exponential(1.0 / qps))
+            r = len(pool.ready_members())
+            if r != ready_timeline[-1][1]:
+                ready_timeline.append((round(t, 2), r))
+            with lock:
+                if free:
+                    idx = free.pop()
+                else:
+                    pool_clients.append(serve.ServeClient(*addr))
+                    idx = len(pool_clients) - 1
+            th = threading.Thread(target=fire,
+                                  args=(idx, time.perf_counter() - t_start))
+            th.start()
+            inflight.append(th)
+        for th in inflight:
+            th.join(timeout=30)
+    finally:
+        scaler.stop()
+        events = [{"t_s": round(e["t"] - t_mono0, 2),
+                   "action": e["action"], "reason": e["reason"],
+                   "ready": e["ready"]} for e in scaler.events]
+        fleet_stats = router.stats()
+        front.stop()
+        pool.stop()
+        for cli in pool_clients:
+            cli.close()
+
+    def window(name, lo, hi):
+        rows = [r for r in records if lo <= r[0] < hi]
+        lat = sorted(r[2] for r in rows if r[1] == "ok")
+        return {"window": name, "sent": len(rows), "ok": len(lat),
+                "shed": sum(1 for r in rows if r[1] in ("shed", "deadline")),
+                "errors": sum(1 for r in rows if r[1] == "error"),
+                "p50_ms": round(_percentile(lat, 0.5) * 1e3, 2)
+                if lat else None,
+                "p99_ms": round(_percentile(lat, 0.99) * 1e3, 2)
+                if lat else None}
+
+    third = duration / 3.0
+    shed_total = sum(1 for r in records if r[1] in ("shed", "deadline"))
+    return {
+        "mode": "ramp", "model": model, "tp": tp, "groups": groups,
+        "start_replicas": start_replicas, "duration_s": duration,
+        "qps_lo": qps_lo, "qps_hi": qps_hi, "deadline_ms": deadline_ms,
+        "sent": len(records),
+        "ok": sum(1 for r in records if r[1] == "ok"),
+        "shed": shed_total,
+        "errors": sum(1 for r in records if r[1] == "error"),
+        "scale_out_events": sum(1 for e in events
+                                if e["action"] == "scale_out"),
+        "scale_in_events": sum(1 for e in events
+                               if e["action"] == "scale_in"),
+        "events": events,
+        "ready_timeline": ready_timeline,
+        "final_generation": pool.generation,
+        "failovers": fleet_stats["failovers"],
+        "windows": [window("ramp_lo", 0.0, third),
+                    window("ramp_mid", third, 2 * third),
+                    window("ramp_hi", 2 * third, duration + 1e9)],
+    }
 
 
 def _a15(what):
@@ -725,17 +959,45 @@ def main(argv=None):
                          "streams with churn through the paged-KV engine "
                          "and the streaming wire (always prints JSON; "
                          "exits 1 on a program-bound break or a page leak)")
-    for flag, item in (("--scale", "A14(c)"), ("--ramp", "A14(c)"),
-                       ("--obs-overhead", "A15"), ("--wire-hop", "A15"),
-                       ("--prof-overhead", "A15")):
+    ap.add_argument("--scale", action="store_true",
+                    help="mesh-scaling bench: closed-loop qps through "
+                         "tensor-parallel replica groups on dp 1/2/4 mesh "
+                         "slices (always prints JSON)")
+    ap.add_argument("--ramp", action="store_true",
+                    help="open-loop load ramp against an SLO-autoscaled "
+                         "sharded fleet: offered qps climbs --qps-lo → "
+                         "--qps-hi over --duration; reports scale-out "
+                         "events + shed count (always prints JSON)")
+    ap.add_argument("--tp", type=int, default=2,
+                    help="ranks per tensor-parallel replica group for "
+                         "--scale/--ramp")
+    ap.add_argument("--groups", type=int, default=4,
+                    help="max data-parallel replica groups for --ramp")
+    ap.add_argument("--qps-lo", type=float, default=30.0)
+    ap.add_argument("--qps-hi", type=float, default=450.0)
+    for flag in ("--obs-overhead", "--wire-hop", "--prof-overhead"):
         ap.add_argument(flag, action="store_true",
-                        help=f"queue item {item} of the port: raises")
+                        help="queue item A15 of the port: raises")
     args = ap.parse_args(argv)
 
     if args.scale:
-        run_scale_bench()
+        res = run_scale_bench(model=args.model, tp=args.tp,
+                              duration=args.duration,
+                              clients=max(args.clients, 16),
+                              max_batch_size=args.max_batch_size,
+                              device=args.device)
+        print(json.dumps(res, indent=1))
+        return 0
     if args.ramp:
-        run_ramp_bench()
+        res = run_ramp_bench(model=args.model,
+                             duration=max(args.duration, 10.0),
+                             qps_lo=args.qps_lo, qps_hi=args.qps_hi,
+                             groups=args.groups, tp=args.tp,
+                             max_batch_size=args.max_batch_size,
+                             deadline_ms=args.deadline_ms or 2000.0,
+                             device=args.device)
+        print(json.dumps(res, indent=1))
+        return 0
     if args.obs_overhead:
         run_obs_overhead()
     if args.wire_hop:

@@ -3,9 +3,11 @@ windowed burn it reads (``obs/slo.py``) against the reference, on the CPU.
 
 The policy and burn-window cases of ``tests/test_autoscale.py`` run on the
 port. The controller cases drive ``Autoscaler.tick`` with injected signal
-windows against a local pool with ``factory=`` (the reference's mesh-
-sliced pool is queue item A14 of the port), and the live signal window
-is read from a router under traffic with ``obs`` on. One parametrised case
+windows against a local pool with ``factory=`` and against a sharded
+pool with the default factory (``ReplicaPool.sharded``: groups of 2 CPU
+ranks on a ``{"dp": 4, "tp": 2}`` plan, one started,
+``tests/test_autoscale.py:218-305``), and the live signal window is read
+from a router under traffic with ``obs`` on. One parametrised case
 feeds the same random windows, from a numpy seed, to both packages'
 ``AutoscalePolicy`` and requires identical decision streams.
 """
@@ -365,3 +367,73 @@ def test_autoscaler_thread_starts_and_stops():
     finally:
         router.close(timeout=5)
         pool.stop()
+
+
+# ---------------------------------------------------------------------------
+# a sharded pool: the default factory takes the spare slices
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def sharded(tmp_path):
+    """tests/test_autoscale.py:_tiny_pool_and_router: the one-fc net with
+    its rows sharded over tp, 1 of 4 replica groups started."""
+    import functools
+
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.tools import mesh_worker as W
+
+    path = str(tmp_path / "fc.npz")
+    np.savez(path, fc_weight=np.random.RandomState(0).randn(16, 4).astype(
+        np.float32))
+    plan = par.make_mesh({"dp": 4, "tp": 2},
+                         devices=[torch.device("cpu")] * 8)
+    pool = ReplicaPool.sharded(
+        functools.partial(W.mlp_server, "fc", path, 4, warmup=False),
+        mesh=plan, start=1, probe_interval=0.1, backoff_base=0.05,
+        env={"OMP_NUM_THREADS": "1"})
+    pool.start()
+    router = Router(pool)
+    yield pool, router
+    router.close(timeout=5)
+    pool.stop()
+
+
+def test_sharded_autoscaler_tick_scales_pool_out_and_in(sharded):
+    pool, router = sharded
+    scaler = Autoscaler(pool, router, policy=AutoscalePolicy(
+        min_replicas=1, max_replicas=4, hysteresis=2, cooldown_s=0.0,
+        scale_in_cooldown_s=0.0), drain_timeout=10.0)
+    # pressure window → join (quarantine → activate at a boundary)
+    d = scaler.tick(signals=_sig(ready=1, burn=5.0))
+    assert d["action"] == "scale_out"
+    _wait(lambda: len(pool.ready_members()) == 2, 90, "the join")
+    assert scaler.events[-1]["action"] == "scale_out"
+    assert pool.spare_slices == 2
+    # a second pressure window while a join is in flight holds
+    d = scaler.tick(signals=_sig(ready=1, burn=5.0, joining=1))
+    assert d["action"] == "hold" and "join in flight" in d["reason"]
+    # quiet windows × hysteresis → leave (drain-then-remove)
+    scaler.tick(signals=_sig(ready=2))
+    d = scaler.tick(signals=_sig(ready=2))
+    assert d["action"] == "scale_in"
+    scaler._leave_thread.join(timeout=30)
+    assert len(pool.ready_members()) == 1
+    assert pool.spare_slices == 3
+    assert [e["action"] for e in scaler.events] == ["scale_out", "scale_in"]
+
+
+def test_sharded_autoscaler_live_signals_read_pool_numbers(sharded):
+    """``Autoscaler.signals()`` assembles the window from the same member
+    records the supervisor exports — queue depth, occupancy, membership."""
+    pool, router = sharded
+    scaler = Autoscaler(pool, router)
+    sig = scaler.signals()
+    assert sig["ready"] == 1 and sig["joining"] == 0
+    assert sig["burn"] == 0.0
+    pool._members[0].queue_depth = 42
+    pool._members[0].occupancy = 0.85
+    sig = scaler.signals()
+    assert sig["queue_depth"] == 42
+    assert sig["occupancy"] == pytest.approx(0.85)
+    d = scaler.tick(signals=None)  # live window, quiet burn → hold/out
+    assert d["action"] in ("hold", "scale_out")

@@ -454,12 +454,16 @@ def test_client_lazy_connect_is_nonfatal():
 
 
 def test_sharded_pool_and_telemetry_name_their_items(tmp_path):
-    with pytest.raises(MXNetError, match="A14"):
+    # a sharded pool's factory runs in every rank of a group: a closure
+    # cannot reach them
+    with pytest.raises(MXNetError, match="picklable"):
         ReplicaPool.sharded(lambda sub: None, groups=2)
     pool = _local_pool(1)
     try:
-        with pytest.raises(MXNetError, match="A14"):
+        with pytest.raises(ServeError, match="not a sharded pool"):
             pool.new_sharded_handle()
+        assert pool.spare_slices == 0
+        assert pool.stats()["spare_slices"] == 0
         with pytest.raises(MXNetError, match="A15"):
             Router(pool).collect_telemetry()
     finally:
@@ -756,7 +760,55 @@ def test_server_cli_platform_pin_and_later_flags(monkeypatch):
     monkeypatch.setenv("MXNET_SERVE_PLATFORM", "tpu")
     with pytest.raises(ValueError):
         tsrv._serve_context()
-    for flags, item in ((["--tp", "2"], "A14"),
-                        (["--progcache-dir", "/nowhere"], "A15")):
+    for flags, item in ((["--progcache-dir", "/nowhere"], "A15"),):
         with pytest.raises(ServeError, match=item):
             tsrv.main(["/nowhere/model"] + flags)
+
+
+def _session_pids(sid):
+    """The live processes of session ``sid``."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    fields = f.read().rpartition(")")[2].split()
+            except OSError:
+                continue
+            if int(fields[3]) == sid and fields[0] not in ("Z", "X"):
+                out.append(int(d))
+    return out
+
+
+def test_server_cli_tp2_serves_and_its_kill_reaches_every_rank(tmp_path):
+    """``python -m mxnet_tpu_torch.serve.server <ckpt> --tp 2`` outside a
+    job starts its own second rank; its replies equal the unsharded
+    engine's (the CLI replicates the parameters), and the replica's kill
+    reaches both ranks."""
+    prefix = _mixed_checkpoints(tmp_path)
+    log = os.path.join(str(tmp_path), "tp.log")
+    rep = ProcReplica(prefix, args=["--tp", "2", "--epoch", "0",
+                                    "--max-batch-size", "4"],
+                      env={"MXNET_SERVE_PLATFORM": "cpu",
+                           "OMP_NUM_THREADS": "1"}, log_path=log)
+    pool = ReplicaPool([rep], probe_interval=0.2, backoff_base=0.1,
+                       ready_timeout=120).start()
+    x = np.random.RandomState(4).rand(3, 5).astype(np.float32)
+    try:
+        assert len(pool.ready_members()) == 1, open(log).read()[-2000:]
+        assert len(_session_pids(rep.proc.pid)) == 2
+        cli = ServeClient(*pool.members()[0].addr)
+        try:
+            got = np.asarray(cli.infer(x))
+            stats = cli.stats(include_metrics=False)["engine"]
+        finally:
+            cli.close()
+        want = serve.load(prefix, epoch=0, max_batch_size=4, lint="off",
+                          ctx=tmx.cpu()).predict(x)
+        np.testing.assert_array_equal(got, want)
+        assert stats["mesh"] == {"tp": 2} and stats["mesh_devices"] == 2
+        sid = rep.proc.pid
+        pool.kill(0)
+        _wait(lambda: not _session_pids(sid), 30, "both ranks' death")
+    finally:
+        pool.stop()

@@ -171,14 +171,32 @@ def test_engine_lint_preflight_names_a15():
         InferenceEngine(net, arg, lint="loud")
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A14"),
-                                     ({"rules": object()}, "A14"),
-                                     ({"data_spec": object()}, "A14"),
-                                     ({"progcache_dir": "x"}, "A15")])
+@pytest.mark.parametrize("kw,item", [({"progcache_dir": "x"}, "A15")])
 def test_engine_later_items_raise(kw, item):
     net, arg = _mlp(sym)
     with pytest.raises(MXNetError, match=item):
         InferenceEngine(net, arg, lint="off", **kw)
+
+
+@pytest.mark.parametrize("kw", ["mesh", "rules", "data_spec"])
+def test_engine_mesh_keywords_on_one_rank(kw):
+    """``mesh=``, ``rules=`` and ``data_spec=`` on a mesh of one rank: the
+    engine is the unsharded one, bitwise, and reports its mesh (a spec
+    over the size-1 ``tp`` axis counts as sharded, as the reference's)."""
+    from mxnet_tpu_torch import parallel as par
+
+    net, arg = _mlp(sym)
+    extra = {"rules": par.ShardingRules([("fc1_weight", par.P("tp"))]),
+             "data_spec": par.P("dp")}
+    mesh = par.make_mesh({"tp": 1}, devices=[torch.device("cpu")])
+    eng = InferenceEngine(net, arg, max_batch_size=4, lint="off", mesh=mesh,
+                          **({kw: extra[kw]} if kw in extra else {}))
+    plain = InferenceEngine(net, arg, max_batch_size=4, lint="off")
+    x = np.random.RandomState(1).rand(3, 6).astype(np.float32)
+    assert np.array_equal(eng.predict(x), plain.predict(x))
+    st = eng.stats()
+    assert st["mesh"] == {"tp": 1} and st["mesh_devices"] == 1
+    assert st["sharded_params"] == (kw == "rules")
 
 
 def test_programs_shipping_names_a15():

@@ -4,11 +4,12 @@ against the reference's ``tools/serve_bench.py``, on the CPU.
 Each leg runs at the ``mlp`` size for one to two seconds with
 ``device="cpu"`` and must return a dict with exactly the keys of the
 reference's leg, with sane values: requests completed without an error,
-the program bound held, no page leaked, a killed replica restarted. The
-legs of later queue items (``--scale``/``--ramp``: A14;
-``--obs-overhead``/``--wire-hop``/``--prof-overhead``: A15) raise naming
-their item, from Python and from the command line; a leg with no card and
-no ``--device cpu`` raises instead of falling back to the CPU.
+the program bound held, no page leaked, a killed replica restarted; the
+``--scale`` and ``--ramp`` legs drive replica groups of 2 CPU ranks
+(``ReplicaPool.sharded``). The legs of queue item A15
+(``--obs-overhead``/``--wire-hop``/``--prof-overhead``) raise naming it,
+from Python and from the command line; a leg with no card and no
+``--device cpu`` raises instead of falling back to the CPU.
 """
 import os
 import sys
@@ -125,13 +126,38 @@ def test_run_cold_bench_keys_and_gate():
     assert "torch import" in res["note"]
 
 
-@pytest.mark.parametrize("flag,item", [("--scale", "A14"), ("--ramp", "A14"),
-                                       ("--obs-overhead", "A15"),
+@pytest.mark.parametrize("flag,item", [("--obs-overhead", "A15"),
                                        ("--wire-hop", "A15"),
                                        ("--prof-overhead", "A15")])
 def test_later_legs_name_their_item(flag, item):
     with pytest.raises(MXNetError, match=item):
         tsb.main([flag, "--device", "cpu"])
+
+
+def test_run_scale_bench_keys_and_no_errors():
+    res = tsb.run_scale_bench(groups_list=(1, 2), tp=2, duration=0.5,
+                              clients=2, request_rows=2, device="cpu")
+    want = _ref().run_scale_bench(groups_list=(1, 2), tp=2, duration=0.3,
+                                  clients=2, request_rows=2)
+    assert set(res) == set(want)
+    assert set(res["groups"]) == {"1", "2"}
+    for g, r in res["groups"].items():
+        assert set(r) == set(want["groups"][g])
+        assert r["errors"] == 0 and r["completed"] > 0
+        assert r["ready_replicas"] == int(g)
+    assert res["mode"] == "scale" and res["tp"] == 2
+
+
+def test_run_ramp_bench_keys_and_no_errors():
+    res = tsb.run_ramp_bench(duration=3.0, qps_lo=5.0, qps_hi=20.0,
+                             groups=2, tp=2, interval=0.3, device="cpu")
+    want = _ref().run_ramp_bench(duration=2.0, qps_lo=5.0, qps_hi=10.0,
+                                 groups=2, tp=2, interval=0.3)
+    assert set(res) == set(want)
+    assert [set(w) for w in res["windows"]] == \
+        [set(w) for w in want["windows"]]
+    assert res["errors"] == 0 and res["ok"] > 0
+    assert res["start_replicas"] == 1 and res["groups"] == 2
 
 
 def test_no_card_and_no_cpu_request_raises():
