@@ -187,7 +187,22 @@ H100): ``python3 chip_smoke.py``. It
    pressure window scales out (the joiner warms on the card and activates
    at the committed version), 2 quiet windows scale back in with a drain,
    under 2 closed-loop clients with 0 errors;
-21. drives ``dist_path``, the key-value stores and distributed training:
+21. drives ``obs_path``, the host planes of serving: (a) the LM in two
+   replicas behind a ``FleetServer`` with telemetry on at sample rate 1
+   in tail mode: 8 greedy streams (dropped), one that outlives its
+   deadline and one force-retained (both kept), merged from one
+   ``OP_TELEMETRY``: tokens equal to the engine's, one trace id from the
+   client's span through ``fleet.route_stream`` and both ``serve.rpc``
+   hops to ``decode.queue_wait``/``decode.execute``/``decode.token``,
+   each step span's flops, bytes, roofline class and paged share by
+   formula, paged launches = steps x 12, ``device.live_bytes`` =
+   ``torch.cuda.memory_allocated``, the Prometheus text parsed; (b)
+   ResNet-50 in one ``ProcReplica(obs_dir=)`` child: replies bitwise
+   ``Module.predict``'s, ``OP_DUMP``'s bundle, a SIGKILL, and
+   ``tools/trace_report`` over the front's trace, the child's JSONL and
+   last bundle (a lane per pid); (c) ``serve_bench``'s
+   ``--obs-overhead`` and ``--prof-overhead`` legs, reported;
+22. drives ``dist_path``, the key-value stores and distributed training:
    (a) ``kv.create("device")`` and ``"nccl"`` on CUDA tensors (merged
    pushes, ``row_sparse_pull`` and 2-bit compression bitwise against
    numpy, a batched Adam on the store within 1e-6 of the ``Updater``
@@ -207,7 +222,7 @@ H100): ``python3 chip_smoke.py``. It
    workers, one SIGKILLed mid-epoch and restarted from a warm standby:
    the survivors recut 3 -> 2 -> 3 and the final loss is within 0.25x
    of a clean ``launch.py -n 3 -e`` run's;
-22. drives ``serve_mesh_path``, sharded serving, every rank sharing the
+23. drives ``serve_mesh_path``, sharded serving, every rank sharing the
    card over gloo: (a) the full-width LM traced with batch 0 outside any
    mesh scope, served by ``InferenceEngine(mesh=make_mesh({"tp": 2}),
    rules=bert_sharding_rules())`` in a 2-rank job, scored at 1 and 2
@@ -223,11 +238,11 @@ H100): ``python3 chip_smoke.py``. It
    memory within one group's parameter bytes; (c) ``Autoscaler(pool,
    router)`` with its default factory out onto the spare slice and back
    in with a drain (spare slices 1 -> 0 -> 1), 0 errors;
-23. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
+24. drives ``np_path``: an MLP step written in ``mx.np``/``mx.npx``
    under ``autograd.record`` with a ``Custom`` op in it, an SGD update,
    a CSR ``dot`` and a row-sparse ``retain`` on the card, each against
    the same code on the CPU from the same seed;
-24. prints each phase's wall time (``timing``), the ``kernels`` JSON line
+25. prints each phase's wall time (``timing``), the ``kernels`` JSON line
    and, last, the ``ok`` line. The detection, int8, ONNX and numpy paths
    launch no kernel of the port's own (they run PyTorch's and cuBLAS's).
 
@@ -248,6 +263,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -4471,6 +4487,390 @@ def phase_fleet_path(torch, dev, smi, ckpt):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# obs_path: the host planes of the serving stack (span tracer, wire trace
+# context, tail retention, profiler, flight recorder, device plane)
+# ---------------------------------------------------------------------------
+
+OBS_STREAMS = 8            # (a) healthy greedy streams, one per prompt
+OBS_TOKENS = 16
+OBS_DEADLINE_MS = 30.0     # (a) the stream that must outlive its deadline
+OBS_DEADLINE_TOKENS = 200
+OBS_ZOO_POOL = 16          # (b) query rows; requests of 1-8 of them
+OBS_ZOO_BUCKETS = (1, 2, 4, 8)
+OBS_ZOO_REQUESTS = 24
+OBS_FLUSH_S = 0.5          # (b) the child's flight-recorder flush period
+OBS_LEG_SECONDS = 3.0      # (c) each overhead leg's closed loop
+OBS_LEG_SAMPLE = 0.1
+# (a)'s retention policy: no latency bar within the phase and no uniform
+# baseline, so every healthy stream is dropped and outcomes alone retain
+OBS_POLICY = {"slow_ms": 600000.0, "budget_per_s": 1000.0, "baseline": 0.0}
+_PROM_LINE = re.compile(
+    r"^(# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram)"
+    r"|# HELP [a-zA-Z_:][a-zA-Z0-9_:]* \S.*|# EOF"
+    r"|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? [0-9eE+.inf-]+"
+    r"( # \{[^}]*\} [0-9eE+.inf-]+( [0-9eE+.-]+)?)?)$")
+
+
+def _traced_stream(obs, cli, prompt, **kw):
+    """One stream under a root born here, inside the client's own span
+    (``client.stream``); the root takes its tail verdict at the end, from
+    the stream's outcome, as ``ServeClient.generate`` does for the roots
+    it makes. Returns (root, tokens, verdict)."""
+    from mxnet_tpu_torch import serve
+
+    root = obs.context.new_root()
+    t0 = time.monotonic()
+    toks, outcome = [], None
+    try:
+        with obs.context.use(root), obs.span("client.stream",
+                                             prompt=len(prompt)):
+            for tok in cli.generate(prompt, **kw):
+                toks.append(tok)
+    except serve.DeadlineExceeded:
+        outcome = "deadline"
+    verdict = obs.tail.finish_root(root, time.monotonic() - t0,
+                                   outcome=outcome)
+    return root, toks, verdict
+
+
+def _obs_lm_leg(torch, dev):
+    """(a) the full-width LM in two ``LocalReplica``s behind a
+    ``FleetServer``, telemetry on at sample rate 1 in tail mode: the
+    healthy streams, a deadline-exceeded one and a force-retained one,
+    then one ``OP_TELEMETRY`` merged into a chrome trace and checked."""
+    from mxnet_tpu_torch import obs, serve
+    from mxnet_tpu_torch.models.transformer import decode_config
+    from mxnet_tpu_torch.ops.flash_attention import flash_decode_attention
+
+    paged0 = flash_decode_attention.launches
+    net = _seeded_lm(**SERVE_LM_KW)
+    cfg = decode_config(net)
+    layers, heads, hd = cfg["layers"], cfg["heads"], cfg["head_dim"]
+    rng = np.random.default_rng(SERVE_SEED + 3)
+    prompts = [rng.integers(1, cfg["vocab"], size=n).astype(np.int32)
+               for n in PROMPT_LENGTHS[:OBS_STREAMS]]
+    kw = dict(slots=SLOTS, page_size=PAGE, num_pages=NUM_PAGES, device=dev)
+    engines = [serve.DecodeEngine(net, **kw)]  # the oracle, traced off
+    engines[0].warmup()
+    sched = serve.DecodeScheduler(engines[0], max_new_tokens=OBS_TOKENS,
+                                  default_timeout=600.0)
+    want, _s, _w = _fan_out(lambda i: sched.generate(
+        prompts[i], max_new_tokens=OBS_TOKENS), len(prompts))
+    sched.close()
+
+    os.environ["MXNET_OBS_SAMPLE"] = "1"
+    obs.context.set_sample_rate(1.0)
+    obs.enable()
+    obs.tail.enable(policy=obs.tail.RetentionPolicy(**OBS_POLICY))
+
+    def factory():
+        e = serve.DecodeEngine(net, **kw)
+        e.warmup()  # each first run counted by the device plane
+        engines.append(e)
+        srv = serve.ServeServer(decode=serve.DecodeScheduler(
+            e, max_new_tokens=OBS_TOKENS, default_timeout=600.0), port=0)
+        srv.start()
+        return srv
+
+    pool = serve.ReplicaPool.local(factory, FLEET_REPLICAS,
+                                   probe_interval=600.0).start()
+    front = serve.FleetServer(serve.Router(pool), port=0)
+    front.start()
+    addr = ("127.0.0.1", front.port)
+    clients = [serve.ServeClient(*addr, timeout=600.0)
+               for _ in range(len(prompts) + 1)]
+    try:
+        import threading
+
+        healthy = [None] * len(prompts)
+
+        def one(i):
+            healthy[i] = _traced_stream(obs, clients[i], prompts[i],
+                                        max_new_tokens=OBS_TOKENS)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        late = _traced_stream(obs, clients[-1], prompts[0][:5],
+                              max_new_tokens=OBS_DEADLINE_TOKENS,
+                              deadline_ms=OBS_DEADLINE_MS)
+        with obs.tail.forced():
+            kept = _traced_stream(obs, clients[-1], prompts[1],
+                                  max_new_tokens=OBS_TOKENS)
+        tail_stats = obs.tail.stats()
+        tel = clients[-1].telemetry()
+        live = obs.device.sample()
+        allocated = (torch.cuda.memory_allocated(dev)
+                     if dev.type == "cuda" else 0)
+    finally:
+        for c in clients:
+            c.close()
+        front.stop()
+        pool.stop()
+        obs.tail.disable()
+    launches = flash_decode_attention.launches - paged0
+
+    check([h[1] for h in healthy] == want,
+          f"traced streams differ from the engine's: {healthy[0][1]} vs "
+          f"{want[0]}")
+    check(all(h[2] == (False, "fast_path") for h in healthy),
+          f"healthy verdicts {[h[2] for h in healthy]}")
+    check(late[2] == (True, "deadline") and 0 < len(late[1])
+          < OBS_DEADLINE_TOKENS, f"deadline stream: {len(late[1])} tokens, "
+          f"verdict {late[2]}")
+    check(kept[2] == (True, "forced") and kept[1] == want[1],
+          f"forced stream: verdict {kept[2]}")
+    check(tail_stats["retained"] == 2
+          and tail_stats["dropped"] == len(prompts),
+          f"tail buffer {tail_stats}")
+    parts = tel["parts"]
+    merged = obs.export_mod.merge_chrome_parts(parts)
+    evs = merged["traceEvents"]
+    by_tid = {}
+    for e in evs:
+        t = (e.get("args") or {}).get("trace_id")
+        if t:
+            by_tid.setdefault(t, []).append(e)
+    dropped = [h[0].trace_id for h in healthy if h[0].trace_id in by_tid]
+    check(not dropped, f"{len(dropped)} dropped streams left spans")
+    hops = {}
+    for name, (root, toks, _v) in (("deadline", late), ("forced", kept)):
+        mine = by_tid.get(root.trace_id, [])
+        names = [e["name"] for e in mine]
+        need = {"client.stream", "serve.rpc", "fleet.route_stream",
+                "decode.queue_wait", "decode.execute", "decode.generate"}
+        check(need <= set(names), f"{name} stream's trace lacks "
+              f"{sorted(need - set(names))}")
+        check(names.count("serve.rpc") == 2,
+              f"{name} stream: {names.count('serve.rpc')} serve.rpc spans "
+              "(want the front's and the replica's)")
+        span = {e["name"]: e["args"] for e in mine if e["ph"] == "X"}
+        front_rpc = [e["args"] for e in mine if e["name"] == "serve.rpc"
+                     and e["args"]["parent_id"]
+                     == span["client.stream"]["span_id"]]
+        check(len(front_rpc) == 1, f"{name}: the front's serve.rpc does "
+              "not hang off the client's span")
+        check(span["decode.execute"]["kind"] == "prefill",
+              f"{name}: {span['decode.execute']}")
+        gen = span["decode.generate"]
+        check(gen["outcome"] == ("deadline" if name == "deadline"
+                                 else "length"), f"{name}: {gen}")
+        hops[name] = sorted(set(names))
+    # decode.token is recorded for sampled contexts (the reference's
+    # rule): the forced stream's, not the tail-pending one's
+    n_tok = sum(e["name"] == "decode.token"
+                for e in by_tid[kept[0].trace_id])
+    check(n_tok == OBS_TOKENS - 1, f"forced stream: {n_tok} decode.token")
+    check(not any(e["name"] == "decode.token"
+                  for e in by_tid[late[0].trace_id]),
+          "an unsampled stream recorded decode.token")
+
+    # every step record: flops, bytes, roofline, the paged share by formula
+    steps = [e["args"] for e in evs if e["name"] == "decode.execute"
+             and e["args"].get("kind") == "step"]
+    check(steps, "no decode.execute step span")
+    for a in steps:
+        check({"flops", "bytes_accessed", "roofline", "paged_flops",
+               "paged_bytes"} <= set(a), f"step span lacks costs: {a}")
+        pf = layers * 4 * a["attended"] * heads * hd
+        pb = layers * (a["pages"] * PAGE * heads * hd * 2 * 4
+                       + 2 * SLOTS * heads * hd * 4)
+        check((a["paged_flops"], a["paged_bytes"]) == (pf, pb),
+              f"step's paged share {a['paged_flops']}/{a['paged_bytes']} "
+              f"vs the formula {pf}/{pb}")
+    for e in engines[1:]:
+        (rec,) = [c for c in e.compile_log if c["kind"] == "step"]
+        k = rec["kernels"]["paged_decode_attention"]
+        check(k["calls"] == layers and rec["device"] == dev.type,
+              f"step record {k}")
+    n_steps = sum(v for e in engines for sig, v in e._programs.items()
+                  if sig[0] == "step")
+    if dev.type == "cuda":
+        check(launches == layers * n_steps, f"{launches} paged launches "
+              f"for {n_steps} steps x {layers} layers")
+        check(live == allocated, f"device.live_bytes {live} vs "
+              f"memory_allocated {allocated}")
+    lanes = [e for e in evs if e.get("ph") == "C"
+             and e["name"] == "device.live_bytes"]
+    check(lanes, "no device.live_bytes counter lane")
+    text = obs.export_mod.to_prometheus(merged["otherData"]["metrics"])
+    bad = [ln for ln in text.splitlines() if ln and not _PROM_LINE.match(ln)]
+    check(not bad and "mxnet_decode_token_seconds_bucket" in text,
+          f"prometheus lines that do not parse: {bad[:3]}")
+    mfu = [a["analytic_mfu"] for a in steps if "analytic_mfu" in a]
+    return {"streams": len(prompts), "tokens": sum(map(len, want)),
+            "wall_s": wall, "retained": 2, "dropped": len(prompts),
+            "deadline_stream_tokens": len(late[1]),
+            "retained_hops": hops, "parts": len(parts),
+            "merged_events": len(evs), "step_spans": len(steps),
+            "step_analytic_mfu_p50": _pct(mfu, 50) if mfu else None,
+            "step_record": {k: engines[1].compile_log[-1][k] for k in
+                            ("flops", "bytes_accessed", "peak_hbm_bytes",
+                             "dtype", "kernels")},
+            "paged_launches": launches, "steps": n_steps,
+            "live_bytes": live, "prometheus_lines": text.count("\n")}
+
+
+def _obs_zoo_leg(torch, dev, ckpt):
+    """(b) ResNet-50 from ``serve_path``'s checkpoints in one
+    ``ProcReplica(obs_dir=)`` child behind ``Router``/``FleetServer``,
+    telemetry on in the child (profiler, flight recorder flushing every
+    OBS_FLUSH_S): replies bitwise ``Module.predict``'s, ``OP_DUMP`` from
+    the child, a SIGKILL, and ``tools/trace_report`` over the front's
+    trace, the child's JSONL stream and its last bundle."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import obs, serve
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.tools import trace_report
+
+    ctx = mx.Context(dev)
+    qx = ckpt["qx"][:OBS_ZOO_POOL]
+    # the oracle at the card's default cuDNN settings, the child's own
+    net, arg, aux = mx.model.load_checkpoint(ckpt["prefix"], 1, ctx=ctx)
+    refs = {}
+    for b in OBS_ZOO_BUCKETS:
+        mod = Module(net, context=ctx)
+        mod.bind(data_shapes=[("data", (b,) + tuple(ckpt["shape"]))],
+                 for_training=False)
+        mod.set_params(arg, aux)
+        refs[b] = mod.predict(NDArrayIter(qx, None, batch_size=b)).asnumpy()
+        del mod
+    del arg, aux
+    obs_dir = os.path.join(_out_dir(), "obs_replica")
+    shutil.rmtree(obs_dir, ignore_errors=True)
+    os.makedirs(obs_dir)
+    child_env = {"MXNET_OBS_PROF": "1",
+                 "MXNET_OBS_BLACKBOX_FLUSH_S": str(OBS_FLUSH_S),
+                 "MXNET_SERVE_PLATFORM": "" if dev.type == "cuda" else "cpu"}
+    rep = serve.ProcReplica(
+        ckpt["prefix"], obs_dir=obs_dir, env=child_env,
+        log_path=os.path.join(obs_dir, "child.log"),
+        args=["--epoch", "1", "--max-batch-size", str(max(SERVE_BUCKETS)),
+              "--warmup-shape", ",".join(map(str, ckpt["shape"]))])
+    obs.enable()
+    t0 = time.perf_counter()
+    pool = serve.ReplicaPool([rep], probe_interval=600.0,
+                             ready_timeout=600.0).start()
+    bringup_s = time.perf_counter() - t0
+    front = serve.FleetServer(serve.Router(pool), port=0)
+    front.start()
+    rng = np.random.RandomState(SERVE_SEED + 4)
+    mismatches = []
+    try:
+        check(len(pool.ready_members()) == 1, "the child is not ready: "
+              + open(os.path.join(obs_dir, "child.log")).read()[-2000:])
+        cli = serve.ServeClient("127.0.0.1", front.port, timeout=600.0)
+        for _ in range(OBS_ZOO_REQUESTS):
+            n = int(rng.randint(1, max(OBS_ZOO_BUCKETS) + 1))
+            lo = int(rng.randint(0, OBS_ZOO_POOL - n + 1))
+            out, ver = cli.infer(qx[lo:lo + n], return_version=True)
+            b = min(x for x in OBS_ZOO_BUCKETS if x >= n)
+            if ver != 0 or not np.array_equal(out, refs[b][lo:lo + n]):
+                mismatches.append((lo, n, ver))
+        child = serve.ServeClient(*pool.members()[0].addr, timeout=600.0)
+        bundle = child.dump(reason="obs_path")
+        child.close()
+        front_trace = obs.export(os.path.join(obs_dir, "front.json"))
+        tel = cli.telemetry()
+        cli.close()
+        corpse = rep.proc.pid
+        time.sleep(2 * OBS_FLUSH_S)  # a flush after the last request
+        pool.kill(0)
+        check(rep.proc.wait(timeout=60) == -signal.SIGKILL,
+              "the child did not die of SIGKILL")
+    finally:
+        front.stop()
+        pool.stop()
+    check(not mismatches, f"{len(mismatches)} child replies not bitwise "
+          f"Module.predict's, first {mismatches[:3]}")
+    check(bundle.get("blackbox") == 1 and bundle["pid"] == corpse,
+          f"OP_DUMP answered {sorted(bundle)[:8]}")
+    prof = bundle.get("profiler") or {}
+    check(bundle["metrics"]["counters"].get("serve.rows_executed", 0) > 0
+          and prof.get("samples") and prof.get("folded")
+          and bundle.get("threads"),
+          "the bundle lacks metrics, profiler samples or stacks")
+    parts = tel["parts"]
+    check([p["role"] for p in parts] == ["fleet", "replica0"]
+          and parts[1]["pid"] == corpse, f"telemetry parts "
+          f"{[(p['role'], p['pid']) for p in parts]}")
+    jsonl = os.path.join(obs_dir, f"replica-{corpse}.jsonl")
+    last = os.path.join(obs_dir, f"blackbox-{corpse}-last.json")
+    check(os.path.exists(jsonl) and os.path.exists(last),
+          f"the child left {sorted(os.listdir(obs_dir))}")
+    rep_doc = trace_report.report([front_trace, jsonl, last])
+    lanes = set(rep_doc["lanes"])
+    check({str(os.getpid()), str(corpse)} <= lanes,
+          f"trace_report lanes {sorted(lanes)}")
+    phases = {r["phase"] for r in
+              (rep_doc.get("profiler") or {}).get("phases", ())}
+    return {"requests": OBS_ZOO_REQUESTS, "bitwise_vs_predict": True,
+            "child_bringup_s": bringup_s, "bundle_events":
+            len(bundle["events"]), "bundle_profiler_samples":
+            prof["stats"]["samples"], "bundle_threads":
+            len(bundle["threads"]), "report_lanes": sorted(lanes),
+            "report_spans": rep_doc["n_spans"],
+            "profiler_phases": sorted(phases)}
+
+
+def phase_obs_path(torch, dev, smi, ckpt):
+    """The host planes of the serving stack (A15(a)): (a) the traced LM
+    fleet, (b) the ResNet-50 child with its flight recorder and a kill,
+    (c) ``serve_bench``'s ``--obs-overhead`` and ``--prof-overhead`` legs
+    (reported, not gated). Returns the port kernels' launches counted
+    from 0 at the phase's start."""
+    from mxnet_tpu_torch import obs
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     flash_decode_attention)
+    from mxnet_tpu_torch.tools import serve_bench
+
+    own = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention)
+    for k in own:
+        k.launches = 0
+    sample = os.environ.get("MXNET_OBS_SAMPLE")
+    obs.disable()
+    obs.reset()
+    try:
+        lm = _obs_lm_leg(torch, dev)
+        obs.reset()
+        zoo = _obs_zoo_leg(torch, dev, ckpt)
+    finally:
+        obs.tail.disable()
+        obs.disable()
+        obs.reset()
+        obs.context.set_sample_rate(1.0)
+        if sample is None:
+            os.environ.pop("MXNET_OBS_SAMPLE", None)
+    where = "gpu" if dev.type == "cuda" else "cpu"
+    legs = {"obs_overhead": serve_bench.run_obs_overhead(
+                duration=OBS_LEG_SECONDS, sample=OBS_LEG_SAMPLE,
+                device=where),
+            "prof_overhead": serve_bench.run_prof_overhead(
+                duration=OBS_LEG_SECONDS, device=where)}
+    check({"qps_off", "qps_on", "obs_overhead_pct"} <= set(
+        legs["obs_overhead"]) and legs["obs_overhead"]["qps_on"] > 0,
+        f"obs overhead leg: {legs['obs_overhead']}")
+    check({"qps_plain", "qps_on", "prof_overhead_pct", "prof_samples"}
+          <= set(legs["prof_overhead"])
+          and legs["prof_overhead"]["prof_samples"] > 0,
+          f"profiler overhead leg: {legs['prof_overhead']}")
+    launches = {k.__name__: k.launches for k in own}
+    check(launches["flash_attention_bwd"] == 0,
+          "the obs path launched the flash backward kernel")
+    emit({"phase": "obs_path", "card": smi, "lm_fleet_traced": lm,
+          "resnet_child": zoo, "overhead_legs": legs,
+          "kernel_launches": launches})
+    return launches
+
+
 DIST_LM = {"vocab": 32000, "units": 768, "layers": 12, "heads": 12,
            "seq": 2048}    # transformer_lm()'s defaults (hidden 4 x units)
 DIST_LM_STEPS = 3          # timed Trainer steps a worker, then 1 profiled
@@ -5498,6 +5898,7 @@ def main() -> int:
           "the ssd, quant or onnx path launched an attention kernel")
     served, zoo_ckpt = run(phase_serve_path, torch, dev, smi)
     fleet = run(phase_fleet_path, torch, dev, smi, zoo_ckpt)
+    observed = run(phase_obs_path, torch, dev, smi, zoo_ckpt)
     dist = run(phase_dist_path, torch, dev, smi)
     mesh = run(phase_mesh_path, torch, dev, smi)
     serve_mesh = run(phase_serve_mesh_path, torch, dev, smi, zoo_ckpt)
@@ -5510,7 +5911,7 @@ def main() -> int:
     flash_launches = {k: train_launches[k] + nd_launches[k]
                       + gluon_launches[k] + estimator_launches[k]
                       + module_launches[k] + served[k] + fleet[k]
-                      + dist[k] + mesh[k] + serve_mesh[k]
+                      + observed[k] + dist[k] + mesh[k] + serve_mesh[k]
                       for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
@@ -5520,7 +5921,8 @@ def main() -> int:
                       "mxnet_tpu/ops/flash_attention.py:559",
                       serve_launches + gluon_decode
                       + served["flash_decode_attention"]
-                      + fleet["flash_decode_attention"], kern,
+                      + fleet["flash_decode_attention"]
+                      + observed["flash_decode_attention"], kern,
                       design=PAGED_DESIGN,
                       chunk=kern["chunk"]),
         # launches: the training path's (bf16), the nd path's, the gluon

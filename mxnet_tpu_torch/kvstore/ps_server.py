@@ -35,7 +35,8 @@ Refused, each with an error reply: a ``SET_OPT`` payload that is not the
 text spec (the reference's legacy pickle blob, whose unpickling would
 import the reference package), and ``OP_TELEMETRY`` (the training-fleet
 statistics, a plane of queue item A15). ``OP_STATS`` answers without the
-fleet and hot-key sections, which belong to the same plane.
+fleet and hot-key sections, which belong to the same plane. A key's
+trace-context suffix (``obs/context.py``) is stripped before any lookup.
 
 Run one with ``python -m mxnet_tpu_torch.kvstore.ps_server --port P
 --num-workers N``.
@@ -56,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..obs import context as obs_context
 from ..base import CODE_TO_DTYPE, DTYPE_TO_CODE, MXNetError, get_env
 from ..ndarray.serialization import host_array, raw_bytes
 from ..wire import PS_WIRE
@@ -514,6 +516,11 @@ class PSServer:
         try:
             while True:
                 opcode, key, payload = _recv_msg(conn)
+                # strip the wire's trace context before any key lookup: a
+                # context-bearing key must hit the same weight/lock/seq
+                # tables as its plain form (the PS plane's spans are
+                # queue item A15 of the port: the context goes unused)
+                key, _wctx = obs_context.extract_key(key)
                 rec = obs.enabled()
                 t0 = time.monotonic() if rec else 0.0
                 if rec:

@@ -24,9 +24,9 @@ and computes:
 Threshold callbacks: ``monitor.on_breach(fn)`` fires ``fn(report,
 breaches)`` whenever an ``evaluate()`` crosses a threshold — the hook a
 pager/autoscaler attaches to. The monitor is deliberately pull-based
-(evaluate on each telemetry collection); it owns no thread. The
-reference's breach also triggers its flight recorder, which is queue item
-A15 of the port: here a breach runs the callbacks only.
+(evaluate on each telemetry collection); it owns no thread. A breach also
+triggers the flight recorder (``obs/blackbox.py``; throttled, a no-op
+unless the recorder is armed).
 """
 from __future__ import annotations
 
@@ -200,6 +200,14 @@ class SLOMonitor:
         self.last_report = report
 
         if breaches:
+            try:  # a breach is a flight-recorder moment: capture the
+                # last seconds while they are still in the ring
+                from . import blackbox
+
+                blackbox.trigger(
+                    "slo_breach:" + ",".join(b["rule"] for b in breaches))
+            except Exception:  # noqa: BLE001 — telemetry must not fail SLO
+                pass
             for fn in self._callbacks:
                 try:
                     fn(report, breaches)

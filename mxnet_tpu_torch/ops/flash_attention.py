@@ -87,6 +87,17 @@ value         reference meaning           here
 
 There is no fallback: a kernel that fails to build or launch raises.
 
+Device cost
+-----------
+
+Under a device-plane capture (``obs/device.py``) each wrapper counts its
+call once by its analytic formula, whatever ran (the kernel on the card,
+the plain version on the CPU), and hides the ops of its body from the
+capture: :func:`flash_fwd_cost`, :func:`flash_bwd_cost` and
+:func:`paged_decode_cost` (the work each function must do: every input
+read once, every output written once, and its multiply-adds), the
+formulas of ``chip_smoke.py``'s bounds.
+
 Length-0 rows (inactive decode slots): the output is finite, never NaN,
 and otherwise unspecified. The kernel (and the plain version with
 ``chunk``) writes 0 there; the plain version, like the reference's XLA
@@ -102,11 +113,13 @@ import os
 import torch
 
 from ..base import MXNetError
+from ..obs import device as _obs_device
 from . import _kernels
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd", "flash_attention_bwd",
-           "decode_attention", "flash_decode_attention"]
+           "decode_attention", "flash_decode_attention", "flash_fwd_cost",
+           "flash_bwd_cost", "paged_decode_cost"]
 
 _NEG_INF = -1e30  # avoids -inf NaN propagation for fully-masked rows
 _LOG2E = math.log2(math.e)
@@ -352,6 +365,83 @@ def _empty_bshd(q):
 _PLAIN_DEVICES = ("cpu", "meta")
 
 
+# ---------------------------------------------------------------------------
+# Analytic cost (the device plane's count of a wrapper call)
+# ---------------------------------------------------------------------------
+
+def _pairs(b, h, s, causal, offset):
+    """(query, key) pairs a head computes: all S x S, or, causal, those
+    with ``row + offset >= col``."""
+    if not causal:
+        return b * h * s * s
+    offset = int(offset)
+    seen = sum(min(max(i + offset + 1, 0), s) for i in range(s))
+    return b * h * seen
+
+
+def flash_fwd_cost(q, k, v, causal=False, scale=None, offset=0, *_a,
+                   **_k):
+    """(flops, bytes) of :func:`flash_attention_fwd`: q, k, v read and out
+    written in q's dtype, lse written in f32; 4 D flops a (query, key)
+    pair (QK^T and PV)."""
+    b, h, s, d = q.shape
+    it = q.element_size()
+    return (4 * d * _pairs(b, h, s, causal, offset),
+            4 * b * h * s * d * it + b * h * s * 4)
+
+
+def flash_bwd_cost(q, k, v, out, lse, dout, g_lse=None, causal=False,
+                   scale=None, offset=0, *_a, **_k):
+    """(flops, bytes) of :func:`flash_attention_bwd`: q, k, v, out, dout
+    read and dq, dk, dv written in q's dtype, lse read and dl formed in
+    f32; 10 D flops a pair (the recomputed QK^T, dV, dP, dQ and dK)."""
+    b, h, s, d = q.shape
+    it = q.element_size()
+    return (10 * d * _pairs(b, h, s, causal, offset),
+            8 * b * h * s * d * it + 2 * b * h * s * 4)
+
+
+def paged_decode_cost(lengths, page, heads, head_dim, itemsize):
+    """(flops, bytes) of one paged-decode call over rows of ``lengths``
+    (host ints): the pages each row touches, K and V, read once; q read
+    and out written; 4 D flops a visible position and head."""
+    lengths = [int(n) for n in lengths]
+    pages = sum(-(-n // page) for n in lengths)
+    b = len(lengths)
+    return (4 * sum(lengths) * heads * head_dim,
+            pages * page * heads * head_dim * 2 * itemsize
+            + 2 * b * heads * head_dim * itemsize)
+
+
+def _decode_cost(q, k_pages, v_pages, page_table, lengths, scale=None):
+    # a device-to-host read of the lengths: only under a capture, which
+    # runs on a signature's first call, never on the steady path
+    b, h, d = q.shape
+    return paged_decode_cost(lengths.tolist(), k_pages.shape[1], h, d,
+                             q.element_size())
+
+
+def _costed(name, cost):
+    """Report each call of the wrapped kernel wrapper into the active
+    device-plane capture by ``cost(*args)`` -> (flops, bytes), and hide
+    its body and the formula's reads (the lengths' copy to the host) from
+    the capture's dispatch counting."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            cap = _obs_device.capturing()
+            if cap is None:
+                return fn(*args, **kwargs)
+            with cap.hidden():
+                flops, nbytes = cost(*args, **kwargs)
+                cap.add_kernel(name, flops, nbytes,
+                               str(args[0].dtype).replace("torch.", ""))
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+@_costed("flash_attention_fwd", flash_fwd_cost)
 def flash_attention_fwd(q, k, v, causal=False, scale=None, offset=0,
                         block_q=None, block_k=None):
     """Flash-attention forward -> (out, lse), q/k/v (B, H, S, D).
@@ -397,6 +487,7 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.by_offset = {}
 
 
+@_costed("flash_attention_bwd", flash_bwd_cost)
 def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
                         scale=None, offset=0, block_q=None, block_k=None):
     """Flash-attention backward -> (dq, dk, dv).
@@ -598,6 +689,7 @@ def _decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
     return (acc / den.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
+@_costed("paged_decode_attention", _decode_cost)
 def flash_decode_attention(q, k_pages, v_pages, page_table, lengths,
                            scale=None):
     """Paged decode attention; shapes as :func:`decode_attention`.

@@ -406,6 +406,15 @@ class ShardedTrainer:
                 v = v.full_tensor() if self._dist else v.clone()
                 p.data()._set_data(v)
 
+    @property
+    def step_cost(self):
+        """The reference's device-plane record of the step program: the
+        device plane's training capture sites are queue item A15 (the
+        training half of its item 1) of the port."""
+        raise MXNetError("ShardedTrainer.step_cost: the device plane's "
+                         "training capture is queue item A15 (its "
+                         "training half) of the port")
+
     def block_until_ready(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -26,7 +26,8 @@ Two layers, split so that the policy is testable as a pure function:
   :meth:`~mxnet_tpu_torch.obs.slo.SLOMonitor.burn_window` over metric-
   snapshot deltas, queue/occupancy from pool member records), applies the
   policy, and drives the pool. One join in flight at a time. Every
-  decision lands in ``self.events`` and the ``autoscale.*`` metrics.
+  decision lands in ``self.events``, the ``autoscale.*`` metrics and an
+  ``autoscale.<action>`` event.
 
 The windowed burn reads the router's ``fleet.request_latency_seconds``
 histogram and ``fleet.request_deadline_exceeded`` counter, which the
@@ -270,6 +271,8 @@ class Autoscaler:
                                 "reason": d["reason"],
                                 "ready": sig.get("ready")})
             obs.inc(f"autoscale.{d['action']}")
+            obs.event(f"autoscale.{d['action']}", reason=d["reason"],
+                      ready=sig.get("ready"))
         obs.set_gauge("autoscale.ready", sig.get("ready", 0))
         self.last_decision = d
         return d
@@ -319,6 +322,8 @@ class Autoscaler:
                 # outlive a transient stats/RPC failure; the next window
                 # gets a fresh read
                 obs.inc("autoscale.tick_errors")
+                obs.event("autoscale.tick_error",
+                          error=f"{type(e).__name__}: {e}"[:160])
 
     def start(self) -> "Autoscaler":
         self._stop_evt.clear()
@@ -334,6 +339,7 @@ class Autoscaler:
             self._thread.join(timeout=5)
             if self._thread.is_alive():
                 obs.inc("autoscale.thread_leaked")
+                obs.event("autoscale.thread_leaked", which="control")
             self._thread = None
         if self._leave_thread is not None:
             self._leave_thread.join(timeout=self.drain_timeout + 5)
@@ -342,3 +348,4 @@ class Autoscaler:
                 # stopped by remove_replica's own timeout, but the leak is
                 # an operator signal
                 obs.inc("autoscale.thread_leaked")
+                obs.event("autoscale.thread_leaked", which="leave")

@@ -12,9 +12,14 @@
   by the earliest member deadline.
 
 The worker thread is the only one that runs the engine, so the device's
-work is issued from one thread; submitters touch host numpy only. The
-reference's obs spans, gauges and histograms wait for the host planes
-(queue item A15).
+work is issued from one thread; submitters touch host numpy only.
+
+Every phase is telemetered, as the reference's: per-request
+``serve.queue_wait`` spans (recorded with the real enqueue time, under
+the request's own trace context, captured at submit),
+``serve.batch_assembly`` spans under the batch's lead context, shed
+counters by cause, the queue-depth and occupancy gauges, and the
+end-to-end ``serve.latency_seconds`` histogram.
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ import time
 from typing import List, Optional
 
 import numpy as np
+
+from .. import obs
+from ..obs import context as obs_context
 
 from .engine import DeadlineExceeded, Draining, RequestRejected, ServeError
 
@@ -62,7 +70,7 @@ class Future:
 
 class _Request:
     __slots__ = ("data", "n", "feat", "deadline", "priority", "t_enqueue",
-                 "future")
+                 "future", "ctx")
 
     def __init__(self, data: List[np.ndarray], deadline: Optional[float],
                  priority: int):
@@ -74,6 +82,9 @@ class _Request:
         self.priority = priority
         self.t_enqueue = time.monotonic()
         self.future = Future()
+        # the submitter's trace context crosses to the worker with the
+        # request: spans recorded there hang off the serve.rpc span
+        self.ctx = obs_context.current()
 
 
 class DynamicBatcher:
@@ -159,10 +170,12 @@ class DynamicBatcher:
             if self._draining:
                 self.shed += 1  # the aggregate must equal sum(by_reason)
                 self.shed_by_reason["draining"] += 1
+                obs.inc("serve.shed_draining")
                 raise Draining("endpoint is draining; request refused")
             if self._qsize >= self.max_queue:
                 self.shed += 1
                 self.shed_by_reason["queue_full"] += 1
+                obs.inc("serve.shed_queue_full")
                 raise RequestRejected(
                     f"queue over watermark ({self.max_queue} requests); "
                     "back off and retry")
@@ -172,11 +185,14 @@ class DynamicBatcher:
             if deadline is not None and deadline <= time.monotonic():
                 self.shed += 1
                 self.shed_by_reason["deadline"] += 1
+                obs.inc("serve.shed_deadline")
                 raise DeadlineExceeded("deadline expired before enqueue")
             self._lanes[lane].append(req)
             self._qsize += 1
             self.submitted += 1
+            depth = self._qsize
             self._cv.notify_all()
+        obs.set_gauge("serve.queue_depth", depth)
         return req.future
 
     # ------------------------------------------------------------------
@@ -185,6 +201,7 @@ class DynamicBatcher:
     def _shed_locked(self, req: _Request, why: str) -> None:
         self.shed += 1
         self.shed_by_reason[why] = self.shed_by_reason.get(why, 0) + 1
+        obs.inc(f"serve.shed_{why}")
         req.future._set_error(DeadlineExceeded(
             f"deadline expired while queued ({why}); request shed, "
             "not executed"))
@@ -273,29 +290,60 @@ class DynamicBatcher:
             batch = live
             if batch:
                 self._inflight += 1
+            depth = self._qsize
+        obs.set_gauge("serve.queue_depth", depth)
         return batch or None
 
     def _execute(self, batch: List[_Request]) -> None:
+        t_exec = time.monotonic()
         rows = sum(r.n for r in batch)
         occ = rows / float(self.max_batch_size)
         self.exec_batches += 1
         self.exec_rows += rows
         self._occ_ewma = occ if self.exec_batches == 1 \
             else 0.7 * self._occ_ewma + 0.3 * occ
+        obs.set_gauge("serve.batch_occupancy", occ)
+        rec = obs.enabled()
+        # batch-level spans pin to the first SAMPLED member's trace: a
+        # sampled request must never lose its execute/assembly spans to
+        # an unsampled lead
+        lead_ctx = batch[0].ctx
+        for r in batch:
+            if r.ctx is not None and r.ctx.sampled:
+                lead_ctx = r.ctx
+                break
+        if rec:
+            for r in batch:
+                # retroactive span, pinned to the request's own context
+                obs.trace.complete("serve.queue_wait", r.t_enqueue,
+                                   t_exec - r.t_enqueue, ctx=r.ctx,
+                                   priority=r.priority, rows=r.n)
+            obs.trace.complete("serve.batch_assembly", batch[0].t_enqueue,
+                               t_exec - batch[0].t_enqueue,
+                               ctx=lead_ctx,
+                               requests=len(batch), rows=rows)
+            obs.observe("serve.batch_rows", rows)
+            obs.observe("serve.batch_requests", len(batch))
         try:
             if len(batch) == 1:
                 inputs = batch[0].data
             else:
                 inputs = [np.concatenate([r.data[i] for r in batch], axis=0)
                           for i in range(len(batch[0].data))]
-            outs, version = self.engine.infer(inputs, n_valid=rows)
+            with obs_context.use(lead_ctx):
+                outs, version = self.engine.infer(inputs, n_valid=rows)
             lo = 0
+            done_t = time.monotonic()
             for r in batch:
                 r.future._set_result(
                     ([o[lo:lo + r.n] for o in outs], version))
                 lo += r.n
+                if rec:
+                    obs.observe("serve.latency_seconds",
+                                done_t - r.t_enqueue)
             self.completed += len(batch)
         except BaseException as e:  # noqa: BLE001 — forwarded to waiters
+            obs.inc("serve.execute_errors")
             err = e if isinstance(e, ServeError) else ServeError(
                 f"inference execution failed: {type(e).__name__}: {e}")
             for r in batch:
@@ -356,3 +404,7 @@ class DynamicBatcher:
         # a timed-out join leaks the worker: flag it instead of
         # pretending the shutdown was clean
         self.stopped_clean = not self._thread.is_alive()
+        if not self.stopped_clean:
+            obs.inc("serve.batcher_thread_leaked")
+            obs.event("serve.batcher_thread_leaked", join_timeout_s=5,
+                      inflight=self._inflight, queue_depth=self._qsize)

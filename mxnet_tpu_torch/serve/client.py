@@ -6,9 +6,13 @@ exponential backoff and jitter (``base.capped_backoff``). The connection
 is lazy: the first RPC dials inside the retry loop, so clients reconnecting
 after a replica restart do not dial in lockstep. Inference is stateless,
 so retrying an INFER whose reply was lost is safe; a request whose
-deadline has passed is not re-sent (:class:`DeadlineExceeded`). The
-reference's trace-context propagation and chaos injection points belong
-to the host planes (queue item A15).
+deadline has passed is not re-sent (:class:`DeadlineExceeded`).
+
+Tracing (``obs``): each RPC runs in a ``serve.client.rpc`` span whose
+context rides the frame's key field (``obs/context.py``); ``infer`` and
+``generate`` are trace roots when the caller carries no context, and take
+the tail verdict at their close from the reply's status. The reference's
+chaos injection points are queue item A15 (its item 4) of the port.
 """
 from __future__ import annotations
 
@@ -23,7 +27,9 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..base import capped_backoff, configure_socket_keepalive
+from ..obs import context as obs_context
 from ..kvstore.ps_server import (_pack_arrays, _recv_msg, _send_msg,
                                  _unpack_arrays)
 from .engine import (DeadlineExceeded, Draining, RequestRejected, ServeError)
@@ -47,6 +53,17 @@ _STATUS_ERRORS = {
     STATUS_INTERNAL: ServeError,
     STATUS_NOT_READY: ServeError,
 }
+
+
+def _outcome(e: BaseException) -> str:
+    """A root's tail outcome from the typed error its reply raised."""
+    if isinstance(e, DeadlineExceeded):
+        return "deadline"
+    if isinstance(e, (RequestRejected, Draining)):
+        return "shed"
+    if isinstance(e, GeneratorExit):
+        return "cancelled"
+    return "error"
 
 
 class ServeClient:
@@ -103,8 +120,21 @@ class ServeClient:
                         self._connect()
                     if timeout is not None:
                         self._sock.settimeout(timeout)
-                    _send_msg(self._sock, opcode, "", payload)
-                    reply = _recv_msg(self._sock)
+                    rec = obs.enabled()
+                    t0 = time.monotonic() if rec else 0.0
+                    with obs.trace.span("serve.client.rpc", op=opname,
+                                        attempt=attempt):
+                        # the span is the current context now: the key
+                        # carries its span id, the server's spans hang
+                        # off it. No context (or obs off): key "", the
+                        # old wire format byte for byte
+                        key = obs_context.inject_key(
+                            "", obs_context.current())
+                        _send_msg(self._sock, opcode, key, payload)
+                        reply = _recv_msg(self._sock)
+                    if rec:
+                        obs.observe(f"serve.client.{opname}_seconds",
+                                    time.monotonic() - t0)
                     if timeout is not None:
                         self._sock.settimeout(self._timeout)
                     return reply[2]
@@ -113,7 +143,14 @@ class ServeClient:
                     self._drop_sock()
                     if attempt + 1 >= retries:
                         break  # no retry left: surface the error now
-                    time.sleep(self._backoff(attempt))
+                    delay = self._backoff(attempt)
+                    if obs.enabled():
+                        obs.inc("serve.client.retries")
+                        obs.observe("serve.client.backoff_seconds", delay)
+                        obs.trace.event("serve.client.retry", op=opname,
+                                        attempt=attempt, error=str(e))
+                    time.sleep(delay)
+        obs.inc("serve.client.failures")
         raise ServeError(
             f"serve rpc {opname} failed after {retries} attempts: "
             f"{last_err}")
@@ -145,9 +182,30 @@ class ServeClient:
                    + _pack_arrays(arrays))
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms else None)
-        reply = self._check(self._rpc(OP_INFER, payload, deadline=deadline,
-                                      timeout=rpc_timeout),
-                            "inference failed")
+        # the trace is born here unless the caller carries one: the
+        # sampling decision (or the tail bit) rides the wire onwards
+        ctx = None
+        root_here = False
+        if obs.enabled():
+            ctx = obs_context.current()
+            if ctx is None:
+                ctx = obs_context.new_root()
+                root_here = True
+        t0 = time.monotonic()
+        try:
+            with obs_context.use(ctx):
+                reply = self._check(self._rpc(OP_INFER, payload,
+                                              deadline=deadline,
+                                              timeout=rpc_timeout),
+                                    "inference failed")
+        except BaseException as e:
+            # the server's verdict rode the reply's status byte
+            if root_here:
+                obs.tail.finish_root(ctx, time.monotonic() - t0,
+                                     outcome=_outcome(e))
+            raise
+        if root_here:
+            obs.tail.finish_root(ctx, time.monotonic() - t0)
         (version,) = struct.unpack_from("<I", reply, 0)
         outs, _ = _unpack_arrays(reply[4:])
         result = outs[0] if len(outs) == 1 else outs
@@ -174,9 +232,31 @@ class ServeClient:
                    + _pack_arrays([prompt]))
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms else None)
-        yield from self._generate_stream(payload, deadline, rpc_timeout)
+        # the root born here rides the wire to the replica: its decode
+        # spans join this trace
+        ctx = None
+        root_here = False
+        if obs.enabled():
+            ctx = obs_context.current()
+            if ctx is None:
+                ctx = obs_context.new_root()
+                root_here = True
+        t0 = time.monotonic()
+        try:
+            yield from self._generate_stream(payload, ctx, deadline,
+                                             rpc_timeout)
+        except BaseException as e:
+            if root_here:
+                obs.tail.finish_root(ctx, time.monotonic() - t0,
+                                     outcome=_outcome(e))
+            raise
+        if root_here:
+            obs.tail.finish_root(ctx, time.monotonic() - t0)
+        if obs.enabled():
+            obs.observe("serve.client.infer_stream_seconds",
+                        time.monotonic() - t0)
 
-    def _generate_stream(self, payload: bytes, deadline, timeout):
+    def _generate_stream(self, payload: bytes, ctx, deadline, timeout):
         opname = SERVE_OP_NAMES.get(OP_INFER_STREAM, "infer_stream")
         with self._lock:
             last_err = None
@@ -190,16 +270,24 @@ class ServeClient:
                         self._connect()
                     if timeout is not None:
                         self._sock.settimeout(timeout)
-                    _send_msg(self._sock, OP_INFER_STREAM, "", payload)
+                    _send_msg(self._sock, OP_INFER_STREAM,
+                              obs_context.inject_key("", ctx), payload)
                     break
                 except (ConnectionError, OSError) as e:
                     last_err = e
                     self._drop_sock()
                     if attempt + 1 >= self._retries:
+                        obs.inc("serve.client.failures")
                         raise ServeError(
                             f"serve rpc {opname} failed after "
                             f"{self._retries} attempts: {last_err}")
-                    time.sleep(self._backoff(attempt))
+                    delay = self._backoff(attempt)
+                    if obs.enabled():
+                        obs.inc("serve.client.retries")
+                        obs.observe("serve.client.backoff_seconds", delay)
+                        obs.trace.event("serve.client.retry", op=opname,
+                                        attempt=attempt, error=str(e))
+                    time.sleep(delay)
             n = 0
             err = None
             try:
@@ -228,10 +316,15 @@ class ServeClient:
                 # hanging up is the cancel signal; the socket has chunks in
                 # flight and cannot be reused
                 self._drop_sock()
+                obs.inc("serve.client.stream_cancelled")
                 raise
             except (ConnectionError, OSError, struct.error) as e:
                 self._drop_sock()
+                obs.inc("serve.client.stream_broken")
                 raise ServeError(f"stream broken after {n} tokens: {e}")
+            finally:
+                if obs.enabled() and n:
+                    obs.inc("serve.client.stream_tokens", n)
             if err is not None:
                 raise err
 
@@ -270,8 +363,12 @@ class ServeClient:
         return json.loads(bytes(reply).decode("utf-8"))
 
     def dump(self, reason: str = "wire", write: bool = False) -> dict:
-        """The server's flight-recorder bundle (``OP_DUMP``). This port's
-        server answers with an error: the recorder is queue item A15."""
+        """The server's flight-recorder bundle (``OP_DUMP``,
+        ``obs/blackbox.py``): the ring of recent spans, a metrics snapshot,
+        profiler samples and every thread's stack. ``write=True`` also
+        persists it server-side (when the recorder has a directory) and
+        returns its path in ``"path"``. Read-only: retries are
+        harmless."""
         payload = json.dumps({"reason": reason,
                               "write": bool(write)}).encode("utf-8")
         reply = self._check(self._rpc(OP_DUMP, payload), "dump failed")
@@ -280,16 +377,25 @@ class ServeClient:
     def telemetry(self, drain: bool = True, fmt: str = "json",
                   retained: Optional[list] = None,
                   openmetrics: bool = True):
-        """The server's telemetry (``OP_TELEMETRY``), with a fresh
-        collection token so that a retried frame is served from the
-        server's cache. This port's server answers with an error: the span
-        ring is queue item A15."""
+        """The server's telemetry (``OP_TELEMETRY``): ``fmt="json"``
+        returns ``{"parts": [...]}``, one part per process behind the
+        endpoint (a FleetServer adds every live replica's), each with its
+        drained span ring, metrics snapshot and clock anchor;
+        ``fmt="prometheus"`` the text exposition (``openmetrics=False``:
+        strict 0.0.4, no exemplars). ``drain=False`` peeks. A fresh
+        collection token makes a retried frame re-serve the server's
+        cached reply instead of draining twice. The request carries this
+        process's retained-trace verdicts (``obs/tail.py``) plus
+        ``retained``, so held spans downstream promote with it."""
         spec = {"drain": bool(drain), "format": fmt,
                 "token": os.urandom(8).hex()}
         if fmt == "prometheus" and not openmetrics:
             spec["openmetrics"] = False
-        if retained:
-            spec["retained"] = sorted(set(retained))
+        ids = list(retained or ())
+        if obs.tail.enabled():
+            ids.extend(obs.tail.retained_ids())
+        if ids:
+            spec["retained"] = sorted(set(ids))
         reply = self._check(
             self._rpc(OP_TELEMETRY, json.dumps(spec).encode("utf-8")),
             "telemetry failed")

@@ -28,6 +28,23 @@ the shed discipline (queue watermark → RequestRejected, dead-on-arrival
 and mid-generation deadline → DeadlineExceeded, draining → Draining, page
 exhaustion sheds the newest running stream) carry over, and every exit
 funnels through ``_retire``.
+
+Telemetry (``obs``), as the reference's: ``decode.execute`` spans around
+each call, ``decode.queue_wait``/``decode.token``/``decode.generate``
+completes pinned to each request's trace context (captured at submit),
+``decode.step`` per step, the ``decode.*`` counters, gauges and
+histograms, tail notes on sheds. Two additions: a prefill runs under its
+request's context, so its ``decode.execute`` span joins that trace (the
+step serves many traces and stays on none); and every ``decode.execute``
+span carries its call's ``flops``, ``bytes_accessed`` and ``roofline``
+class. With the device plane active a signature's first run is counted by
+``obs.device.capture`` into its ``compile_log`` entry and the
+``("decode", label)`` record; a step's paged-kernel share depends on the
+rows' lengths, which the host holds, so each step's attrs take the
+record's other work plus ``paged_decode_cost`` of its own lengths
+(``paged_flops``/``paged_bytes``, over ``attended`` positions in
+``pages`` pages). The span closes after the sampled tokens' host read,
+the call's one wait on the device; later runs add the MFU over that wall.
 """
 from __future__ import annotations
 
@@ -40,8 +57,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from .._env import env_float, env_int
 from ..context import as_device
+from ..obs import context as obs_context
 from .engine import DeadlineExceeded, Draining, RequestRejected, ServeError
 from .kvcache import SCRATCH_PAGE, PagePool, PagesExhausted, pages_for
 
@@ -158,6 +177,7 @@ class DecodeEngine:
         # shape-signature accounting: one record per distinct signature
         self._programs: Dict[tuple, int] = {}
         self.compile_log: List[dict] = []
+        self._sig_cost: Dict[tuple, dict] = {}  # device-plane records
         self.cache_hits = 0
         self.exec_count = 0
         self._stat_lock = threading.Lock()
@@ -223,25 +243,88 @@ class DecodeEngine:
 
     def _execute(self, kind: str, label: str, fn, args):
         """Run one call with shape accounting: a ``compile_log`` entry the
-        first time a signature runs. Host arrays go to the device before
-        any of the call's work is queued; the sampled token(s) come back —
-        the call's one wait on device work."""
+        first time a signature runs (counted by the device plane when it
+        is active). Host arrays go to the device before any of the call's
+        work is queued; the sampled token(s) come back — the call's one
+        wait on device work."""
         sig = (kind,) + tuple(
             (tuple(np.shape(a)), str(np.asarray(a).dtype)) for a in args)
+        rec = obs.enabled()
+        t0 = time.monotonic()
+        entry = None
         with self._stat_lock:
             if sig not in self._programs:
                 self._programs[sig] = 0
-                self.compile_log.append({"sig": sig, "kind": kind,
-                                         "label": label,
-                                         "cache_hit": False})
-        dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                    if isinstance(a, np.ndarray) else a for a in args)
-        toks = fn(*dev)
-        host = toks.cpu().numpy()
+                entry = {"sig": sig, "kind": kind, "label": label,
+                         "cache_hit": False}
+                self.compile_log.append(entry)
+        with obs.trace.span("decode.execute", kind=kind, label=label,
+                            compile=entry is not None,
+                            cache_hit=False) as sp:
+            dev = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                        .to(self.device)
+                        if isinstance(a, np.ndarray) else a for a in args)
+            if entry is not None and obs.device.active():
+                toks, cost = obs.device.capture(
+                    fn, dev, site="decode", label=label, device=self.device,
+                    arg_tensors=(self._params, self.kv, dev))
+                entry.update(cost)
+                self._sig_cost[sig] = cost
+            else:
+                toks = fn(*dev)
+            host = toks.cpu().numpy()
+            cost = self._sig_cost.get(sig) if rec else None
+            if cost:  # after the host read: the span covers the work
+                self._annotate(sp, kind, args, cost,
+                               None if entry is not None
+                               else time.monotonic() - t0)
+        if rec:
+            dt = time.monotonic() - t0
+            if entry is not None:
+                obs.inc("decode.compile")
+                obs.observe("decode.compile_seconds", dt)
+            else:
+                obs.observe("decode.execute_seconds", dt)
+            obs.device.sample()  # the live-memory counter lane, per call
         with self._stat_lock:
             self._programs[sig] += 1
             self.exec_count += 1
         return host
+
+    def _annotate(self, sp, kind, args, cost, seconds) -> None:
+        """Fold this call's cost into its span: the record's, and for a
+        step the paged kernel's share recomputed from this step's lengths
+        (the host's copy: no device read)."""
+        if not isinstance(sp, obs.trace._Span):
+            return
+        from ..ops.flash_attention import paged_decode_cost
+
+        attrs = {"flops": cost.get("flops", 0),
+                 "bytes_accessed": cost.get("bytes_accessed", 0)}
+        share = (cost.get("kernels") or {}).get("paged_decode_attention")
+        if kind == "step" and share is not None:
+            lengths = [int(n) for n in np.asarray(args[3]).reshape(-1)]
+            cfg = self.cfg
+            f1, b1 = paged_decode_cost(lengths, self.page_size, cfg["heads"],
+                                       cfg["head_dim"],
+                                       self.kv.element_size())
+            calls = share["calls"]
+            attrs.update(
+                flops=attrs["flops"] - share["flops"] + calls * f1,
+                bytes_accessed=(attrs["bytes_accessed"]
+                                - share["bytes_accessed"] + calls * b1),
+                paged_flops=calls * f1, paged_bytes=calls * b1,
+                attended=sum(lengths),
+                pages=sum(-(-n // self.page_size) for n in lengths))
+        step_cost = dict(cost, flops=attrs["flops"],
+                         bytes_accessed=attrs["bytes_accessed"])
+        rl = obs.device.roofline_class(step_cost)
+        if rl:
+            attrs["roofline"] = rl["bound"]
+        sp.attrs = dict(sp.attrs or {}, **attrs)
+        if seconds is not None:
+            obs.device.annotate_span(sp, "decode.execute", seconds,
+                                     step_cost)
 
     # -- host-facing calls ---------------------------------------------
 
@@ -356,7 +439,7 @@ class _Gen:
     """One generation's scheduler-side state."""
 
     __slots__ = ("seq", "tokens", "prompt_len", "max_new", "deadline",
-                 "priority", "temperature", "handle", "produced",
+                 "priority", "temperature", "ctx", "handle", "produced",
                  "last_token", "t_submit", "t_admit", "seed")
 
     def __init__(self, seq, tokens, max_new, deadline, priority,
@@ -368,6 +451,7 @@ class _Gen:
         self.deadline = deadline
         self.priority = priority
         self.temperature = temperature
+        self.ctx = obs_context.current()
         self.handle = handle
         self.produced = 0
         self.last_token = -1
@@ -434,6 +518,8 @@ class DecodeScheduler:
     def _shed(self, why: str, exc: ServeError):
         self.shed += 1
         self.shed_by_reason[why] += 1
+        obs.inc(f"decode.shed_{why}")
+        obs.tail.note(shed=why)
         raise exc
 
     def submit(self, tokens, *, max_new_tokens: Optional[int] = None,
@@ -470,7 +556,9 @@ class DecodeScheduler:
                      handle, seed)
             self._lanes[lane].append(g)
             self.submitted += 1
+            depth = self._qsize()
             self._cv.notify_all()
+        obs.set_gauge("decode.queue_depth", depth)
         return handle
 
     def generate(self, tokens, *, max_new_tokens: Optional[int] = None,
@@ -527,7 +615,7 @@ class DecodeScheduler:
         """One continuous-batch step: admit → decode → distribute →
         retire. Returns the number of tokens produced."""
         now = time.monotonic()
-        self._admit(now)
+        joined = self._admit(now)
         active = [(i, g) for i, g in enumerate(self._slots)
                   if g is not None]
         if not active:
@@ -549,6 +637,7 @@ class DecodeScheduler:
                 # pages is what lets the rest of the batch keep stepping
                 self.shed += 1
                 self.shed_by_reason["pages"] += 1
+                obs.inc("decode.shed_pages")
                 self._retire(i, g, "pages", error=e)
                 continue
             tokens[i] = g.last_token
@@ -559,23 +648,35 @@ class DecodeScheduler:
             stepping.append((i, g))
         if not stepping:
             return 0
+        t0 = time.monotonic()
         out = eng.step(tokens, positions, tables, lengths, temps,
                        seed=self._step_seed())
+        dt = time.monotonic() - t0
+        left = 0
         now = time.monotonic()
         for i, g in stepping:
             tok = int(out[i])
             g.last_token = tok
             g.produced += 1
             self.tokens_out += 1
+            obs.observe("decode.token_seconds", dt)
+            if g.ctx is not None and g.ctx.sampled:
+                obs.trace.complete("decode.token", t0, dt, ctx=g.ctx,
+                                   index=g.produced, slot=i)
             if not g.handle._emit(("token", tok, g.produced)):
                 self._retire(i, g, "backpressure", error=RequestRejected(
                     "stream consumer too slow (token buffer full)"))
+                left += 1
                 continue
-            self._done(g, tok, now)
+            if self._done(g, tok, now):
+                left += 1
         self.steps += 1
         occ = len(stepping) / eng.slots
         self._occupancy = (occ if self.steps == 1
                            else 0.7 * self._occupancy + 0.3 * occ)
+        obs.set_gauge("decode.occupancy", self._occupancy)
+        obs.trace.complete("decode.step", t0, dt, active=len(stepping),
+                           joined=joined, left=left)
         return len(stepping)
 
     def _step_seed(self) -> int:
@@ -600,6 +701,7 @@ class DecodeScheduler:
                         lane.pop(0)
                         self.shed += 1
                         self.shed_by_reason["deadline"] += 1
+                        obs.inc("decode.shed_deadline")
                         g.handle._emit(("error", DeadlineExceeded(
                             "deadline expired in decode queue")))
                         continue
@@ -617,9 +719,13 @@ class DecodeScheduler:
                     admitted.append(g)
         for g in admitted:
             g.t_admit = time.monotonic()
-            tok = self.engine.prefill(
-                g.tokens, self.engine.pool.table(g.seq),
-                temperature=g.temperature, seed=g.seed)
+            obs.trace.complete("decode.queue_wait", g.t_submit,
+                               g.t_admit - g.t_submit, ctx=g.ctx,
+                               priority=g.priority)
+            with obs_context.use(g.ctx):  # the prefill joins the trace
+                tok = self.engine.prefill(
+                    g.tokens, self.engine.pool.table(g.seq),
+                    temperature=g.temperature, seed=g.seed)
             g.last_token = tok
             g.produced = 1
             self.tokens_out += 1
@@ -657,6 +763,7 @@ class DecodeScheduler:
         if g.deadline is not None and now >= g.deadline:
             self.shed_by_reason["deadline"] += 1
             self.shed += 1
+            obs.inc("decode.shed_deadline")
             self._retire(idx, g, "deadline", error=DeadlineExceeded(
                 f"deadline expired after {g.produced} tokens"))
             return True
@@ -680,6 +787,11 @@ class DecodeScheduler:
             g.handle._emit(("error", error))
         else:
             g.handle._emit(("end", reason, g.produced))
+        obs.inc("decode.finished")
+        obs.trace.complete(
+            "decode.generate", g.t_admit or g.t_submit,
+            time.monotonic() - (g.t_admit or g.t_submit), ctx=g.ctx,
+            tokens=g.produced, outcome=reason)
         with self._cv:
             self._cv.notify_all()
 
@@ -722,6 +834,7 @@ class DecodeScheduler:
         self._thread.join(timeout)
         if self._thread.is_alive():
             self.stopped_clean = False
+            obs.inc("decode.scheduler_thread_leaked")
 
     def ready(self) -> bool:
         return self._running and not self._draining

@@ -44,21 +44,34 @@ applies: ``progcache_dir=`` and ``save_programs`` (persisted programs),
 and the ``lint="error"`` pre-flight (``Symbol.lint``) belong to queue
 item A15. The default ``lint="warn"`` warns once that the pre-flight did
 not run (``lint_report`` stays None). ``warmup`` runs its buckets one
-after the other on the calling thread. The reference's obs spans and
-counters wait for A15. ``ctx=`` places an engine without a mesh (default:
-the current context, the card unless a ``with mx.cpu():`` scope is open);
-a mesh places it on its rank's device.
+after the other on the calling thread. ``ctx=`` places an engine without
+a mesh (default: the current context, the card unless a ``with mx.cpu():``
+scope is open); a mesh places it on its rank's device.
+
+Telemetry (``obs``): each batch runs in a ``serve.execute`` span and feeds
+the ``serve.*`` counters and histograms; reloads are ``serve.reload``
+events. A signature's first run is its program's "compile": with the
+device plane active (``obs.device.active()``) that run is counted by
+``obs.device.capture`` (operations, bytes, peak memory; the flash kernels
+by their formulas) into its ``compile_log`` entry and the ``("serve",
+"bucket<B>")`` cost record. The span closes after the outputs' host copy,
+the batch's one wait on the device, and later runs of a signature carry
+its MFU and roofline class over that wall time (host copy included: no
+sync is added to time the device alone). On a mesh of several ranks the
+record counts the leader's own ops, its shard of the work.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..base import MXNetError, dtype_name
 from ..ndarray.serialization import host_array
 from ..parallel.sharding import is_replicated
@@ -306,6 +319,7 @@ class InferenceEngine:
         self._programs: Dict[tuple, int] = {}   # sig -> execution count
         self._stat_lock = threading.Lock()
         self.compile_log: List[dict] = []
+        self._sig_cost: Dict[tuple, dict] = {}  # device-plane records
         self._free_cache: Dict[tuple, tuple] = {}
         self.exec_count = 0
         self.cache_hits = 0
@@ -525,23 +539,59 @@ class InferenceEngine:
                 [a, np.full((pad,) + a.shape[1:], self._pad_value, a.dtype)],
                 axis=0) for a in arrays]
         sig = _sig_of(arrays)
+        rec = obs.enabled()
+        t0 = time.monotonic() if rec else 0.0
         tensors = [_tensor(a, self.device) for a in arrays]
         on_mesh = self._on_mesh([tuple(a.shape) for a in arrays])
-        with (self._lead(OP_FORWARD, [bucket], tensors) if on_mesh
-              else contextlib.nullcontext()):
-            # taken inside the announcement: the peers serve the same one
-            snapshot = self._params  # atomic: old or new, never mixed
-            with self._stat_lock:
-                if sig not in self._programs:
-                    self._programs[sig] = 0
-                    self.compile_log.append({
-                        "sig": sig, "bucket": bucket,
-                        "param_avals": self._param_avals,
-                        "version_at_compile": snapshot.version,
-                        "cache_hit": False})
-            outs = self._forward(tensors, snapshot, bucket, on_mesh)
-        # on the host (numpy, or CPU bfloat16): the batch's one wait
-        host = [host_array(o) for o in outs]
+        # the span's attrs are read before the announcement; the
+        # compile_log entry is decided under the lock inside it
+        with obs.trace.span("serve.execute", bucket=bucket, rows=n_valid,
+                            compile=sig not in self._programs,
+                            cache_hit=False,
+                            version=self._params.version) as sp:
+            with (self._lead(OP_FORWARD, [bucket], tensors) if on_mesh
+                  else contextlib.nullcontext()):
+                # taken inside the announcement: the peers serve the same
+                snapshot = self._params  # atomic: old or new, never mixed
+                entry = None
+                with self._stat_lock:
+                    if sig not in self._programs:
+                        self._programs[sig] = 0
+                        entry = {"sig": sig, "bucket": bucket,
+                                 "param_avals": self._param_avals,
+                                 "version_at_compile": snapshot.version,
+                                 "cache_hit": False}
+                        self.compile_log.append(entry)
+                if entry is not None and obs.device.active():
+                    # the signature's first run, counted: its cost record
+                    # goes into the compile_log entry
+                    outs, cost = obs.device.capture(
+                        self._forward, (tensors, snapshot, bucket, on_mesh),
+                        site="serve", label=f"bucket{bucket}",
+                        device=self.device,
+                        arg_tensors=(tensors, snapshot.arg_vals,
+                                     snapshot.aux_vals))
+                    entry.update(cost)
+                    self._sig_cost[sig] = cost
+                else:
+                    outs = self._forward(tensors, snapshot, bucket, on_mesh)
+            # on the host (numpy, or CPU bfloat16): the batch's one wait
+            host = [host_array(o) for o in outs]
+            cost = self._sig_cost.get(sig) if rec and entry is None \
+                else None
+            if cost:  # after the wait: the span's wall covers the work
+                obs.device.annotate_span(sp, "serve.execute",
+                                         time.monotonic() - t0, cost)
+        if rec:
+            dt = time.monotonic() - t0
+            if entry is not None:
+                obs.inc("serve.compile")
+                obs.observe("serve.compile_seconds", dt)
+            else:
+                obs.observe("serve.execute_seconds", dt)
+            obs.inc("serve.rows_executed", n_valid)
+            obs.inc("serve.rows_padding", bucket - n_valid)
+            obs.device.sample()  # the live-memory counter lane, per batch
         with self._stat_lock:
             self._programs[sig] += 1
             self.exec_count += 1
@@ -671,7 +721,9 @@ class InferenceEngine:
         generation now, and stage it without flipping; :meth:`commit_reload`
         is then a pointer swap. ``version`` pins the staged generation
         number (default current + 1). Returns the staged version."""
-        return self._install(OP_PREPARE, arg_params, aux_params, version)
+        v = self._install(OP_PREPARE, arg_params, aux_params, version)
+        obs.event("serve.reload_prepared", version=v)
+        return v
 
     def _commit(self) -> int:
         with self._lock:
@@ -686,7 +738,10 @@ class InferenceEngine:
         if self._staged is None:
             raise ServeError("no prepared reload to commit")
         with self._lead(OP_COMMIT):
-            return self._commit()
+            version = self._commit()
+        obs.inc("serve.reloads")
+        obs.event("serve.reload", version=version)
+        return version
 
     def abort_reload(self) -> None:
         """Discard a staged generation (idempotent)."""
@@ -699,4 +754,7 @@ class InferenceEngine:
         """Swap in a new parameter generation without dropping in-flight
         work (single-replica path); the staged slot is untouched. Returns
         the new version."""
-        return self._install(OP_RELOAD, arg_params, aux_params, version)
+        v = self._install(OP_RELOAD, arg_params, aux_params, version)
+        obs.inc("serve.reloads")
+        obs.event("serve.reload", version=v)
+        return v

@@ -50,10 +50,19 @@ Telemetry: ``fleet.ready_replicas`` and ``fleet.replica<i>.*`` gauges,
 ``fleet.replica_restarts`` counters, and ``fleet.rpc.replica<i>_seconds``
 and ``fleet.request_latency_seconds`` histograms go into ``obs.metrics``
 (recorded while ``obs`` is enabled); the autoscaler reads its burn from
-them. The reference's fleet spans, events and tail notes, its
-``MXNET_CHAOS_KILL_REPLICA<i>`` kill points, the child's span stream
-(``obs_dir=``) and the program cache (``progcache_dir=``) are queue item
-A15 of the port, each raising naming its item. ``ReplicaPool.sharded``
+them. The router roots a trace per request when the caller carries none,
+routes each attempt in a ``fleet.route`` span (``fleet.route_stream``
+events for streams), notes hedges and breaker trips for the tail plane,
+and emits the membership events (``fleet.replica_*``, ``fleet.reload``,
+...). ``Router.collect_telemetry`` pulls every ready replica's parts over
+``OP_TELEMETRY`` and ``FleetServer.telemetry`` adds the front's own. A
+``ProcReplica`` inherits the parent's telemetry switches; with
+``obs_dir=`` (or ``MXNET_OBS_DIR``) its child streams
+``<obs_dir>/replica-<pid>.jsonl`` and keeps its flight recorder's
+bundles there. The reference's ``MXNET_CHAOS_KILL_REPLICA<i>`` kill
+points and the program cache (``progcache_dir=``) are queue item A15 of
+the port (its items 4 and 2), each raising naming its item.
+``ReplicaPool.sharded``
 takes a picklable ``make_server`` (a module-level function or a
 ``functools.partial`` of one): it runs in every rank of each group.
 """
@@ -234,18 +243,22 @@ class ProcReplica:
     starts. The child serves on the card unless its environment pins
     ``MXNET_SERVE_PLATFORM=cpu``.
 
-    The reference's per-replica chaos (``MXNET_CHAOS_KILL_REPLICA<i>``), the
-    child's span stream (``obs_dir=``) and its program cache
-    (``progcache_dir=``) are queue item A15 of the port and raise when
-    given."""
+    Telemetry inheritance: when the parent has obs on the child gets
+    ``MXNET_OBS=1``, the parent's sample rate and its tail and profiler
+    switches; with an ``obs_dir`` (param or ``MXNET_OBS_DIR``) the child
+    also streams flush-per-event JSONL to ``<obs_dir>/replica-<pid>.jsonl``
+    and arms its flight recorder there, so a SIGKILLed replica leaves its
+    half of the timeline and its last bundle on disk
+    (``tools/trace_report.py`` merges them back in by pid lane).
+
+    The reference's per-replica chaos (``MXNET_CHAOS_KILL_REPLICA<i>``)
+    and its program cache (``progcache_dir=``) are queue item A15 of the
+    port (its items 4 and 2) and raise when given."""
 
     def __init__(self, model: str, *, args: Sequence[str] = (),
                  env: Optional[dict] = None, log_path: Optional[str] = None,
                  obs_dir: Optional[str] = None,
                  progcache_dir: Optional[str] = None):
-        if obs_dir or os.environ.get("MXNET_OBS_DIR"):
-            raise MXNetError("ProcReplica(obs_dir=): the span stream of a "
-                             "replica is queue item A15 of the port")
         if progcache_dir:
             raise MXNetError("ProcReplica(progcache_dir=): persisted "
                              "programs are queue item A15 of the port")
@@ -258,6 +271,7 @@ class ProcReplica:
         self._args = list(args)
         self._env = dict(env or {})
         self._log_path = log_path
+        self._obs_dir = obs_dir or os.environ.get("MXNET_OBS_DIR")
         self.proc: Optional[subprocess.Popen] = None
         self.idx = -1  # assigned by the pool
 
@@ -265,6 +279,17 @@ class ProcReplica:
         port = _free_port()
         env = _job_env()
         env.update(self._env)
+        if obs.enabled() and self._obs_dir:
+            # the flight recorder's bundles land beside the JSONL stream
+            env.setdefault("MXNET_OBS_BLACKBOX_DIR", self._obs_dir)
+        if self._obs_dir and env.get("MXNET_OBS") \
+                and "MXNET_OBS_JSONL" not in self._env:
+            os.makedirs(self._obs_dir, exist_ok=True)
+            # %p expands to the CHILD's pid at its obs import: one file
+            # per replica, surviving SIGKILL (it overrides an inherited
+            # MXNET_OBS_JSONL, whose one file would mix clock anchors)
+            env["MXNET_OBS_JSONL"] = os.path.join(self._obs_dir,
+                                                  "replica-%p.jsonl")
         out = open(self._log_path, "ab") if self._log_path \
             else subprocess.DEVNULL
         try:
@@ -323,8 +348,9 @@ def _job_env() -> dict:
     """A child replica's environment: this process's, without the
     launcher's job variables (a ``--tp`` child or a replica group forms a
     job of its own), with the repo root on ``PYTHONPATH`` (the child
-    imports the port whatever its cwd) and ``MXNET_OBS`` when ``obs`` is
-    on (the whole fleet records metrics or none of it does)."""
+    imports the port whatever its cwd) and, when ``obs`` is on,
+    ``MXNET_OBS``, the sample rate and the tail and profiler switches
+    (the whole fleet observes or none of it does)."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("DMLC_NUM_WORKER", "DMLC_WORKER_ID",
                         "MXNET_COORDINATOR", "DMLC_PS_ROOT_URI",
@@ -335,6 +361,11 @@ def _job_env() -> dict:
     env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
     if obs.enabled():
         env.setdefault("MXNET_OBS", "1")
+        env.setdefault("MXNET_OBS_SAMPLE", repr(obs.context.sample_rate()))
+        if obs.tail.enabled():
+            env.setdefault("MXNET_OBS_TAIL", "1")
+        if obs.profile.enabled():
+            env.setdefault("MXNET_OBS_PROF", "1")
     return env
 
 
@@ -607,6 +638,8 @@ class ReplicaPool:
             # a wedged bring-up is not fatal (the member stays un-ready and
             # the supervisor owns it) but must not pass silently
             obs.inc("fleet.bringup_threads_stuck")
+            obs.event("fleet.bringup_stuck",
+                      stuck=sum(t.is_alive() for t in threads))
         self._stop_evt.clear()
         self._supervisor = threading.Thread(target=self._supervise,
                                             daemon=True,
@@ -624,6 +657,7 @@ class ReplicaPool:
             self._supervisor.join(timeout=5)
             if self._supervisor.is_alive():
                 obs.inc("fleet.supervisor_thread_leaked")
+                obs.event("fleet.supervisor_thread_leaked", join_timeout_s=5)
         for m in self._members:
             try:
                 m.handle.stop()
@@ -663,6 +697,7 @@ class ReplicaPool:
     def kill(self, idx: int) -> None:
         """Chaos helper: hard-kill one replica (SIGKILL / socket sever).
         The supervisor detects and restarts it."""
+        obs.event("fleet.chaos_kill", replica=idx)
         self._members[idx].handle.kill()
 
     # -- elastic membership (join/leave) --------------------------------
@@ -678,6 +713,7 @@ class ReplicaPool:
             handle.idx = idx
             self._members.append(m)
         obs.inc("fleet.scale_out")
+        obs.event("fleet.replica_join", replica=idx)
         if wait_ready:
             self._bring_up(m)
             if m.state != "ready":
@@ -707,6 +743,7 @@ class ReplicaPool:
             self.generation += 1
             gen = self.generation
         obs.inc("fleet.scale_in")
+        obs.event("fleet.replica_leave", replica=idx, generation=gen)
         self._gauge()
         drained = True
         if prev == "ready" and m.handle.alive() and m.addr:
@@ -748,6 +785,8 @@ class ReplicaPool:
             self.generation += 1
             gen = self.generation
         obs.set_gauge("fleet.generation", gen)
+        obs.event("fleet.replica_activated", replica=m.idx,
+                  generation=gen, version=m.version)
         return True
 
     def stats(self) -> dict:
@@ -817,6 +856,8 @@ class ReplicaPool:
             self._resync_member(m)
             if not self._activate(m):
                 return  # removed while quarantined
+            obs.event("fleet.replica_ready", replica=m.idx,
+                      incarnation=m.incarnation, version=m.version)
         except Exception as e:  # noqa: BLE001 — supervised: schedule retry
             m.last_error = f"{type(e).__name__}: {e}"
             self._schedule_restart(m)
@@ -838,6 +879,7 @@ class ReplicaPool:
         finally:
             cli.close()
         m.version = version
+        obs.event("fleet.replica_resynced", replica=m.idx, version=version)
 
     def _probe_ok(self, m: _Member) -> bool:
         cli = self._client(m)
@@ -850,6 +892,8 @@ class ReplicaPool:
         if not self._transition(m, "dead"):
             return  # already leaving/removed: no death accounting
         obs.inc("fleet.replica_deaths")
+        obs.event("fleet.replica_dead", replica=m.idx,
+                  incarnation=m.incarnation)
         self._schedule_restart(m)
         self._gauge()
 
@@ -1088,12 +1132,14 @@ class Router:
             else min(self._client_timeout, rem + 0.5)
         t0 = time.monotonic()
         try:
-            with self._conn(m) as cli:
-                result, version = cli.infer(
-                    *arrays,
-                    deadline_ms=rem * 1e3 if rem is not None else None,
-                    priority=priority, return_version=True,
-                    rpc_timeout=rpc_timeout)
+            with obs.trace.span("fleet.route", replica=m.idx,
+                                priority=priority):
+                with self._conn(m) as cli:
+                    result, version = cli.infer(
+                        *arrays,
+                        deadline_ms=rem * 1e3 if rem is not None else None,
+                        priority=priority, return_version=True,
+                        rpc_timeout=rpc_timeout)
         except (RequestRejected, Draining) as e:
             br.success()  # an answering replica is a healthy replica
             m.sheds += 1
@@ -1106,6 +1152,10 @@ class Router:
         except (ServeError, ConnectionError, OSError) as e:
             if br.failure():
                 obs.inc("fleet.breaker_trips")
+                obs.event("fleet.breaker_trip", replica=m.idx)
+                # a request that crossed a TRIPPING breaker is interesting
+                # to the tail plane even if a failover later succeeds
+                obs.tail.note(breaker=True)
             m.errors += 1
             m.last_error = f"{type(e).__name__}: {e}"
             return False, e
@@ -1123,17 +1173,31 @@ class Router:
         read-only — the loser's work is wasted capacity, not corruption)
         and take the first success."""
         q: "queue.Queue" = queue.Queue()
+        # the trace context is thread-local and the racers run on fresh
+        # threads: carry it over, or a hedged request would re-root
+        ctx = obs.context.current()
 
         def run(member):
-            q.put((member, self._attempt(member, arrays, deadline,
-                                         priority)))
+            with obs.context.use(ctx):
+                res = self._attempt(member, arrays, deadline, priority)
+                # tail notes are thread-local too: ship this racer's back
+                # with its result, for the request thread to re-apply
+                q.put((member, res, obs.tail.take_notes()))
+
+        def renote(notes):
+            outcome, flags = notes
+            if outcome:
+                obs.tail.note(outcome=outcome)
+            for f in flags:
+                obs.tail.note(**{f: True})
 
         # deliberately unjoined racer: the reply comes back over q and
         # INFER is read-only — the losing attempt is wasted capacity, not
         # an orphaned mutation; a wedged racer dies with its socket timeout
         threading.Thread(target=run, args=(primary,), daemon=True).start()
         try:
-            member, (ok, val) = q.get(timeout=self.hedge_ms / 1e3)
+            member, (ok, val), notes = q.get(timeout=self.hedge_ms / 1e3)
+            renote(notes)
             if ok:
                 return True, val
             # primary failed FAST (conn refused, shed): that is plain
@@ -1145,6 +1209,10 @@ class Router:
             pass
         self.hedges += 1
         obs.inc("fleet.hedges")
+        obs.event("fleet.hedge", primary=primary.idx,
+                  secondary=secondary.idx)
+        # the primary was slow enough to duplicate: a tail signal
+        obs.tail.note(hedged=True)
         threading.Thread(target=run, args=(secondary,), daemon=True).start()
         budget = self._client_timeout if deadline is None \
             else max(deadline - time.monotonic(), 0.0)
@@ -1152,10 +1220,11 @@ class Router:
         last = None
         for _ in range(2):
             try:
-                member, (ok, val) = q.get(
+                member, (ok, val), notes = q.get(
                     timeout=max(end - time.monotonic(), 0.01))
             except queue.Empty:
                 break
+            renote(notes)
             if ok:
                 if member is secondary:
                     self.hedge_wins += 1
@@ -1177,6 +1246,11 @@ class Router:
         arrays = [np.ascontiguousarray(np.asarray(x)) for x in inputs]
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms else None)
+        # a Router driven directly (no FleetServer front) roots the trace
+        # here; behind a front the serve.rpc handler activated the wire's
+        rctx = None
+        if obs.enabled() and obs.context.current() is None:
+            rctx = obs.context.new_root()
         # gate-check and inflight-increment must be one atomic step from
         # the flip's point of view: check the gate again under _cv after
         # counting ourselves, so either the reload's drain sees us (and
@@ -1194,8 +1268,10 @@ class Router:
                     self._inflight += 1
                     break
         t0 = time.monotonic()
+        outcome = "ok"
         try:
-            result = self._infer_routed(arrays, deadline, priority)
+            with obs.context.use(rctx):
+                result = self._infer_routed(arrays, deadline, priority)
             # ONE observation per REQUEST, front-side — the replica-side
             # serve.latency_seconds counts executions, which hedging
             # duplicates; SLO math prefers this histogram when present so
@@ -1205,8 +1281,21 @@ class Router:
             return result
         except DeadlineExceeded:
             obs.inc("fleet.request_deadline_exceeded")
+            outcome = "deadline"
+            raise
+        except (RequestRejected, Draining):
+            outcome = "shed"
+            raise
+        except BaseException:
+            outcome = "error"
             raise
         finally:
+            # a directly driven Router owns the root: its verdict here.
+            # Behind a front the wire handler owns it (and this thread's
+            # notes): rctx is None then
+            if rctx is not None:
+                obs.tail.finish_root(rctx, time.monotonic() - t0,
+                                     outcome=outcome)
             with self._cv:
                 self._inflight -= 1
                 self._cv.notify_all()
@@ -1333,6 +1422,10 @@ class Router:
                     br.success()
                     m.rpcs += 1
                     committed = True
+                    # an event, not a span: a span must not stay open
+                    # while the generator is suspended
+                    obs.trace.event("fleet.route_stream", replica=m.idx,
+                                    priority=priority)
                     yield first
                     yield from it
                     return
@@ -1353,6 +1446,8 @@ class Router:
                     raise
                 if br.failure():
                     obs.inc("fleet.breaker_trips")
+                    obs.event("fleet.breaker_trip", replica=m.idx)
+                    obs.tail.note(breaker=True)
                 m.errors += 1
                 m.last_error = f"{type(e).__name__}: {e}"
                 hard_err = e
@@ -1417,10 +1512,27 @@ class Router:
 
     def collect_telemetry(self, drain: bool = True,
                           retain: Optional[list] = None) -> list:
-        """The fleet's span collection over ``OP_TELEMETRY``: the span ring
-        is queue item A15 of the port."""
-        raise MXNetError("Router.collect_telemetry: the span ring is queue "
-                         "item A15 of the port")
+        """Pull every ready replica's telemetry parts over
+        ``OP_TELEMETRY`` (drained rings: repeated collections are
+        increments). A replica that fails mid-pull is skipped and counted:
+        the dead leave their JSONL evidence instead. ``retain`` fans the
+        tail plane's verdict list out, so a replica's held spans of a
+        retained trace promote into the part this collection returns. A
+        ``GroupReplica`` answers from its leader: the part holds the
+        leader's spans, not its peers'."""
+        parts = []
+        for m in self._pool.ready_members():
+            try:
+                with self._conn(m) as cli:
+                    tel = cli.telemetry(drain=drain, retained=retain)
+                for p in tel.get("parts", []):
+                    p["role"] = f"replica{m.idx}"
+                    parts.append(p)
+            except (ServeError, ConnectionError, OSError) as e:
+                obs.inc("fleet.telemetry_errors")
+                obs.event("fleet.telemetry_error", replica=m.idx,
+                          error=str(e)[:160])
+        return parts
 
     def drain(self, timeout: float = 30.0) -> bool:
         deadline = time.monotonic() + timeout
@@ -1455,14 +1567,17 @@ class Router:
             new_version = self._fleet_version + 1
             self._reload_epoch += 1
             token = (self._controller_id, self._reload_epoch)
-            self._prepare_all(members, token, path, epoch, prefix,
-                              new_version)
-            # holding _reload_lock across the flip drain is the POINT
-            # (reloads are serialized fleet-wide) and the drain is bounded
-            # by flip_timeout
-            self._commit_all(members, token, path, epoch, prefix,
-                             new_version)
+            with obs.trace.span("fleet.reload", version=new_version,
+                                replicas=len(members)):
+                self._prepare_all(members, token, path, epoch, prefix,
+                                  new_version)
+                # holding _reload_lock across the flip drain is the POINT
+                # (reloads are serialized fleet-wide) and the drain is
+                # bounded by flip_timeout
+                self._commit_all(members, token, path, epoch, prefix,
+                                 new_version)
             obs.inc("fleet.reloads")
+            obs.event("fleet.reload", version=new_version)
             return new_version
 
     def _prepare_all(self, members, token, path, epoch, prefix, version):
@@ -1521,6 +1636,8 @@ class Router:
                     # dead mid-flip → serves nothing; alive-but-errored →
                     # resynced by the pool and version-gated meanwhile
                     obs.inc("fleet.commit_failures")
+                    obs.event("fleet.commit_failure", replica=m.idx,
+                              error=str(e)[:160])
                     m.last_error = f"commit: {type(e).__name__}: {e}"
                     self._pool.request_resync(m.idx)
             self._fleet_version = version
@@ -1552,7 +1669,31 @@ class FleetServer(ServeServer):
 
     def telemetry(self, drain: bool = True,
                   retained: Optional[list] = None) -> dict:
-        """The fleet collection plane (``OP_TELEMETRY``): queue item A15 of
-        the port, as a single ``ServeServer``'s is."""
-        raise MXNetError("FleetServer.telemetry: the span ring is queue "
-                         "item A15 of the port")
+        """The fleet collection plane: one ``OP_TELEMETRY`` against the
+        front returns the front's own part (its rpc and ``fleet.route``
+        spans, the router's metrics) plus one part per live replica —
+        what ``obs.export_mod.merge_chrome_parts`` merges into one
+        timeline and ``parts_to_prometheus`` labels by pid and role.
+
+        Tail retention: the caller's verdicts resolve this process's
+        pending buffer, then they and the front's own recent verdicts fan
+        out with the replica pulls. Parts are deduped by pid: an
+        in-process ``LocalReplica`` fleet shares one tracer ring and
+        registry with the front."""
+        if retained:
+            obs.tail.resolve(retained)
+        fan_out = sorted(set(list(retained or ())
+                             + obs.tail.retained_ids()))
+        # stats first: Router.stats() refreshes the breaker-open-time
+        # gauge, which must land in the snapshot the part takes
+        st = self.stats(include_metrics=False)
+        front = obs.telemetry_part(drain=drain, role="fleet")
+        front["stats"] = st
+        parts, seen = [front], {front["pid"]}
+        for p in self._router.collect_telemetry(drain=drain,
+                                                retain=fan_out or None):
+            if p.get("pid") in seen:
+                continue
+            seen.add(p.get("pid"))
+            parts.append(p)
+        return {"parts": parts}

@@ -27,12 +27,25 @@ Wire protocol (little-endian):
                    replied by STREAM_TOKEN (u32 token | u32 index) frames
                    closed by STREAM_END (u8 status | u32 n_tokens) or
                    STREAM_ERROR (u8 status | message)
+  TELEMETRY request : utf-8 json {"drain": bool (default true),
+                   "format": "json"|"prometheus", "openmetrics": bool,
+                   "token": collection token, "retained": [trace ids]}
+                   (empty = defaults)
+  TELEMETRY reply: u8 status | utf-8 json {"parts": [telemetry part,
+                   ...]} (``obs.telemetry_part``: pid, role, clock
+                   anchor, drained span ring, metrics snapshot; a
+                   FleetServer adds one part per live replica) or the
+                   Prometheus text exposition (``obs/export.py``)
+  DUMP   request : utf-8 json {"reason": str, "write": bool} (or empty)
+  DUMP   reply   : u8 status | utf-8 json flight-recorder bundle
+                   (``obs/blackbox.py``)
 
-A request key may carry a ``\\x1f``-suffixed trace context; it is accepted
-and ignored. TELEMETRY (42) and DUMP (43) reply with an error status: the
-span ring and the flight recorder are the host planes of queue item A15,
-as are the reference's ``obs`` spans, its ``chaos`` kill points and the
-``"metrics"`` snapshot in ``stats``.
+A request key may carry a ``\\x1f``-suffixed W3C traceparent
+(``obs/context.py``): the handler strips it before anything reads the key
+and runs the request under it; an INFER or INFER_STREAM without one is a
+new root here when telemetry records (``serve.rpc`` span, tail verdict at
+its close). The reference's ``chaos`` kill points are queue item A15 (its
+item 4) of the port.
 
 Graceful degradation: a deadline-expired or shed request gets an explicit
 status, never a hang; ``drain()`` flips readiness, finishes in-flight
@@ -52,8 +65,10 @@ from typing import Optional
 
 import numpy as np
 
+from .. import obs
 from ..kvstore.ps_server import (_pack_arrays, _recv_msg, _send_msg,
                                  _unpack_arrays)
+from ..obs import context as obs_context
 from ..wire import SERVE_WIRE
 from .batcher import DynamicBatcher
 from .engine import (DeadlineExceeded, Draining, InferenceEngine,
@@ -85,7 +100,6 @@ _INFER_HDR = struct.Struct("<dB")  # deadline_ms (0 = none), priority
 # deadline_ms, priority, max_new_tokens (0 = server default), temperature
 _STREAM_HDR = struct.Struct("<dBIf")
 _TOKEN_FRAME = struct.Struct("<II")
-_TRACE_SEP = "\x1f"
 
 
 def _err_payload(status: int, msg: str) -> bytes:
@@ -127,6 +141,10 @@ class ServeServer:
         self._reload_lock = threading.Lock()
         self._staged_token = None
         self._committed_tokens: "OrderedDict" = OrderedDict()
+        # exactly-once telemetry drains: a retried collection token
+        # re-serves the cached reply instead of draining again
+        self._telemetry_tokens: "OrderedDict" = OrderedDict()
+        self._telemetry_lock = threading.Lock()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -169,8 +187,14 @@ class ServeServer:
         # which must not join itself
         me = threading.current_thread()
         deadline = time.monotonic() + 1.0  # one budget for the whole reap
+        leaked = 0
         for t in [t for t in self._threads if t is not me]:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
+            if t.is_alive():
+                leaked += 1
+        if leaked:
+            obs.inc("serve.handler_threads_leaked", leaked)
+            obs.event("serve.handler_threads_leaked", count=leaked)
         if self._batcher is not None:
             self._batcher.close(timeout=5)
         if self._decode is not None:
@@ -213,6 +237,7 @@ class ServeServer:
         """Flip readiness off, let queued and in-flight requests finish,
         refuse new ones; ``stop=True`` closes the listener afterwards."""
         self._draining = True
+        obs.event("serve.drain", stop=stop)
         ok = True
         if self._batcher is not None:
             ok = self._batcher.drain(timeout=timeout)
@@ -281,14 +306,16 @@ class ServeServer:
                 self._staged_token = None
 
     def stats(self, include_metrics: bool = True) -> dict:
-        """Server, engine, batcher and decode stats. ``include_metrics`` is
-        accepted for the reference's signature: the metrics registry is
-        queue item A15."""
+        """Server, engine, batcher and decode stats; ``include_metrics``
+        adds the metrics registry's snapshot under ``"metrics"`` (the
+        telemetry path leaves it out: its part carries one)."""
         out = {"uptime_seconds": round(time.monotonic() - self._started, 3),
                "draining": self._draining,
                "connections": len(self._conns),
                "sheds": {"draining": self._shed_draining},
                "pid": os.getpid()}
+        if include_metrics:
+            out["metrics"] = obs.metrics.snapshot()
         if self._engine is not None:
             out["engine"] = self._engine.stats()
         if self._batcher is not None:
@@ -296,6 +323,23 @@ class ServeServer:
         if self._decode is not None:
             out["decode"] = self._decode.stats()
         return out
+
+    def telemetry(self, drain: bool = True,
+                  retained: Optional[list] = None) -> dict:
+        """This process's telemetry contribution (``OP_TELEMETRY``): span
+        ring (drained by default), metrics snapshot, clock anchor. A
+        FleetServer overrides this to append every live replica's parts.
+        ``retained`` is the tail plane's verdict list riding the request:
+        pending traces named in it promote into the ring before the
+        drain."""
+        if retained:
+            obs.tail.resolve(retained)
+        # stats first: anything stats() mirrors into gauges must land in
+        # the snapshot telemetry_part() takes
+        st = self.stats(include_metrics=False)
+        part = obs.telemetry_part(drain=drain, role="server")
+        part["stats"] = st
+        return {"parts": [part]}
 
     # ------------------------------------------------------------------
     # connection handling
@@ -317,8 +361,35 @@ class ServeServer:
         try:
             while True:
                 opcode, key, payload = _recv_msg(conn)
-                key = key.split(_TRACE_SEP, 1)[0]  # trace context: ignored
-                if not self._handle_one(conn, opcode, key, payload):
+                # strip the wire's trace context before anything reads
+                # the key; a context-less INFER is a new root here
+                key, wctx = obs_context.extract_key(key)
+                rec = obs.enabled()
+                root_here = False
+                if wctx is None and rec and opcode in (OP_INFER,
+                                                       OP_INFER_STREAM):
+                    wctx = obs_context.new_root()
+                    root_here = True
+                t0 = time.monotonic() if rec else 0.0
+                opname = SERVE_OP_NAMES.get(opcode, str(opcode))
+                try:
+                    with obs_context.use(wctx), \
+                            obs.trace.span("serve.rpc", op=opname):
+                        alive = self._handle_one(conn, opcode, key, payload)
+                finally:
+                    if rec:
+                        obs.observe(f"serve.rpc.{opname}_seconds",
+                                    time.monotonic() - t0)
+                    # tail retention: a root born here takes its verdict
+                    # now (latency + the outcome noted while handling);
+                    # a remote root's hop applies only its local flags.
+                    # Both clear this thread's notes
+                    if root_here:
+                        obs.tail.finish_root(wctx, time.monotonic() - t0)
+                    else:
+                        obs.tail.finish_remote(wctx,
+                                               time.monotonic() - t0)
+                if not alive:
                     return
         except (ConnectionError, OSError):
             return
@@ -362,6 +433,7 @@ class ServeServer:
                 self._reply(conn, OP_RELOAD,
                             struct.pack("<BI", STATUS_OK, version))
             except Exception as e:  # noqa: BLE001 — wire-reported
+                obs.inc("serve.reload_errors")
                 self._reply(conn, OP_RELOAD, _err_payload(
                     STATUS_INTERNAL, f"{type(e).__name__}: {e}"))
         elif opcode == OP_PREPARE_RELOAD:
@@ -374,6 +446,7 @@ class ServeServer:
                 self._reply(conn, OP_PREPARE_RELOAD,
                             struct.pack("<BI", STATUS_OK, staged))
             except Exception as e:  # noqa: BLE001 — wire-reported
+                obs.inc("serve.reload_errors")
                 self._reply(conn, OP_PREPARE_RELOAD, _err_payload(
                     STATUS_INTERNAL, f"{type(e).__name__}: {e}"))
         elif opcode == OP_COMMIT_RELOAD:
@@ -384,6 +457,7 @@ class ServeServer:
                 self._reply(conn, OP_COMMIT_RELOAD,
                             struct.pack("<BI", STATUS_OK, version))
             except Exception as e:  # noqa: BLE001 — wire-reported
+                obs.inc("serve.reload_errors")
                 self._reply(conn, OP_COMMIT_RELOAD, _err_payload(
                     STATUS_INTERNAL, f"{type(e).__name__}: {e}"))
         elif opcode == OP_ABORT_RELOAD:
@@ -392,13 +466,66 @@ class ServeServer:
             self.abort_reload(token)
             self._reply(conn, OP_ABORT_RELOAD, struct.pack("<B", STATUS_OK))
         elif opcode == OP_STATS:
-            blob = json.dumps(self.stats(), default=str).encode("utf-8")
+            # optional json payload {"metrics": false} skips the registry
+            # snapshot (the fleet supervisor's cheap per-probe poll)
+            include = True
+            if len(payload):
+                try:
+                    spec = json.loads(bytes(payload).decode("utf-8"))
+                    include = bool(spec.get("metrics", True))
+                except ValueError:
+                    pass
+            blob = json.dumps(self.stats(include_metrics=include),
+                              default=str).encode("utf-8")
             self._reply(conn, OP_STATS, struct.pack("<B", STATUS_OK) + blob)
-        elif opcode in (OP_TELEMETRY, OP_DUMP):
-            what = "telemetry" if opcode == OP_TELEMETRY else "dump"
-            self._reply(conn, opcode, _err_payload(
-                STATUS_INTERNAL, f"{what}: the span ring and the flight "
-                "recorder are queue item A15 of the port"))
+        elif opcode == OP_TELEMETRY:
+            try:
+                spec = json.loads(bytes(payload).decode("utf-8")) \
+                    if len(payload) else {}
+                token = spec.get("token")
+                blob = None
+                if token is not None:
+                    with self._telemetry_lock:
+                        blob = self._telemetry_tokens.get(token)
+                if blob is None:
+                    tel = self.telemetry(drain=bool(spec.get("drain", True)),
+                                         retained=spec.get("retained"))
+                    if spec.get("format") == "prometheus":
+                        blob = obs.export_mod.parts_to_prometheus(
+                            tel["parts"],
+                            openmetrics=bool(spec.get("openmetrics", True)),
+                        ).encode("utf-8")
+                    else:
+                        blob = json.dumps(tel, default=float).encode("utf-8")
+                    if token is not None:
+                        with self._telemetry_lock:
+                            self._telemetry_tokens[token] = blob
+                            while len(self._telemetry_tokens) > 4:
+                                self._telemetry_tokens.popitem(last=False)
+                self._reply(conn, OP_TELEMETRY,
+                            struct.pack("<B", STATUS_OK) + blob)
+            except Exception as e:  # noqa: BLE001 — wire-reported
+                obs.inc("serve.telemetry_errors")
+                self._reply(conn, OP_TELEMETRY, _err_payload(
+                    STATUS_INTERNAL, f"{type(e).__name__}: {e}"))
+        elif opcode == OP_DUMP:
+            # the flight recorder's bundle, built from the always-on ring:
+            # nothing drains, so retries are harmless
+            try:
+                spec = json.loads(bytes(payload).decode("utf-8")) \
+                    if len(payload) else {}
+                reason = str(spec.get("reason", "wire"))
+                doc = obs.blackbox.bundle(reason=reason)
+                if spec.get("write") and obs.blackbox.enabled():
+                    # persist the same document the reply carries
+                    doc["path"] = obs.blackbox.dump(reason=reason, doc=doc)
+                blob = json.dumps(doc, default=str).encode("utf-8")
+                self._reply(conn, OP_DUMP,
+                            struct.pack("<B", STATUS_OK) + blob)
+            except Exception as e:  # noqa: BLE001 — wire-reported
+                obs.inc("serve.dump_errors")
+                self._reply(conn, OP_DUMP, _err_payload(
+                    STATUS_INTERNAL, f"{type(e).__name__}: {e}"))
         elif opcode == OP_DRAIN:
             stop = bool(payload and payload[0])
             drained = self.drain(stop=False)
@@ -432,6 +559,8 @@ class ServeServer:
             return True
         if self._draining:
             self._shed_draining += 1
+            obs.inc("serve.shed_draining")
+            obs.tail.note("shed")
             self._reply(conn, OP_STREAM_ERROR, _err_payload(
                 STATUS_DRAINING, "endpoint draining"))
             return True
@@ -459,21 +588,28 @@ class ServeServer:
                 _send_msg(conn, OP_STREAM_END, "",
                           struct.pack("<BI", STATUS_OK, n))
             except RequestRejected as e:
+                obs.tail.note("shed")
                 _send_msg(conn, OP_STREAM_ERROR, "",
                           _err_payload(STATUS_REJECTED, str(e)))
             except DeadlineExceeded as e:
+                obs.tail.note("deadline")
                 _send_msg(conn, OP_STREAM_ERROR, "",
                           _err_payload(STATUS_DEADLINE, str(e)))
             except Draining as e:
+                obs.tail.note("shed")
                 _send_msg(conn, OP_STREAM_ERROR, "",
                           _err_payload(STATUS_DRAINING, str(e)))
             except ServeError as e:
+                obs.tail.note("error")
                 _send_msg(conn, OP_STREAM_ERROR, "",
                           _err_payload(STATUS_INTERNAL, str(e)))
         except (ConnectionError, OSError):
+            obs.inc("serve.stream_client_lost")
             return False  # the client vanished mid-stream
         finally:
             gen.close()
+            if n:
+                obs.inc("serve.stream_tokens", n)
         return True
 
     def _do_infer(self, payload):
@@ -481,6 +617,7 @@ class ServeServer:
             return _err_payload(STATUS_NOT_READY, "no model loaded")
         if self._draining:
             self._shed_draining += 1
+            obs.inc("serve.shed_draining")
             return _err_payload(STATUS_DRAINING, "endpoint draining")
         try:
             deadline_ms, priority = _INFER_HDR.unpack_from(payload, 0)
@@ -496,8 +633,10 @@ class ServeServer:
                 else self._default_timeout
             outs, version = fut.result(timeout=wait + 1.0)
         except RequestRejected as e:
+            obs.tail.note("shed")
             return _err_payload(STATUS_REJECTED, str(e))
         except DeadlineExceeded as e:
+            obs.tail.note("deadline")
             # a deadline-less request timing out the server-side wait is
             # an internal condition, not an SLO miss the client asked for
             if not deadline_ms:
@@ -506,11 +645,15 @@ class ServeServer:
                     f"server wait exceeded {self._default_timeout}s: {e}")
             return _err_payload(STATUS_DEADLINE, str(e))
         except Draining as e:
+            obs.tail.note("shed")
             return _err_payload(STATUS_DRAINING, str(e))
         except ServeError as e:
+            obs.tail.note("error")
             return _err_payload(STATUS_INTERNAL, str(e))
-        # status header and arrays travel as separate parts (scatter-gather)
-        return [struct.pack("<BI", STATUS_OK, version), _pack_arrays(outs)]
+        with obs.trace.span("serve.serialize", outputs=len(outs)):
+            # status header and arrays travel as separate parts
+            return [struct.pack("<BI", STATUS_OK, version),
+                    _pack_arrays(outs)]
 
 
 def _serve_context():

@@ -33,10 +33,17 @@ grows from one group toward ``--groups``, and reports every scale event
 and the shed count. A plan's ranks share the host's cards round-robin
 (or its CPU with ``--device cpu``).
 
+``--obs-overhead`` runs the closed loop with telemetry off and then on at
+head-sample rate ``--sample`` and reports the qps delta;
+``--prof-overhead`` interleaves three configurations (off, recording
+everything, recording into the tail plane's buffers with the sampling
+profiler at ``--hz``) and reports what the tail plane and the profiler
+add; ``--wire-hop`` reports the client p50 less the mean execute time
+(the copy counts of the reference's copy tracker are queue item A15, its
+item 4, of the port: those keys are None).
+
 Every leg runs on the card unless ``--device cpu`` is given; without a
-card and without it, building the engine raises. The telemetry-overhead
-legs (``--obs-overhead``, ``--wire-hop``, ``--prof-overhead``) are queue
-item A15 of the port and raise naming it.
+card and without it, building the engine raises.
 
 Run: ``python -m mxnet_tpu_torch.tools.serve_bench --chaos --json``.
 """
@@ -764,23 +771,241 @@ def run_ramp_bench(model="mlp", duration=14.0, qps_lo=30.0, qps_hi=450.0,
     }
 
 
-def _a15(what):
-    from ..base import MXNetError
+def run_obs_overhead(model="mlp", duration=4.0, sample=0.1, clients=4,
+                     max_batch_size=8, request_rows=1, threshold_pct=5.0,
+                     device="gpu"):
+    """What tracing costs: the same closed-loop bench twice through the
+    engine → batcher → socket stack, telemetry off, then on with head
+    sampling at ``sample``; the qps delta is ``obs_overhead_pct``. The
+    caller's telemetry flag, rate and JSONL stream are restored."""
+    from .. import obs
 
-    return MXNetError(f"serve_bench {what}: the span, copy-tracking and "
-                      "profiler planes are queue item A15 of the port")
+    was_on = obs.enabled()
+    prev_rate = obs.context.sample_rate()
+    prev_stream = obs.trace.tracer.stream_path
+    obs.disable()
+    try:
+        off = run_bench(model=model, mode="closed", duration=duration,
+                        clients=clients, max_batch_size=max_batch_size,
+                        request_rows=request_rows, device=device)
+        obs.context.set_sample_rate(sample)
+        obs.enable()
+        on = run_bench(model=model, mode="closed", duration=duration,
+                       clients=clients, max_batch_size=max_batch_size,
+                       request_rows=request_rows, device=device)
+    finally:
+        obs.disable()
+        obs.context.set_sample_rate(prev_rate)
+        if was_on:
+            obs.enable(jsonl=prev_stream)  # resume the caller's stream
+        else:
+            obs.reset()  # telemetry was off: leave no residue
+    qps_off, qps_on = off["qps"], on["qps"]
+    pct = 100.0 * (qps_off - qps_on) / qps_off if qps_off else 0.0
+    return {"model": model, "sample_rate": sample,
+            "duration_s": duration, "clients": clients,
+            "qps_off": qps_off, "qps_on": qps_on,
+            "p99_ms_off": off["p99_ms"], "p99_ms_on": on["p99_ms"],
+            "obs_overhead_pct": round(pct, 2),
+            "threshold_pct": threshold_pct,
+            "ok": bool(pct < threshold_pct)}
 
 
-def run_obs_overhead(*args, **kwargs):
-    raise _a15("--obs-overhead")
+def run_wire_hop(model="mlp", duration=4.0, clients=4, max_batch_size=8,
+                 request_rows=1, device="gpu"):
+    """The wire hop: a closed-loop serve run's p50 client latency less
+    the mean per-request execute time (``hop_ms_p50``: queueing, framing,
+    copies). The reference's copy-tracker counts (bytes copied, serialize
+    calls, host syncs per request) are queue item A15 (item 4) of the
+    port: those keys are None."""
+    from .. import obs
+
+    was_on = obs.enabled()
+    prev_rate = obs.context.sample_rate()
+    prev_stream = obs.trace.tracer.stream_path
+    obs.disable()
+    try:
+        obs.context.set_sample_rate(0.0)  # spans off; metrics are enough
+        obs.enable()
+        before = obs.metrics.snapshot()["histograms"].get(
+            "serve.execute_seconds", {})
+        res = run_bench(model=model, mode="closed", duration=duration,
+                        clients=clients, max_batch_size=max_batch_size,
+                        request_rows=request_rows, device=device)
+        after = obs.metrics.snapshot()["histograms"].get(
+            "serve.execute_seconds", {})
+    finally:
+        obs.disable()
+        obs.context.set_sample_rate(prev_rate)
+        if was_on:
+            obs.enable(jsonl=prev_stream)
+        else:
+            obs.reset()
+    n = max(res["completed"], 1)
+    exec_s = after.get("sum", 0.0) - before.get("sum", 0.0)
+    exec_ms_per_req = 1e3 * exec_s / n
+    p50 = res["p50_ms"] or 0.0
+    return {
+        "model": model, "duration_s": duration, "clients": clients,
+        "request_rows": request_rows, "completed": res["completed"],
+        "qps": res["qps"], "p50_ms": p50, "p99_ms": res["p99_ms"],
+        "execute_ms_per_request": round(exec_ms_per_req, 3),
+        "hop_ms_p50": round(max(p50 - exec_ms_per_req, 0.0), 3),
+        "bytes_copied_per_request": None,
+        "serialize_calls_per_request": None,
+        "host_syncs_per_request": None,
+        "sync_sites": None,
+        "bytes_copied_total": None,
+    }
 
 
-def run_wire_hop(*args, **kwargs):
-    raise _a15("--wire-hop")
+def run_prof_overhead(model="mlp", duration=4.0, hz=None, clients=4,
+                      max_batch_size=8, request_rows=1, threshold_pct=5.0,
+                      segments=5, device="gpu"):
+    """What the black-box plane costs: closed-loop qps through the
+    engine → batcher → socket stack in three interleaved configurations
+    against one endpoint — ``off`` (no telemetry), ``plain`` (every
+    request recorded durably, sample rate 1.0) and ``on`` (telemetry +
+    tail-mode buffering with the verdict at root close + the sampling
+    profiler at ``hz``). ``prof_overhead_pct`` is the plain → on delta,
+    what the tail plane and the profiler add on top of recording;
+    ``record_overhead_pct`` the off → plain one. The configurations'
+    ``segments`` interleave round-robin and the best of each is compared,
+    so host-load drift does not land on one side."""
+    from .. import obs, serve
 
+    net, arg, aux, feat = _build_model(model, device=device)
+    engine = serve.InferenceEngine(net, arg, aux,
+                                   max_batch_size=max_batch_size,
+                                   lint="off", ctx=_ctx(device))
+    engine.warmup(feat)
+    srv = serve.ServeServer(engine, port=0, max_linger_ms=2.0)
+    srv.start()
+    addr = ("127.0.0.1", srv.port)
+    rng = np.random.RandomState(1)
+    payload = rng.rand(request_rows, *feat).astype(np.float32)
 
-def run_prof_overhead(*args, **kwargs):
-    raise _a15("--prof-overhead")
+    def segment(seg_s: float) -> float:
+        """Drive `clients` closed-loop threads for seg_s; return qps."""
+        done = [0] * clients
+        stop_at = time.perf_counter() + seg_s
+
+        def worker(i):
+            cli = serve.ServeClient(*addr)
+            n = 0
+            while time.perf_counter() < stop_at:
+                cli.infer(payload)
+                n += 1
+            done[i] = n
+            cli.close()
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return sum(done) / (time.perf_counter() - t0)
+
+    was_on = obs.enabled()
+    prev_rate = obs.context.sample_rate()
+    prev_stream = obs.trace.tracer.stream_path
+    tail_was_on = obs.tail.enabled()
+    prev_tail_buf = obs.tail.buffer()  # the caller's buffer and policy
+    prof_was_on = obs.profile.enabled()
+    prev_prof_hz = obs.profile.profiler.hz if prof_was_on else None
+    if prof_was_on:
+        # a caller's profiler sampling through the off/plain segments
+        # would charge its cost to the wrong side
+        obs.profile.stop()
+    seg_s = duration / max(segments, 1)
+    qps_off: list = []
+    qps_plain: list = []
+    qps_on: list = []
+    prof_samples = 0
+    prof_stacks = 0
+    prof_hz = float(hz) if hz else None
+    tail_buf = None
+
+    def cfg_off():
+        if obs.tail.enabled():
+            obs.tail.disable()
+        obs.disable()
+
+    def cfg_plain():
+        if obs.tail.enabled():
+            obs.tail.disable()
+        obs.context.set_sample_rate(1.0)
+        obs.enable()
+
+    def cfg_on():
+        nonlocal tail_buf
+        obs.enable()
+        # one buffer across segments, so its counters accumulate
+        if tail_buf is None:
+            tail_buf = obs.tail.enable()
+        else:
+            obs.tail.set_buffer(tail_buf)
+        return obs.profile.start(hz=hz)
+
+    try:
+        # warm all three paths once (connections, code paths, allocator)
+        cfg_off()
+        segment(min(seg_s, 1.0))
+        cfg_plain()
+        segment(min(seg_s, 1.0))
+        cfg_on()
+        segment(min(seg_s, 1.0))
+        obs.profile.stop()
+        for _ in range(max(segments, 1)):
+            cfg_off()
+            qps_off.append(segment(seg_s))
+            cfg_plain()
+            qps_plain.append(segment(seg_s))
+            prof = cfg_on()
+            qps_on.append(segment(seg_s))
+            st = prof.stats()
+            obs.profile.stop()
+            prof_samples += st["samples"]
+            prof_stacks = max(prof_stacks, st["distinct_stacks"])
+            prof_hz = st["hz"]
+        tail_stats = tail_buf.stats() if tail_buf is not None else {}
+    finally:
+        obs.profile.stop()
+        if prof_was_on:
+            obs.profile.start(hz=prev_prof_hz)
+        if tail_was_on:
+            obs.tail.set_buffer(prev_tail_buf)
+        elif obs.tail.enabled():
+            obs.tail.disable()
+        obs.disable()
+        obs.context.set_sample_rate(prev_rate)
+        if was_on:
+            obs.enable(jsonl=prev_stream)  # resume the caller's stream
+        else:
+            obs.reset()  # telemetry was off: leave no residue
+        srv.stop()
+    best_off, best_plain, best_on = max(qps_off), max(qps_plain), max(qps_on)
+    pct = 100.0 * (best_plain - best_on) / best_plain if best_plain else 0.0
+    rec_pct = 100.0 * (best_off - best_plain) / best_off if best_off else 0.0
+    return {"model": model, "profiler_hz": prof_hz,
+            "duration_s": duration, "clients": clients,
+            "segments": len(qps_off),
+            "qps_off": round(best_off, 2),
+            "qps_plain": round(best_plain, 2),
+            "qps_on": round(best_on, 2),
+            "qps_off_segments": [round(q, 1) for q in qps_off],
+            "qps_plain_segments": [round(q, 1) for q in qps_plain],
+            "qps_on_segments": [round(q, 1) for q in qps_on],
+            "prof_samples": prof_samples,
+            "prof_distinct_stacks": prof_stacks,
+            "tail_retained": tail_stats.get("retained", 0),
+            "tail_dropped": tail_stats.get("dropped", 0),
+            "record_overhead_pct": round(rec_pct, 2),
+            "prof_overhead_pct": round(pct, 2),
+            "threshold_pct": threshold_pct,
+            "ok": bool(pct < threshold_pct)}
 
 
 def run_chaos_bench(model="mlp", duration=12.0, qps=120.0, replicas=3,
@@ -975,9 +1200,20 @@ def main(argv=None):
                     help="max data-parallel replica groups for --ramp")
     ap.add_argument("--qps-lo", type=float, default=30.0)
     ap.add_argument("--qps-hi", type=float, default=450.0)
-    for flag in ("--obs-overhead", "--wire-hop", "--prof-overhead"):
-        ap.add_argument(flag, action="store_true",
-                        help="queue item A15 of the port: raises")
+    ap.add_argument("--obs-overhead", action="store_true",
+                    help="telemetry cost: closed-loop qps with obs off vs "
+                         "on at --sample (always prints JSON)")
+    ap.add_argument("--sample", type=float, default=0.1,
+                    help="head-sampling rate for --obs-overhead")
+    ap.add_argument("--wire-hop", action="store_true",
+                    help="client p50 minus execute time per request "
+                         "(always prints JSON)")
+    ap.add_argument("--prof-overhead", action="store_true",
+                    help="tail buffering + sampling profiler cost on top "
+                         "of recording (always prints JSON)")
+    ap.add_argument("--hz", type=float, default=None,
+                    help="profiler rate for --prof-overhead (default "
+                         "MXNET_OBS_PROF_HZ, 67)")
     args = ap.parse_args(argv)
 
     if args.scale:
@@ -998,12 +1234,36 @@ def main(argv=None):
                              device=args.device)
         print(json.dumps(res, indent=1))
         return 0
+    if (args.obs_overhead or args.wire_hop or args.prof_overhead) \
+            and args.connect:
+        # these legs toggle THIS process's telemetry around an in-process
+        # stack: a remote endpoint's cannot be flipped from here
+        ap.error("--obs-overhead/--wire-hop/--prof-overhead measure an "
+                 "in-process stack and cannot target --connect")
     if args.obs_overhead:
-        run_obs_overhead()
+        res = run_obs_overhead(model=args.model, duration=args.duration,
+                               sample=args.sample, clients=args.clients,
+                               max_batch_size=args.max_batch_size,
+                               request_rows=args.request_rows,
+                               device=args.device)
+        print(json.dumps(res, indent=1))
+        return 0
     if args.wire_hop:
-        run_wire_hop()
+        res = run_wire_hop(model=args.model, duration=args.duration,
+                           clients=args.clients,
+                           max_batch_size=args.max_batch_size,
+                           request_rows=args.request_rows,
+                           device=args.device)
+        print(json.dumps(res, indent=1))
+        return 0
     if args.prof_overhead:
-        run_prof_overhead()
+        res = run_prof_overhead(model=args.model, duration=args.duration,
+                                hz=args.hz, clients=args.clients,
+                                max_batch_size=args.max_batch_size,
+                                request_rows=args.request_rows,
+                                device=args.device)
+        print(json.dumps(res, indent=1))
+        return 0
 
     if args.cold:
         res = run_cold_bench(model=args.model,

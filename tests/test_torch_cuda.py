@@ -19,7 +19,8 @@ a restart and a fleet reload; a ``ProcReplica`` child serves on the card,
 and streams relayed by a ``FleetServer`` through the paged kernel equal
 the plain version's. The device store on CUDA tensors equals the same
 store on the CPU, and two ``dist_sync`` ranks sharing the card form a
-gloo group and pass the known values on CUDA tensors.
+gloo group and pass the known values on CUDA tensors. The device plane's
+cost records of a decode engine on the card equal those on the CPU.
 """
 import math
 
@@ -1683,3 +1684,37 @@ def test_gloo_two_ranks_share_the_card(cuda_device):
     assert proc.returncode == 0, proc.stdout[-3000:]
     assert proc.stdout.count("device=cuda backend=gloo: OK") == 2
     assert proc.stdout.count("gloo (2 ranks a card)") == 2
+
+
+def test_decode_capture_on_card_equals_cpu(cuda_device):
+    """The device plane's cost records of a small ``DecodeEngine``'s
+    prefill and step on the card equal the same engine's on the CPU: the
+    paged kernel is counted once by its formula on both (the card launches
+    it, the CPU computes its plain version), the other ops by dispatch.
+    Only the peak-memory fields, each allocator's own, may differ."""
+    from mxnet_tpu_torch import obs
+
+    cfg, params = _seeded_lm(vocab_size=97, units=32, hidden_size=64,
+                             num_layers=2, num_heads=4, max_length=64)
+    kw = dict(slots=4, page_size=8, num_pages=24, prompt_buckets=[8, 16])
+    was = obs.enabled()
+    obs.enable()
+    try:
+        recs = {}
+        for dev in ("cpu", cuda_device):
+            eng = DecodeEngine(cfg, params, device=dev, **kw)
+            eng.warmup()
+            recs[str(dev)] = {e["label"]: e for e in eng.compile_log}
+    finally:
+        if not was:
+            obs.disable()
+        obs.reset()
+    cpu, card = recs["cpu"], recs[str(cuda_device)]
+    assert set(cpu) == set(card) == {"prefill8", "prefill16", "step"}
+    for label in cpu:
+        for key in ("flops", "bytes_accessed", "argument_bytes",
+                    "output_bytes", "dtype", "kernels"):
+            assert card[label][key] == cpu[label][key], (label, key)
+        assert card[label]["device"] == "cuda"
+    step = card["step"]["kernels"]["paged_decode_attention"]
+    assert step["calls"] == cfg["layers"]

@@ -461,7 +461,8 @@ def test_server_probes_drain_lifecycle():
         st = cli.stats()
         assert st["engine"]["executions"] >= 1
         assert st["batcher"]["completed"] >= 1
-        assert "shed_by_reason" in st["batcher"] and "metrics" not in st
+        assert "shed_by_reason" in st["batcher"] and "metrics" in st
+        assert "metrics" not in cli.stats(include_metrics=False)
         assert cli.drain()
         assert cli.health() and not cli.ready()
         with pytest.raises(Draining):
@@ -476,16 +477,19 @@ def test_server_probes_drain_lifecycle():
 
 
 def test_telemetry_and_dump_name_a15():
+    # the host planes of A15 are ported: OP_TELEMETRY answers with this
+    # process's part, OP_DUMP with the flight recorder's bundle
     _net, _arg, engine = _linear_engine()
     srv = ServeServer(engine, port=0)
     srv.start()
     cli = ServeClient("127.0.0.1", srv.port)
     try:
-        with pytest.raises(ServeError, match="A15"):
-            cli.telemetry()
-        with pytest.raises(ServeError, match="A15"):
-            cli.dump()
-        assert cli.health()  # the connection survives the error replies
+        tel = cli.telemetry()
+        assert [p["role"] for p in tel["parts"]] == ["server"]
+        assert {"pid", "wall_epoch", "spans", "metrics",
+                "stats"} <= set(tel["parts"][0])
+        assert cli.dump()["blackbox"] == 1
+        assert cli.health()  # the connection survives both replies
     finally:
         cli.close()
         srv.stop()

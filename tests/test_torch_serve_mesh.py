@@ -16,9 +16,10 @@ bitwise the unsharded engine.
 The pools (``ReplicaPool.sharded``) are groups of 2 ranks on a
 ``{"dp": 2, "tp": 2}`` plan of CPU slots, each group a job of its own
 started through picklable factories (``mesh_worker.mlp_server``). Left
-out, as the port's host planes are queue item A15: the ``TraceLinter``
-proof of the program bound (the engine's own accounting is asserted) and
-the Prometheus text of the fleet's gauges (the gauges are asserted).
+out: the ``TraceLinter`` proof of the program bound (the analysis plane
+is queue item A15; the engine's own accounting is asserted) and the
+Prometheus text of the fleet's gauges (the gauges are asserted; the
+exposition is held to the reference's in ``tests/test_torch_obs_*.py``).
 """
 import functools
 import json
