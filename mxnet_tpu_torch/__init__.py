@@ -88,21 +88,23 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from .base import GraphAnalysisError, MXNetError, get_env  # noqa: E402,F401
-from .context import (Context, cpu, current_context,  # noqa: E402,F401
-                      default_device, gpu)
+from .context import (Context, cpu, cpu_pinned,  # noqa: E402,F401
+                      current_context, default_device, gpu, num_gpus)
 
 _SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
-               "checkpoint", "contrib", "engine", "executor", "gluon", "image",
-               "initializer", "io", "kvstore", "metric", "model", "models",
-               "module", "monitor", "name", "native", "ndarray", "obs",
-               "operator", "ops", "optimizer", "parallel", "random",
-               "registry", "rnn", "serve", "subgraph", "symbol",
-               "test_utils", "util", "visualization")
+               "chaos", "checkpoint", "contrib", "engine", "executor",
+               "gluon", "image", "initializer", "io", "kvstore", "metric",
+               "model", "models", "module", "monitor", "name", "native",
+               "ndarray", "obs", "operator", "ops", "optimizer", "parallel",
+               "profiler", "random", "registry", "rnn", "serve", "subgraph",
+               "symbol", "test_utils", "util", "visualization")
 # the reference's short names
 _ALIASES = {"nd": "ndarray", "init": "initializer", "sym": "symbol",
             "mod": "module", "mon": "monitor", "viz": "visualization",
             "recordio": "io.recordio", "np": "numpy", "kv": "kvstore",
-            "npx": "numpy_extension"}
+            "npx": "numpy_extension", "lr_scheduler": "optimizer.lr_scheduler"}
+# the reference's modules of queue item A15(g), not ported yet: they raise
+_LATER = ("platform", "runtime")
 
 
 def __getattr__(name):
@@ -110,4 +112,11 @@ def __getattr__(name):
     if name in _SUBMODULES or name in _ALIASES:
         return _importlib.import_module(f".{_ALIASES.get(name, name)}",
                                         __name__)
+    if name == "NDArray":
+        from .ndarray import NDArray
+
+        return NDArray
+    if name in _LATER:
+        raise MXNetError(f"mx.{name} is queue item A15(g) of the port, not "
+                         "ported yet")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

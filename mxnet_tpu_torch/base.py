@@ -11,11 +11,16 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "GraphAnalysisError", "get_env", "mx_real_t",
+__all__ = ["MXNetError", "GraphAnalysisError", "get_env", "set_env",
+           "mx_real_t", "string_types", "numeric_types", "integer_types",
            "dtype_np", "dtype_name", "dtype_torch", "capped_backoff",
            "configure_socket_keepalive", "DTYPE_TO_CODE", "CODE_TO_DTYPE"]
 
 mx_real_t = np.float32  # the default real type, as the reference's
+
+string_types = (str,)
+numeric_types = (float, int, np.generic)
+integer_types = (int, np.integer)
 
 _BY_NAME = {
     "float32": torch.float32, "float64": torch.float64,
@@ -95,6 +100,11 @@ def get_env(name: str, default=None, typ=str):
     if typ is bool:
         return raw.lower() not in ("0", "false", "off", "")
     return typ(raw)
+
+
+def set_env(name: str, value) -> None:
+    """Set an environment variable (as a string), as the reference's."""
+    os.environ[name] = str(value)
 
 
 def dtype_name(dtype: Any) -> str:

@@ -18,8 +18,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "default_device",
-           "as_device"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "num_gpus", "default_device", "as_device"]
 
 
 class Context:
@@ -60,6 +60,13 @@ class Context:
 
     __str__ = __repr__
 
+    @property
+    def pinned(self) -> bool:
+        """Whether arrays on this context are pinned host tensors
+        (``cpu_pinned``; plain host memory on a machine with no card,
+        where nothing can be pinned)."""
+        return self.device_type == "cpu_pinned" and torch.cuda.is_available()
+
     def torch_device(self) -> torch.device:
         """The ``torch.device``; a ``gpu`` context needs the CUDA device."""
         if self.device_type == "gpu":
@@ -85,6 +92,19 @@ def cpu(device_id: int = 0) -> Context:
 def gpu(device_id: int = 0) -> Context:
     """CUDA device ``device_id`` (reference ``mx.gpu(i)``)."""
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Pinned host memory (reference ``mx.cpu_pinned()``): arrays made on
+    it are page-locked host tensors, which copy to the card
+    asynchronously."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA cards (reference ``mx.context.num_gpus()``; 0
+    on a machine with none)."""
+    return torch.cuda.device_count()
 
 
 def default_device() -> torch.device:

@@ -90,6 +90,18 @@
 //   one, is summed by reductions in the order the blocks reach them, so two
 //   runs may differ in its last bits.
 //
+// Fixed-order dQ (`det`, under torch.use_deterministic_algorithms; FFMA
+// route only): the reference's grid walks the key tiles in order on one
+// core (mxnet_tpu/ops/flash_attention.py:298-330), so its dQ sum has one
+// order. Here the main pass skips step 4 and a fourth kernel,
+// flash_bwd_dq_ordered_kernel, computes dQ: one block per (64-row Q tile,
+// batch*head, 64-column slab) walks the key tiles its rows see in key
+// order, recomputes S and dP (as the main pass does) and dS, and sums its
+// slab of dQ = dS K in registers, each element by one chain of fmaf over
+// the keys in order, then stores it once. Seven tile products for five,
+// no scratch memory and no atomics: two runs give the same bits. The
+// rows kernel then leaves the accumulator alone (there is none).
+//
 // Head dims to 256 of the 16-bit kernels run at the next built D (16, 32,
 // 64, 128, 256) with the columns past the true d zero (flash_common.cuh);
 // their f32 dQ accumulator is (B, H, S, D) at that D.
@@ -112,6 +124,7 @@ struct Args {
   float scale;
   bool vec;   // every row of every view starts on a 16-byte boundary
   int acc_w;  // row width of dq_acc: the padded D, or whole FFMA slabs
+  int det;    // FFMA route: dQ summed in key-tile order, no accumulator
 };
 
 // ---------------------------------------------------------------------------
@@ -668,9 +681,11 @@ flash_bwd_rows_kernel(Args a) {
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  float4* z = reinterpret_cast<float4*>(a.dq_acc + r * a.acc_w);
-  for (int c = lane; c < a.acc_w / 4; c += 32)
-    z[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!a.det) {
+    float4* z = reinterpret_cast<float4*>(a.dq_acc + r * a.acc_w);
+    for (int c = lane; c < a.acc_w / 4; c += 32)
+      z[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   if (lane == 0) a.dl[r] = acc - (a.g_lse != nullptr ? a.g_lse[r] : 0.f);
 }
 
@@ -904,8 +919,9 @@ flash_bwd_ffma_kernel(Args a) {
       cp_async_commit();
     }
 
-    // 4. dQ += dS K for the slab, rows 4 ty .. + 3
-    {
+    // 4. dQ += dS K for the slab, rows 4 ty .. + 3 (the fixed-order
+    // variant leaves dQ to flash_bwd_dq_ordered_kernel)
+    if (!a.det) {
       float dq[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -962,6 +978,196 @@ flash_bwd_ffma_kernel(Args a) {
   }
 }
 
+// The fixed-order dQ: one block of 256 threads per (64-row Q tile,
+// batch*head, 64-column slab). The block walks the key tiles that its rows
+// see, in key order; per key tile:
+//   1. S = Q K^T and dP = dO V^T over the whole head dim, in chunks of 64
+//      columns, the block's own slab last, so that K's slab stays for 3
+//      (with one chunk, Q and dO are loaded once for all key tiles);
+//   2. dS = P * (dP - dl) * scale, rounded to the input type, to shared
+//      memory transposed (key-major), exactly as the main pass forms it;
+//   3. dQ += dS K for the slab, in registers: each element one fmaf chain
+//      over the keys in order.
+// A thread owns keys ty + 16 i and rows tx + 16 j of S and dP, and rows
+// 4 ty .. + 3 and columns 4 tx .. + 3 of dQ. Rows past S are not stored;
+// a row that sees no key gets 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_ordered_kernel(Args a) {
+  constexpr int BM = kFfmaBM, BN = kFfmaBN, CW = kFfmaBwdSlab;
+  constexpr int LD = CW + 4;
+  constexpr int LDT = BM + 16;
+  static_assert(BM == 64 && BN == 64 && CW == 64, "the 16 x 16 thread grid");
+  extern __shared__ __align__(16) float fsm[];
+  float* sq = fsm;
+  float* sdo = sq + BM * LD;
+  float* sk = sdo + BM * LD;
+  float* sv = sk + BN * LD;
+  float* sdst = sv + BN * LD;  // dS^T: BN x LDT
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, S = a.S;
+  const int q0 = blockIdx.y * BM;
+  const int z = blockIdx.z, nc = gridDim.z;
+  const T* qb = static_cast<const T*>(a.q) + b * a.vq.sb + h * a.vq.sh;
+  const T* dob = static_cast<const T*>(a.dout) + b * a.vdo.sb + h * a.vdo.sh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.vk.sb + h * a.vk.sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vv.sb + h * a.vv.sh;
+  const float* lse_b = a.lse + (int64_t)bh * S;
+  const float* dl_b = a.dl + (int64_t)bh * S;
+
+  int nk = (S + BN - 1) / BN;
+  if (a.causal) {
+    // the last key a row of the tile sees: row + offset >= key
+    const int last = min(S - 1, min(q0 + BM - 1, S - 1) + a.offset);
+    nk = last < 0 ? 0 : min(nk, last / BN + 1);
+  }
+  const int cfirst = (z + 1) % nc;  // chunk order: z + 1, ..., z
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float cl = a.scale * kLog2e;
+  float lr[4], dlr[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int row = q0 + tx + 16 * j;
+    lr[j] = row < S ? lse_b[row] : kNegInf;
+    dlr[j] = row < S ? dl_b[row] : 0.f;
+  }
+  float dq[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BN;
+    // 1. S and dP, [key i][row j]
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+    for (int st = 0; st < nc; ++st) {
+      const int c = (cfirst + st) % nc;
+      if (nc > 1 || kt == 0) {
+        load_f32_tile<T, BM, CW>(sq, LD, qb, a.vq.ss, q0, S, c * CW, a.d,
+                                 a.vec);
+        load_f32_tile<T, BM, CW>(sdo, LD, dob, a.vdo.ss, q0, S, c * CW, a.d,
+                                 a.vec);
+      }
+      load_f32_tile<T, BN, CW>(sk, LD, kb, a.vk.ss, k0, S, c * CW, a.d,
+                               a.vec);
+      load_f32_tile<T, BN, CW>(sv, LD, vb, a.vv.ss, k0, S, c * CW, a.d,
+                               a.vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      const float* qa = sq + tx * LD;
+      const float* ga = sdo + tx * LD;
+      const float* ka = sk + ty * LD;
+      const float* va = sv + ty * LD;
+#pragma unroll 4
+      for (int kk = 0; kk < CW; kk += 4) {
+        {
+          float4 x[4], y[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            x[j] = *reinterpret_cast<const float4*>(qa + 16 * j * LD + kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            y[i] = *reinterpret_cast<const float4*>(ka + 16 * i * LD + kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              sc[i][j] = fmaf(y[i].x, x[j].x, sc[i][j]);
+              sc[i][j] = fmaf(y[i].y, x[j].y, sc[i][j]);
+              sc[i][j] = fmaf(y[i].z, x[j].z, sc[i][j]);
+              sc[i][j] = fmaf(y[i].w, x[j].w, sc[i][j]);
+            }
+        }
+        {
+          float4 x[4], y[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            x[j] = *reinterpret_cast<const float4*>(ga + 16 * j * LD + kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            y[i] = *reinterpret_cast<const float4*>(va + 16 * i * LD + kk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              dp[i][j] = fmaf(y[i].x, x[j].x, dp[i][j]);
+              dp[i][j] = fmaf(y[i].y, x[j].y, dp[i][j]);
+              dp[i][j] = fmaf(y[i].z, x[j].z, dp[i][j]);
+              dp[i][j] = fmaf(y[i].w, x[j].w, dp[i][j]);
+            }
+        }
+      }
+      if (st + 1 < nc) __syncthreads();  // before the next chunk's copies
+    }
+
+    // 2. dS = P * (dP - dl) * scale, the main pass's masking
+    {
+      const bool masked = (a.causal && k0 + BN - 1 > q0 + a.offset) ||
+                          k0 + BN > S || q0 + BM > S;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = q0 + tx + 16 * j;
+          const float x = sc[i][j] * cl - lr[j] * kLog2e;
+          float p;
+          if (!masked) {
+            p = exp2f(x);
+          } else {
+            const bool vis = row < S && key < S &&
+                             (!a.causal || row + a.offset >= key) &&
+                             lr[j] > 0.5f * kNegInf;
+            p = vis ? exp2f(fminf(x, 0.f)) : 0.f;
+          }
+          sdst[(ty + 16 * i) * LDT + tx + 16 * j] =
+              round_to<T>(p * (dp[i][j] - dlr[j]) * a.scale);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. dQ += dS K for the slab, keys in order
+    {
+      const float* da = sdst + 4 * ty;
+#pragma unroll 4
+      for (int kk = 0; kk < BN; ++kk) {
+        const float4 d4 = *reinterpret_cast<const float4*>(da + kk * LDT);
+        const float4 k4 =
+            *reinterpret_cast<const float4*>(sk + kk * LD + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float de = comp(d4, i);
+          dq[i][0] = fmaf(de, k4.x, dq[i][0]);
+          dq[i][1] = fmaf(de, k4.y, dq[i][1]);
+          dq[i][2] = fmaf(de, k4.z, dq[i][2]);
+          dq[i][3] = fmaf(de, k4.w, dq[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // K and dS^T are read; the next tile's may come in
+  }
+  cp_async_wait<0>();
+
+  T* dqb = static_cast<T*>(a.dq) + b * a.vdq.sb + h * a.vdq.sh;
+  const int col = z * CW + 4 * tx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row < S && col < a.d)
+      store4<T>(dqb + (int64_t)row * a.vdq.ss + col,
+                make_float4(dq[i][0], dq[i][1], dq[i][2], dq[i][3]),
+                a.d - col, a.vec);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
@@ -973,10 +1179,12 @@ inline dim3 row_grid(const Args& a, int D) {
 }
 
 // The three kernels of the FFMA pass: rows (dl, zeroed accumulator), the
-// main pass on slabs of kFfmaBwdSlab columns, the dQ store.
+// main pass on slabs of kFfmaBwdSlab columns, the dQ store; with `det`,
+// rows (dl only), the main pass without its dQ reductions and the
+// fixed-order dQ kernel.
 template <typename T>
 cudaError_t launch_ffma(const Args& a, cudaStream_t stream) {
-  if (a.dq_acc == nullptr) return cudaErrorInvalidValue;
+  if (a.dq_acc == nullptr && !a.det) return cudaErrorInvalidValue;
   auto fn = flash_bwd_ffma_kernel<T>;
   const size_t bytes =
       sizeof(float) * (4 * 64 * (kFfmaBwdSlab + 4) + 2 * 64 * (kFfmaBM + 16));
@@ -994,6 +1202,17 @@ cudaError_t launch_ffma(const Args& a, cudaStream_t stream) {
   fn<<<dim3(a.B * a.H, tiles, slabs), kThreads, bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (a.det) {
+    auto dqfn = flash_bwd_dq_ordered_kernel<T>;
+    const size_t dq_bytes =
+        sizeof(float) * (4 * 64 * (kFfmaBwdSlab + 4) + 64 * (kFfmaBM + 16));
+    err = cudaFuncSetAttribute(
+        dqfn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
+    if (err != cudaSuccess) return err;
+    const int qtiles = (a.S + kFfmaBM - 1) / kFfmaBM;
+    dqfn<<<dim3(a.B * a.H, qtiles, slabs), kThreads, dq_bytes, stream>>>(a);
+    return cudaGetLastError();
+  }
   const int64_t threads = rows * ((a.d + 3) / 4);
   flash_bwd_dq_store_kernel<T><<<(unsigned)((threads + kThreads - 1) /
                                             kThreads),
@@ -1055,7 +1274,9 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 // tensor-core kernels built for the next of 16, 32, 64, 128 and 256.
 // dq_acc: contiguous (B, H, S, W) float32 scratch, W that padded D for the
 // tensor-core kernels and D rounded up to whole slabs of 64 for the FFMA
-// pass. Launches every kernel on `stream`; returns the first cudaError_t.
+// pass. det (FFMA route only; the 16-bit kernels refuse it): dQ summed in
+// key-tile order by the fixed-order kernel, dq_acc unused (may be null).
+// Launches every kernel on `stream`; returns the first cudaError_t.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const float* lse,
@@ -1064,17 +1285,19 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* dv, int dtype, int B, int H, int S,
                                    int D, const long long* strides,
                                    int causal, int offset, float scale,
-                                   void* stream) {
+                                   int det, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || D <= 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   const bool ffma = ffma_route(dtype, D);
+  if (det && !ffma) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, out, dout, lse, g_lse, dl, dq_acc, dq, dk, dv,
          view(strides), view(strides + 3), view(strides + 6),
          view(strides + 9), view(strides + 12), view(strides + 15),
          view(strides + 18), view(strides + 21),
          B, H, S, D, causal, offset, scale, true,
          ffma ? (D + kFfmaBwdSlab - 1) / kFfmaBwdSlab * kFfmaBwdSlab
-              : padded_dim(D)};
+              : padded_dim(D),
+         det ? 1 : 0};
   const void* ptrs[8] = {q, k, v, out, dout, dq, dk, dv};
   const View views[8] = {a.vq, a.vk, a.vv, a.vo, a.vdo, a.vdq, a.vdk, a.vdv};
   for (int i = 0; i < 8; ++i)
@@ -1110,7 +1333,7 @@ namespace {
 
 PyObject* py_launch(PyObject*, PyObject* const* a, Py_ssize_t n) {
   using namespace mxt_py;
-  if (!nargs(n, 22, "flash_attention_bwd")) return nullptr;
+  if (!nargs(n, 23, "flash_attention_bwd")) return nullptr;
   const void *q = ptr(a[0]), *k = ptr(a[1]), *v = ptr(a[2]),
              *out = ptr(a[3]), *dout = ptr(a[4]);
   const float* lse = static_cast<const float*>(ptr(a[5]));
@@ -1124,13 +1347,14 @@ PyObject* py_launch(PyObject*, PyObject* const* a, Py_ssize_t n) {
   if (!i64s(a[17], strides, 24)) return nullptr;
   const int causal = i32(a[18]), offset = i32(a[19]);
   const float scale = f32(a[20]);
-  void* stream = ptr(a[21]);
+  const int det = i32(a[21]);
+  void* stream = ptr(a[22]);
   if (PyErr_Occurred()) return nullptr;
   int err;
   Py_BEGIN_ALLOW_THREADS
   err = flash_attention_bwd(q, k, v, out, dout, lse, g_lse, dl, dq_acc, dq,
                             dk, dv, dtype, B, H, S, D, strides, causal,
-                            offset, scale, stream);
+                            offset, scale, det, stream);
   Py_END_ALLOW_THREADS
   return PyLong_FromLong(err);
 }

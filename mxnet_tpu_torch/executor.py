@@ -16,17 +16,28 @@ and keeps the tape until the next forward: ``backward`` runs ``torch.autograd.gr
 on it, so a second ``backward`` after one forward gives the same
 gradients, as the reference's recomputing backward does, and
 ``grad_req="add"`` accumulates them. Arrays live on the executor's
-context, the card unless the caller names the CPU. The reference's obs,
-chaos and device-accounting hooks belong to the host planes (queue item
-A15), and its ``lint=`` pre-flight to the analysis plane (A15).
+context, the card unless the caller names the CPU.
+
+The host planes' hooks are the reference's: ``MXNET_CHAOS_NAN``
+(``chaos/nan.py``) poisons a named argument of this forward only, before
+the training forward's inputs are kept as ``_last_inputs`` for the
+training-health plane's blame pass (``obs.health.blame_nonfinite``); the
+first run of each signature of the forward and of the backward is
+counted by ``obs.device.capture`` (site ``executor``) into
+``compile_log``, and later runs carry the analytic MFU on their
+``device.forward``/``device.backward`` spans; each counts one program
+call for ``profiler.count_dispatches``. The ``lint=`` pre-flight belongs
+to the analysis plane (queue item A15(e)).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List
 
 import numpy as np
 import torch
 
+from . import obs
 from .base import MXNetError
 from .context import Context, as_device, current_context
 from .ndarray import NDArray
@@ -195,6 +206,12 @@ class Executor:
                               and grad_req != "null"}
         self._fns: Dict[bool, tuple] = {}
         self._tape = None  # (argument names, leaves, outputs) of forward
+        # the training forward's (argument, auxiliary tensors, train): the
+        # blame pass replays them (obs.health.blame_nonfinite)
+        self._last_inputs = None
+        self.compile_log: List[dict] = []
+        self._seen_sigs: set = set()
+        self._sig_cost: Dict[tuple, dict] = {}
 
     def _zeros(self, shape) -> NDArray:
         return NDArray(torch.zeros(tuple(shape), dtype=torch.float32,
@@ -228,22 +245,35 @@ class Executor:
             elif k in self.aux_dict:
                 self.aux_dict[k]._set_data(_tensor(v, self._device))
         self._tape = None  # frees the previous forward's graph
+        self._last_inputs = None
         arg_names, aux_names, fn, _ = self._get_fn(bool(is_train))
         arg_vals = [self.arg_dict[n]._data.detach() for n in arg_names]
         aux_vals = [self.aux_dict[n]._data.detach() for n in aux_names]
-        if is_train and self._grad_req != "null":
+        from .chaos import nan as _nan_chaos
+
+        if _nan_chaos.enabled():
+            # deterministic NaN injection (MXNET_CHAOS_NAN) before the
+            # last-inputs capture, so the blame pass replays the poisoned
+            # inputs exactly as this forward saw them
+            arg_vals = _nan_chaos.poison(arg_names, arg_vals)
+        train = bool(is_train) and self._grad_req != "null"
+        if train:
             names = [n for n, v in zip(arg_names, arg_vals)
                      if n in self.grad_dict and v.is_floating_point()]
             leaf_of = {n: arg_vals[arg_names.index(n)].requires_grad_(True)
                        for n in names}
             arg_vals = [leaf_of.get(n, v) for n, v in zip(arg_names,
                                                          arg_vals)]
-            with torch.enable_grad():
-                outs, new_aux = fn(arg_vals, aux_vals)
+
+        def run():
+            with torch.set_grad_enabled(train):
+                return fn(arg_vals, aux_vals)
+
+        outs, new_aux = self._run_counted("forward", bool(is_train), run,
+                                          (arg_vals, aux_vals))
+        if train:
             self._tape = (names, [leaf_of[n] for n in names], outs)
-        else:
-            with torch.no_grad():
-                outs, new_aux = fn(arg_vals, aux_vals)
+            self._last_inputs = (arg_vals, aux_vals, bool(is_train))
         for n, v in zip(aux_names, new_aux):
             self.aux_dict[n]._set_data(v.detach())
         self.outputs_nd = [NDArray(o.detach(), ctx=self._ctx) for o in outs]
@@ -267,10 +297,13 @@ class Executor:
         live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
         grads = [None] * len(leaves)
         if live and leaves:
-            grads = torch.autograd.grad([o for o, _ in live],
-                                        leaves, [c for _, c in live],
-                                        retain_graph=True,
-                                        allow_unused=True)
+            grads = self._run_counted(
+                "backward", True,
+                lambda: torch.autograd.grad([o for o, _ in live], leaves,
+                                            [c for _, c in live],
+                                            retain_graph=True,
+                                            allow_unused=True),
+                (leaves, cots))
         for n, leaf, g in zip(names, leaves, grads):
             if g is None:
                 g = torch.zeros_like(leaf)
@@ -280,5 +313,52 @@ class Executor:
                 self.grad_dict[n]._set_data(g)
         return [self.grad_dict.get(n) for n in self._arg_names]
 
+    def _run_counted(self, site, train, run, tensors):
+        """``run()`` as one program call of ``site`` ("forward" or
+        "backward"): counted for ``profiler.count_dispatches``, under a
+        ``device.<site>`` span, and, while the device plane captures, its
+        signature's first run counted into ``compile_log`` (the tensors it
+        reads: ``tensors``); later runs get the analytic MFU."""
+        from . import profiler
+
+        if profiler.counting_dispatches():
+            profiler.count_dispatch("compiled")
+        rec = obs.enabled()
+        t0 = time.monotonic() if rec else 0.0
+        sig = None
+        if obs.device.active():
+            sig = (site, train, tuple((tuple(t.shape), str(t.dtype))
+                                      for t in _flat(tensors)))
+        first = sig is not None and sig not in self._seen_sigs
+        with obs.trace.span(f"device.{site}", train=train,
+                            compile=first) as sp:
+            if first:
+                self._seen_sigs.add(sig)
+                out, cost = obs.device.capture(
+                    run, (), site="executor", label=site,
+                    device=self._device, arg_tensors=tensors)
+                self._sig_cost[sig] = cost
+                self.compile_log.append({"site": site, "train": train,
+                                         "avals": sig[2], **cost})
+            else:
+                out = run()
+            cost = self._sig_cost.get(sig) if rec and not first else None
+            if cost:
+                if self._device.type == "cuda":
+                    torch.cuda.synchronize(self._device)
+                obs.device.annotate_span(sp, site, time.monotonic() - t0,
+                                         cost)
+        return out
+
     def __repr__(self):
         return f"<Executor {self._symbol!r} args={len(self.arg_dict)}>"
+
+
+def _flat(tree):
+    out = []
+    for x in tree:
+        if isinstance(x, (list, tuple)):
+            out.extend(_flat(x))
+        elif isinstance(x, torch.Tensor):
+            out.append(x)
+    return out

@@ -461,11 +461,16 @@ class CachedOp:
     (*parameter tensors, *input tensors), binds the tensors to the
     parameters, runs the block's eager forward and returns
     (*outputs, *aux updates): the parameters the forward rebound.
+
+    Each call counts one program call for ``profiler.count_dispatches``;
+    while the device plane captures, an entry's first call is counted by
+    ``obs.device.capture`` (site ``cachedop``) into ``compile_log``.
     """
 
     def __init__(self, block: HybridBlock):
         self.block = block
         self._cache = {}
+        self.compile_log: list = []
 
     def __call__(self, *inputs):
         flat_in, fmt = _flatten_nds(inputs)
@@ -480,8 +485,22 @@ class CachedOp:
         if entry is None:
             entry = self._build(params, fmt)
             self._cache[key] = entry
-        result = invoke(entry["opdef"], [p.data() for p in params]
-                        + list(flat_in), {})
+        from .. import obs, profiler
+
+        if profiler.counting_dispatches():
+            profiler.count_dispatch("compiled")
+        args = [p.data() for p in params] + list(flat_in)
+        if not entry["logged"] and obs.device.active():
+            entry["logged"] = True
+            result, cost = obs.device.capture(
+                invoke, (entry["opdef"], args, {}), site="cachedop",
+                label=self.block.name,
+                arg_tensors=[a._data for a in args])
+            self.compile_log.append({"block": self.block.name,
+                                     "train": train, "avals": key[1:],
+                                     **cost})
+        else:
+            result = invoke(entry["opdef"], args, {})
         if not isinstance(result, tuple):
             result = (result,)
         n_out = entry["n_flat"][0]
@@ -522,7 +541,7 @@ class CachedOp:
         opdef = OpDef(f"CachedOp_{block.name}", fn,
                       num_outputs=lambda kw: n_flat[0] + len(aux_param_idx))
         return {"opdef": opdef, "aux_param_idx": aux_param_idx,
-                "out_fmt": out_fmt, "n_flat": n_flat}
+                "out_fmt": out_fmt, "n_flat": n_flat, "logged": False}
 
 
 def run_bound(params, values, forward):

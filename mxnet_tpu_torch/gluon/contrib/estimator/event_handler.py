@@ -2,8 +2,8 @@
 ``mxnet_tpu/gluon/contrib/estimator/event_handler.py``). Same mixin
 contract: a handler subclasses any of the six phase mixins and the
 Estimator calls it at that phase. ``CheckpointHandler`` writes through the
-port's ``checkpoint/``; ``HealthHandler`` needs the training-health plane
-(queue item A15) and raises."""
+port's ``checkpoint/``; ``HealthHandler`` drives the training-health
+sentinel (``obs/health.py``)."""
 from __future__ import annotations
 
 import logging
@@ -306,15 +306,68 @@ class CheckpointHandler(TrainBegin, BatchEnd, EpochEnd, TrainEnd):
 
 
 class HealthHandler(TrainBegin, BatchBegin, BatchEnd, TrainEnd):
-    """The training-health sentinel in an Estimator fit. It needs the
-    training-health plane (``obs/health.py``), queue item A15, which is
-    not ported yet: constructing one raises."""
+    """The training-health sentinel in an Estimator fit: feeds the
+    per-batch loss (a device reference, read only at sampled steps),
+    drives the monitor off the trainer's fused engine and AMP scaler, and
+    lets ``actions="lr_backoff"`` apply in place. ``stop_on_nonfinite=True``
+    also halts the fit on a non-finite breach (an Estimator has no
+    rollback loop of its own). ``train_end`` turns the plane off, and the
+    Estimator runs it on an exception too.
+    """
 
     def __init__(self, monitor=True, stop_on_nonfinite=False, priority=-500):
-        from ....base import MXNetError
+        from ....obs import health as health_mod
 
-        raise MXNetError("HealthHandler: the training-health plane (queue "
-                         "item A15) is not ported yet")
+        self.monitor = health_mod.as_monitor(monitor)
+        if self.monitor is None:
+            raise ValueError("HealthHandler needs a monitor: pass True, a "
+                             "kwargs dict, or a HealthMonitor (to disable "
+                             "health monitoring, don't add the handler)")
+        self.stop_on_nonfinite = stop_on_nonfinite
+        self.priority = priority
+        self._active = False
+
+    def train_begin(self, estimator, *args, **kwargs):
+        from ....obs import health as health_mod
+
+        if not self._active:
+            health_mod.activate()
+            self._active = True
+        trainer = estimator.trainer
+        if trainer is not None and self.monitor.param_names is None:
+            self.monitor.attach_names([p.name for p in trainer._params])
+
+    def batch_begin(self, estimator, *args, **kwargs):
+        from ....obs import health as health_mod
+
+        # this batch's trainer.step runs before batch_end: the stats
+        # exactly when the sentinel will sample them
+        health_mod.request_stats(self.monitor.will_sample())
+
+    def batch_end(self, estimator, *args, **kwargs):
+        trainer = estimator.trainer
+        self.monitor.record_loss(kwargs.get("loss"))
+        rep = self.monitor.step(
+            engine=getattr(trainer._updaters[0], "_engine", None)
+            if trainer is not None else None,
+            scaler=getattr(trainer, "_amp_loss_scaler", None)
+            if trainer is not None else None,
+            optimizer=trainer._optimizer if trainer is not None else None)
+        if (self.stop_on_nonfinite and rep is not None
+                and any(b["rule"] == "nonfinite"
+                        for b in rep.get("breaches", ()))):
+            logging.getLogger("mxnet_tpu_torch.estimator").error(
+                "HealthHandler: non-finite breach — stopping training")
+            return True
+        return False
+
+    def train_end(self, estimator, *args, **kwargs):
+        from ....obs import health as health_mod
+
+        if self._active:
+            health_mod.request_stats(None)
+            health_mod.deactivate()
+            self._active = False
 
 
 class EarlyStoppingHandler(TrainBegin, EpochEnd, TrainEnd):

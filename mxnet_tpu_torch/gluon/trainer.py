@@ -18,7 +18,9 @@ process, one logical copy per parameter); any other name
 their sum. With ``update_on_kvstore=True`` the optimizer runs on the
 store (``set_optimizer``) and the step pulls the updated weights; the
 global-norm clip and an AMP loss scaler cannot ride that update and raise
-``ValueError``. The health monitor (queue item A15) raises.
+``ValueError``. ``attach_health_monitor`` attaches the training-health
+sentinel (``obs/health.py``): each update then computes the stats on the
+steps it samples and feeds it.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ class Trainer:
         self._kv_initialized = False
         self._clip_global_norm = clip_global_norm
         self._amp_loss_scaler = None
+        self._health_monitor = None  # attach_health_monitor
 
     @property
     def optimizer(self):
@@ -118,6 +121,12 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        updater = self._updaters[0]
+        if self._health_monitor is not None:
+            from ..obs import health as health_mod
+
+            # the stats only on sampled steps (the cost amortizes 1/K)
+            health_mod.request_stats(self._health_monitor.will_sample())
         if self._kvstore is not None and self._update_on_kvstore:
             keys = list(range(len(self._params)))
             self._kvstore.pull(keys, out=[p.data() for p in self._params])
@@ -133,14 +142,38 @@ class Trainer:
             grads.append(g)
             weights.append(p.data())
         if idxs:
-            self._updaters[0].update_batch(
+            updater.update_batch(
                 idxs, grads, weights, loss_scaler=self._amp_loss_scaler,
                 clip_global_norm=self._clip_global_norm)
+        if self._health_monitor is not None:
+            # the sampled sentinel; an lr backoff applies in place, a
+            # rollback needs a checkpoint manager and stays with the loop
+            # that owns one
+            self._health_monitor.step(
+                engine=getattr(updater, "_engine", None),
+                scaler=self._amp_loss_scaler, optimizer=self._optimizer)
 
     # ------------------------------------------------------------------
     def attach_health_monitor(self, monitor=True):
-        raise MXNetError("Trainer.attach_health_monitor: the training-health "
-                         "plane (queue item A15) is not ported yet")
+        """Attach the training-health sentinel (``obs/health.py``):
+        ``True``, a kwargs dict or a ``HealthMonitor``; ``None`` detaches.
+        While attached, the update computes the stats on the steps the
+        monitor samples and ``step()`` feeds it; record the per-batch loss
+        with ``monitor.record_loss(loss)`` (the estimator's
+        ``HealthHandler`` does). Returns the monitor."""
+        from ..obs import health as health_mod
+
+        if self._health_monitor is not None:
+            health_mod.deactivate()
+            health_mod.request_stats(None)
+            self._health_monitor = None
+        mon = health_mod.as_monitor(monitor)
+        if mon is not None:
+            if mon.param_names is None:
+                mon.attach_names([p.name for p in self._params])
+            health_mod.activate()
+            self._health_monitor = mon
+        return mon
 
     def save_states(self, fname):
         atomic_write_bytes(fname, self._updaters[0].get_states())

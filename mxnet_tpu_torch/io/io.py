@@ -8,12 +8,14 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import deque, namedtuple
 from typing import List
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..context import current_context
 from ..ndarray import NDArray, array as nd_array
 
@@ -767,13 +769,23 @@ class PrefetchingIter(DataIter):
             self._submit_one()
         fut = self._queue.pop(0)
         self._submit_one()
-        # (the reference's prefetch gauges and stall histogram belong to
-        # its observability plane, queue item A15)
+        rec = obs.enabled()
+        if rec:
+            # queue depth = batches already made and waiting; a depth
+            # pinned at 0 means the consumer is data-bound
+            obs.set_gauge("io.prefetch.queue_depth",
+                          sum(1 for f in self._queue if f.done()))
+            t0 = time.monotonic()
         try:
             batch, event = fut.result()
         except StopIteration:
             self._drain()
             raise
+        if rec:
+            # producer stall: how long the step loop blocked because the
+            # prefetch workers had not finished this batch (~0 when ahead)
+            obs.observe("io.prefetch.stall_seconds", time.monotonic() - t0)
+            obs.inc("io.prefetch.batches")
         if event is not None:
             stream = torch.cuda.current_stream(self._device)
             stream.wait_event(event)

@@ -8,11 +8,19 @@ next epoch boundary), the shard recut, the cold co-start broadcast of the
 lead rank's parameters, the mean of every step's gradients over the live
 fleet, the committed-clock tick and the epoch rendezvous.
 
-The reference's hooks into planes the port lacks are refused loudly or
-left out: ``health=`` (the training-health plane, queue item A15) raises;
-its fleet-accounting spans, the quarantined rejoiner's program-cache warm
-and the obs counters (A15) are left out. ``monitor=`` is accepted and
-never read, as in the reference's ``fit``.
+``fit(health=)`` attaches the training-health plane (``obs/health.py``),
+as the reference's: each update asks for the stats only on the steps the
+monitor samples, the monitor judges them after the update, a breach that
+warrants it runs the blame pass under a ``health.blame`` span, and a
+rollback restores the newest CRC-valid, finite checkpoint of the
+``checkpoint=`` manager (parameters, optimizer state, RNG streams and the
+iterator cursor, the poisoned occurrence already consumed) and replays
+from there; with no manager it warns and carries on. Each batch samples
+the device plane's live memory (``obs.device.sample``).
+
+The reference's fleet-accounting spans (queue item A15(c)) and the
+quarantined rejoiner's program-cache warm (A15(d)) are left out.
+``monitor=`` is accepted and never read, as in the reference's ``fit``.
 """
 from __future__ import annotations
 
@@ -22,8 +30,10 @@ import time
 import numpy as np
 
 from .. import metric as metric_mod
+from .. import obs
 from ..base import MXNetError
 from ..callback import BatchEndParam
+from ..obs import health as health_mod
 
 __all__ = ["BaseModule"]
 
@@ -133,9 +143,6 @@ class BaseModule:
         after the in-flight batch and returns cleanly.
         """
         assert num_epoch is not None, "num_epoch is required for fit"
-        if health is not None:
-            raise MXNetError("fit(health=...): the training-health plane "
-                             "(queue item A15) is not ported yet")
         optimizer_params = optimizer_params or {"learning_rate": 0.01}
 
         from ..checkpoint import CheckpointManager, as_manager
@@ -254,9 +261,18 @@ class BaseModule:
         can_position = (train_data.get_checkpoint_state() is not None
                         if hasattr(train_data, "get_checkpoint_state")
                         else False)
+        health_monitor = health_mod.as_monitor(health)
+        if health_monitor is not None:
+            # an attached monitor turns the stats on even with the wider
+            # obs layer off
+            health_mod.activate()
+            if health_monitor.param_names is None and \
+                    getattr(self, "_param_names", None):
+                health_monitor.attach_names(list(self._param_names))
 
         # pending_batch set => enter the epoch mid-stream WITHOUT
-        # reset/reshuffle (the cursor is already positioned)
+        # reset/reshuffle (the cursor is already positioned): entry resume
+        # and health rollback share this path
         pending_batch = resume_state.nbatch if mid_epoch else None
         epoch = begin_epoch
         try:
@@ -269,6 +285,7 @@ class BaseModule:
                 else:
                     train_data.reset()
                     nbatch = -1
+                rolled_back = False
                 for data_batch in train_data:
                     nbatch += 1
                     self.forward_backward(data_batch)
@@ -277,9 +294,62 @@ class BaseModule:
                         # mid-epoch shrinks the round after K missed
                         # heartbeats and this returns over the survivors
                         self._elastic_sync_grads(kvstore)
+                    if health_monitor is not None:
+                        # the stats only on steps the sentinel will sample:
+                        # their cost amortizes 1/K
+                        health_mod.request_stats(health_monitor.will_sample())
                     self.update()
                     global_step += 1
+                    # live device memory, once per batch: the counter
+                    # track and the steady-state leak detector (one flag
+                    # check when telemetry is off)
+                    obs.device.sample(step=global_step)
                     self.update_metric(eval_metric, data_batch.label)
+                    if health_monitor is not None:
+                        # sampled every K steps, before this step's
+                        # checkpoint, so a detected blowup never commits
+                        # poisoned parameters as the newest snapshot
+                        health_monitor.record_metric(eval_metric)
+                        rep = health_monitor.step(
+                            global_step,
+                            engine=getattr(getattr(self, "_updater", None),
+                                           "_engine", None),
+                            optimizer=getattr(self, "_optimizer", None))
+                        if rep is not None and rep["breaches"]:
+                            if health_monitor.should_blame(rep) and \
+                                    getattr(self, "_exec", None) is not None:
+                                with obs.trace.span("health.blame"):
+                                    health_mod.blame_nonfinite(self._exec)
+                            if rep["action"] == "rollback":
+                                if elastic is not None:
+                                    # a rollback is rank-local but elastic
+                                    # sync is lockstep: one rank replaying
+                                    # batches would issue reduce rounds its
+                                    # peers never join
+                                    self.logger.warning(
+                                        "health: rollback requested but "
+                                        "elastic lockstep sync is active — "
+                                        "continuing without rollback")
+                                elif manager is None:
+                                    self.logger.warning(
+                                        "health: rollback requested but fit "
+                                        "has no checkpoint= manager — "
+                                        "continuing (warn only)")
+                                else:
+                                    res = self._apply_health_rollback(
+                                        manager, health_monitor, train_data)
+                                    if res is not None:
+                                        state, positioned = res
+                                        global_step = state.global_step
+                                        if (state.nbatch is not None
+                                                and positioned):
+                                            epoch = state.epoch
+                                            pending_batch = state.nbatch
+                                        else:
+                                            epoch = state.epoch + 1
+                                            pending_batch = None
+                                        rolled_back = True
+                                        break
                     if batch_end_callback:
                         bp = BatchEndParam(epoch, nbatch, eval_metric,
                                            locals())
@@ -318,6 +388,11 @@ class BaseModule:
                             # interrupted fit for a completed one
                             raise KeyboardInterrupt
                         return  # SIGTERM: the VM is going away — exit clean
+                if rolled_back:
+                    # re-enter the (possibly earlier) epoch at the restored
+                    # cursor; eval_metric resets at the loop top, so the
+                    # poisoned running averages die with the bad segment
+                    continue
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
                 self.logger.info("Epoch[%d] Time cost=%.3f",
@@ -360,6 +435,9 @@ class BaseModule:
                                          epoch, name, val)
                 epoch += 1
         finally:
+            if health_monitor is not None:
+                health_mod.request_stats(None)
+                health_mod.deactivate()
             # runs on normal completion, the preemption return, AND
             # exceptions: signal handlers must never outlive the fit
             if manager is not None:
@@ -482,6 +560,37 @@ class BaseModule:
                           getattr(self, "_optimizer", None), state,
                           ctx=getattr(self, "_context", None))
         restore_rng(state)
+
+    def _apply_health_rollback(self, manager, monitor, train_data):
+        """The sentinel's rollback: restore the newest checkpoint whose
+        arrays are all finite (a CRC-valid snapshot written after the
+        blowup is poisoned, not valid): parameters, optimizer slots and
+        counters, RNG streams and the iterator cursor, the resume path, so
+        the retried segment replays bitwise. Returns ``(state,
+        iterator_positioned)`` or None when nothing usable exists."""
+        from ..checkpoint.state import restore_iterator
+
+        manager.flush()  # queued async saves must be on disk to be judged
+        state = health_mod.find_rollback_target(manager)
+        if state is None:
+            self.logger.warning(
+                "health: rollback requested but no valid finite checkpoint "
+                "exists — continuing without rollback")
+            return None
+        self.init_params(arg_params=state.arg_params(),
+                         aux_params=state.aux_params(), force_init=True)
+        self._restore_training_state(state)
+        positioned = restore_iterator(train_data, state)
+        monitor.note_rollback(state.global_step)
+        obs.event("health.rollback", step=state.global_step,
+                  epoch=state.epoch, nbatch=state.nbatch)
+        self.logger.warning(
+            "health: rolled back to checkpoint step %d (epoch %s%s)",
+            state.global_step, state.epoch,
+            f", batch {state.nbatch}" if state.nbatch is not None
+            and positioned else "")
+        return state, positioned
+
 
 def _host_tensor(values, like):
     """numpy ``values`` as a tensor of ``like``'s dtype on its device."""

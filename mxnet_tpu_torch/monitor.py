@@ -6,15 +6,16 @@ hybridized block's ``CachedOp`` runs the eager forward on every call, so
 the hooks fire on hybridized calls too, with real tensors. While a batch
 is active (``tic``), each hook queues ``stat_func`` of each output,
 computed on the output's device with autograd paused. ``toc`` moves every
-queued stat to the host in one transfer per device (one ``torch.cat`` of
-the flattened stats and one ``.cpu()``), the reference's single batched
-fetch, never one sync per block.
+queued stat to the host through the training-health plane's one batched
+fetch (``obs.health.batched_fetch``: one ``torch.cat`` of the flattened
+stats and one ``.cpu()`` per device, one ``d2h``), never one sync per
+block.
 
 ``install(exe)`` sets ``exe._monitor`` and nothing reads it, as in the
 reference: ``toc(exe)`` reads an Executor's outputs when it is passed one.
-The reference also writes each scalar stat to a ``health.monitor.<tag>``
-gauge of its observability registry; that registry is the health plane,
-queue item A15, and is not ported yet.
+The Monitor is an adapter over the health plane, as the reference's: with
+telemetry on, each scalar stat lands in a ``health.monitor.<tag>`` gauge
+of the metrics registry, beside the loss and grad-norm telemetry.
 """
 from __future__ import annotations
 
@@ -22,10 +23,8 @@ import logging
 import re
 
 import numpy as np
-import torch
 
 from . import autograd
-from .base import dtype_np
 from .ndarray import NDArray
 
 __all__ = ["Monitor"]
@@ -39,30 +38,11 @@ def _default_stat(x):
 
 
 def _fetch(tensors):
-    """Host numpy copies of ``tensors``: one ``torch.cat`` of the flattened
-    tensors and one ``.cpu()`` per device. Each comes back in its own
-    dtype (bfloat16 as float32, as ``asnumpy`` gives it)."""
-    out = [None] * len(tensors)
-    by_device = {}
-    for i, t in enumerate(tensors):
-        by_device.setdefault(t.device, []).append(i)
-    for idx in by_device.values():
-        ts = [tensors[i].detach() for i in idx]
-        common = ts[0].dtype
-        for t in ts[1:]:
-            common = torch.promote_types(common, t.dtype)
-        if common == torch.bfloat16:
-            common = torch.float32
-        flat = torch.cat([t.reshape(-1).to(common) for t in ts]).cpu().numpy()
-        off = 0
-        for i, t in zip(idx, ts):
-            n = t.numel()
-            want = np.float32 if t.dtype == torch.bfloat16 \
-                else dtype_np(t.dtype)
-            out[i] = flat[off:off + n].reshape(tuple(t.shape)).astype(
-                want, copy=False)
-            off += n
-    return out
+    """Host numpy copies of ``tensors`` in their own dtypes (bfloat16 as
+    float32), through the health plane's one batched fetch."""
+    from .obs import health
+
+    return health.batched_fetch(list(tensors))
 
 
 class Monitor:
@@ -133,6 +113,8 @@ class Monitor:
         self.activated = False
         res = list(self.queue)
         self.queue = []
+        from . import obs
+
         device_idx = [i for i, (_, _, v) in enumerate(res)
                       if isinstance(v, NDArray)]
         if device_idx:
@@ -142,6 +124,12 @@ class Monitor:
                 res[i] = (step, tag, val)
         if self.sort:
             res.sort(key=lambda t: t[1])
+        if obs.enabled():
+            for step, tag, val in res:
+                arr = np.asarray(val)
+                if arr.size == 1:
+                    obs.set_gauge("health.monitor." + tag,
+                                  float(arr.reshape(())[()]))
         return res
 
     def toc_print(self, exe=None):

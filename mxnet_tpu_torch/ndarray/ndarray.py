@@ -89,6 +89,8 @@ class NDArray:
             dev = as_device(ctx)
             if data.device != dev:
                 data = data.to(dev)
+            if ctx.pinned and not data.is_pinned():
+                data = data.pin_memory()
         self._ctx = ctx
         self._data = data
         self._grad = None
@@ -157,7 +159,12 @@ class NDArray:
 
     # ------------------------------------------------------------- transfer
     def asnumpy(self) -> np.ndarray:
-        """Blocking device-to-host copy; bfloat16 comes back as float32."""
+        """Blocking device-to-host copy; bfloat16 comes back as float32.
+        Counts one ``d2h`` for ``profiler.count_dispatches``."""
+        from .. import profiler
+
+        if profiler.counting_dispatches():
+            profiler.count_dispatch("d2h")
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()

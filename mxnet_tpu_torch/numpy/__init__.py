@@ -16,6 +16,14 @@ Two layers:
   :class:`MXNetError` naming it. The dtype queries (``result_type``,
   ``promote_types``, ``can_cast``, ``issubdtype``, ``broadcast_shapes``)
   compute no array and answer as the reference's.
+
+The names that are not functions take numpy's values: the dtype names
+and the scalar hierarchy, ``dtype``, ``finfo``/``iinfo`` (bfloat16's the
+reference's, numpy having no bfloat16), ``s_`` and ``index_exp``.
+The names whose reference value is a JAX object (:data:`_JAX_ONLY`: the
+index helpers ``r_``/``c_``/``mgrid``/``ogrid``, ``fft``, ``ufunc``,
+``jnp``, the narrow float and int types) raise :class:`MXNetError`
+naming themselves.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch
 from ..base import MXNetError, dtype_name, dtype_torch
 from ..context import current_context
 from ..ndarray import NDArray
+from ..ndarray.ndarray import invoke_fn  # noqa: F401 — the reference's name
 from . import linalg, random  # noqa: F401 — mx.np.random / mx.np.linalg
 from . import _ops
 from ._ops import *  # noqa: F401,F403
@@ -53,6 +62,56 @@ int64 = _onp.int64
 uint8 = _onp.uint8
 bool_ = _onp.bool_
 bfloat16 = torch.bfloat16
+# the rest of numpy's dtype names and its scalar hierarchy, numpy's own
+# (``float_``/``complex_``/``int_``/``uint`` as the reference's: 64-bit)
+int16, uint16, uint32, uint64 = (_onp.int16, _onp.uint16, _onp.uint32,
+                                 _onp.uint64)
+int_, uint, float_ = _onp.int64, _onp.uint64, _onp.float64
+single, double = _onp.float32, _onp.float64
+complex64, complex128 = _onp.complex64, _onp.complex128
+csingle, cdouble, complex_ = _onp.complex64, _onp.complex128, _onp.complex128
+(generic, number, integer, signedinteger, unsignedinteger, inexact,
+ floating, complexfloating, character, flexible, object_) = (
+    _onp.generic, _onp.number, _onp.integer, _onp.signedinteger,
+    _onp.unsignedinteger, _onp.inexact, _onp.floating, _onp.complexfloating,
+    _onp.character, _onp.flexible, _onp.object_)
+dtype = _onp.dtype
+iinfo = _onp.iinfo
+s_ = _onp.s_
+index_exp = _onp.index_exp
+
+
+class _BFloat16Info:
+    """``finfo`` of bfloat16, which numpy lacks: the values the reference's
+    (``ml_dtypes``') carries, each a float (resolution is 0.01 rounded to
+    bfloat16)."""
+
+    bits, precision, maxexp, minexp = 16, 2, 128, -126
+    machep, negep, nexp, nmant, iexp = -7, -8, 8, 7, 8
+    eps, epsneg = 2.0 ** -7, 2.0 ** -8
+    max = float(torch.finfo(torch.bfloat16).max)
+    min = -max
+    tiny = smallest_normal = 2.0 ** -126
+    smallest_subnormal = 2.0 ** -133
+    resolution = 0.010009765625
+    dtype = "bfloat16"
+
+    def __repr__(self):
+        return (f"finfo(resolution={self.resolution}, min={self.min:.5g}, "
+                f"max={self.max:.5g}, dtype=bfloat16)")
+
+
+def finfo(dtype):
+    """numpy's ``finfo``; bfloat16 (``torch.bfloat16`` or its name) gets
+    the reference's values (:class:`_BFloat16Info`)."""
+    if isinstance(dtype, NDArray):
+        dtype = dtype.dtype
+    if dtype is torch.bfloat16 or (isinstance(dtype, str)
+                                   and dtype == "bfloat16"):
+        return _BFloat16Info()
+    if isinstance(dtype, torch.dtype):
+        return _onp.finfo(dtype_name(dtype))
+    return _onp.finfo(dtype)
 
 
 def array(object, dtype=None, ctx=None, device=None):
@@ -320,12 +379,26 @@ unique_counts unique_inverse unique_values unpackbits vectorize
 """.split())
 
 
+# the reference's names whose value is a JAX object: they raise
+_JAX_ONLY = frozenset("""
+r_ c_ mgrid ogrid fft ufunc jnp ComplexWarning float4_e2m1fn float8_e3m4
+float8_e4m3 float8_e4m3b11fnuz float8_e4m3fn float8_e4m3fnuz float8_e5m2
+float8_e5m2fnuz float8_e8m0fnu int2 int4 uint2 uint4
+""".split())
+
+
 def __getattr__(name):
     # explicit ops are bound by the star import; only delegates reach here
     fn = _DELEGATES.get(name)
     if fn is not None:
         globals()[name] = fn
         return fn
+    if name == "bool":  # numpy's, kept out of the module's globals, where
+        return _onp.bool_  # it would shadow the builtin
+    if name in _JAX_ONLY:
+        raise MXNetError(
+            f"mx.np.{name} is not ported: the reference's value is a JAX "
+            "object, which has no torch counterpart with its semantics")
     if name in _RAISES:
         raise MXNetError(
             f"mx.np.{name} is not ported: the reference delegates it to "
@@ -336,5 +409,5 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(set(list(globals()) + list(_DELEGATES)))
+    return sorted(set(list(globals()) + list(_DELEGATES) + ["bool"]))
 

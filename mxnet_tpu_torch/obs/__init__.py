@@ -26,9 +26,10 @@ no-op, ``inc``/``observe``/``set_gauge`` return at once. Turn it on with
     mx.obs.export("trace.json")          # spans + metrics, one file
     # then: python -m mxnet_tpu_torch.tools.trace_report trace.json
 
-The training-health plane (``health``), the training-fleet plane
-(``fleetstats``) and the regression dossier (``regress``) are queue item
-A15 (its training half) of the port: each raises ``MXNetError`` naming it.
+The training-health plane (:mod:`.health`: numerics stats, the divergence
+sentinel, NaN provenance, rollback) and the regression dossier
+(:mod:`.regress`) are ported; the training-fleet plane (``fleetstats``)
+is queue item A15(c) of the port and raises ``MXNetError`` naming it.
 """
 from __future__ import annotations
 
@@ -40,23 +41,21 @@ from . import context, metrics, trace
 # the package attribute ``obs.export`` is the chrome-trace export FUNCTION
 # below; the export MODULE is ``obs.export_mod`` (or its dotted path)
 from . import export as export_mod
-from . import tail, profile, blackbox, slo, device
+from . import tail, profile, blackbox, slo, device, health, regress
 
 __all__ = ["trace", "metrics", "context", "export_mod", "tail", "profile",
-           "blackbox", "slo", "device", "enable", "disable", "enabled",
-           "span", "event", "inc", "observe", "set_gauge", "export",
-           "reset", "telemetry_part"]
+           "blackbox", "slo", "device", "health", "regress", "enable",
+           "disable", "enabled", "span", "event", "inc", "observe",
+           "set_gauge", "export", "reset", "telemetry_part"]
 
-# the reference's planes of the training half of queue item A15
-_LATER = {"health": "the training-health plane",
-          "fleetstats": "the training-fleet plane",
-          "regress": "the regression dossier"}
+# the reference's plane of queue item A15(c), not ported yet
+_LATER = {"fleetstats": "the training-fleet plane"}
 
 
 def __getattr__(name):
     if name in _LATER:
         raise MXNetError(f"obs.{name}: {_LATER[name]} is queue item A15 "
-                         "(the training half of its item 1) of the port")
+                         "(its item A15(c)) of the port")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -12,6 +12,9 @@ on the first run of each signature (the engines' ``compile_log`` sites):
 
   - operations with the formulas of ``torch.utils.flop_counter``
     (``FlopCounterMode``'s registry: matmuls, convolutions, attention);
+    with ``pointwise=True`` (the update engine's site, whose work is all
+    element-wise) also one operation per element each other arithmetic
+    op produces;
   - bytes as each dispatched op's input and output bytes: the *eager*
     program's traffic, op by op, not a fused program's. Views move
     nothing and count nothing; an indexed read or write (``index``,
@@ -171,10 +174,13 @@ def get_peak(dtype: Optional[str] = None,
 # ---------------------------------------------------------------------------
 
 # (site, label) → cost record. Sites: "serve" (InferenceEngine buckets),
-# "decode" (DecodeEngine prefills and the step)
+# "decode" (DecodeEngine prefills and the step), "update" (the fused
+# update engine), "executor" (forward and backward), "cachedop" and
+# "train_step" (ShardedTrainer)
 _COSTS: Dict[Tuple[str, str], dict] = {}
 _lock = threading.Lock()
 _tls = threading.local()
+_open = [0]  # captures running in the process (capturing()'s fast path)
 
 # cost-record field order is the compile_log/report schema; keep stable
 COST_FIELDS = ("flops", "bytes_accessed", "argument_bytes", "output_bytes",
@@ -221,13 +227,18 @@ _FREE = ("detach", "alias", "lift_fresh", "_to_copy_meta", "empty",
          "empty_like", "empty_strided", "new_empty", "new_empty_strided",
          "_local_scalar_dense", "set_", "resize_", "sym_size", "sym_stride",
          "is_same_size")
+# ops that move or fill values and compute none (no pointwise operations)
+_MOVES = ("copy_", "_to_copy", "clone", "_foreach_copy_", "fill_", "zero_",
+          "zeros_like", "ones_like", "full_like", "stack", "cat", "where",
+          "_foreach_zero_", "contiguous")
 
 
 class Capture:
     """The counts of one captured call. A thread-local, single-use
     ``TorchDispatchMode`` does the counting (:func:`capture` makes one)."""
 
-    def __init__(self):
+    def __init__(self, pointwise: bool = False):
+        self.pointwise = pointwise
         self.flops = 0
         self.bytes = 0
         self.kernels: Dict[str, dict] = {}
@@ -275,6 +286,13 @@ class Capture:
             return
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
+        if f is None and self.pointwise and name not in _MOVES \
+                and name not in _GATHERS and name not in _SCATTERS:
+            n = sum(t.numel() for t in (outs or ins[:1]))
+            self.flops += n
+            if outs or ins:
+                dt = str((outs or ins)[0].dtype).replace("torch.", "")
+                self._by_dtype[dt] = self._by_dtype.get(dt, 0) + n
         if name in _GATHERS:
             idx = [t for t in ins[1:] if not t.is_floating_point()]
             moved = sum(_nbytes(t) for t in outs)
@@ -332,8 +350,21 @@ class _Hidden:
 
 def capturing() -> Optional[Capture]:
     """The capture active on this thread (None outside :func:`capture`):
-    the kernel wrappers' cheap check before computing a formula."""
-    return getattr(_tls, "capture", None)
+    the kernel wrappers' cheap check before computing a formula. On a
+    thread the capture did not start on (the autograd engine's, which
+    runs a CUDA backward and inherits the capture's dispatch mode), the
+    capture is found through that mode."""
+    cap = getattr(_tls, "capture", None)
+    if cap is None and _open[0]:
+        try:
+            from torch.utils._python_dispatch import \
+                _get_current_dispatch_mode_stack
+
+            for mode in _get_current_dispatch_mode_stack():
+                cap = getattr(mode, "_mxt_capture", None) or cap
+        except Exception:  # no mode stack to read: nothing is captured
+            return None
+    return cap
 
 
 def _mode(cap: Capture):
@@ -350,18 +381,23 @@ def _mode(cap: Capture):
                     pass
             return out
 
-    return _CountingMode()
+    mode = _CountingMode()
+    mode._mxt_capture = cap  # capturing() finds it on other threads
+    return mode
 
 
 def capture(fn, args: tuple = (), site: str = None, label: str = None,
-            kwargs=None, device=None, arg_tensors=None):
+            kwargs=None, device=None, arg_tensors=None,
+            pointwise: bool = False):
     """Run ``fn(*args, **kwargs)`` once, counted; return ``(result,
     cost)``. ``device`` (the call's device; default the first tensor
     argument's) picks the peak-memory source; ``arg_tensors`` (a pytree:
     the parameters and inputs the program reads, default the tensors of
     ``args``/``kwargs``) gives ``argument_bytes``. The caller keeps the
     result: one run serves both the accounting and the request. The
-    record is filed under ``(site, label)`` (:func:`record`)."""
+    record is filed under ``(site, label)`` (:func:`record`).
+    ``pointwise`` also counts one operation per element of each
+    element-wise op's output (the update engine's site)."""
     import torch
 
     if device is None:
@@ -369,7 +405,7 @@ def capture(fn, args: tuple = (), site: str = None, label: str = None,
         device = ts[0].device if ts else torch.device("cpu")
     device = torch.device(device)
     cuda = device.type == "cuda"
-    cap = Capture()
+    cap = Capture(pointwise)
     arg_bytes = _storage_bytes((args, kwargs or {}) if arg_tensors is None
                                else arg_tensors)
     if cuda:
@@ -377,11 +413,15 @@ def capture(fn, args: tuple = (), site: str = None, label: str = None,
         torch.cuda.reset_peak_memory_stats(device)
     prev = getattr(_tls, "capture", None)
     _tls.capture = cap
+    with _lock:
+        _open[0] += 1
     try:
         with _mode(cap):
             out = fn(*args, **(kwargs or {}))
     finally:
         _tls.capture = prev
+        with _lock:
+            _open[0] -= 1
     temp = (torch.cuda.max_memory_allocated(device) - base if cuda
             else cap.peak_live)
     cost = {"flops": int(cap.flops), "bytes_accessed": int(cap.bytes),

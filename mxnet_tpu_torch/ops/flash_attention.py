@@ -41,10 +41,17 @@ built for the next power of two from 16 (:func:`_kernel_dim`), which read
 the columns past the true head dim as zeros and write none of them. The
 tensors are passed as they are.
 
-Determinism: the backward kernels sum dK and dV in one order, but add dQ
-into an f32 accumulator by atomic reductions in the order the blocks reach
-them, so two calls on the same inputs may differ in dQ's last bits (f32
-included); the forward is bitwise repeatable.
+Determinism: the forward and the paged decode kernels sum in one order,
+so repeated calls are bitwise equal. The backward kernels sum dK and dV
+in one order, but by default add dQ into an f32 accumulator by atomic
+reductions in the order the blocks reach them, so two calls may differ in
+dQ's last bits. Under PyTorch's own switch,
+``torch.use_deterministic_algorithms(True)``, the f32 backward (the FFMA
+route) launches its fixed-order variant instead, which sums dQ over the
+key tiles in key order, as the reference's grid does, and is bitwise
+repeatable (``flash_attention_bwd.ordered_launches`` counts it); the
+bf16/f16 tensor-core backward then raises, as PyTorch's own
+non-deterministic operators do (warns under ``warn_only``). There is no plain fallback under the switch.
 
 Backward path, ``MXNET_FLASH_BWD`` (the reference reads
 ``pallas|auto|else``, ``flash_attention.py:486-488``):
@@ -448,7 +455,9 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, offset=0,
 
     On CUDA tensors this launches ``csrc/flash_attention_fwd.cu`` and adds
     one to ``flash_attention_fwd.launches``; q/k/v may be strided views
-    with a contiguous last dim. On CPU tensors it computes
+    with a contiguous last dim. Each output row sums its keys in one
+    order, so the kernel is bitwise repeatable, with or without
+    ``torch.use_deterministic_algorithms``. On CPU tensors it computes
     :func:`_flash_attention_plain` and counts nothing."""
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -497,7 +506,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
     ``csrc/flash_attention_bwd.cu`` (its preprocess kernel, which forms
     dl = rowsum(dout * out) - g_lse, then its main pass and the dQ store
     from an f32 accumulator allocated here) and adds one to
-    ``flash_attention_bwd.launches``. On CPU tensors it computes
+    ``flash_attention_bwd.launches``. Under
+    ``torch.use_deterministic_algorithms(True)`` an f32 call (the FFMA
+    route) launches the fixed-order variant, which needs no accumulator
+    and sums dQ in key-tile order, and also adds one to
+    ``flash_attention_bwd.ordered_launches``; a bf16/f16 call up to head
+    dim 256 (the tensor-core kernels, dQ by atomics) raises as PyTorch's
+    non-deterministic operators do. On CPU tensors it computes
     :func:`_flash_bwd_plain` and counts nothing."""
     d = q.shape[-1]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -517,32 +532,57 @@ def flash_attention_bwd(q, k, v, out, lse, dout, g_lse=None, causal=False,
         if t is not None and (t.shape != (b, h, s) or t.device != q.device):
             raise MXNetError(f"flash_attention_bwd: {name} must be "
                              f"(B, H, S) on {q.device}")
+    det = torch.are_deterministic_algorithms_enabled()
+    if det and not _ffma_route(q.dtype, d):
+        _alert_not_deterministic(
+            "flash_attention_bwd on the bf16/f16 tensor-core kernels (dQ "
+            "by atomic reductions in no fixed order)")
+        det = False
     lse = lse.float().contiguous()
     if g_lse is not None:
         g_lse = g_lse.float().contiguous()
-    # f32 scratch: dl (delta - dlse, the reference's :333-334) per row and
-    # the dQ accumulator the kernel's atomics add into (_dq_acc_width)
+    # f32 scratch: dl (delta - dlse, the reference's :333-334) per row and,
+    # but in the fixed-order variant, the dQ accumulator the kernel's
+    # atomics add into (_dq_acc_width)
     dl = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((b, h, s, _dq_acc_width(q.dtype, d)),
-                         dtype=torch.float32, device=q.device)
+    dq_acc = None if det else torch.empty(
+        (b, h, s, _dq_acc_width(q.dtype, d)), dtype=torch.float32,
+        device=q.device)
     dq, dk, dv = _empty_bshd(q), _empty_bshd(q), _empty_bshd(q)
     err = _kernels.entry("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(),
         None if g_lse is None else g_lse.data_ptr(), dl.data_ptr(),
-        dq_acc.data_ptr(), dq.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
         _strides(q, k, v, out, dout, dq, dk, dv), int(bool(causal)),
-        int(offset), scale, _kernels.stream(q))
+        int(offset), scale, int(det), _kernels.stream(q))
     if err != 0:
         raise MXNetError(f"flash_attention_bwd launch failed: cudaError "
                          f"{err}")
     flash_attention_bwd.launches += 1
+    if det:
+        flash_attention_bwd.ordered_launches += 1
     _count_offset(flash_attention_bwd, causal, offset)
     return dq, dk, dv
 
 
+def _alert_not_deterministic(what):
+    """What PyTorch's own non-deterministic operators do under
+    ``torch.use_deterministic_algorithms(True)``: raise (its message), or,
+    with ``warn_only=True``, warn and go on."""
+    msg = (f"{what} does not have a deterministic implementation, but you "
+           "set 'torch.use_deterministic_algorithms(True)'")
+    if torch.is_deterministic_algorithms_warn_only_enabled():
+        import warnings
+
+        warnings.warn(msg)
+        return
+    raise RuntimeError(msg)
+
+
 flash_attention_bwd.launches = 0
+flash_attention_bwd.ordered_launches = 0
 flash_attention_bwd.by_offset = {}
 
 
@@ -700,7 +740,9 @@ def flash_decode_attention(q, k_pages, v_pages, page_table, lengths,
     plain version and counts nothing. ``k_pages``/``v_pages`` may be
     strided views (last dimension contiguous, same strides); q may be a
     view with a contiguous last dimension; ``page_table`` (int32,
-    contiguous) and ``lengths`` (int32) must be on q's device.
+    contiguous) and ``lengths`` (int32) must be on q's device. The
+    per-chunk partials merge in chunk order, so the kernel is bitwise
+    repeatable, with or without ``torch.use_deterministic_algorithms``.
     """
     b, h, d = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)

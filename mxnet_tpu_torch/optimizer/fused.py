@@ -20,6 +20,22 @@ advance and the scale halves. The scale, its window count and the skip
 streak stay on the device between steps. ``MXNET_FUSED_UPDATE=0`` selects
 the per-parameter eager oracle (``Updater._eager_batch``).
 
+When the training-health plane asks for this step's stats
+(``obs.health.stats_for_this_step()``), ``apply`` computes them in the
+same pass and leaves them on the device as ``last_health`` (None when
+off): the global grad norm (the clip's norms when clipping is on),
+per-parameter grad, param and update norms, per-parameter non-finite
+counts and, with a loss scaler, its found-inf flag and skip streak. A step
+without stats dispatches exactly the operators of a step with the plane
+off, and the weights are bitwise the same either way.
+
+Device plane: the first run of each signature (optimizer, parameter
+shapes and dtypes, scaler, clip, stats) is captured by
+``obs.device.capture`` (site ``update``, label the optimizer's class name)
+into ``compile_log``; later runs carry the analytic MFU on their
+``update.fused`` span. The element-wise update's operations are counted
+one per element produced (``capture(pointwise=True)``).
+
 ``lower_update`` is the in-place form over tensor lists that
 ``parallel.ShardedTrainer`` calls.
 """
@@ -27,10 +43,12 @@ from __future__ import annotations
 
 import math
 import os
+import time
 from typing import Dict, List
 
 import torch
 
+from .. import obs
 from ..ndarray import NDArray
 from ..ops import get_op
 from ..ops.elemwise import sign
@@ -433,11 +451,13 @@ class FusedUpdateEngine:
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.exec_count = 0
+        self.compile_log: List[dict] = []
+        self.last_health = None
+        self._sig_cost: Dict[tuple, dict] = {}
 
     def supported(self) -> bool:
         return type(self.optimizer) in _LOWER
 
-    @torch.no_grad()
     def apply(self, indices, weights, grads, states, loss_scaler=None,
               clip_global_norm=None):
         """One update of the given parameter set. ``weights``, ``grads``
@@ -448,6 +468,56 @@ class FusedUpdateEngine:
         if not self.supported():
             raise NotImplementedError(
                 f"no fused lowering for {type(opt).__name__}")
+        from .. import profiler
+
+        if profiler.counting_dispatches():
+            profiler.count_dispatch("compiled")
+        health_on = obs.health.stats_for_this_step()
+        args = (indices, weights, grads, states, loss_scaler,
+                clip_global_norm, health_on)
+        rec = obs.enabled()
+        t0 = time.monotonic() if rec else 0.0
+        dev = _as_tensor_list(weights[:1])[0].device
+        sig = None
+        if obs.device.active():
+            # the signature's first run is counted (the zero-cost-when-off
+            # contract: no signature is built while capture is off)
+            sig = (type(opt), tuple((tuple(w.shape), str(w.dtype))
+                                    for w in _as_tensor_list(weights)),
+                   loss_scaler is not None,
+                   bool(clip_global_norm and clip_global_norm > 0),
+                   health_on)
+        first = sig is not None and sig not in self._sig_cost
+        with obs.trace.span("update.fused", optimizer=type(opt).__name__,
+                            n_params=len(indices), compile=first) as sp:
+            if first:
+                _, cost = obs.device.capture(
+                    self._apply, args, site="update",
+                    label=type(opt).__name__, pointwise=True, device=dev)
+                self._sig_cost[sig] = cost
+                self.compile_log.append(
+                    {"site": "update", "optimizer": type(opt).__name__,
+                     "n_params": len(indices), "health": health_on,
+                     "cache_hit": False, **cost})
+            else:
+                self._apply(*args)
+            cost = self._sig_cost.get(sig) if rec and not first else None
+            if cost:
+                # wait for the update before timing it: MFU over the
+                # launch latency alone would mean nothing
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                obs.device.annotate_span(sp, "update",
+                                         time.monotonic() - t0, cost)
+        if rec:
+            obs.observe("update.compile_seconds" if first
+                        else "update.execute_seconds",
+                        time.monotonic() - t0)
+
+    @torch.no_grad()
+    def _apply(self, indices, weights, grads, states, loss_scaler,
+               clip_global_norm, health_on):
+        opt = self.optimizer
         for i in indices:  # host bookkeeping, the eager order
             opt._update_count(i)
         lrs = [opt._get_lr(i) for i in indices]
@@ -477,9 +547,17 @@ class FusedUpdateEngine:
             eff_gs = _scale_all(eff_gs, 1.0 / scale)
             maxes = torch._foreach_norm(eff_gs, math.inf)
             found = ~torch.isfinite(torch.stack(maxes).float().sum())
-        if clip_global_norm is not None and clip_global_norm > 0:
+        if health_on:
+            # per-gradient non-finite counts, after the unscale
+            nonfinite = torch.stack([(~torch.isfinite(g)).sum()
+                                     for g in eff_gs])
+        clip_on = clip_global_norm is not None and clip_global_norm > 0
+        if clip_on or health_on:
+            # one reduction serves the clip and the health plane's
+            # global and per-parameter grad norms (before the clip)
             norms = torch._foreach_norm(eff_gs, 2, dtype=torch.float32)
             gnorm = torch.linalg.vector_norm(torch.stack(norms)) * rescale
+        if clip_on:
             coef = torch.clamp_max(clip_global_norm / (gnorm + 1e-6), 1.0)
             eff_gs = _scale_all(eff_gs, coef)
 
@@ -506,6 +584,23 @@ class FusedUpdateEngine:
                 ex = {"m_schedule": torch.where(found, ex_in["m_schedule"],
                                                 ex["m_schedule"])}
             self._scaler_step(loss_scaler, scale, found, dev)
+
+        self.last_health = None
+        if health_on:
+            # the applied step's norms (0 on a scaler skip), in f32
+            pnorms = torch._foreach_norm(ws, 2, dtype=torch.float32)
+            unorms = torch._foreach_norm(
+                torch._foreach_sub([nw.float() for nw in new_ws],
+                                   [w.float() for w in ws]), 2)
+            self.last_health = {
+                "global_grad_norm": gnorm,
+                "grad_norms": torch.stack(norms) * rescale,
+                "param_norms": torch.stack(pnorms),
+                "update_norms": torch.stack(unorms),
+                "nonfinite": nonfinite, "indices": tuple(indices)}
+            if scaler_on:
+                self.last_health["found_inf"] = found
+                self.last_health["skip_streak"] = loss_scaler.skip_streak
 
         for w, nw in zip(weights, new_ws):
             w._set_data(nw)

@@ -145,6 +145,9 @@ class ShardedTrainer:
             mesh.device_mesh  # a mesh of several ranks needs their job
         self.device = mesh.local_device
         self._t = 0
+        # the device plane's record of one step (obs/device.py): the first
+        # step run while capture is on, on a mesh of one device
+        self.step_cost: Optional[Dict] = None
         self._captured = False
         self._params = {}
         self._grad_names = []
@@ -369,7 +372,27 @@ class ShardedTrainer:
     def step(self, *batch):
         """batch = (*inputs, labels), the global batch (every rank passes
         the same); returns the loss, a 0-d NDArray on this rank's
-        device."""
+        device.
+
+        While the device plane captures (``obs.device.active()``) and no
+        record was taken yet, the step is counted by
+        ``obs.device.capture`` (site ``train_step``, label the net's class)
+        into :attr:`step_cost`: forward, backward, the update and the
+        flash kernels by their formulas. A mesh of several ranks keeps no
+        record (its ``DTensor`` collectives are not counted)."""
+        from .. import obs
+
+        if self.step_cost is None and not self._dist and \
+                obs.device.active():
+            out, self.step_cost = obs.device.capture(
+                self._step, batch, site="train_step",
+                label=type(self.net).__name__, device=self.device,
+                arg_tensors=(list(self.param_vals.values()),
+                             [getattr(b, "_data", b) for b in batch]))
+            return out
+        return self._step(*batch)
+
+    def _step(self, *batch):
         loss, grads, aux = self.value_and_grad(*batch)
         self._t += 1
         o = self._opt
@@ -405,15 +428,6 @@ class ShardedTrainer:
                 v = self.param_vals[n]
                 v = v.full_tensor() if self._dist else v.clone()
                 p.data()._set_data(v)
-
-    @property
-    def step_cost(self):
-        """The reference's device-plane record of the step program: the
-        device plane's training capture sites are queue item A15 (the
-        training half of its item 1) of the port."""
-        raise MXNetError("ShardedTrainer.step_cost: the device plane's "
-                         "training capture is queue item A15 (its "
-                         "training half) of the port")
 
     def block_until_ready(self):
         if self.device.type == "cuda":

@@ -347,9 +347,9 @@ def health_section(instants: List[dict], counters: List[dict],
     """The training-health story in one block: the loss / grad-norm counter
     tracks' trajectory, every sentinel breach (rule + detail), NaN
     provenance verdicts (first non-finite node), lr backoffs, rollbacks,
-    and injected NaN chaos — the events the training-health plane emits
-    (the reference's ``obs/health.py``; the port's is queue item A15).
-    None when the trace carries no health plane at all."""
+    and injected NaN chaos — the events the training-health plane
+    (``obs/health.py``) emits. None when the trace carries no health plane
+    at all."""
     tracks = [c for c in counter_tracks(counters)
               if c["name"].startswith("health.")]
     breaches, provenance, actions = [], [], []

@@ -12,6 +12,7 @@ unfolded one; ``Monitor`` stats of the same net within rtol 1e-6 of the
 reference's, hybridized too.
 """
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -478,3 +479,82 @@ def test_lazy_module_names_match_reference(name, target):
     assert mod is importlib.import_module("mxnet_tpu_torch." + target)
     assert getattr(jmx, name).__name__ == "mxnet_tpu." + target
     assert mx.gluon.data.DataLoader and mx.gluon.contrib.estimator.Estimator
+
+
+# ---------------------------------------------------------------------------
+# the top-level, context and base surfaces (queue C's C2)
+# ---------------------------------------------------------------------------
+
+# deliberate differences: the TPU's names; the modules of queue item
+# A15(g), which raise naming it
+_SURFACE_DELIBERATE = {"tpu", "num_tpus"}
+_SURFACE_LATER = {"platform", "runtime"}
+
+
+@pytest.mark.parametrize("where", ["top", "context", "base"])
+def test_reference_surface_resolves_on_the_port(where):
+    """Every public name of ``mxnet_tpu`` (its lazy submodules included)
+    and every name of the ``__all__`` of ``mxnet_tpu.context`` and
+    ``mxnet_tpu.base`` resolves on the port,
+    but the listed deliberate ones; A15(g)'s modules raise naming it."""
+    import importlib
+
+    from mxnet_tpu_torch.base import MXNetError
+
+    if where == "top":
+        # a fresh import's names (what other tests imported since would
+        # show too) and the lazy submodules of its __getattr__
+        import subprocess
+        import sys
+
+        out = subprocess.run(
+            [sys.executable, "-c", "import mxnet_tpu; print(' '.join("
+             "n for n in dir(mxnet_tpu) if not n.startswith('_')))"],
+            capture_output=True, text=True, check=True,
+            env={**os.environ, "JAX_PLATFORMS": "cpu"}).stdout.split()
+        src = importlib.import_module("mxnet_tpu")
+        lazy = jmx.__getattr__.__code__.co_consts
+        names = sorted(set(out) | {c for c in lazy if isinstance(c, str)
+                                   and c.isidentifier()
+                                   and hasattr(src, c)})
+        dst = mx
+    else:  # the module's declared public names (its imports are not)
+        src = importlib.import_module(f"mxnet_tpu.{where}")
+        names = sorted(src.__all__)
+        dst = importlib.import_module(f"mxnet_tpu_torch.{where}")
+    missing = []
+    for name in names:
+        if name in _SURFACE_DELIBERATE or (where == "top"
+                                           and name in _SURFACE_LATER):
+            continue
+        if not hasattr(dst, name):
+            missing.append(name)
+    assert not missing, missing
+    if where == "top":
+        for name in _SURFACE_LATER:
+            with pytest.raises(MXNetError, match="A15"):
+                getattr(mx, name)
+
+
+def test_c2_values_match_the_reference():
+    assert mx.num_gpus() == torch.cuda.device_count()
+    assert mx.context.num_gpus() == mx.num_gpus()
+    assert mx.base.numeric_types == jmx.base.numeric_types
+    assert mx.base.string_types == jmx.base.string_types
+    assert mx.base.integer_types == jmx.base.integer_types
+    assert mx.lr_scheduler.FactorScheduler.__name__ == "FactorScheduler"
+    assert mx.NDArray is nd.NDArray
+    ctx = mx.cpu_pinned(0)
+    assert ctx == mx.context.cpu_pinned() and ctx.device_type == "cpu_pinned"
+    assert str(ctx) == str(jmx.cpu_pinned(0))
+    a = nd.array([1.0, 2.0], ctx=ctx)
+    assert a.astorch().device.type == "cpu"
+    # pinned where a card exists to pin for; plain host memory else
+    assert a.astorch().is_pinned() == torch.cuda.is_available()
+    mx.base.set_env("MXNET_TEST_SET_ENV", 3)
+    try:
+        assert mx.base.get_env("MXNET_TEST_SET_ENV", typ=int) == 3
+    finally:
+        import os
+
+        os.environ.pop("MXNET_TEST_SET_ENV")

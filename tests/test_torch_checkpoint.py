@@ -462,8 +462,13 @@ def test_fit_refuses_planes_not_ported():
     it = NDArrayIter(np.zeros((8, 6), np.float32),
                      np.zeros(8, np.float32), batch_size=4)
     mod = Module(_mlp(), context=mx.cpu())
-    with pytest.raises(MXNetError, match="A15"):
-        mod.fit(it, num_epoch=1, health=True)
+    # the health plane is ported: fit(health=) samples and turns it off
+    from mxnet_tpu_torch.obs import health as health_mod
+
+    mon = health_mod.HealthMonitor(every=1)
+    mod.fit(it, num_epoch=1, health=mon)
+    assert mon.last_report is not None and mon.last_report["ok"]
+    assert not health_mod.enabled()
     # monitor= is accepted and never read, as in the reference's fit
     mod.fit(it, num_epoch=1, monitor=object())
     # a store name is accepted, as in the reference's fit (the distributed

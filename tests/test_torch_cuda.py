@@ -13,7 +13,9 @@ Each kernel is held to its plain PyTorch version (f32 to the reference's
 trainer on the card to the same on the CPU, the imperative ``nd`` path on
 the card to the same on the CPU, the convolution, BatchNorm and pooling
 ops (cuDNN and the card's elementwise kernels) to the same ops on the CPU,
-and the batch-serving engine on the card bitwise to ``Module.predict``
+the fixed-order f32 backward (under ``torch.use_deterministic_algorithms``)
+bitwise across calls, and the batch-serving engine on the card bitwise to
+``Module.predict``
 there, as are the replies of a fleet of two card replicas through a kill,
 a restart and a fleet reload; a ``ProcReplica`` child serves on the card,
 and streams relayed by a ``FleetServer`` through the paged kernel equal
@@ -22,6 +24,7 @@ store on the CPU, and two ``dist_sync`` ranks sharing the card form a
 gloo group and pass the known values on CUDA tensors. The device plane's
 cost records of a decode engine on the card equal those on the CPU.
 """
+import contextlib
 import math
 
 import numpy as np
@@ -453,6 +456,67 @@ def test_flash_bwd_repeats(cuda_device, dtype):
     assert torch.equal(second[1], first[1]) and torch.equal(second[2], first[2])
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside the block (the
+    plain versions run outside it: their cuBLAS products would need
+    ``CUBLAS_WORKSPACE_CONFIG`` under the switch)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+# ragged S below and across the 64-row tiles, head dims of one and of
+# several slabs, the ring's offsets with the lse cotangent
+@pytest.mark.parametrize("s,d", [(40, 16), (384, 64), (200, 96), (130, 320)])
+@pytest.mark.parametrize("causal,offset", [(True, 0), (True, -8),
+                                           (True, 128), (True, -128),
+                                           (False, 0)])
+def test_flash_bwd_f32_fixed_order_bitwise_and_near_plain(
+        cuda_device, s, d, causal, offset):
+    """Under torch.use_deterministic_algorithms the f32 backward launches
+    its fixed-order variant: dQ summed over the key tiles in key order.
+    Two calls give the same bits in dQ, dK and dV, each within the
+    reference's 5e-4 of the plain version."""
+    q, k, v, do = _qkv(cuda_device, torch.float32, 2, 3, s, d, seed=s + d)
+    g_lse = torch.randn(q.shape[:3], device=cuda_device)
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, None, offset)
+    before = (tfa.flash_attention_bwd.launches,
+              tfa.flash_attention_bwd.ordered_launches)
+    with _deterministic():
+        first = tfa.flash_attention_bwd(q, k, v, out, lse, do, g_lse,
+                                        causal, None, offset)
+        second = tfa.flash_attention_bwd(q, k, v, out, lse, do, g_lse,
+                                         causal, None, offset)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd.launches,
+            tfa.flash_attention_bwd.ordered_launches) == (before[0] + 2,
+                                                          before[1] + 2)
+    refs = tfa._flash_bwd_plain(q, k, v, out, lse, do, g_lse, causal, None,
+                                offset)
+    for a, b, r in zip(first, second, refs):
+        assert torch.equal(a, b)
+        assert torch.isfinite(a).all()
+        _assert_near(a, r, 5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_16bit_raises_under_the_switch(cuda_device, dtype):
+    """The tensor-core backward sums dQ by atomics: under the switch it
+    raises as PyTorch's own non-deterministic operators do, launching
+    nothing; the forward, in one order, still runs."""
+    q, k, v, do = _qkv(cuda_device, dtype, 2, 3, 256, 64, seed=3)
+    out, lse = tfa.flash_attention_fwd(q, k, v, True)
+    before = tfa.flash_attention_bwd.launches
+    with _deterministic(), pytest.raises(RuntimeError,
+                                         match="deterministic"):
+        tfa.flash_attention_bwd(q, k, v, out, lse, do, None, True)
+    assert tfa.flash_attention_bwd.launches == before
+
+
 def test_flash_autograd_launches_kernels(cuda_device, monkeypatch):
     q, k, v, do = _qkv(cuda_device, torch.bfloat16, 2, 2, 128, 64, seed=1)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
@@ -518,6 +582,46 @@ def test_trainer_on_card_matches_trainer_on_cpu(cuda_device, monkeypatch):
         assert launched == (6 if tr.device.type == "cuda" else 0)
     np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"],
                                rtol=1e-4)
+
+
+def test_step_cost_on_card_equals_cpu_and_counts_the_backward(cuda_device,
+                                                             monkeypatch):
+    """ShardedTrainer.step_cost on the card: the flash backward, which the
+    autograd engine runs on its own thread there, is counted once a layer
+    by its formula, and the record's operations equal the CPU's."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    monkeypatch.setenv("MXNET_ATTENTION_IMPL", "flash")
+    monkeypatch.setenv("MXNET_DEVICE_COST", "1")
+    cfg, params = _seeded_lm(vocab_size=97, units=64, hidden_size=128,
+                             num_layers=2, num_heads=2, max_length=128)
+    x = np.random.RandomState(0).randint(0, 97, (2, 128))
+    costs = {}
+    for dev in ("cpu", cuda_device):
+        lm = tt.from_numpy_params(cfg, params, device=dev)
+        tr = ShardedTrainer(lm, SoftmaxCrossEntropyLoss(), optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-3})
+        tr.step(x, x)
+        costs[str(dev)] = tr.step_cost
+    card = costs[str(cuda_device)]
+    assert card["kernels"]["flash_attention_bwd"]["calls"] == 2
+    assert card["kernels"] == costs["cpu"]["kernels"]
+    assert card["flops"] == costs["cpu"]["flops"]
+
+
+def test_leak_detector_flags_retained_card_tensors(cuda_device):
+    """Retained CUDA tensors show in live_bytes and trip the detector."""
+    from mxnet_tpu_torch.obs import device as tdev
+
+    det = tdev.LeakDetector(window=8, warmup=2,
+                            threshold_bytes_per_step=1000)
+    retained, fired = [], None
+    for _ in range(30):
+        retained.append(torch.ones(1 << 16, device=cuda_device))  # 256 KB
+        fired = fired or det.observe(tdev.live_bytes())
+    assert fired is not None and fired["slope_bytes_per_step"] > 1 << 17
+    del retained
 
 
 def test_nd_path_on_card_matches_nd_path_on_cpu(cuda_device, monkeypatch):

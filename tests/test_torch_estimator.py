@@ -194,8 +194,15 @@ def test_estimator_checkpoint_resume_fresh_net(tmp_path):
 
 
 def test_health_handler_waits_for_the_health_plane():
-    with pytest.raises(MXNetError, match="A15"):
-        HealthHandler()
+    # the health plane is ported: the handler drives it through a fit and
+    # turns it off at the end
+    from mxnet_tpu_torch.obs import health
+
+    h = HealthHandler()
+    assert isinstance(h.monitor, health.HealthMonitor)
+    est = Estimator(_toy_net(), mx.gluon.loss.SoftmaxCrossEntropyLoss())
+    est.fit(_toy_data(), epochs=1, event_handlers=[h])
+    assert h.monitor._n > 0 and health._ACTIVE[0] == 0
 
 
 def test_default_handlers_and_priorities():

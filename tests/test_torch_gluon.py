@@ -504,8 +504,9 @@ def test_trainer_settings_and_rejections():
                                 clip_global_norm=1.0)
     with pytest.raises(ValueError, match="update_on_kvstore"):
         clipped.allreduce_grads()
-    with pytest.raises(MXNetError, match="A15"):
-        tr.attach_health_monitor()
+    mon = tr.attach_health_monitor()  # the health plane is ported
+    assert mon.param_names == [p.name for p in tr._params]
+    assert tr.attach_health_monitor(None) is None
     state = tr.get_checkpoint_state()
     assert set(state) == {"arrays", "optimizer"}
     assert state["optimizer"]["num_update"] == 0

@@ -84,7 +84,12 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.parallel.ring_attention, "
             "mxnet_tpu_torch.tools.mesh_worker, "
             "mxnet_tpu_torch.serve.engine, mxnet_tpu_torch.serve.batcher, "
-            "mxnet_tpu_torch.serve.server, mxnet_tpu_torch.serve.client\n"
+            "mxnet_tpu_torch.serve.server, mxnet_tpu_torch.serve.client, "
+            "mxnet_tpu_torch.obs.health, mxnet_tpu_torch.obs.regress, "
+            "mxnet_tpu_torch.chaos, mxnet_tpu_torch.chaos.nan, "
+            "mxnet_tpu_torch.profiler, mxnet_tpu_torch.analysis.findings, "
+            "mxnet_tpu_torch.tools.health_bench, "
+            "mxnet_tpu_torch.tools.bench_compare\n"
             "import mxnet_tpu_torch as mx\n"
             "assert mx.np.linalg and mx.npx.relu and mx.util.get_gpu_count "
             "and mx.operator.CustomOp and mx.nd.sparse.csr_matrix\n"

@@ -21,7 +21,7 @@ CSRC = Path(_kernels.CSRC)
 # the number of arguments each wrapper passes to its entry point
 # (ops/flash_attention.py, tools/launch_cost_probe.py)
 _WRAPPER_ARGS = {"paged_decode_attention": 22, "flash_attention_fwd": 15,
-                 "flash_attention_bwd": 22, "copy_probe": 4}
+                 "flash_attention_bwd": 23, "copy_probe": 4}
 
 
 @pytest.mark.parametrize("name", sorted(_kernels.KERNELS))

@@ -948,3 +948,69 @@ def test_util_counts_cuda_devices():
     assert tmx.util.get_gpu_count() == torch.cuda.device_count()
     assert tmx.util.is_np_array() is False
     assert tmx.util.use_np(len) is len
+
+
+# ---------------------------------------------------------------------------
+# the names that are not functions (queue C's C1)
+# ---------------------------------------------------------------------------
+
+def test_every_reference_name_resolves_or_raises_naming_itself():
+    """Every public name of the reference's ``mx.np`` resolves on the port
+    or raises MXNetError naming itself; none raises AttributeError."""
+    missing, unnamed = [], []
+    for name in sorted(n for n in dir(R) if not n.startswith("_")):
+        try:
+            getattr(T, name)
+        except MXNetError as e:
+            if name not in str(e):
+                unnamed.append(name)
+        except AttributeError:
+            missing.append(name)
+    assert not missing and not unnamed, (missing, unnamed)
+
+
+_DTYPE_NAMES = ("bool", "int16", "uint16", "uint32", "uint64", "int_",
+                "uint", "float_", "single", "double", "complex64",
+                "complex128", "csingle", "cdouble", "complex_")
+_SCALAR_TYPES = ("generic", "number", "integer", "signedinteger",
+                 "unsignedinteger", "inexact", "floating", "complexfloating",
+                 "character", "flexible", "object_")
+
+
+@pytest.mark.parametrize("name", _DTYPE_NAMES)
+def test_dtype_names_take_numpy_values(name):
+    assert onp.dtype(getattr(T, name)) == onp.dtype(getattr(R, name))
+    if name in ("bool", "int16", "single"):  # what both arrays can hold
+        with tmx.cpu():
+            z = T.zeros(2, dtype=getattr(T, name))
+        assert onp.dtype(z.dtype) == onp.dtype(
+            R.zeros(2, dtype=getattr(R, name)).dtype)
+
+
+@pytest.mark.parametrize("name", _SCALAR_TYPES)
+def test_scalar_hierarchy_is_numpys(name):
+    assert getattr(T, name) is getattr(R, name) is getattr(onp, name)
+
+
+@pytest.mark.parametrize("dt", ["float32", "float16", "float64",
+                                "bfloat16"])
+def test_finfo_iinfo_dtype_and_index_helpers(dt):
+    got, want = T.finfo(getattr(T, dt)), R.finfo(getattr(R, dt))
+    for attr in ("eps", "epsneg", "max", "min", "tiny", "resolution",
+                 "bits", "precision", "maxexp", "minexp", "nmant"):
+        assert float(getattr(got, attr)) == float(getattr(want, attr)), attr
+    assert T.finfo(dt).eps == got.eps
+    for it in ("int8", "int16", "int32", "uint8"):
+        assert T.iinfo(getattr(T, it)).max == R.iinfo(getattr(R, it)).max
+    assert T.dtype("float32") == R.dtype("float32")
+    assert T.s_[1:3] == R.s_[1:3] and T.index_exp[2] == R.index_exp[2]
+    with tmx.cpu():
+        got = T.arange(6)[T.s_[1:3]].asnumpy()
+    onp.testing.assert_array_equal(got, [1.0, 2.0])
+
+
+@pytest.mark.parametrize("name", sorted(T._JAX_ONLY))
+def test_jax_valued_names_raise_naming_themselves(name):
+    assert hasattr(R, name)
+    with pytest.raises(MXNetError, match=name):
+        getattr(T, name)

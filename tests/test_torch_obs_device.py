@@ -27,6 +27,7 @@ import torch
 
 from mxnet_tpu import obs as jobs
 from mxnet_tpu.obs import device as jdev
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import obs as tobs
 from mxnet_tpu_torch.obs import device as tdev
 from mxnet_tpu_torch.ops.flash_attention import (flash_bwd_cost,
@@ -280,11 +281,288 @@ def test_capture_counts_a_kernel_wrapper_once_and_hides_its_body():
 
 
 def test_training_capture_sites_name_a15():
+    # the training capture sites are ported (below); of A15's planes only
+    # the training-fleet plane (A15(c)) still raises naming it, and
+    # ShardedTrainer.step_cost is a record
     from mxnet_tpu_torch.base import MXNetError
-    from mxnet_tpu_torch.parallel import ShardedTrainer
 
     with pytest.raises(MXNetError, match="A15"):
-        ShardedTrainer.step_cost.fget(None)
-    for name in ("health", "fleetstats", "regress"):
-        with pytest.raises(MXNetError, match="A15"):
-            getattr(tobs, name)
+        tobs.fleetstats
+    for name in ("health", "regress"):
+        assert getattr(tobs, name).__name__ == f"mxnet_tpu_torch.obs.{name}"
+    tobs.enable()
+    tr, x, y = _sharded_trainer()
+    assert tr.step_cost is None
+    tr.step(x, y)
+    assert tr.step_cost["flops"] > 0 and tr.step_cost["device"] == "cpu"
+    assert tdev.cost_of("train_step", "HybridSequential") == tr.step_cost
+
+
+# ---------------------------------------------------------------------------
+# the training capture sites (tests/test_device_obs.py's training cases)
+# ---------------------------------------------------------------------------
+
+COST_KEYS = ("flops", "bytes_accessed", "peak_hbm_bytes")
+
+
+def _assert_cost_fields(entry, where):
+    for k in COST_KEYS:
+        assert k in entry, f"{where}: compile_log entry missing {k!r}"
+        assert isinstance(entry[k], int), f"{where}: {k} not an int"
+    assert entry["flops"] > 0, f"{where}: zero flops"
+    assert entry["bytes_accessed"] > 0, f"{where}: zero bytes_accessed"
+    assert entry["peak_hbm_bytes"] > 0, f"{where}: zero peak_hbm_bytes"
+
+
+def _mlp_symbol(num_classes=2):
+    from mxnet_tpu_torch import symbol as sym
+
+    x = sym.Variable("data")
+    h = sym.FullyConnected(x, num_hidden=8, name="fc1")
+    h = sym.Activation(h, act_type="relu", name="relu1")
+    out = sym.FullyConnected(h, num_hidden=num_classes, name="fc2")
+    return sym.SoftmaxOutput(out, name="softmax")
+
+
+def _tiny_resnet(num_classes=2):
+    from mxnet_tpu_torch import symbol as sym
+
+    data = sym.Variable("data")
+    body = sym.Convolution(data, num_filter=4, kernel=(3, 3), stride=(1, 1),
+                           pad=(1, 1), no_bias=True, name="conv0")
+    bn1 = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=0.9,
+                        name="bn1")
+    act1 = sym.Activation(bn1, act_type="relu", name="relu1")
+    conv1 = sym.Convolution(act1, num_filter=4, kernel=(3, 3), stride=(1, 1),
+                            pad=(1, 1), no_bias=True, name="conv1")
+    body = conv1 + body
+    pool = sym.Pooling(body, global_pool=True, kernel=(8, 8),
+                       pool_type="avg", name="pool1")
+    flat = sym.Flatten(pool, name="flatten")
+    fc = sym.FullyConnected(flat, num_hidden=num_classes, name="fc1")
+    return sym.SoftmaxOutput(fc, name="softmax")
+
+
+def _sharded_trainer():
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch import parallel as par
+
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(8, activation="relu"))
+    net.add(gluon.nn.Dense(2))
+    net.initialize(ctx=tmx.cpu())
+    mesh = par.make_mesh({"dp": 1}, devices=[torch.device("cpu")])
+    tr = par.ShardedTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                            mesh, optimizer="sgd",
+                            optimizer_params={"learning_rate": 0.1})
+    with tmx.cpu():
+        x = nd.array(np.ones((4, 6), np.float32))
+        y = nd.array(np.zeros(4, np.int32))
+    return tr, x, y
+
+
+def test_fused_engine_compile_log_carries_device_cost():
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.optimizer import create
+    from mxnet_tpu_torch.optimizer.fused import FusedUpdateEngine
+
+    tobs.enable()
+    eng = FusedUpdateEngine(create("sgd", learning_rate=0.1))
+    w = NDArray(torch.ones((16, 8)))
+    g = NDArray(torch.full((16, 8), 0.5))
+    eng.apply([0], [w], [g], [None])
+    eng.apply([0], [w], [g], [None])
+    assert len(eng.compile_log) == 1  # steady state: no second record
+    _assert_cost_fields(eng.compile_log[0], "fused")
+    # SGD's lowering, one operation an element of each op: rescale * g,
+    # + wd * w, * lr, w - (optimizer/fused.py _low_sgd)
+    assert eng.compile_log[0]["flops"] == 4 * 16 * 8
+    assert tdev.cost_of("update", "SGD")["flops"] > 0
+    execs = [e for e in tobs.trace.events()
+             if e[1] == "update.fused" and not e[6]["compile"]]
+    assert execs and "analytic_mfu" in execs[0][6]
+    assert execs[0][6]["roofline"] in ("compute", "bandwidth")
+
+
+def test_executor_forward_backward_compile_log():
+    from mxnet_tpu_torch.executor import Executor
+
+    tobs.enable()
+    ex = Executor(_mlp_symbol(), ctx=tmx.cpu(),
+                  shapes={"data": (4, 6), "softmax_label": (4,)},
+                  grad_req="write")
+    ex.forward(is_train=True, data=np.ones((4, 6), np.float32))
+    ex.backward()
+    assert {e["site"] for e in ex.compile_log} == {"forward", "backward"}
+    for entry in ex.compile_log:
+        _assert_cost_fields(entry, f"executor/{entry['site']}")
+    fwd = [e for e in ex.compile_log if e["site"] == "forward"][0]
+    # the two products: 4 x 6 x 8 and 4 x 8 x 2 multiply-adds
+    assert fwd["flops"] == 2 * 4 * (6 * 8 + 8 * 2)
+    ex.forward(is_train=True, data=np.ones((4, 6), np.float32))
+    ex.backward()
+    assert len(ex.compile_log) == 2
+
+
+def test_cachedop_compile_log():
+    from mxnet_tpu_torch import gluon, nd
+
+    tobs.enable()
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(8, activation="relu"))
+    net.add(gluon.nn.Dense(2))
+    net.initialize(ctx=tmx.cpu())
+    net.hybridize()
+    with tmx.cpu():
+        x = nd.array(np.ones((2, 6), np.float32))
+    net(x)
+    net(x)
+    log = net._cached_op.compile_log
+    assert len(log) == 1
+    _assert_cost_fields(log[0], "cachedop")
+    assert log[0]["flops"] == 2 * 2 * (6 * 8 + 8 * 2)
+
+
+def test_capture_inactive_without_telemetry():
+    """Zero cost when off: no signature is built, no record kept."""
+    from mxnet_tpu_torch.executor import Executor
+
+    assert not tdev.active()
+    ex = Executor(_mlp_symbol(), ctx=tmx.cpu(),
+                  shapes={"data": (2, 6), "softmax_label": (2,)},
+                  grad_req="null")
+    ex.forward(is_train=False, data=np.ones((2, 6), np.float32))
+    assert ex.compile_log == [] and not ex._seen_sigs
+    assert ex._last_inputs is None
+
+
+def test_two_batch_resnet_fit_has_memory_track_and_mfu_attrs(tmp_path):
+    import io as _io
+    import json
+
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.obs.export import to_prometheus
+    from mxnet_tpu_torch.tools import trace_report
+
+    tobs.enable()
+    rng = np.random.RandomState(7)
+    X = rng.randn(8, 3, 8, 8).astype(np.float32)
+    y = rng.randint(0, 2, 8).astype(np.float32)
+    with tmx.cpu():
+        it = NDArrayIter(X, y, batch_size=4)  # 2 batches an epoch
+        mod = Module(_tiny_resnet(), context=tmx.cpu())
+        mod.fit(it, num_epoch=2, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05})
+    trace_path = str(tmp_path / "trace.json")
+    tobs.export(trace_path)
+    with open(trace_path) as f:
+        evs = json.load(f)["traceEvents"]
+    # the memory counter lane, one sample a batch: 0 in a process with no
+    # card (the port's live bytes are the card's allocator's)
+    mem = [e for e in evs if e.get("ph") == "C"
+           and e["name"] == "device.live_bytes"]
+    assert len(mem) >= 4
+    assert all(e["args"]["value"] == tdev.live_bytes() == 0 for e in mem)
+    for span_name, phase in (("device.forward", "forward"),
+                             ("device.backward", "backward"),
+                             ("update.fused", "update")):
+        attrs = [e.get("args") or {} for e in evs
+                 if e.get("ph") == "X" and e["name"] == span_name]
+        hits = [a for a in attrs if "analytic_mfu" in a]
+        assert hits, f"no analytic_mfu attr on any {span_name} span"
+        assert hits[0]["roofline"] in ("compute", "bandwidth")
+        h = tobs.metrics.registry.get(f"device.mfu.{phase}")
+        assert h is not None and h.count > 0
+    rep = trace_report.report(trace_path)
+    assert "device.live_bytes" in {c["name"] for c in rep["counters"]}
+    assert rep["device_programs"]
+    top = rep["device_programs"][0]
+    assert top["flops"] > 0 and top["site"] in ("executor", "update")
+    buf = _io.StringIO()
+    trace_report.render(rep, stream=buf)
+    assert "device.live_bytes" in buf.getvalue()
+    assert "Top programs by device cost" in buf.getvalue()
+    merged = trace_report.merged_chrome([trace_path])
+    assert any(e.get("ph") == "C" for e in merged["traceEvents"])
+    assert "mxnet_device_live_bytes" in to_prometheus(
+        tobs.metrics.snapshot())
+
+
+def test_sharded_trainer_ragged_batch_after_capture():
+    """The captured first step keeps no executable that a later batch of
+    another shape could trip over: a ragged batch still steps, and the
+    net's own forward works after the trainer's steps."""
+    from mxnet_tpu_torch import nd
+
+    tobs.enable()
+    tr, x, y = _sharded_trainer()
+    float(tr.step(x, y).asnumpy())
+    assert tr.step_cost and tr.step_cost["flops"] > 0
+    first = tr.step_cost
+    with tmx.cpu():
+        x2 = nd.array(np.ones((2, 6), np.float32))
+        y2 = nd.array(np.zeros(2, np.int32))
+    assert np.isfinite(float(tr.step(x2, y2).asnumpy()))
+    assert tr.step_cost is first  # one record: the first captured step
+    tr.net.hybridize()
+    with tmx.cpu():
+        assert np.isfinite(tr.net(x2).asnumpy()).all()
+
+
+def test_leak_detector_flags_retained_arrays():
+    """A deliberately retained tensor list trips the detector (fed the
+    bytes the list holds: the live bytes a card would report; the card's
+    own reading is ``tests/test_torch_cuda.py``'s)."""
+    det = tdev.LeakDetector(window=8, warmup=2,
+                            threshold_bytes_per_step=1000)
+    retained, fired = [], None
+    for _ in range(30):
+        retained.append(torch.ones(256))  # 1 KB a step
+        fired = fired or det.observe(sum(t.numel() * 4 for t in retained))
+    assert fired is not None and fired["slope_bytes_per_step"] > 500
+
+
+def test_leak_detector_quiet_over_20_step_steady_state_fit():
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+
+    tobs.enable()
+    rng = np.random.RandomState(0)
+    X = rng.randn(40, 6).astype(np.float32)
+    y = rng.randint(0, 2, 40).astype(np.float32)
+    tdev.monitor.reset()
+    with tmx.cpu():
+        it = NDArrayIter(X, y, batch_size=2)  # 20 batches an epoch
+        mod = Module(_mlp_symbol(), context=tmx.cpu())
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.01})
+    assert tdev.monitor._seen == 20  # one sample a batch
+    assert tdev.monitor.findings == []
+    assert not [e for e in tobs.trace.events()
+                if e[1] == "device.leak_suspected"]
+
+
+def test_fused_dispatch_bound_holds_with_capture():
+    """The captured first run changes nothing of the steady update: one
+    program call, its operators only."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.optimizer import create
+    from mxnet_tpu_torch.optimizer.fused import FusedUpdateEngine
+
+    tobs.enable()
+    eng = FusedUpdateEngine(create("sgd", learning_rate=0.1, momentum=0.9))
+    ws = [NDArray(torch.ones((8, 4))) for _ in range(3)]
+    gs = [NDArray(torch.ones((8, 4))) for _ in range(3)]
+    sts = [NDArray(torch.zeros((8, 4))) for _ in range(3)]
+    eng.apply([0, 1, 2], ws, gs, sts)  # the captured first run
+    with profiler.count_dispatches() as c:
+        eng.apply([0, 1, 2], ws, gs, sts)
+    tobs.disable()
+    with profiler.count_dispatches() as c_off:
+        eng.apply([0, 1, 2], ws, gs, sts)
+    assert c.compiled == 1 and c.d2h == 0, c.as_dict()
+    assert c.eager_ops == c_off.eager_ops
+    assert len(eng.compile_log) == 1
+    _assert_cost_fields(eng.compile_log[0], "fused/momentum")

@@ -235,9 +235,9 @@ def test_switch_gates_the_helpers_as_the_reference():
                                   "device", "health", "fleetstats",
                                   "context"])
 def test_later_planes_name_a15(name):
-    # the serving half of A15 is ported; the training-health and the
-    # training-fleet planes still raise naming it
-    if name in ("health", "fleetstats"):
+    # the serving half of A15 and its training-health plane are ported;
+    # the training-fleet plane still raises naming it
+    if name == "fleetstats":
         with pytest.raises(MXNetError, match="A15"):
             getattr(tobs, name)
     else:
