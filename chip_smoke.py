@@ -258,6 +258,20 @@ the provenance and the rollback in ``trace_report``, and checks the
 stats' zero-cost contract. The training path (6) also reads
 ``ShardedTrainer.step_cost`` of one captured step.
 
+After 23 it drives ``train_fleet_path``, the training-fleet plane: two
+elastic fleets at once, each three ``dist_worker elastic_lm`` workers
+(the LM at full width, cut to 4 layers, traced to a Symbol,
+``Module.fit``, f32, 1 x 2048 tokens a rank a step, 12 steps) against a
+Python server of its own, one
+with ``MXNET_CHAOS_SLOW`` stretching rank 1's forward from its 3rd step:
+that server names rank 1 and blames its compute within 5 windows of 2
+steps, the clean twin gives no verdict and books each rank's device
+forward+backward (CUDA events) as compute, one ``OP_TELEMETRY`` pull
+merges every rank's phases and the server's RPC lanes into one timeline
+(``train_report``, which prints the straggler), a second pull repeats no
+drained span, and every worker launched both flash kernels; then
+``elastic_bench``'s train-telemetry overhead leg on the card, reported.
+
 Between 3 and 4 it also holds the flash kernels against their plain
 versions at other head dims (D 8, 48, 80, 96, 256, 320, 512; f32 and bf16;
 causal and not: the FFMA kernels in f32 and past D 256, the tensor-core
@@ -5522,6 +5536,25 @@ def _dist_lm_leg(torch, dev, work):
         for k in ("flash_attention_fwd", "flash_attention_bwd")}
 
 
+def _elastic_liveness(port):
+    """The elastic server's deaths and its live members' largest
+    heartbeat gap, against the liveness window (0.2 s x 3)."""
+    from mxnet_tpu_torch.kvstore.ps_client import PSClient
+
+    cli = PSClient("127.0.0.1", port, timeout=30, retries=3,
+                   retry_interval=0.2)
+    try:
+        m = cli.stats()["metrics"]
+    finally:
+        cli.close()
+    gap = m["histograms"].get("elastic.heartbeat_gap_s", {})
+    window = 0.6  # the spawned workers' 0.2 s beats x MISS_K 3
+    return {"deaths": m["counters"].get("elastic.deaths", 0),
+            "window_s": window, "beats": gap.get("count", 0),
+            "max_gap_s": gap.get("max"),
+            "margin_s": window - gap["max"] if gap else None}
+
+
 def _dist_elastic_leg(torch, dev):
     """(d): three elastic workers (the reference's linear-regression
     Module.fit on the card) against the port's server; one is SIGKILLed
@@ -5542,7 +5575,9 @@ def _dist_elastic_leg(torch, dev):
         os.path.join(work, "ckpt_clean"), "--epochs",
         str(DIST_ELASTIC_EPOCHS), "--step-delay", str(DIST_ELASTIC_DELAY)])
     port = _free_port()
-    ps = start_ps_server(port, 3, elastic=True, kind="python")
+    # metrics on: the server's heartbeat gaps measure the liveness margin
+    ps = start_ps_server(port, 3, elastic=True, kind="python",
+                         env={"MXNET_OBS": "1"})
     procs, lines = {}, {}
 
     def spawn(rank, start_after=None):
@@ -5619,6 +5654,9 @@ def _dist_elastic_leg(torch, dev):
         for _r, (_p, buf) in procs.items():
             check(any("ELASTIC_TIMES" in ln for _t, ln in buf),
                   "an elastic worker did not finish")
+        liveness = _elastic_liveness(port)
+        check(liveness["deaths"] == 1, f"elastic: {liveness['deaths']} "
+              f"deaths for one SIGKILL; liveness {liveness}")
     finally:
         for proc, _buf in list(procs.values()) + ([standby] if standby
                                                   else []):
@@ -5640,7 +5678,8 @@ def _dist_elastic_leg(torch, dev):
           f"{t_release - t_kill} s, rejoin {t_rejoin - t_restart} s, rank "
           f"0's epochs {parts}")
     return {"workers": 3, "killed_rank": 2, "release_s": t_release - t_kill,
-            "rejoin_s": t_rejoin - t_restart, "rank0_epochs": parts,
+            "rejoin_s": t_rejoin - t_restart, "liveness": liveness,
+            "rank0_epochs": parts,
             "final_loss": losses[0], "clean_final_loss": clean_losses[0],
             "loss_tolerance": DIST_LOSS_TOL}
 
@@ -5651,8 +5690,11 @@ def phase_dist_path(torch, dev, smi):
     (b) two dist_sync workers over gloo (the known values, then the
     full-width LM through gluon.Trainer(kvstore="dist_sync")), (c)
     dist_async against the native and the Python server, (d) elastic
-    dist_sync with a worker killed and restarted. This process holds no
-    model while the workers run. Returns the workers' flash launches."""
+    dist_sync with a worker killed and restarted; (c)'s two jobs, then
+    (b)'s known-value job, run beside (d). This process holds no model
+    while the workers run. Returns the workers' flash launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
     root = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(root, "build", "dist_path")
     shutil.rmtree(work, ignore_errors=True)
@@ -5665,29 +5707,39 @@ def phase_dist_path(torch, dev, smi):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        known = _dist_run([*_LAUNCH, "-n", "2", sys.executable, "-m",
-                           *_WORKER, "known", "dist_sync", "--device",
-                           dev.type])
+        lm, launches = _dist_lm_leg(torch, dev, work)
+        walls["b_sync_lm"] = time.perf_counter() - t0
+        servers = ("native", "python")  # two jobs at once
+
+        def known_jobs():
+            t0 = time.perf_counter()
+            outs = _dist_runs(*[[*_LAUNCH, "-n", "2", "-s", "1",
+                                 "--ps-server", server, sys.executable,
+                                 "-m", *_WORKER, "known", "dist_async",
+                                 "--device", dev.type]
+                                for server in servers])
+            walls["c_async"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            known = _dist_run([*_LAUNCH, "-n", "2", sys.executable, "-m",
+                               *_WORKER, "known", "dist_sync", "--device",
+                               dev.type])
+            walls["b_sync_known"] = time.perf_counter() - t0
+            return outs, known
+
+        with ThreadPoolExecutor(1) as beside:
+            known_run = beside.submit(known_jobs)
+            t0 = time.perf_counter()
+            elastic = _dist_elastic_leg(torch, dev)
+            walls["d_elastic"] = time.perf_counter() - t0
+            outs, known = known_run.result()
         share = "2 ranks a card" if dev.type == "cuda" else "no card"
         check(known.count(f"device={dev.type} backend=gloo: OK") == 2
               and known.count(f"gloo ({share})") == 2,
               f"dist_sync known values:\n{known[-2000:]}")
-        lm, launches = _dist_lm_leg(torch, dev, work)
-        walls["b_sync"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        servers = ("native", "python")  # two jobs at once
-        outs = _dist_runs(*[[*_LAUNCH, "-n", "2", "-s", "1", "--ps-server",
-                             server, sys.executable, "-m", *_WORKER,
-                             "known", "dist_async", "--device", dev.type]
-                            for server in servers])
         for server, out in zip(servers, outs):
             check(out.count(f"mode=dist_async device={dev.type} "
                             "backend=None: OK") == 2,
                   f"dist_async ({server}):\n{out[-2000:]}")
-        walls["c_async"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        elastic = _dist_elastic_leg(torch, dev)
-        walls["d_elastic"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "dist_path", "card": smi, "one_process": local,
@@ -5695,6 +5747,9 @@ def phase_dist_path(torch, dev, smi):
           "lm_two_workers": lm,
           "dist_async_known_values": "native and python servers: OK",
           "elastic": elastic, "leg_wall_s": walls,
+          # (d)'s times (release, rejoin, liveness) are taken with these
+          # jobs on the same card and host, not alone
+          "run_beside": {"d_elastic": ["c_async", "b_sync_known"]},
           "kernel_launches": launches})
     return launches
 
@@ -6114,25 +6169,31 @@ def phase_serve_mesh_path(torch, dev, smi, ckpt):
     ``Router`` and ``FleetServer`` with a group kill; (c) the
     ``Autoscaler``'s default factory out onto the spare slice and back.
     Returns the flash launches of (a)'s ranks; deletes ``serve_path``'s
-    checkpoints."""
+    checkpoints. (b) runs alone, since its memory check reads every
+    process's bytes on the card; (a)'s job runs beside (c)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd,
                                                      flash_decode_attention)
 
     own = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention)
     walls = {}
-    try:
+
+    def timed(leg, fn, *args):
         t0 = time.perf_counter()
-        lm, lm_launches = _serve_mesh_lm(dev, 12)
-        walls["a"] = time.perf_counter() - t0
+        out = fn(*args)
+        walls[leg] = time.perf_counter() - t0
+        return out
+
+    try:
         before = [k.launches for k in own]
         with _PinnedCudnn(torch):
-            t0 = time.perf_counter()
-            pool = _serve_mesh_pool(torch, dev, ckpt)
-            walls["b"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            scale = _serve_mesh_scale(dev, ckpt)
-            walls["c"] = time.perf_counter() - t0
+            pool = timed("b", _serve_mesh_pool, torch, dev, ckpt)
+            with ThreadPoolExecutor(1) as beside:
+                lm_run = beside.submit(timed, "a", _serve_mesh_lm, dev, 12)
+                scale = timed("c", _serve_mesh_scale, dev, ckpt)
+                lm, lm_launches = lm_run.result()
         check([k.launches for k in own] == before,
               "the sharded ResNet pools launched an attention kernel here")
     finally:
@@ -6143,8 +6204,253 @@ def phase_serve_mesh_path(torch, dev, smi, ckpt):
                 os.remove(f)
     emit({"phase": "serve_mesh_path", "card": smi, "a_lm_tp2": lm,
           "b_sharded_pool": pool, "c_autoscale": scale,
-          "leg_wall_s": walls})
+          # (a)'s and (c)'s times are taken with the other leg on the same
+          # card and host, not alone
+          "run_beside": {"a": ["c"], "c": ["a"]}, "leg_wall_s": walls})
     return {"flash_attention_fwd": lm_launches, "flash_attention_bwd": 0}
+
+
+# train_fleet_path: the training-fleet plane (obs/fleetstats.py) on the card,
+# tests/test_fleetstats.py:740's flagship at the LM's full width: two
+# elastic fleets at once, each three `dist_worker elastic_lm` workers
+# (Module.fit of the traced LM, f32, 1 x 2048 tokens a rank a step, SGD lr
+# 1e-5) against a Python server of its own; rank 1 of the injected fleet
+# sleeps TRAIN_FLEET_DELAY s inside its forward from its 3rd step on. Depth
+# cut to 4 layers: on an H100 80GB HBM3 (700 W) the phase took 94 s at 12
+# and 61-65 s at 4 and at 2, the gradients' round trips through the Python
+# servers most of every step (PERF.md section 4)
+TRAIN_FLEET_LM = {"vocab": 32000, "units": 768, "layers": 4, "heads": 12,
+                  "seq": 2048}
+TRAIN_FLEET_STEPS = 12      # steps a rank
+TRAIN_FLEET_DELAY = 1.0     # s; at least twice a rank's own time a step
+TRAIN_FLEET_MAX_WINDOW = 5  # the first verdict's window, at most
+TRAIN_FLEET_COMPUTE = 0.9   # clean: compute a step >= this x fwd+bwd device
+TRAIN_FLEET_TIMEOUT = 600   # seconds, a worker
+TRAIN_FLEET_WORKER_ENV = {"MXNET_OBS": "1", "MXNET_OBS_FLEET_WINDOW": "2",
+                          "MXNET_ELASTIC": "1",
+                          "MXNET_ELASTIC_HEARTBEAT_S": "0.2",
+                          "MXNET_ELASTIC_MISS_K": "4"}
+TRAIN_FLEET_SERVER_ENV = {"MXNET_OBS": "1", "MXNET_OBS_FLEET_FACTOR": "1.5",
+                          "MXNET_OBS_FLEET_K": "2"}
+TRAIN_OBS_STEPS = 300       # the overhead leg's steps a side, best of 3
+
+
+def _train_fleet_start(dev, chaos):
+    """One fleet: a Python server and three ``elastic_lm`` workers;
+    ``(server, port, workers)``."""
+    from mxnet_tpu_torch.tools.launch import start_ps_server
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    ps = start_ps_server(port, 3, elastic=True, kind="python",
+                         env=TRAIN_FLEET_SERVER_ENV)
+    lm = [f"--{k}={v}" for k, v in TRAIN_FLEET_LM.items()]
+    workers = []
+    for rank in range(3):
+        env = dict(os.environ, **TRAIN_FLEET_WORKER_ENV,
+                   MXNET_PS_ADDR="127.0.0.1", MXNET_PS_PORT=str(port),
+                   DMLC_NUM_WORKER="3", DMLC_WORKER_ID=str(rank))
+        env.pop("MXNET_CHAOS_SLOW", None)
+        if chaos:
+            env["MXNET_CHAOS_SLOW"] = chaos
+        workers.append(subprocess.Popen(
+            [sys.executable, "-m", *_WORKER, "elastic_lm", "--device",
+             dev.type, *lm, f"--steps={TRAIN_FLEET_STEPS}"],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return ps, port, workers
+
+
+def _span_keys(tel):
+    return {(p.get("pid"), s.get("name"), s.get("ts"), s.get("tid"))
+            for p in tel["parts"] for s in p.get("spans") or ()
+            if s.get("ph") == "X"}
+
+
+def _train_fleet_pull(tag, port, outs):
+    """STATS and two telemetry pulls of one fleet's server, and its
+    workers' reports by rank."""
+    from mxnet_tpu_torch.kvstore.ps_client import PSClient
+    from mxnet_tpu_torch.obs import fleetstats
+
+    reports = {}
+    for out in outs:
+        for ln in out.splitlines():
+            if ln.startswith("ELASTIC_LM "):
+                rep = json.loads(ln[len("ELASTIC_LM "):])
+                reports[rep["rank"]] = rep
+    check(sorted(reports) == [0, 1, 2], f"train_fleet_path {tag}: worker "
+          f"reports {sorted(reports)}:\n" + "\n".join(o[-1500:]
+                                                      for o in outs))
+    cli = PSClient("127.0.0.1", port, timeout=30, retries=3,
+                   retry_interval=0.2)
+    try:
+        stats = cli.stats()
+    finally:
+        cli.close()
+    tel = fleetstats.collect("127.0.0.1", port)
+    again = fleetstats.collect("127.0.0.1", port)
+    check(not (_span_keys(tel) & _span_keys(again)),
+          f"train_fleet_path {tag}: a second pull repeated drained spans")
+    return stats, tel, reports
+
+
+def _ms_by_category(fleet):
+    return {r: {c: 1e3 * v for c, v in s["phases"].items()}
+            for r, s in sorted(fleet["ranks"].items())}
+
+
+def phase_train_fleet_path(torch, dev, smi):
+    """The training-fleet plane (A15(c)) on the card: two elastic fleets of
+    three full-width LM workers at once, one with rank 1's forward slowed
+    by ``MXNET_CHAOS_SLOW``. Its server must name rank 1 and blame its
+    compute within TRAIN_FLEET_MAX_WINDOW windows, the clean twin give no
+    verdict and book each rank's device time as compute; one pull merges
+    every rank's phases and the server's RPC lanes into one timeline
+    (``train_report``), and a second repeats no drained span. Then
+    ``elastic_bench``'s train-telemetry overhead leg on the card. Returns
+    the workers' flash launches."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch.tools import elastic_bench, train_report
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    chaos = f"1:forward@3-999:{TRAIN_FLEET_DELAY}"
+    fleets = {}
+    try:
+        fleets["injected"] = _train_fleet_start(dev, chaos)
+        fleets["clean"] = _train_fleet_start(dev, None)
+        with ThreadPoolExecutor(6) as ex:
+            futs = {tag: [ex.submit(w.communicate,
+                                    timeout=TRAIN_FLEET_TIMEOUT)
+                          for w in workers]
+                    for tag, (_ps, _port, workers) in fleets.items()}
+        outs = {tag: [f.result()[0] for f in fs] for tag, fs in futs.items()}
+        for tag, (_ps, _port, workers) in fleets.items():
+            for r, w in enumerate(workers):
+                check(w.returncode == 0, f"train_fleet_path {tag} rank {r} "
+                      f"exited {w.returncode}:\n{outs[tag][r][-3000:]}")
+        fleet_wall = time.perf_counter() - t_phase
+        pulled = {tag: _train_fleet_pull(tag, port, outs[tag])
+                  for tag, (_ps, port, _w) in fleets.items()}
+    finally:
+        for ps, _port, workers in fleets.values():
+            for w in workers:
+                if w.poll() is None:
+                    w.kill()
+                    w.wait()
+            ps.terminate()
+            ps.wait(timeout=10)
+            ps.stdout.close()
+
+    stats, tel, reports = pulled["injected"]
+    fleet = stats["fleet"]
+    check(fleet["stragglers"] and fleet["stragglers"][0]["rank"] == 1
+          and fleet["stragglers"][0]["blame"] == "compute",
+          f"train_fleet_path injected: stragglers {fleet['stragglers']}, "
+          f"ranks {fleet['ranks']}")
+    first = next(v for v in fleet["verdicts"] if v["kind"] == "straggler")
+    check(first["window"] <= TRAIN_FLEET_MAX_WINDOW,
+          f"train_fleet_path injected: first verdict at window "
+          f"{first['window']}")
+    ranks = fleet["ranks"]
+    check(ranks["1"]["phases"]["compute"]
+          > 2 * ranks["0"]["phases"]["compute"],
+          f"train_fleet_path injected: compute by rank {ranks}")
+    roles = {p.get("role") for p in tel["parts"]}
+    check({"ps_server", "rank0", "rank1", "rank2"} <= roles
+          and all(p.get("wall_epoch") is not None for p in tel["parts"]),
+          f"train_fleet_path injected: parts {roles}")
+    out_dir = os.path.join(_out_dir(), "train_fleet_path")
+    os.makedirs(out_dir, exist_ok=True)
+    doc = os.path.join(out_dir, "pulled.json")
+    merged_path = os.path.join(out_dir, "merged.json")
+    with open(doc, "w") as f:
+        json.dump(tel, f, default=float)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep = train_report.main(["--input", doc, "--trace", merged_path,
+                                 "--json"])
+    check("STRAGGLERS" in rep["report"] and "rank 1" in rep["report"],
+          f"train_fleet_path: train_report:\n{rep['report']}")
+    with open(merged_path) as f:
+        merged = json.load(f)
+    by_pid = {}
+    for e in merged["traceEvents"]:
+        if e.get("ph") == "X":
+            by_pid.setdefault(e["pid"], set()).add(e["name"])
+    srv_pid = next(p["pid"] for p in tel["parts"]
+                   if p.get("role") == "ps_server")
+    for p in tel["parts"]:
+        if str(p.get("role", "")).startswith("rank"):
+            check("forward" in by_pid.get(p["pid"], set()),
+                  f"train_fleet_path: no forward on {p['role']}'s lane")
+    check("kvstore.server.rpc" in by_pid.get(srv_pid, set()),
+          "train_fleet_path: no kvstore.server.rpc on the server's lane")
+
+    cstats, _ctel, creports = pulled["clean"]
+    cfleet = cstats["fleet"]
+    check(cfleet["stragglers"] == []
+          and not [v for v in cfleet["verdicts"]
+                   if v["kind"] == "straggler"],
+          f"train_fleet_path clean: verdicts {cfleet['verdicts']}")
+    device_fb = {}
+    for r, rep_r in sorted(creports.items()):
+        fb_s = sum(rep_r["fwd_bwd_ms"]) / len(rep_r["fwd_bwd_ms"]) / 1e3
+        comp = cfleet["ranks"][str(r)]["phases"]["compute"]
+        device_fb[r] = 1e3 * fb_s
+        check(comp >= TRAIN_FLEET_COMPUTE * fb_s,
+              f"train_fleet_path clean rank {r}: compute {comp} s a step "
+              f"below {TRAIN_FLEET_COMPUTE} x its forward+backward {fb_s}")
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    for tag in ("injected", "clean"):
+        for r, rep_r in sorted(pulled[tag][2].items()):
+            check(rep_r["steps"] == TRAIN_FLEET_STEPS,
+                  f"train_fleet_path {tag} rank {r}: {rep_r['steps']} steps")
+            check(rep_r["device"].startswith(dev.type),
+                  f"train_fleet_path {tag} rank {r} on {rep_r['device']}")
+            for k, v in rep_r["kernel_launches"].items():
+                check(v > 0 or not cuda,
+                      f"train_fleet_path {tag} rank {r}: {k} never ran")
+                launches[k] += v
+    t0 = time.perf_counter()
+    overhead = elastic_bench.run_train_obs_overhead(
+        steps=TRAIN_OBS_STEPS, warmup=10, repeats=3,
+        device="gpu" if cuda else "cpu")
+    overhead_wall = time.perf_counter() - t0
+    own = {r: 1e3 * (s["step_time_avg"] - s["phases"]["reduce_wait"])
+           for r, s in ranks.items()}
+    emit({"phase": "train_fleet_path", "card": smi,
+          "lm": TRAIN_FLEET_LM, "steps_a_rank": TRAIN_FLEET_STEPS,
+          "chaos": chaos, "window_steps": 2, "factor": 1.5, "k": 2,
+          "injected": {
+              "ms_by_category": _ms_by_category(fleet),
+              "step_ms": {r: 1e3 * s["step_time_avg"]
+                          for r, s in sorted(ranks.items())},
+              "own_ms": own, "stragglers": fleet["stragglers"],
+              "verdicts": fleet["verdicts"],
+              "detection_window": first["window"],
+              "first_slowed_window": 1,
+              "hot_keys": stats["hot_keys"],
+              "parts": sorted(r for r in roles if r),
+              "fwd_bwd_ms": {r: rep_r["fwd_bwd_ms"] for r, rep_r
+                             in sorted(reports.items())}},
+          "clean": {
+              "ms_by_category": _ms_by_category(cfleet),
+              "step_ms": {r: 1e3 * s["step_time_avg"]
+                          for r, s in sorted(cfleet["ranks"].items())},
+              "verdicts": cfleet["verdicts"],
+              "device_fwd_bwd_ms": device_fb,
+              "hot_keys": cstats["hot_keys"]},
+          "fleets_wall_s": fleet_wall,
+          "train_obs_overhead": overhead,
+          "train_obs_overhead_pct": overhead["train_obs_overhead_pct"],
+          "overhead_wall_s": overhead_wall,
+          "phase_wall_s": time.perf_counter() - t_phase,
+          "kernel_launches": launches})
+    return launches
 
 
 NP_SEED = 3
@@ -6304,6 +6610,7 @@ def main() -> int:
     dist = run(phase_dist_path, torch, dev, smi)
     mesh = run(phase_mesh_path, torch, dev, smi)
     serve_mesh = run(phase_serve_mesh_path, torch, dev, smi, zoo_ckpt)
+    train_fleet = run(phase_train_fleet_path, torch, dev, smi)
     before = [k.launches for k in own]
     run(phase_np_path, torch, dev, smi)
     check([k.launches for k in own] == before,
@@ -6314,7 +6621,7 @@ def main() -> int:
                       + gluon_launches[k] + estimator_launches[k]
                       + module_launches[k] + served[k] + fleet[k]
                       + observed[k] + dist[k] + mesh[k] + serve_mesh[k]
-                      for k in train_launches}
+                      + train_fleet[k] for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
@@ -6331,8 +6638,9 @@ def main() -> int:
         # path's (f32 and bf16), the estimator path's (f32), the module
         # path's (f32), the serve path's LM scoring (f32), the two
         # dist_sync LM workers' (f32, counted in the workers), the mesh
-        # path's ranks' (ring blocks, f32 and bf16) and the sharded
-        # serving path's tp-2 ranks' (f32, 6 of 12 heads each); the main
+        # path's ranks' (ring blocks, f32 and bf16), the sharded
+        # serving path's tp-2 ranks' (f32, 6 of 12 heads each) and the
+        # training-fleet path's six elastic workers' (f32); the main
         # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
         # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",

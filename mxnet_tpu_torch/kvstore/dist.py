@@ -29,8 +29,9 @@ over the PS wire (counterpart of ``mxnet_tpu/kvstore/dist.py``).
   rides the PS wire as a generation-scoped allreduce (``elastic.py``),
   so a SIGKILLed worker releases every wait over the survivors.
 
-The reference's hooks into the fleet-telemetry and straggler-injection
-planes are queue item A15 and left out.
+An elastic store pins the training-fleet plane's rank
+(``obs.fleetstats.set_rank``) and the straggler injector's
+(``chaos.slow.set_rank``) to its fleet rank when it joins.
 """
 from __future__ import annotations
 
@@ -197,6 +198,7 @@ class DistKVStore(KVStore):
         self._async_step = 0
         self._clock_floor = 0
         self._clock_max = 0
+        self._clock_widen = 0
         self._lr_comp = str(get_env("MXNET_ASYNC_LR_COMP", "1")).lower() \
             not in ("0", "false", "")
         # hierarchical elastic reduction: group size (0/1 = flat) and the
@@ -218,6 +220,13 @@ class DistKVStore(KVStore):
             self._elastic = elastic_mod.ElasticWorkerSession(
                 addr, port, rank=self._rank, expected=self._num_workers)
             self._elastic.ensure_joined()
+            # this process is fleet rank r: pin the step accounting and the
+            # straggler injector to it (both fall back to DMLC_WORKER_ID)
+            from ..chaos import slow as _chaos_slow
+            from ..obs import fleetstats as _fleetstats
+
+            _fleetstats.set_rank(self._rank)
+            _chaos_slow.set_rank(self._rank)
         else:
             self._init_process_group()
 
@@ -304,9 +313,13 @@ class DistKVStore(KVStore):
         if self._ps is None or self._async_staleness is None:
             return
         self._async_step = int(step)
-        floor, maxc, _widen = self._ps.push_clock(self._rank, int(step))
+        floor, maxc, widen = self._ps.push_clock(self._rank, int(step))
         self._clock_floor, self._clock_max = floor, maxc
-        obs.set_gauge("kvstore.async.clock_floor", floor)
+        self._clock_widen = widen  # the straggler policy's widening
+        if obs.enabled():
+            obs.set_gauge("kvstore.async.clock_floor", floor)
+            obs.set_gauge(f"kvstore.async.rank{self._rank}_lag",
+                          max(0, maxc - int(step)))
 
     def _lr_comp_scale(self) -> float:
         """A gradient ``lag`` steps behind the fleet's fastest committed

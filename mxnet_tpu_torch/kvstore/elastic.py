@@ -25,9 +25,13 @@ The server's durable state (:func:`capture_server_state`,
 (:class:`PushWAL`, the reference's record framing, so a log the reference
 wrote replays here) live here too.
 
-The reference's hooks into the fleet-telemetry, chaos, tsan and span
-planes (queue item A15) are left out: heartbeats carry no telemetry part,
-and no ``obs.event``/``obs.trace`` is emitted. Env knobs:
+The training-fleet plane rides this one: a :class:`Heartbeater` with a
+``part_provider`` carries the worker's telemetry part (``obs/fleetstats.py``
+``wire_part``) after the beat's 16-byte identity, and the membership,
+reduce and epoch paths emit the reference's ``elastic.*`` events and
+spans; the server records each reduce contributor's wait by rank. The
+reference's chaos and tsan hooks (queue item A15(f)) are left out. Env
+knobs:
 ``MXNET_ELASTIC``, ``MXNET_ELASTIC_HEARTBEAT_S``, ``MXNET_ELASTIC_MISS_K``,
 ``MXNET_ELASTIC_JOIN_TIMEOUT_S``, ``MXNET_ELASTIC_REDUCE_TIMEOUT_S``,
 ``MXNET_PS_WAL_FSYNC``.
@@ -117,10 +121,13 @@ class _Member:
 
 
 class _Round:
-    __slots__ = ("contribs", "expected")
+    __slots__ = ("contribs", "stamps", "expected")
 
     def __init__(self):
         self.contribs: Dict[int, np.ndarray] = {}
+        # cid -> arrival (monotonic): the reduce wait by rank, read at
+        # the round's release
+        self.stamps: Dict[int, float] = {}
         # a scoped round completes at this contributor count instead of
         # the full live membership; 0 = membership-scoped
         self.expected = 0
@@ -186,6 +193,7 @@ class ElasticState:
             self.shard_salt += 1
             salt = self.shard_salt
         obs.inc("elastic.shard_recuts")
+        obs.event("elastic.shard_recut_requested", salt=salt)
         return salt
 
     def liveness_table(self):
@@ -204,8 +212,10 @@ class ElasticState:
                 m = _Member(cid, rank, state, self.generation)
                 self.members[cid] = m
                 if state == "active":
-                    self._bump_generation()
+                    self._bump_generation("join", cid=cid, rank=rank)
                 obs.inc("elastic.joins")
+                obs.event("elastic.member_joined", cid=cid, rank=rank,
+                          state=state, generation=self.generation)
             elif m.state != "dead":
                 # a declared-dead cid's retries must not refresh last_hb,
                 # or the corpse would outlive the prune forever
@@ -223,7 +233,11 @@ class ElasticState:
             if m is None:
                 return ST_ERROR, self.generation, self.active_count()
             if m.state != "dead":
-                m.last_hb = time.monotonic()
+                now = time.monotonic()
+                # the liveness window's margin: a live gap near
+                # hb_interval * miss_k is a false death in waiting
+                obs.observe("elastic.heartbeat_gap_s", now - m.last_hb)
+                m.last_hb = now
             st = ST_OK if m.state == "active" else (
                 ST_QUARANTINED if m.state == "quarantined" else ST_STALE)
             return st, self.generation, self.active_count()
@@ -232,7 +246,7 @@ class ElasticState:
         with self.cv:
             m = self.members.pop(cid, None)
             if m is not None and m.state == "active":
-                self._bump_generation()
+                self._bump_generation("leave", cid=cid, rank=m.rank)
                 if not self.active_members():
                     # fleet takeover: quarantined joiners behind a fleet
                     # that left would wait for a boundary nobody reaches
@@ -242,11 +256,13 @@ class ElasticState:
             self._forget_member(cid, pruned=False)
         self._notify_change()
 
-    def _bump_generation(self):
+    def _bump_generation(self, reason: str, **attrs):
         """Caller holds cv."""
         self.generation += 1
         obs.set_gauge("elastic.generation", self.generation)
         obs.set_gauge("elastic.active_workers", self.active_count())
+        obs.event("elastic.generation_bump", reason=reason,
+                  generation=self.generation, **attrs)
 
     # -- liveness monitor ------------------------------------------------
     def _ensure_monitor(self):
@@ -281,6 +297,9 @@ class ElasticState:
                         m.state = "dead"
                         changed = True
                         obs.inc("elastic.deaths")
+                        obs.event("elastic.member_dead", cid=m.cid,
+                                  rank=m.rank,
+                                  heartbeat_age_s=round(now - m.last_hb, 3))
                     elif m.state == "dead" \
                             and now - m.last_hb > prune_after:
                         del self.members[m.cid]
@@ -294,7 +313,7 @@ class ElasticState:
                     obs.set_gauge("kvstore.live_workers",
                                   self.active_count())
                 if changed:
-                    self._bump_generation()
+                    self._bump_generation("death")
                     # every active died while joiners wait quarantined:
                     # activate them, or they wait for a boundary forever
                     if not self.active_members():
@@ -351,6 +370,8 @@ class ElasticState:
             r = self._rounds.setdefault(ck, _Round())
             if expected:
                 r.expected = max(r.expected, int(expected))
+            if cid not in r.contribs:
+                r.stamps[cid] = time.monotonic()
             r.contribs.setdefault(cid, arr)  # dedup a duplicated frame
             self._try_complete_round_locked(ck)
             deadline = time.monotonic() + timeout
@@ -391,6 +412,20 @@ class ElasticState:
             self._completed.popitem(last=False)
         del self._rounds[ck]
         obs.inc("elastic.reduce_rounds")
+        if obs.enabled() and r.stamps:
+            # the reduce wait by rank: release minus arrival; the rank
+            # that arrived last is what the fleet stood waiting on
+            now = time.monotonic()
+            last_cid = max(r.stamps, key=lambda c: r.stamps[c])
+            for cid_, t0 in r.stamps.items():
+                m = self.members.get(cid_)
+                if m is not None:
+                    obs.observe(
+                        f"kvstore.reduce_wait.rank{m.rank}_seconds",
+                        now - t0)
+            m = self.members.get(last_cid)
+            if m is not None:
+                obs.inc(f"kvstore.reduce_last_arriver.rank{m.rank}")
         if not r.expected and set(r.contribs) != required:
             obs.inc("elastic.reduce_partial")  # a member died mid-round
         self.cv.notify_all()
@@ -454,13 +489,16 @@ class ElasticState:
         required = {m.cid for m in self.active_members()}
         if not required or not required.issubset(self._epoch_arrived):
             return
-        self._activate_quarantined_locked()
+        activated = self._activate_quarantined_locked()
         self._epoch_arrived.clear()
         # reduce rounds are scoped to the epoch: clearing the tables lets
         # numbering restart at 0, which is how a rejoiner syncs its count
         self._rounds.clear()
         self._completed.clear()
         self.epoch += 1
+        obs.event("elastic.epoch_released", epoch=self.epoch,
+                  generation=self.generation, activated=activated,
+                  active=self.active_count())
         self.cv.notify_all()
 
     def _takeover_locked(self) -> int:
@@ -480,8 +518,10 @@ class ElasticState:
         for m in joiners:
             m.state = "active"
             obs.inc("elastic.rejoins")
+            obs.event("elastic.member_activated", cid=m.cid, rank=m.rank)
         if joiners:
-            self._bump_generation()
+            self._bump_generation("activate",
+                                  ranks=[m.rank for m in joiners])
         return len(joiners)
 
     def _release_reply_locked(self, cid):
@@ -594,6 +634,10 @@ def install_server_state(server, state) -> None:
                 el.members[int(cid)] = _Member(int(cid), int(rank), mstate,
                                                el.generation)
         el._ensure_monitor()  # a stale restored member is still reaped
+    obs.event("elastic.ps_warm_restart",
+              keys=len([k for k in state.arrays if k.startswith("w:")]),
+              seq_entries=len(state.meta.get("seq", [])),
+              generation=state.meta.get("generation"))
 
 
 class PushWAL:
@@ -739,13 +783,18 @@ class Heartbeater:
     """Background heartbeats on their own socket (a blocking reduce on the
     main client's connection must never delay one). Connection failures
     back off and never raise: a missing server looks like missed
-    heartbeats, which is what the liveness monitor is for."""
+    heartbeats, which is what the liveness monitor is for.
+
+    ``part_provider``: a callable whose bytes (the training-fleet plane's
+    ``wire_part``) ride the beat after its 16-byte identity; None or an
+    empty return sends the bare beat."""
 
     def __init__(self, host: str, port: int, cid: int, rank: int,
-                 interval: Optional[float] = None):
+                 interval: Optional[float] = None, part_provider=None):
         self._addr = (host, port)
         self._cid = cid
         self._rank = rank
+        self._part_provider = part_provider
         self.interval = (heartbeat_interval() if interval is None
                          else float(interval))
         self._sock = None
@@ -754,6 +803,7 @@ class Heartbeater:
         self.generation = 0
         self.active_count = 0
         self._failures = 0
+        self._final = False
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="mxt-elastic-heartbeat")
         self._thread.start()
@@ -765,13 +815,25 @@ class Heartbeater:
         from .ps_server import _recv_msg, _send_msg
 
         payload = struct.pack("<QQ", self._cid, self._rank)
+        # a drained part is destructive state: a send that failed keeps
+        # the blob for the next beat instead of losing the rank's windows
+        pending = b""
         while not self._stop.is_set():
             try:
                 if self._sock is None:
                     self._sock = _socket.create_connection(
                         self._addr, timeout=max(2.0, self.interval * 4))
                     configure_socket_keepalive(self._sock)
-                _send_msg(self._sock, OP_HB, "", payload)
+                if not pending and self._part_provider is not None:
+                    try:
+                        pending = self._part_provider() or b""
+                    except Exception:  # noqa: BLE001 — telemetry must
+                        pending = b""  # never break the heartbeat
+                _send_msg(self._sock, OP_HB, "", payload + pending)
+                # cleared once sent, not at the ack: a lost reply would
+                # otherwise ship the part twice (windows are keyed by
+                # index, spans are not)
+                pending = b""
                 _, _, reply = _recv_msg(self._sock)
                 self._failures = 0
                 if len(reply) >= 13:
@@ -793,13 +855,41 @@ class Heartbeater:
                                                self.interval * 4))
                 continue
             self._stop.wait(self.interval)
+        if self._final and self._part_provider is not None:
+            self._last_beat(payload, pending)
         if self._sock is not None:
             try:
                 self._sock.close()
             except OSError:
                 pass
 
-    def stop(self):
+    def _last_beat(self, payload, pending):
+        """One beat more on a clean stop, carrying what the provider holds
+        (the fit's last sealed windows): nothing is left unshipped when
+        the session leaves."""
+        import socket as _socket
+
+        from .ps_server import _recv_msg, _send_msg
+
+        try:
+            if not pending:
+                pending = self._part_provider() or b""
+            if not pending:
+                return
+            if self._sock is None:
+                self._sock = _socket.create_connection(
+                    self._addr, timeout=max(2.0, self.interval * 4))
+            _send_msg(self._sock, OP_HB, "", payload + pending)
+            _recv_msg(self._sock)
+            obs.inc("elastic.heartbeats")
+        except Exception:  # noqa: BLE001 — the server may be gone already
+            obs.inc("elastic.heartbeat_failures")
+
+    def stop(self, final: bool = False):
+        """End the beats; ``final``: a clean leave's one last beat with
+        the part not yet shipped (a silenced member, as the liveness tests
+        make one, sends nothing more)."""
+        self._final = final
         self._stop.set()
         self._thread.join(timeout=5)
         if self._thread.is_alive():
@@ -814,7 +904,8 @@ class ElasticWorkerSession:
     def __init__(self, host: str, port: int, rank: int = 0,
                  expected: Optional[int] = None,
                  hb_interval: Optional[float] = None,
-                 reduce_timeout: Optional[float] = None):
+                 reduce_timeout: Optional[float] = None,
+                 part_provider="auto"):
         from .ps_client import PSClient
 
         self._cli = PSClient(host, port, timeout=30.0, retries=8,
@@ -829,6 +920,14 @@ class ElasticWorkerSession:
         self._reduce_timeout = (_reduce_timeout() if reduce_timeout is None
                                 else float(reduce_timeout))
         self._hb_interval = hb_interval
+        # "auto": this process's step accounting (obs/fleetstats.py) rides
+        # the heartbeats; in-process fleets pass each rank's wire_part,
+        # None sends bare beats
+        if part_provider == "auto":
+            from ..obs import fleetstats as _fleetstats
+
+            part_provider = _fleetstats.wire_part
+        self._part_provider = part_provider
         self._hb: Optional[Heartbeater] = None
         self._round = 0
         self._joined: Optional[JoinInfo] = None
@@ -848,7 +947,8 @@ class ElasticWorkerSession:
         if self._hb is None:
             self._hb = Heartbeater(self._cli._addr[0], self._cli._addr[1],
                                    self.cid, self.rank,
-                                   interval=self._hb_interval)
+                                   interval=self._hb_interval,
+                                   part_provider=self._part_provider)
         if (info.active and wait_for_expected and self._expected
                 and info.active_count < self._expected):
             deadline = time.monotonic() + timeout
@@ -877,9 +977,13 @@ class ElasticWorkerSession:
         quarantined worker; returns the assignment after activation."""
         timeout = _join_timeout() if timeout is None else float(timeout)
         obs.inc("elastic.quarantine_waits")
-        info = self._epoch_rpc(WAIT_ACTIVATION, timeout)
+        with obs.trace.span("elastic.await_activation"):
+            info = self._epoch_rpc(WAIT_ACTIVATION, timeout)
         self._round = 0
         self._joined = info
+        obs.event("elastic.activated", epoch=info.epoch,
+                  generation=info.generation, part=info.part_index,
+                  nparts=info.num_parts)
         return info
 
     # -- collectives ----------------------------------------------------
@@ -887,15 +991,17 @@ class ElasticWorkerSession:
                   timeout: Optional[float] = None):
         """Generation-scoped sum over the live fleet: ``(summed,
         contributors)``. Retries are idempotent."""
-        from .ps_server import _pack_array, _unpack_array
+        from .ps_server import _array_parts, _unpack_array
 
         timeout = self._reduce_timeout if timeout is None else float(timeout)
         # the wait bound rides in the request, so the server answers
-        # before the client's socket gives up
-        payload = (struct.pack("<QQd", self.cid, self._round, timeout)
-                   + _pack_array(np.ascontiguousarray(arr)))
-        _, _, reply = self._cli._rpc(OP_REDUCE, key, payload,
-                                     timeout=timeout + 10.0)
+        # before the client's socket gives up; the array goes as a view
+        payload = ([struct.pack("<QQd", self.cid, self._round, timeout)]
+                   + _array_parts(np.ascontiguousarray(arr)))
+        with obs.trace.span("elastic.allreduce", key=key,
+                            round=self._round):
+            _, _, reply = self._cli._rpc(OP_REDUCE, key, payload,
+                                         timeout=timeout + 10.0)
         st, gen, contributors = struct.unpack_from("<BQI", reply, 0)
         if st == ST_STALE:
             raise StaleMemberError(
@@ -905,9 +1011,12 @@ class ElasticWorkerSession:
             raise ElasticError(
                 f"elastic reduce timed out for key {key!r} round "
                 f"{self._round} (generation {gen})")
-        self.generation = gen
+        if gen != self.generation:
+            obs.event("elastic.generation_observed", generation=gen,
+                      contributors=contributors)
+            self.generation = gen
         self._round += 1
-        return _unpack_array(reply[13:]), contributors
+        return _unpack_array(reply[13:], copy=False), contributors
 
     def allreduce_scoped(self, key: str, arr: np.ndarray, expected: int,
                          round_id: int, timeout: Optional[float] = None,
@@ -923,8 +1032,10 @@ class ElasticWorkerSession:
                 if payload is None else payload)
         req = (struct.pack("<QQdI", self.cid, int(round_id), timeout,
                            int(expected)) + body)
-        _, _, reply = self._cli._rpc(OP_REDUCE_SCOPED, key, req,
-                                     timeout=timeout + 10.0)
+        with obs.trace.span("elastic.allreduce_scoped", key=key,
+                            round=int(round_id), expected=int(expected)):
+            _, _, reply = self._cli._rpc(OP_REDUCE_SCOPED, key, req,
+                                         timeout=timeout + 10.0)
         st, gen, contributors = struct.unpack_from("<BQI", reply, 0)
         if st == ST_STALE:
             raise StaleMemberError(
@@ -942,7 +1053,8 @@ class ElasticWorkerSession:
         arrives, activates quarantined rejoiners and returns the possibly
         recut shard assignment. Resets the reduce-round numbering."""
         timeout = _join_timeout() if timeout is None else float(timeout)
-        info = self._epoch_rpc(int(epoch), timeout)
+        with obs.trace.span("elastic.epoch_end", epoch=epoch):
+            info = self._epoch_rpc(int(epoch), timeout)
         prev = self._joined
         info.changed = (prev is None
                         or prev.part_index != info.part_index
@@ -981,7 +1093,7 @@ class ElasticWorkerSession:
 
     def close(self):
         if self._hb is not None:
-            self._hb.stop()
+            self._hb.stop(final=True)
             self._hb = None
         self.leave()
         self._cli.close()

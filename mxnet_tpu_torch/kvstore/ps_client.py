@@ -7,9 +7,12 @@ like a slow RPC, not a worker crash. Dense and sparse pushes carry a
 ``(client_id, seq)`` token the server dedups on and ``barrier()`` a
 barrier-epoch token, so the retry path is exactly-once end to end.
 
-The reference's chaos and trace-context hooks (frame drops, the key's
-trace-context suffix) are queue item A15 and left out: keys go on the
-wire as given.
+Each attempt runs under a ``kvstore.rpc`` span; inside a traced flow the
+key carries that span's context after ``\x1f`` (``obs/context.py``), which
+the python server strips before any lookup, so both halves of an RPC share
+one trace id. Outside a trace keys go on the wire as given. Retries count
+``kvstore.rpc.retries`` and their backoff. The reference's chaos hooks
+(frame drops and duplicates, queue item A15(f)) are left out.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import time
 import numpy as np
 
 from .. import obs
+from ..obs import context as obs_context
 from ..base import (MXNetError, capped_backoff, configure_socket_keepalive,
                     get_env)
 from .elastic import (OP_CLOCK, OP_CLOCK_PULL, OP_HB, OP_PULL_STALE, ST_OK,
@@ -111,11 +115,22 @@ class PSClient:
                     self._sock.settimeout(timeout)
                 rec = obs.enabled()
                 t0 = time.monotonic() if rec else 0.0
-                _send_msg(self._sock, opcode, key, payload)
-                reply = _recv_msg(self._sock)
+                with obs.trace.span("kvstore.rpc", op=opname, key=key,
+                                    attempt=attempt):
+                    # inside a traced flow the key carries this span's
+                    # context; the python server strips it before lookup
+                    wire_key = obs_context.inject_key(
+                        key, obs_context.current())
+                    _send_msg(self._sock, opcode, wire_key, payload)
+                    reply = _recv_msg(self._sock)
                 if rec:
                     obs.observe(f"kvstore.rpc.{opname}_seconds",
                                 time.monotonic() - t0)
+                    if opname in ("push", "push_seq", "push_sparse",
+                                  "push_sparse_seq", "init"):
+                        obs.inc("kvstore.bytes_pushed", len(payload))
+                    elif opname in ("pull", "pull_sparse"):
+                        obs.inc("kvstore.bytes_pulled", len(reply[2]))
                 if timeout is not None:
                     self._sock.settimeout(self._timeout)
                 self._last_io = time.monotonic()
@@ -128,9 +143,14 @@ class PSClient:
                     except OSError:
                         pass
                     self._sock = None
-                obs.inc("kvstore.rpc.retries")
-                time.sleep(capped_backoff(attempt, self._retry_interval,
-                                          self._retry_max_interval))
+                delay = capped_backoff(attempt, self._retry_interval,
+                                       self._retry_max_interval)
+                if obs.enabled():
+                    obs.inc("kvstore.rpc.retries")
+                    obs.observe("kvstore.rpc.backoff_seconds", delay)
+                    obs.trace.event("kvstore.rpc.retry", op=opname, key=key,
+                                    attempt=attempt, error=str(e))
+                time.sleep(delay)
         obs.inc("kvstore.rpc.failures")
         raise MXNetError(
             f"PS rpc op={opcode} key={key!r} failed after "
@@ -280,8 +300,13 @@ class PSClient:
             "kvstore barrier timed out waiting for stragglers" + detail)
 
     def telemetry(self, drain: bool = True) -> dict:
-        """``OP_TELEMETRY``: the training-fleet statistics are queue item
-        A15 of the port, and the port's server refuses it."""
+        """The training-fleet telemetry document (``OP_TELEMETRY``):
+        ``{"parts": [...]}``, the server's own part (its RPC lanes and
+        STATS, with the straggler verdicts and hot keys) and every cached
+        worker part. Draining is destructive and ``_rpc`` retries lost
+        replies, so the request carries a fresh collection token: a
+        retried frame gets the server's cached reply instead of draining
+        a second batch."""
         spec = {"drain": bool(drain), "token": os.urandom(8).hex()}
         _, _, reply = self._rpc(OP_TELEMETRY, "",
                                 json.dumps(spec).encode("utf-8"))
@@ -291,7 +316,9 @@ class PSClient:
         return json.loads(bytes(reply[1:]).decode("utf-8"))
 
     def stats(self, include_metrics: bool = True) -> dict:
-        """The server's STATS document (``OP_STATS``)."""
+        """The server's STATS (``OP_STATS``): membership liveness, the
+        training-fleet section, hot keys, the async clocks and, by
+        default, the metrics snapshot under ``"metrics"``."""
         payload = b"" if include_metrics \
             else json.dumps({"metrics": False}).encode("utf-8")
         _, _, reply = self._rpc(OP_STATS, "", payload)

@@ -31,12 +31,22 @@ weights, optimizer state, the seq-dedup table and the membership through
 write-ahead log (``elastic.PushWAL``, the reference's record framing), so
 a warm restart loses no acked push and applies none twice.
 
-Refused, each with an error reply: a ``SET_OPT`` payload that is not the
-text spec (the reference's legacy pickle blob, whose unpickling would
-import the reference package), and ``OP_TELEMETRY`` (the training-fleet
-statistics, a plane of queue item A15). ``OP_STATS`` answers without the
-fleet and hot-key sections, which belong to the same plane. A key's
-trace-context suffix (``obs/context.py``) is stripped before any lookup.
+The training-fleet plane (``obs/fleetstats.py``) lives here too: worker
+parts piggybacked on heartbeats feed ``self.fleet`` (a
+``FleetAggregator`` judging over the live ranks), ``OP_TELEMETRY`` answers
+with the server's own part (its ``kvstore.server.rpc`` lanes and STATS)
+and every cached worker part, exactly once under retries, and
+``OP_STATS`` carries the ``fleet``, ``hot_keys`` and clock ``widen``
+sections. In async mode a straggler verdict actuates: compute blame widens
+the blamed rank's staleness bound by ``MXNET_ASYNC_WIDEN`` (capped at
+``MXNET_ASYNC_MAX_STALENESS``), data-wait blame requests a shard recut,
+a recovery narrows it back. A key's trace-context suffix
+(``obs/context.py``) is stripped before any lookup, and the RPC runs
+under a ``kvstore.server.rpc`` span in that context.
+
+Refused with an error reply: a ``SET_OPT`` payload that is not the text
+spec (the reference's legacy pickle blob, whose unpickling would import
+the reference package).
 
 Run one with ``python -m mxnet_tpu_torch.kvstore.ps_server --port P
 --num-workers N``.
@@ -83,14 +93,23 @@ OP_NAMES = dict(PS_WIRE.names())
 _BF16 = DTYPE_TO_CODE["bfloat16"]
 
 
-def _pack_array(arr) -> bytes:
+def _array_parts(arr) -> list:
+    """One packed array as ``[header, elements]`` buffer parts for
+    ``_send_msg``: a numpy array's elements go as a view, not a copy."""
     arr = host_array(arr)  # numpy, or a CPU bfloat16 tensor
     code = _BF16 if isinstance(arr, torch.Tensor) \
         else DTYPE_TO_CODE[arr.dtype.name]
     shape = tuple(arr.shape)
-    return (struct.pack("<B", len(shape)) + struct.pack(f"<{len(shape)}I",
-                                                        *shape)
-            + struct.pack("<B", code) + raw_bytes(arr))
+    head = (struct.pack("<B", len(shape))
+            + struct.pack(f"<{len(shape)}I", *shape) + struct.pack("<B", code))
+    if isinstance(arr, torch.Tensor):
+        return [head, raw_bytes(arr)]
+    return [head, memoryview(np.ascontiguousarray(arr).reshape(-1)
+                             .view(np.uint8))]
+
+
+def _pack_array(arr) -> bytes:
+    return b"".join(_array_parts(arr))
 
 
 def _array_nbytes(buf: memoryview) -> int:
@@ -114,7 +133,10 @@ def _itemsize(code: int) -> int:
     return np.dtype(CODE_TO_DTYPE[code]).itemsize
 
 
-def _unpack_array(buf: memoryview):
+def _unpack_array(buf: memoryview, copy: bool = True):
+    """One packed array. ``copy=False`` keeps a writable buffer's bytes as
+    the array's storage (a frame from ``_recv_exact`` is one buffer of its
+    own); a read-only buffer is copied either way."""
     ndim = struct.unpack_from("<B", buf, 0)[0]
     shape = struct.unpack_from(f"<{ndim}I", buf, 1)
     code = struct.unpack_from("<B", buf, 1 + 4 * ndim)[0]
@@ -132,8 +154,8 @@ def _unpack_array(buf: memoryview):
         return torch.from_numpy(bits.reshape(shape).copy()).view(
             torch.bfloat16)
     data = np.frombuffer(buf, dtype=np.dtype(CODE_TO_DTYPE[code]),
-                         offset=off)
-    return data.reshape(shape).copy()
+                         offset=off).reshape(shape)
+    return data if data.flags.writeable and not copy else data.copy()
 
 
 def _pack_sparse(indices: np.ndarray, rows: np.ndarray) -> bytes:
@@ -197,15 +219,18 @@ def _send_parts(sock, parts) -> None:
                 sent = 0
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
-    chunks = []
-    while n:
-        c = sock.recv(min(n, 1 << 20))
-        if not c:
+def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+    """``n`` bytes, received straight into one new buffer (no joined
+    chunks: a frame of gradients is copied once, by the socket)."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], min(n - got, 1 << 20))
+        if not k:
             raise ConnectionError("peer closed")
-        chunks.append(c)
-        n -= len(c)
-    return chunks[0] if len(chunks) == 1 else b"".join(chunks)
+        got += k
+    return buf
 
 
 def _recv_msg(sock: socket.socket):
@@ -265,18 +290,37 @@ class PSServer:
         # re-acks one that arrives after the round completed
         self._barrier_arrived: Dict = {}
         self._barrier_released: "OrderedDict" = OrderedDict()
+        self._barrier_stamps: Dict = {}  # token -> arrival (monotonic)
         self._barrier_cv = threading.Condition()
-        # bounded-staleness async clocks: rank -> last COMPLETED step, and
-        # the cid -> rank table. Made before _init_durability, which
+        # the training-fleet plane: worker parts cached off heartbeats and
+        # the straggler detector over them; OP_TELEMETRY drains exactly
+        # once through the collection-token LRU
+        from ..obs import fleetstats as _fleetstats
+
+        self.fleet = _fleetstats.FleetAggregator(
+            member_ranks=self._live_ranks)
+        self._hot_keys = _fleetstats.HotKeyTable()
+        self._telemetry_tokens: "OrderedDict" = OrderedDict()
+        self._telemetry_lock = threading.Lock()
+        # bounded-staleness async clocks: rank -> last COMPLETED step, the
+        # cid -> rank table and the staleness widening the straggler
+        # policy grants a rank. Made before _init_durability, which
         # max-merges a snapshot's clocks into them. Lock order: _clock_cv
         # may take the elastic cv, never the reverse.
         self._clock: Dict[int, int] = {}
         self._clock_rank: Dict[int, int] = {}
+        self._staleness_widen: Dict[int, int] = {}
         self._clock_cv = threading.Condition()
         if async_staleness is None:
             env = get_env("MXNET_ASYNC_STALENESS", None)
             async_staleness = int(env) if env is not None else None
         self._async_staleness = async_staleness
+        self._async_widen_step = get_env("MXNET_ASYNC_WIDEN", 2, int)
+        self._async_max_staleness = get_env(
+            "MXNET_ASYNC_MAX_STALENESS", 16, int)
+        if self._async_staleness is not None:
+            # verdicts actuate in async mode only: sync fleets just report
+            self.fleet.on_straggler(self._policy_on_straggler)
         self._started = time.monotonic()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -322,7 +366,8 @@ class PSServer:
                 hb, miss = self._elastic_cfg
                 self._elastic = elastic_mod.ElasticState(
                     hb_interval=hb, miss_k=miss,
-                    on_change=[self._on_membership_change])
+                    on_change=[self._on_membership_change],
+                    on_prune=[self.fleet.forget])
             return self._elastic
 
     def _on_membership_change(self):
@@ -334,6 +379,8 @@ class PSServer:
             self._clock_cv.notify_all()
 
     def _live_ranks(self):
+        """The active members' ranks (None without a membership plane):
+        the fleet aggregator judges a window once each has reported."""
         el = self._elastic
         if el is None:
             return None
@@ -363,12 +410,12 @@ class PSServer:
         return min(self._clock.values())
 
     def _clock_bounds_locked(self):
-        """Caller holds ``_clock_cv``: (floor, max clock, widening). The
-        widening is the straggler policy's, a plane of queue item A15:
-        always 0 here."""
+        """Caller holds ``_clock_cv``: (floor, max clock, the straggler
+        policy's widening)."""
         floor = self._clock_floor_locked()
         maxc = max(self._clock.values()) if self._clock else 0
-        return floor, maxc, 0
+        widen = max(self._staleness_widen.values(), default=0)
+        return floor, maxc, widen
 
     def _advance_clock(self, cid: int, rank: int, step: int) -> bool:
         """Commit "rank FINISHED step": max-merged (a retried or reordered
@@ -383,6 +430,47 @@ class PSServer:
         if advanced and self._wal is not None:
             self._wal.append(4, cid, step, str(rank), b"")
         return advanced
+
+    def _policy_on_straggler(self, verdict: dict):
+        """The async straggler policy (an ``on_straggler`` hook): compute
+        blame widens the staleness bound for the blamed rank (fast ranks
+        run further ahead instead of stalling at the gate), data-wait
+        blame requests a shard recut at the next epoch boundary, and a
+        recovery withdraws the widening. Runs on a heartbeat handler
+        thread and returns at once; ``FleetAggregator`` counts its
+        errors."""
+        kind = verdict.get("kind")
+        rank = verdict.get("rank")
+        if rank is None:
+            return
+        if kind == "recovered":
+            with self._clock_cv:
+                narrowed = self._staleness_widen.pop(rank, None)
+                if narrowed is not None:
+                    self._clock_cv.notify_all()
+            if narrowed is not None:
+                obs.event("train.async.staleness_narrowed", rank=rank,
+                          was=narrowed)
+            return
+        if kind != "straggler":
+            return
+        blame = verdict.get("blame")
+        if blame == "data_wait" and self._elastic is not None:
+            self._elastic.request_recut()
+            obs.event("train.async.shard_recut", rank=rank, blame=blame)
+            return
+        base = self._async_staleness or 0
+        with self._clock_cv:
+            cur = self._staleness_widen.get(rank, 0)
+            new = min(cur + self._async_widen_step,
+                      max(0, self._async_max_staleness - base))
+            if new != cur:
+                self._staleness_widen[rank] = new
+                self._clock_cv.notify_all()
+        if new != cur:
+            obs.inc("train.async.staleness_widened")
+            obs.event("train.async.staleness_widened", rank=rank,
+                      widen=new, blame=blame or "compute")
 
     def _init_durability(self):
         from ..checkpoint.manager import CheckpointManager
@@ -518,19 +606,25 @@ class PSServer:
                 opcode, key, payload = _recv_msg(conn)
                 # strip the wire's trace context before any key lookup: a
                 # context-bearing key must hit the same weight/lock/seq
-                # tables as its plain form (the PS plane's spans are
-                # queue item A15 of the port: the context goes unused)
-                key, _wctx = obs_context.extract_key(key)
+                # tables as its plain form
+                key, wctx = obs_context.extract_key(key)
                 rec = obs.enabled()
                 t0 = time.monotonic() if rec else 0.0
                 if rec:
                     obs.inc("kvstore.server.bytes_received", len(payload))
-                alive = self._handle_one(conn, opcode, key, payload)
-                if rec:
-                    obs.observe(
-                        "kvstore.server.rpc."
-                        f"{OP_NAMES.get(opcode, str(opcode))}_seconds",
-                        time.monotonic() - t0)
+                try:
+                    # the server's span joins the worker's trace: both
+                    # halves of an RPC on the merged timeline
+                    with obs_context.use(wctx), obs.trace.span(
+                            "kvstore.server.rpc",
+                            op=OP_NAMES.get(opcode, str(opcode)), key=key):
+                        alive = self._handle_one(conn, opcode, key, payload)
+                finally:
+                    if rec:
+                        obs.observe(
+                            "kvstore.server.rpc."
+                            f"{OP_NAMES.get(opcode, str(opcode))}_seconds",
+                            time.monotonic() - t0)
                 if not alive:
                     return
         except (ConnectionError, OSError):
@@ -571,24 +665,45 @@ class PSServer:
                 return True
             cid, seq = struct.unpack_from("<QQ", payload, 0)
             grad = _unpack_array(payload[16:])
+            rec = obs.enabled()
+            t_apply = t_wal = 0.0
             with self._locks[key]:
                 with self._seq_lock:
                     fresh = self._applied_seq.get((cid, key), -1) < seq
                 if fresh:
+                    t0 = time.monotonic() if rec else 0.0
                     self._apply_dense(key, grad)
+                    if rec:
+                        t_apply = time.monotonic() - t0
                     # recorded only after the apply succeeded
                     with self._seq_lock:
                         self._record_seq(cid, key, seq)
                     if self._wal is not None:
                         # durable before the ack: an acked push is never
                         # resent, so it must survive a SIGKILL here
+                        t0 = time.monotonic() if rec else 0.0
                         self._wal.append(0, cid, seq, key,
                                          bytes(payload[16:]))
+                        if rec:
+                            t_wal = time.monotonic() - t0
+            if rec and fresh:
+                # the reduce plane's split: the optimizer's apply against
+                # the WAL append, and the bounded hot-key table
+                obs.observe("kvstore.server.push.apply_seconds", t_apply)
+                if self._wal is not None:
+                    obs.observe("kvstore.server.push.wal_seconds", t_wal)
+                self._hot_keys.record(key, len(payload) - 16, t_apply)
             _send_msg(conn, OP_PUSH_SEQ, key, b"\x00")
         elif opcode == OP_PULL:
+            rec = obs.enabled()
+            t0 = time.monotonic() if rec else 0.0
             with self._locks.get(key, self._global_lock):
                 arr = self._weights[key]
             _send_msg(conn, OP_PULL, key, _pack_array(arr))
+            if rec:
+                # the serialize half of the per-RPC split
+                obs.observe("kvstore.server.pull.serialize_seconds",
+                            time.monotonic() - t0)
         elif opcode == OP_PUSH_SPARSE:
             # only the touched rows cross the wire; a bad key or an
             # out-of-range index replies \x01 and corrupts nothing
@@ -639,11 +754,13 @@ class PSServer:
                       b"\x00" if ok else b"\x01" + detail)
         elif opcode == OP_HB:
             # an empty payload is a connection-liveness ping: it replies
-            # without touching membership. A payload past the 16-byte
-            # identity would be a fleet-telemetry part (queue item A15):
-            # the beat counts, the part is dropped
+            # without touching membership. Bytes past the 16-byte identity
+            # are the worker's training-fleet part
+            part_blob = cid = None
             if len(payload) >= 16:
                 cid, _rank = struct.unpack_from("<QQ", payload, 0)
+                if len(payload) > 16:
+                    part_blob = payload[16:]
                 st, gen, count = self._elastic_state().heartbeat(cid)
             elif self._elastic is not None:
                 with self._elastic.cv:
@@ -652,6 +769,11 @@ class PSServer:
             else:
                 st, gen, count = ST_OK, 0, 0
             _send_msg(conn, OP_HB, key, struct.pack("<BQI", st, gen, count))
+            if part_blob is not None:
+                # ingested after the beat refreshed liveness and was acked:
+                # judging and the policy hooks can never turn a received
+                # heartbeat into a missed one
+                self.fleet.add_part(cid, part_blob)
         elif opcode == OP_JOIN:
             cid, rank = struct.unpack_from("<QQ", payload, 0)
             state, gen, epoch, part, nparts, count = \
@@ -672,14 +794,17 @@ class PSServer:
             cid, round_id, wait = struct.unpack_from("<QQd", payload, 0)
             expected = (struct.unpack_from("<I", payload, 24)[0]
                         if opcode == OP_REDUCE_SCOPED else 0)
-            arr = _unpack_array(payload[head:])
+            # summed, never written: the frame's buffer is its storage
+            arr = _unpack_array(payload[head:], copy=False)
             st, gen, n, result = self._elastic.reduce(
                 cid, key, round_id, arr,
                 timeout=max(1.0, min(float(wait), 3600.0)),
                 expected=int(expected))
+            # the released sum goes out as a view: one array, read by
+            # every contributor's handler, copied by none
             _send_msg(conn, opcode, key,
-                      struct.pack("<BQI", st, gen, n)
-                      + (_pack_array(result) if st == ST_OK else b""))
+                      [struct.pack("<BQI", st, gen, n)]
+                      + (_array_parts(result) if st == ST_OK else []))
         elif opcode == OP_EPOCH:
             if self._elastic is None or len(payload) < 24:
                 _send_msg(conn, OP_EPOCH, key,
@@ -750,20 +875,53 @@ class PSServer:
                       [struct.pack("<BQQ", ST_OK, floor, maxc),
                        _pack_array(arr)])
         elif opcode == OP_TELEMETRY:
-            _send_msg(conn, OP_TELEMETRY, key,
-                      b"\x01MXNetError: OP_TELEMETRY: the training-fleet "
-                      b"statistics are queue item A15 of the port")
+            # this server's part and every cached worker part. Draining is
+            # destructive and clients retry lost replies, so a collection
+            # token re-serves the cached reply instead of draining twice
+            try:
+                spec = json.loads(bytes(payload).decode("utf-8")) \
+                    if len(payload) else {}
+                token = spec.get("token")
+                drain = bool(spec.get("drain", True))
+                if token is None:
+                    blob = json.dumps(self.telemetry(drain=drain),
+                                      default=float).encode("utf-8")
+                else:
+                    # lookup and drain under one lock hold: a retried
+                    # token racing its original's drain must not miss the
+                    # cache and drain a second batch
+                    with self._telemetry_lock:
+                        blob = self._telemetry_tokens.get(token)
+                        if blob is None:
+                            blob = json.dumps(
+                                self.telemetry(drain=drain),
+                                default=float).encode("utf-8")
+                            self._telemetry_tokens[token] = blob
+                            while len(self._telemetry_tokens) > 16:
+                                self._telemetry_tokens.popitem(last=False)
+                _send_msg(conn, OP_TELEMETRY, key, b"\x00" + blob)
+            except Exception as e:  # noqa: BLE001 — reported on the wire
+                obs.inc("kvstore.telemetry_errors")
+                _send_msg(conn, OP_TELEMETRY, key,
+                          b"\x01" + f"{type(e).__name__}: {e}".encode(
+                              "utf-8", "replace"))
         elif opcode == OP_STATS:
-            include = True
-            if len(payload):
-                try:
-                    spec = json.loads(bytes(payload).decode("utf-8"))
-                    include = bool(spec.get("metrics", True))
-                except ValueError:
-                    pass
-            blob = json.dumps(self.stats(include_metrics=include),
-                              default=str).encode("utf-8")
-            _send_msg(conn, OP_STATS, key, b"\x00" + blob)
+            try:
+                include = True
+                if len(payload):
+                    try:
+                        spec = json.loads(bytes(payload).decode("utf-8"))
+                        include = bool(spec.get("metrics", True))
+                    except ValueError:
+                        pass
+                blob = json.dumps(self.stats(include_metrics=include),
+                                  default=str).encode("utf-8")
+                _send_msg(conn, OP_STATS, key, b"\x00" + blob)
+            except Exception as e:  # noqa: BLE001 — reported on the wire
+                obs.inc("kvstore.stats_errors")
+                _send_msg(conn, OP_STATS, key,
+                          b"\x01" + f"{type(e).__name__}: {e}".encode(
+                              "utf-8", "replace"))
         elif opcode == OP_SHUTDOWN:
             if self._snap_mgr is not None:
                 try:
@@ -777,10 +935,10 @@ class PSServer:
 
     # ------------------------------------------------------------------
     def stats(self, include_metrics: bool = True) -> dict:
-        """Key count, membership liveness, the async clocks and, with
-        ``include_metrics``, the metrics registry's snapshot. The
-        training-fleet and hot-key sections of the reference's STATS are
-        queue item A15."""
+        """Key count, membership liveness, the training-fleet section
+        (per-rank window summaries, straggler verdicts), the bounded
+        hot-key table, the async clocks with the policy's widening and,
+        with ``include_metrics``, the metrics registry's snapshot."""
         out = {"pid": os.getpid(),
                "uptime_seconds": round(time.monotonic() - self._started, 3),
                "keys": len(self._weights),
@@ -795,6 +953,8 @@ class PSServer:
                 {"rank": rank, "client_id": str(cid), "state": state,
                  "last_hb_age_s": age}
                 for rank, cid, state, age in el.liveness_table()]
+        out["fleet"] = self.fleet.stats()
+        out["hot_keys"] = self._hot_keys.snapshot()
         with self._clock_cv:
             if self._clock or self._async_staleness is not None:
                 floor, maxc, widen = self._clock_bounds_locked()
@@ -803,10 +963,23 @@ class PSServer:
                     "clock_floor": floor, "clock_max": maxc,
                     "widen": widen,
                     "clocks": {str(r): c
-                               for r, c in sorted(self._clock.items())}}
+                               for r, c in sorted(self._clock.items())},
+                    "staleness_widen": {
+                        str(r): w for r, w
+                        in sorted(self._staleness_widen.items())}}
         if include_metrics:
             out["metrics"] = obs.metrics.snapshot()
         return out
+
+    def telemetry(self, drain: bool = True) -> dict:
+        """The ``OP_TELEMETRY`` document, ``{"parts": [...]}``: this
+        process's part first (role ``ps_server``, its STATS attached),
+        then every cached worker part (role ``rank<r>``) with its
+        windows, spans and clock anchor."""
+        st = self.stats(include_metrics=False)
+        part = obs.telemetry_part(drain=drain, role="ps_server")
+        part["stats"] = st
+        return {"parts": [part] + self.fleet.parts(drain=drain)}
 
     def _record_seq(self, cid, key, seq):
         """Caller holds ``self._seq_lock``. LRU-bounded (client churn)."""
@@ -870,11 +1043,23 @@ class PSServer:
                        if g == self._barrier_gen}
             if not arrived or not required_cids.issubset(arrived):
                 return False
+        if obs.enabled() and el is not None and self._barrier_stamps:
+            # the barrier wait by rank: the rank with ~zero wait is the
+            # one everyone else waited on
+            now = time.monotonic()
+            with el.cv:
+                rank_of = {m.cid: m.rank for m in el.members.values()}
+            for tok, t0 in self._barrier_stamps.items():
+                r = rank_of.get(tok[0])
+                if r is not None:
+                    obs.observe(f"kvstore.barrier_wait.rank{r}_seconds",
+                                now - t0)
         self._barrier_count = 0
         self._barrier_gen += 1
         for tok in self._barrier_arrived:
             self._barrier_released[tok] = True
         self._barrier_arrived.clear()
+        self._barrier_stamps.clear()
         while len(self._barrier_released) > 65536:
             self._barrier_released.popitem(last=False)
         self._barrier_cv.notify_all()
@@ -928,6 +1113,7 @@ class PSServer:
                 else:
                     gen = self._barrier_gen
                     self._barrier_arrived[token] = gen
+                    self._barrier_stamps[token] = time.monotonic()
                     self._barrier_count += 1
             else:
                 gen = self._barrier_gen
@@ -946,6 +1132,7 @@ class PSServer:
                                 0, self._barrier_count - 1)
                             if token is not None:
                                 self._barrier_arrived.pop(token, None)
+                                self._barrier_stamps.pop(token, None)
                         ok = False
                         break
                     self._barrier_cv.wait(timeout=remaining)

@@ -18,8 +18,17 @@ iterator cursor, the poisoned occurrence already consumed) and replays
 from there; with no manager it warns and carries on. Each batch samples
 the device plane's live memory (``obs.device.sample``).
 
-The reference's fleet-accounting spans (queue item A15(c)) and the
-quarantined rejoiner's program-cache warm (A15(d)) are left out.
+The training-fleet plane's phases (``obs/fleetstats.py``) wrap the loop as
+the reference's do: ``data_wait`` (the iterator's ``next``), ``forward``,
+``backward``, ``elastic.sync_grads``, ``update``, ``metric`` and
+``checkpoint``, with ``step_complete`` after each step and ``flush`` at
+the end of the fit. On a card, while the plane records, ``backward`` ends
+with a synchronize of the executor's device: the launches return once
+queued, and their device time would otherwise land in the next host read
+(the elastic gradient sync), booked as reduce-wait.
+
+The quarantined rejoiner's program-cache warm (queue item A15(d)) is left
+out.
 ``monitor=`` is accepted and never read, as in the reference's ``fit``.
 """
 from __future__ import annotations
@@ -33,7 +42,10 @@ from .. import metric as metric_mod
 from .. import obs
 from ..base import MXNetError
 from ..callback import BatchEndParam
+from ..obs import fleetstats as _fleetstats
 from ..obs import health as health_mod
+
+_STOP = object()  # the end of an epoch's batches
 
 __all__ = ["BaseModule"]
 
@@ -74,8 +86,23 @@ class BaseModule:
 
     # -- composite helpers ------------------------------------------------
     def forward_backward(self, data_batch):
-        self.forward(data_batch, is_train=True)
-        self.backward()
+        # fleetstats.phase: the ordinary obs span, plus the step
+        # accounting and the MXNET_CHAOS_SLOW injection point
+        with _fleetstats.phase("forward"):
+            self.forward(data_batch, is_train=True)
+        with _fleetstats.phase("backward"):
+            self.backward()
+            if _fleetstats.enabled():
+                self._sync_device()
+
+    def _sync_device(self):
+        """Wait for the executor's card, if it has one, so that the
+        accounting books the queued device work as the phase's compute."""
+        dev = getattr(getattr(self, "_exec", None), "_device", None)
+        if dev is not None and getattr(dev, "type", None) == "cuda":
+            import torch
+
+            torch.cuda.synchronize(dev)
 
     def score(self, eval_data, eval_metric, num_batch=None, reset=True, epoch=0,
               batch_end_callback=None):
@@ -285,26 +312,35 @@ class BaseModule:
                 else:
                     train_data.reset()
                     nbatch = -1
+                batches = iter(train_data)
                 rolled_back = False
-                for data_batch in train_data:
+                while True:
+                    # data_wait: the time the loop blocks on the iterator
+                    with _fleetstats.phase("data_wait"):
+                        data_batch = next(batches, _STOP)
+                    if data_batch is _STOP:
+                        break
                     nbatch += 1
                     self.forward_backward(data_batch)
                     if elastic is not None:
                         # the mean over the LIVE fleet: a worker killed
                         # mid-epoch shrinks the round after K missed
                         # heartbeats and this returns over the survivors
-                        self._elastic_sync_grads(kvstore)
+                        with _fleetstats.phase("elastic.sync_grads"):
+                            self._elastic_sync_grads(kvstore)
                     if health_monitor is not None:
                         # the stats only on steps the sentinel will sample:
                         # their cost amortizes 1/K
                         health_mod.request_stats(health_monitor.will_sample())
-                    self.update()
+                    with _fleetstats.phase("update"):
+                        self.update()
                     global_step += 1
                     # live device memory, once per batch: the counter
                     # track and the steady-state leak detector (one flag
                     # check when telemetry is off)
                     obs.device.sample(step=global_step)
-                    self.update_metric(eval_metric, data_batch.label)
+                    with _fleetstats.phase("metric"):
+                        self.update_metric(eval_metric, data_batch.label)
                     if health_monitor is not None:
                         # sampled every K steps, before this step's
                         # checkpoint, so a detected blowup never commits
@@ -358,9 +394,15 @@ class BaseModule:
                     if (manager is not None and checkpoint_batch_period
                             and can_position
                             and global_step % checkpoint_batch_period == 0):
-                        manager.save(self._capture_training_state(
-                            epoch, nbatch, global_step, train_data),
-                            global_step)
+                        with _fleetstats.phase("checkpoint",
+                                               step=global_step):
+                            manager.save(self._capture_training_state(
+                                epoch, nbatch, global_step, train_data),
+                                global_step)
+                    # close the step's fleet accounting: its phases fold
+                    # into this rank's window; sealed windows ride the
+                    # next heartbeat to the PS server
+                    _fleetstats.step_complete(global_step)
                     # bounded-staleness async: commit this rank's finished
                     # step (a no-op in other modes; kvstore may be a name)
                     tick = getattr(kvstore, "step_complete", None)
@@ -435,6 +477,9 @@ class BaseModule:
                                          epoch, name, val)
                 epoch += 1
         finally:
+            # seal the partial window, so a short fit's attribution still
+            # ships on the closing heartbeats
+            _fleetstats.flush()
             if health_monitor is not None:
                 health_mod.request_stats(None)
                 health_mod.deactivate()

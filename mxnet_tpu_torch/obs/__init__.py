@@ -27,36 +27,26 @@ no-op, ``inc``/``observe``/``set_gauge`` return at once. Turn it on with
     # then: python -m mxnet_tpu_torch.tools.trace_report trace.json
 
 The training-health plane (:mod:`.health`: numerics stats, the divergence
-sentinel, NaN provenance, rollback) and the regression dossier
-(:mod:`.regress`) are ported; the training-fleet plane (``fleetstats``)
-is queue item A15(c) of the port and raises ``MXNetError`` naming it.
+sentinel, NaN provenance, rollback), the regression dossier
+(:mod:`.regress`) and the training-fleet plane (:mod:`.fleetstats`:
+per-rank step accounting, the straggler detector, hot keys) are ported.
 """
 from __future__ import annotations
 
 import os
 from typing import Optional
 
-from ..base import MXNetError
 from . import context, metrics, trace
 # the package attribute ``obs.export`` is the chrome-trace export FUNCTION
 # below; the export MODULE is ``obs.export_mod`` (or its dotted path)
 from . import export as export_mod
 from . import tail, profile, blackbox, slo, device, health, regress
+from . import fleetstats
 
 __all__ = ["trace", "metrics", "context", "export_mod", "tail", "profile",
-           "blackbox", "slo", "device", "health", "regress", "enable",
-           "disable", "enabled", "span", "event", "inc", "observe",
+           "blackbox", "slo", "device", "health", "regress", "fleetstats",
+           "enable", "disable", "enabled", "span", "event", "inc", "observe",
            "set_gauge", "export", "reset", "telemetry_part"]
-
-# the reference's plane of queue item A15(c), not ported yet
-_LATER = {"fleetstats": "the training-fleet plane"}
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise MXNetError(f"obs.{name}: {_LATER[name]} is queue item A15 "
-                         "(its item A15(c)) of the port")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 # re-exported hot-path helpers (obs.span is obs.trace.span)
@@ -91,13 +81,15 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Clear the span ring, drop every metric, and empty the device
-    plane's cost registry and leak monitor (plus the tail plane's pending
-    buffer and exemplars when tail mode is on)."""
+    """Clear the span ring, drop every metric, empty the device plane's
+    cost registry and leak monitor (plus the tail plane's pending buffer
+    and exemplars when tail mode is on) and the training-fleet plane's
+    step accounting."""
     trace.reset()
     metrics.reset()
     device.reset()
     tail.reset()
+    fleetstats.reset()
 
 
 # self-gating helpers for instrumentation call sites: one flag check when

@@ -10,6 +10,8 @@ counterpart of the reference's ``tests/dist_worker.py`` and
         python -m mxnet_tpu_torch.tools.dist_worker lm --layers 2 ...
     python -m mxnet_tpu_torch.tools.launch -n 3 -e \\
         python -m mxnet_tpu_torch.tools.dist_worker elastic --ckpt-dir D
+    python -m mxnet_tpu_torch.tools.launch -n 3 -e \\
+        python -m mxnet_tpu_torch.tools.dist_worker elastic_lm --steps 12
 
 - ``known``: every rank pushes rank-determined values and asserts the
   exact aggregates (rank 0 wins at init, dense sums, merged pushes, 2-bit
@@ -28,6 +30,14 @@ counterpart of the reference's ``tests/dist_worker.py`` and
   ``ELASTIC_TIMES {json}`` for the harness that kills and restarts it
   (``--start-after FILE`` makes a warm standby that joins once FILE
   exists).
+- ``elastic_lm``: ``transformer_lm`` traced to a Symbol under
+  ``SoftmaxOutput`` and trained by ``Module.fit`` (SGD, lr 1e-5) on an
+  elastic ``dist_sync`` store, each rank on its shard of ``--steps``
+  batches of one row a rank; with ``MXNET_OBS=1`` the fit's phases ride
+  the heartbeats to the server's fleet plane, the last windows on the
+  beat that the store's close sends. It prints ``ELASTIC_LM {json}``: its flash
+  launches and, per step, the forward+backward device ms from CUDA
+  events (wall ms off the card).
 
 ``--device cuda`` (the default) puts every array on the card and checks
 that it stays there; ``--device cpu`` runs on the host. Exit code 0 means
@@ -371,6 +381,83 @@ def run_elastic(args) -> None:
     _say(f"elastic_worker rank {rank}: OK")
 
 
+# elastic_lm's fixed run: one row of --seq tokens a rank a step, SGD
+ELASTIC_LM_BATCH, ELASTIC_LM_LR, ELASTIC_LM_SEED = 1, 1e-5, 0
+
+
+def run_elastic_lm(args) -> None:
+    """The LM's ``Module.fit`` on an elastic ``dist_sync`` store."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.models.transformer import transformer_lm
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    cuda = args.device == "cuda"
+    ctx = _ctx(mx, args.device)
+    kv = mx.kv.create("dist_sync")  # joins the fleet
+    rank, n = kv.rank, kv.num_workers
+    batch = ELASTIC_LM_BATCH
+    mx.random.seed(ELASTIC_LM_SEED)
+    net = transformer_lm(vocab_size=args.vocab, units=args.units,
+                         hidden_size=4 * args.units,
+                         num_layers=args.layers, num_heads=args.heads,
+                         max_length=args.seq)
+    net.initialize(ctx=ctx)
+    with mx.name.NameManager():
+        logits = net(sym.var("data", shape=(batch, args.seq)))
+        label = sym.var("softmax_label", shape=(batch, args.seq))
+        out = sym.SoftmaxOutput(logits.reshape((-1, args.vocab)),
+                                label.reshape((-1,)), name="softmax")
+    arg_params = {p.name: p.data() for p in net.collect_params().values()}
+    del net
+    # every rank holds the whole seeded set; the fit trains its shard
+    xs = np.random.RandomState(ELASTIC_LM_SEED + 1).randint(
+        0, args.vocab, (args.steps * batch * n, args.seq)).astype(
+        np.float32)
+    it = NDArrayIter(xs, xs, batch_size=batch)
+    mod = Module(out, context=ctx)
+    fit_fb = mod.forward_backward
+    fb_ms = []
+
+    def timed_fb(batch):
+        # the forward+backward's device time (CUDA events) beside the
+        # fleet plane's host-side accounting of the same phases
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fit_fb(batch)
+            ev[1].record()
+            fb_ms.append(ev)
+        else:
+            t0 = time.perf_counter()
+            fit_fb(batch)
+            fb_ms.append(1e3 * (time.perf_counter() - t0))
+
+    mod.forward_backward = timed_fb
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, kvstore=kv, eval_metric="ce",
+            optimizer="sgd", optimizer_params={"learning_rate": ELASTIC_LM_LR},
+            arg_params=arg_params, handle_preemption=False)
+    if cuda:
+        torch.cuda.synchronize()
+        fb_ms = [a.elapsed_time(b) for a, b in fb_ms]
+    wall = time.perf_counter() - t0
+    _say("ELASTIC_LM " + json.dumps(
+        {"rank": rank, "workers": n, "steps": len(fb_ms),
+         "device": str(mod._exec._device), "fit_s": wall,
+         "fwd_bwd_ms": fb_ms,
+         "kernel_launches": {
+             "flash_attention_fwd": flash_attention_fwd.launches,
+             "flash_attention_bwd": flash_attention_bwd.launches}}))
+    kv.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -408,11 +495,24 @@ def main(argv=None) -> int:
     el.add_argument("--start-after", default=None, metavar="FILE",
                     help="start as a warm standby: join the fleet only "
                     "once FILE exists")
+    elm = sub.add_parser("elastic_lm")
+    elm.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    elm.add_argument("--vocab", type=int, default=32000)
+    elm.add_argument("--units", type=int, default=768)
+    elm.add_argument("--layers", type=int, default=12)
+    elm.add_argument("--heads", type=int, default=12)
+    elm.add_argument("--seq", type=int, default=2048)
+    elm.add_argument("--steps", type=int, default=12, help="steps a rank")
     args = ap.parse_args(argv)
     if args.what == "known":
         run_known(args.mode, args.device)
     elif args.what == "lm":
         run_lm(args)
+    elif args.what == "elastic_lm":
+        import mxnet_tpu_torch as mx
+
+        with _ctx(mx, args.device):  # the iterator's batches land there
+            run_elastic_lm(args)
     else:
         import mxnet_tpu_torch as mx
 

@@ -33,8 +33,9 @@ Usage::
         [--jsonl obs/replica-*.jsonl obs/blackbox-*-last.json]
         [--target 0.99] [--p99-ms 50] [--no-drain]
 
-The training plane's pull (the reference's ``--ps``, ``obs.fleetstats``)
-is queue item A15 (its training half) of the port and raises.
+``--ps`` points it at a training-plane ``PSServer`` instead: the pull
+goes through ``obs.fleetstats.collect`` (the server's RPC lanes and every
+rank's step phases; ``train_report`` renders the training fleet).
 """
 from __future__ import annotations
 
@@ -96,8 +97,7 @@ def main(argv=None):
                          "--ps, a PSServer)")
     ap.add_argument("--ps", action="store_true",
                     help="the endpoint is a training-plane PSServer "
-                         "(obs.fleetstats: queue item A15 of the port, "
-                         "raises)")
+                         "(pulled through obs.fleetstats.collect)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="write the merged chrome trace here")
     ap.add_argument("--prom", default=None, metavar="OUT.prom",
@@ -122,7 +122,7 @@ def main(argv=None):
                     help="emit everything as one JSON document")
     args = ap.parse_args(argv)
 
-    from .. import obs
+    from ..obs import fleetstats
     from ..obs.export import (merge_chrome_parts, merge_metrics,
                               parts_to_prometheus)
     from ..obs.slo import SLOMonitor
@@ -130,9 +130,10 @@ def main(argv=None):
 
     host, _, port = args.connect.partition(":")
     if args.ps:
-        tel = obs.fleetstats.collect(host, int(port),  # raises: A15
-                                     drain=not args.no_drain)
-        stats = None
+        tel = fleetstats.collect(host, int(port),
+                                 drain=not args.no_drain)
+        stats = next((p.get("stats") for p in tel["parts"]
+                      if p.get("stats")), None)
     else:
         cli = ServeClient(host, int(port))
         try:

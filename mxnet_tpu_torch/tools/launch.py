@@ -50,13 +50,14 @@ def _free_port() -> int:
 
 
 def start_ps_server(port: int, num_workers: int, elastic: bool = False,
-                    async_staleness=None, kind: str = "auto"):
+                    async_staleness=None, kind: str = "auto", env=None):
     """Start one parameter-server process on ``port`` and wait for its
     banner; returns the ``Popen``. ``kind``: "native", "python" or "auto"
-    (native unless elastic, bounded-staleness, or not buildable)."""
+    (native unless elastic, bounded-staleness, or not buildable); ``env``:
+    variables set for the server on top of this process's."""
     from .. import native
 
-    env = dict(os.environ)
+    env = dict(os.environ, **(env or {}))
     if async_staleness is not None:
         env["MXNET_ASYNC_STALENESS"] = str(async_staleness)
     binary = None

@@ -22,7 +22,9 @@ and streams relayed by a ``FleetServer`` through the paged kernel equal
 the plain version's. The device store on CUDA tensors equals the same
 store on the CPU, and two ``dist_sync`` ranks sharing the card form a
 gloo group and pass the known values on CUDA tensors. The device plane's
-cost records of a decode engine on the card equal those on the CPU.
+cost records of a decode engine on the card equal those on the CPU. A
+``Module.fit`` with the training-fleet plane on books the card's
+forward+backward time as compute.
 """
 import contextlib
 import math
@@ -1822,3 +1824,63 @@ def test_decode_capture_on_card_equals_cpu(cuda_device):
         assert card[label]["device"] == "cuda"
     step = card["step"]["kernels"]["paged_decode_attention"]
     assert step["calls"] == cfg["layers"]
+
+
+def test_fleet_accounting_books_card_time_as_compute(cuda_device):
+    """A one-process ``Module.fit`` of an LM on the card with the
+    training-fleet plane on: the ``compute`` category a step is at least
+    0.9 x the forward+backward's CUDA-event time. The backward phase ends
+    with a synchronize of the card while the plane records, so the queued
+    device work is booked as compute, not as the next host read's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import obs
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.obs import fleetstats
+
+    vocab, seq, batch, steps = 8000, 1024, 8, 6
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    net = tt.transformer_lm(vocab_size=vocab, units=1024, hidden_size=4096,
+                            num_layers=2, num_heads=8, max_length=seq)
+    net.initialize(ctx=ctx)
+    with mx.name.NameManager():
+        logits = net(sym.var("data", shape=(batch, seq)))
+        label = sym.var("softmax_label", shape=(batch, seq))
+        out = sym.SoftmaxOutput(logits.reshape((-1, vocab)),
+                                label.reshape((-1,)), name="softmax")
+    arg_params = {p.name: p.data() for p in net.collect_params().values()}
+    xs = np.random.RandomState(1).randint(
+        0, vocab, (steps * batch, seq)).astype(np.float32)
+    with ctx:
+        it = NDArrayIter(xs, xs, batch_size=batch)
+    mod = Module(out, context=ctx)
+    fit_fb, events = mod.forward_backward, []
+
+    def timed(data_batch):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fit_fb(data_batch)
+        ev[1].record()
+        events.append(ev)
+
+    mod.forward_backward = timed
+    was = obs.enabled()
+    obs.enable()
+    fleetstats.reset()
+    try:
+        mod.fit(it, num_epoch=1, eval_metric="ce", optimizer="sgd",
+                optimizer_params={"learning_rate": 1e-5},
+                arg_params=arg_params, handle_preemption=False)
+        windows = list(fleetstats._ACC.windows)
+    finally:
+        fleetstats.reset()
+        if not was:
+            obs.disable()
+        obs.reset()
+    torch.cuda.synchronize()
+    fb_s = sum(a.elapsed_time(b) for a, b in events) / len(events) / 1e3
+    summary = fleetstats.summarize_windows(windows)
+    assert summary["steps"] == steps
+    assert summary["phases"]["compute"] >= 0.9 * fb_s, (summary, fb_s)

@@ -255,6 +255,49 @@ def test_reduce_retry_idempotent_under_dropped_reply(monkeypatch):
     srv.stop()
 
 
+def test_reduce_sums_exact_when_many_ranks_share_the_reply():
+    """More ranks than cores reduce at once under a short switch interval:
+    every round's sum is exact for every rank. The server answers each
+    contributor from the one released array (no copy), and each rank's
+    request and result ride views of its own buffers."""
+    n, size, rounds = 12, 1 << 16, 4
+    srv = _server()
+    ss = [_session(srv, rank=r) for r in range(n)]
+    for s in ss:
+        s.ensure_joined(wait_for_expected=False)
+    want = [float(sum(r + 1 + k for r in range(n))) for k in range(rounds)]
+    bad, errors = [], []
+
+    def rank_loop(r):
+        try:
+            for k in range(rounds):
+                got, count = ss[r].allreduce(
+                    "g", np.full(size, r + 1 + k, np.float32), timeout=60)
+                if count != n or not (got == want[k]).all():
+                    bad.append((r, k, count))
+                got[:] = -1.0  # the caller owns its result
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        ts = [threading.Thread(target=rank_loop, args=(r,), daemon=True)
+              for r in range(n)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+        for s in ss:
+            s.close()
+        srv.stop()
+    assert not errors, errors
+    assert not bad, bad
+
+
 # ---------------------------------------------------------------------------
 # structured barrier timeout (satellite)
 # ---------------------------------------------------------------------------
@@ -728,7 +771,8 @@ def test_prefetching_iter_delegates_set_partition():
 
 # ---------------------------------------------------------------------------
 # bounded-staleness clocks and hierarchical reduction (the in-process cases
-# of tests/test_async.py; its straggler policy is queue item A15)
+# of tests/test_async.py; its straggler policy's cases are in
+# tests/test_torch_fleetstats.py)
 # ---------------------------------------------------------------------------
 
 def _client(srv):

@@ -89,7 +89,11 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.chaos, mxnet_tpu_torch.chaos.nan, "
             "mxnet_tpu_torch.profiler, mxnet_tpu_torch.analysis.findings, "
             "mxnet_tpu_torch.tools.health_bench, "
-            "mxnet_tpu_torch.tools.bench_compare\n"
+            "mxnet_tpu_torch.tools.bench_compare, "
+            "mxnet_tpu_torch.obs.fleetstats, mxnet_tpu_torch.chaos.slow, "
+            "mxnet_tpu_torch.tools.train_report, "
+            "mxnet_tpu_torch.tools.elastic_bench, "
+            "mxnet_tpu_torch.tools.fleet_report\n"
             "import mxnet_tpu_torch as mx\n"
             "assert mx.np.linalg and mx.npx.relu and mx.util.get_gpu_count "
             "and mx.operator.CustomOp and mx.nd.sparse.csr_matrix\n"

@@ -281,14 +281,10 @@ def test_capture_counts_a_kernel_wrapper_once_and_hides_its_body():
 
 
 def test_training_capture_sites_name_a15():
-    # the training capture sites are ported (below); of A15's planes only
-    # the training-fleet plane (A15(c)) still raises naming it, and
+    # the training capture sites are ported (below), as are the training
+    # planes of A15 (health, regress, fleetstats), and
     # ShardedTrainer.step_cost is a record
-    from mxnet_tpu_torch.base import MXNetError
-
-    with pytest.raises(MXNetError, match="A15"):
-        tobs.fleetstats
-    for name in ("health", "regress"):
+    for name in ("health", "regress", "fleetstats"):
         assert getattr(tobs, name).__name__ == f"mxnet_tpu_torch.obs.{name}"
     tobs.enable()
     tr, x, y = _sharded_trainer()

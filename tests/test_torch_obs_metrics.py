@@ -9,8 +9,8 @@ json) must be equal, bucket keys included. ``SLOMonitor.evaluate``,
 packages; the merged fleet snapshots and their quantiles agree exactly
 (both are pure Python over the same floats). The span and black-box
 planes (``obs.span``, ``obs.trace``, ...) are held to the reference in
-``tests/test_torch_obs_*.py``; the training planes are queue item A15
-and raise naming it.
+``tests/test_torch_obs_*.py``, the training-fleet plane in
+``tests/test_torch_fleetstats.py``.
 """
 import json
 
@@ -21,7 +21,6 @@ from mxnet_tpu import obs as jobs
 from mxnet_tpu.obs import metrics as jmetrics
 from mxnet_tpu.obs import slo as jslo
 from mxnet_tpu_torch import obs as tobs
-from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.obs import metrics as tmetrics
 from mxnet_tpu_torch.obs import slo as tslo
 
@@ -235,13 +234,9 @@ def test_switch_gates_the_helpers_as_the_reference():
                                   "device", "health", "fleetstats",
                                   "context"])
 def test_later_planes_name_a15(name):
-    # the serving half of A15 and its training-health plane are ported;
-    # the training-fleet plane still raises naming it
-    if name == "fleetstats":
-        with pytest.raises(MXNetError, match="A15"):
-            getattr(tobs, name)
-    else:
-        assert getattr(tobs, name).__name__ == f"mxnet_tpu_torch.obs.{name}"
+    # the serving half of A15, its training-health plane and its
+    # training-fleet plane are ported: each is the port's module
+    assert getattr(tobs, name).__name__ == f"mxnet_tpu_torch.obs.{name}"
 
 
 @pytest.mark.parametrize("call", [lambda d: tobs.span("x"),

@@ -345,6 +345,18 @@ def test_stats_telemetry_and_dump_over_the_wire():
     assert set(bundle) >= {"events", "metrics", "threads"}
 
 
+def _drain_until(names, timeout=10.0):
+    """Drain the span ring until every name in ``names`` has landed or
+    ``timeout`` seconds passed; the drained events."""
+    evs = []
+    deadline = time.monotonic() + timeout
+    while True:
+        evs += tobs.trace.drain()
+        if names <= set(_spans(evs)) or time.monotonic() > deadline:
+            return evs
+        time.sleep(0.01)
+
+
 def test_tail_mode_keeps_retained_hops_and_drops_healthy_ones():
     tobs.enable()
     tobs.tail.enable(policy=tobs.tail.RetentionPolicy(
@@ -352,7 +364,11 @@ def test_tail_mode_keeps_retained_hops_and_drops_healthy_ones():
     srv, cli = _serve_pair()
     try:
         np.testing.assert_array_equal(cli.infer(X), X)
-        spans = _spans(tobs.trace.drain())
+        # the server closes ``serve.rpc`` after its reply is sent (as the
+        # reference's does), so that span may land after infer returns:
+        # wait for it, or it would surface in the healthy request's drain
+        spans = _spans(_drain_until({"serve.client.rpc", "serve.rpc",
+                                     "serve.queue_wait", "serve.execute"}))
         assert {"serve.client.rpc", "serve.rpc", "serve.queue_wait",
                 "serve.execute"} <= set(spans)
         assert len({s["trace_id"] for s in spans.values()}) == 1

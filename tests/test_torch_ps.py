@@ -14,8 +14,9 @@ CPU, over loopback sockets.
   speaks.
 - A WAL (and a snapshot) the reference's server wrote replays in the
   port's server to the same weights; a torn WAL tail is truncated.
-- The port refuses the legacy pickle SET_OPT blob and OP_TELEMETRY with
-  an error reply.
+- The port refuses the legacy pickle SET_OPT blob with an error reply;
+  OP_TELEMETRY answers with the server's part, and STATS carries the
+  fleet and hot-key sections.
 """
 import os
 import pickle
@@ -357,10 +358,12 @@ def test_port_refuses_pickle_set_opt_and_telemetry(servers):
     assert reply[:1] == b"\x01" and b"pickle" in reply
     assert srv._updater is None
     cli = tpc.PSClient("127.0.0.1", srv.port, timeout=5, retries=1)
-    with pytest.raises(MXNetError, match="A15"):
-        cli.telemetry()
+    # the training-fleet plane is ported: OP_TELEMETRY answers
+    (part,) = cli.telemetry()["parts"]
+    assert part["role"] == "ps_server" and part["stats"]["keys"] == 0
     stats = cli.stats(include_metrics=False)
-    assert stats["keys"] == 0 and "fleet" not in stats
+    assert stats["keys"] == 0 and stats["fleet"]["stragglers"] == []
+    assert stats["hot_keys"] == []
     cli.close()
 
 
