@@ -271,6 +271,20 @@ merges every rank's phases and the server's RPC lanes into one timeline
 (``train_report``, which prints the straggler), a second pull repeats no
 drained span, and every worker launched both flash kernels; then
 ``elastic_bench``'s train-telemetry overhead leg on the card, reported.
+Then ``progcache_path``, the program cache: this process saves the LM as
+an artifact, scores 1 and 2 rows of 2048 tokens through ``serve.load``
+and ships its programs (``serve.ship_programs``); a cold child
+(``--progcache-child``, a copy of the package with an empty build dir,
+an empty cache armed and passed as ``progcache_dir``, started beside
+that serving) builds the flash forward and paged kernels with ``nvcc``
+beside its model's load, scores the same rows and decodes 8 greedy
+streams of 16 tokens, filling the cache; a warm child on a second fresh
+copy, started beside the cold one and held before it reads anything
+until the cold one is done, loads the artifact's shipped programs and
+the filled cache: no ``nvcc`` run, every program a hit, no reject, the
+cold child's cost records, logits bitwise the cold child's and this
+process's, the same tokens and launches; both children's start-to-ready
+reported (the warm one's without its wait).
 
 Between 3 and 4 it also holds the flash kernels against their plain
 versions at other head dims (D 8, 48, 80, 96, 256, 320, 512; f32 and bf16;
@@ -6453,6 +6467,466 @@ def phase_train_fleet_path(torch, dev, smi):
     return launches
 
 
+# the program cache (progcache_path): the flagship LM served by a cold
+# child (empty build dir, empty armed cache) and a warm one (a second
+# empty build dir, the cache the cold child filled, the artifact's
+# shipped programs/)
+PROGCACHE_BUCKETS = (1, 2)            # scoring buckets; requests of 1, 2
+PROGCACHE_PROMPTS = [5, 9, 17, 23, 33, 40, 50, 64]  # 8 greedy streams
+PROGCACHE_DECODE_BUCKETS = [16, 32, 64]
+PROGCACHE_PAGES = 65                  # 8 streams x 8 pages + scratch
+PROGCACHE_NEW = 16
+PROGCACHE_CHILD_TIMEOUT = 300         # seconds, either child
+PROGCACHE_SEED = 11
+
+
+def _progcache_root():
+    """The phase's scratch tree under ``build/`` (git-ignored)."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "progcache_smoke")
+
+
+def _reset_block_names():
+    """Gluon names parameters by per-class counters: reset them so that
+    every process names the LM's parameters alike (the artifact's)."""
+    from mxnet_tpu_torch.gluon import block
+
+    block._SCOPE.counters.clear()
+
+
+def _traced_lm(torch, init=True):
+    """The flagship LM and its graph traced with batch 0: weights from
+    seed 0 (``init``), or none yet (a child takes the artifact's)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.models import transformer_lm
+
+    _reset_block_names()
+    if init:
+        net = _seeded_lm()
+    else:
+        net = transformer_lm()
+    seq = net.encoder._max_length
+    with mx.name.NameManager():
+        logits = net(sym.var("data", shape=(0, seq)))  # 0: any batch
+    return net, logits
+
+
+def _progcache_requests(vocab, seq):
+    rng = np.random.RandomState(PROGCACHE_SEED)
+    rows = rng.randint(0, vocab, (max(PROGCACHE_BUCKETS), seq))
+    return [rows[:b].astype(np.float32) for b in PROGCACHE_BUCKETS]
+
+
+def _logit_digests(engine, requests):
+    """SHA-256 of each request's logits (host bytes), and their shapes."""
+    import hashlib
+
+    out = []
+    for req in requests:
+        logits = engine.infer([req])[0][0]
+        check(logits.shape == req.shape + (32000,) and np.isfinite(
+            logits).all(), f"logits {logits.shape} not finite or shaped")
+        out.append(hashlib.sha256(np.ascontiguousarray(logits)
+                                  .tobytes()).hexdigest())
+    return out
+
+
+def _cost_records(engine):
+    """program key digest -> the cost record each of ``engine``'s
+    compile_log entries carries (an engine with no cache logs no key: it
+    is derived as a cached engine would)."""
+    from mxnet_tpu_torch.obs.device import COST_FIELDS
+
+    keep = (*COST_FIELDS, "device", "dtype", "kernels")
+    return {e.get("program_key")
+            or engine._program_key(e["sig"], e["bucket"]).digest:
+            {k: e[k] for k in keep if k in e} for e in engine.compile_log}
+
+
+def _warm_cublas(torch, dev):
+    """cuBLAS and cuBLASLt allocate their workspaces at their first call:
+    make them before any counted run, so that a capture's peak memory is
+    the program's in every process."""
+    a = torch.ones((64, 64), device=dev)
+    (a @ a).sum().item()
+    torch.nn.functional.linear(a, a, a[0]).sum().item()
+    torch.bmm(a[None], a[None]).sum().item()
+
+
+def _progcache_child(mode, copy_root, prefix, out_path, spawn_t):
+    """``--progcache-child``: serve the artifact from the package copy at
+    ``copy_root`` (its build dir empty), then decode; write the results.
+    ``mode`` "cold" builds the two kernels (in parallel, beside the
+    model's load, as a deployment that knows them would) and passes the
+    armed dir explicitly (the shipped programs/ is overridden, nothing
+    hits); "warm" builds nothing and passes no dir (scoring reads the
+    shipped programs/ and its kernel, decode the armed dir). The warm child
+    starts beside the cold one and, before it reads the artifact or any
+    cache, waits for ``<out_path>.go`` (the parent writes it once the cold
+    child is done and the programs are shipped); its start-to-ready leaves
+    that wait out. ``stages``: seconds from the spawn at each step."""
+    import torch
+
+    stages = {}
+
+    def mark(stage):
+        stages[stage] = time.time() - spawn_t
+
+    sys.path.insert(0, copy_root)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import progcache, serve
+    from mxnet_tpu_torch.models.transformer import decode_config
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+                                                     flash_decode_attention)
+
+    res = {"mode": mode, "package": mx.__file__,
+           "in_copy": os.path.abspath(mx.__file__).startswith(
+               os.path.abspath(copy_root) + os.sep),
+           "libs_at_start": sorted(
+               f for f in (os.listdir(_kernels.BUILD_DIR)
+                           if _kernels.BUILD_DIR.exists() else [])
+               if f.endswith(".so"))}
+    dev = torch.device("cuda", 0)
+    _warm_cublas(torch, dev)
+    mark("imported")
+    armed = progcache.cache()
+    build = None
+    if mode == "cold":
+        # the builds run beside the model's load, as a server would
+        import threading
+
+        failed = []
+
+        def build_kernels():
+            try:
+                _kernels.build_all(("flash_attention_fwd",
+                                    "paged_decode_attention"))
+            except Exception as e:  # re-raised once joined
+                failed.append(e)
+
+        build = threading.Thread(target=build_kernels)
+        build.start()
+    flash_attention_fwd.launches = 0
+    flash_decode_attention.launches = 0
+    net, logits = _traced_lm(torch, init=False)
+    mark("lm")
+    waited = 0.0
+    if mode == "warm":
+        go, t_wait = out_path + ".go", time.time()
+        while not os.path.exists(go):
+            check(time.time() - t_wait < PROGCACHE_CHILD_TIMEOUT,
+                  "the warm child was never let go")
+            time.sleep(0.02)
+        waited = time.time() - t_wait
+        mark("let_go")
+    kw = {"progcache_dir": armed.root} if mode == "cold" else {}
+    engine = serve.load(prefix, epoch=0, symbol=logits,
+                        buckets=PROGCACHE_BUCKETS, lint="off", **kw)
+    # the decode engine serves the artifact's weights too
+    weights = dict(zip(engine._param_names, engine._params.arg_vals))
+    for p in net.collect_params().values():
+        p.set_data(mx.nd.NDArray(weights[p.name]))
+    del weights
+    cfg = decode_config(net)
+    mark("loaded")
+    if build is not None:
+        build.join()
+        if failed:
+            raise failed[0]
+        mark("built")
+    scored_fresh = engine.warmup((cfg["max_length"],))
+    mark("scoring_warm")
+    dec = serve.DecodeEngine(net, slots=SLOTS, page_size=PAGE,
+                             num_pages=PROGCACHE_PAGES,
+                             prompt_buckets=PROGCACHE_DECODE_BUCKETS,
+                             device=dev)
+    decode_fresh = dec.warmup()
+    torch.cuda.synchronize()
+    ready_s = time.time() - spawn_t - waited
+    mark("ready")
+    digests = _logit_digests(engine, _progcache_requests(
+        cfg["vocab"], cfg["max_length"]))
+    mark("scored")
+    sched = serve.DecodeScheduler(dec, max_new_tokens=PROGCACHE_NEW,
+                                  default_timeout=600.0)
+    rng = np.random.default_rng(PROGCACHE_SEED)
+    prompts = [rng.integers(1, cfg["vocab"], size=n)
+               for n in PROGCACHE_PROMPTS]
+    try:
+        tokens, _stamps, decode_s = _fan_out(
+            lambda i: sched.generate(prompts[i],
+                                     max_new_tokens=PROGCACHE_NEW),
+            len(prompts))
+    finally:
+        sched.close()
+    dec.pool.assert_baseline()
+    torch.cuda.synchronize()
+    mark("decoded")
+    res.update({
+        "stages": stages, "waited_s": waited,
+        "ready_s": ready_s, "wall_s": time.time() - spawn_t,
+        "decode_s": decode_s, "scored_fresh": scored_fresh,
+        "decode_fresh": decode_fresh, "logits_sha256": digests,
+        "tokens": [[int(t) for t in ts] for ts in tokens],
+        "nvcc": _kernels.build_stats(),
+        "compile_log": {
+            "serve": [bool(e["cache_hit"]) for e in engine.compile_log],
+            "decode": [bool(e["cache_hit"]) for e in dec.compile_log]},
+        "costs": {**_cost_records(engine), **_cost_records(dec)},
+        "progcache": {"serve": engine.stats()["progcache"],
+                      "decode": dec.stats()["progcache"],
+                      "armed": dict(armed.stats, dir=armed.root)},
+        "launches": {"flash_attention_fwd": flash_attention_fwd.launches,
+                     "flash_decode_attention":
+                         flash_decode_attention.launches},
+        "libs_at_end": sorted(f for f in os.listdir(_kernels.BUILD_DIR)
+                              if f.endswith(".so"))})
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _start_progcache_child(mode, copy_root, prefix, cache_dir):
+    """Spawn a ``--progcache-child`` on ``copy_root`` with ``cache_dir``
+    armed; returns (process, its result file)."""
+    out = os.path.join(_progcache_root(), f"{mode}.json")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MXNET_PROGCACHE")}
+    env.update({"MXNET_PROGCACHE_DIR": cache_dir, "MXNET_DEVICE_COST": "1",
+                "PYTHONPATH": copy_root})
+    log = out[:-len(".json")] + ".log"  # a file: no pipe to fill
+    spawn_t = time.time()
+    with open(log, "wb") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--progcache-child",
+             mode, copy_root, prefix, out, repr(spawn_t)],
+            cwd=copy_root, env=env, stdout=f, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def _wait_progcache_child(mode, started):
+    proc, out, log = started
+    try:
+        proc.wait(timeout=PROGCACHE_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(log, errors="replace") as f:
+        tail = f.read()[-4000:]
+    check(proc.returncode == 0 and os.path.exists(out),
+          f"the {mode} progcache child exited {proc.returncode}:\n{tail}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def phase_progcache_path(torch, dev, smi):
+    """The program cache at full width (``progcache``): this process saves
+    the flagship LM as an artifact, serves it (``serve.load``, buckets 1
+    and 2, requests of 1 and 2 rows of 2048 tokens, the device plane on)
+    and ships its programs (``serve.ship_programs``). A cold child, on a
+    copy of the package with an empty build dir and an empty armed cache
+    D passed as ``progcache_dir`` (overriding the shipped programs/),
+    started once the artifact is saved, builds the flash forward and paged
+    kernels with ``nvcc`` beside its model's load and writes them and its
+    programs into D; it scores the same requests and decodes 8 greedy
+    streams of 16 tokens (``DecodeEngine``, 8 slots, pages of 16) from
+    the artifact's weights. A warm child, on a second fresh copy with
+    ``MXNET_PROGCACHE_DIR`` D, starts beside the cold one, waits before it
+    reads the artifact until the cold one is done and the programs are
+    shipped, then loads the artifact with no dir: scoring reads the
+    shipped programs/, decode reads D. Gates on the warm child: the
+    package is the copy's and its build dir held no library at start, 0
+    ``nvcc`` builds, every ``compile_log`` entry of both engines a hit, 0
+    rejects, cost records equal the cold child's, logits bitwise the cold
+    child's and this process's, greedy tokens and both kernels' launches
+    equal the cold child's. Start-to-ready (spawn to both engines warmed,
+    the warm child's wait left out) of each child is reported."""
+    import hashlib
+
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch.models.transformer import decode_config
+    from mxnet_tpu_torch.ops import _kernels
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    t_phase = time.perf_counter()
+    root = _progcache_root()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved = {k: os.environ.get(k) for k in ("MXNET_DEVICE_COST",
+                                            "MXNET_PROGCACHE",
+                                            "MXNET_PROGCACHE_DIR")}
+    os.environ["MXNET_DEVICE_COST"] = "1"
+    os.environ["MXNET_PROGCACHE"] = "0"  # this process ships, arms none
+    os.environ.pop("MXNET_PROGCACHE_DIR", None)
+    from mxnet_tpu_torch import progcache
+
+    progcache.reset()
+    cold_run = warm_run = None
+    try:
+        _warm_cublas(torch, dev)
+        net, logits = _traced_lm(torch)
+        cfg = decode_config(net)
+        n_params = _n_params(net)
+        check(n_params == SERVE_LM_PARAMS, f"LM has {n_params} parameters")
+        prefix = os.path.join(root, "artifact", "lm")
+        os.makedirs(os.path.dirname(prefix))
+        import mxnet_tpu_torch as mx
+
+        arg = {p.name: p.data() for p in net.collect_params().values()}
+        mx.model.save_checkpoint(prefix, 0, logits, arg, {})
+        del arg, net
+        pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "mxnet_tpu_torch")
+        copies = {}
+        for mode in ("cold", "warm"):
+            copies[mode] = os.path.join(root, mode)
+            shutil.copytree(pkg, os.path.join(copies[mode],
+                                              "mxnet_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+        cache_dir = os.path.join(root, "cache")
+        os.makedirs(cache_dir)
+        # the cold child needs only the artifact: it runs beside this
+        # process's serving and shipping (its dir overrides programs/);
+        # the warm child starts too and is held back until both are done
+        cold_run = _start_progcache_child("cold", copies["cold"], prefix,
+                                          cache_dir)
+        warm_run = _start_progcache_child("warm", copies["warm"], prefix,
+                                          cache_dir)
+        flash0 = flash_attention_fwd.launches
+        engine = serve.load(prefix, epoch=0, symbol=logits,
+                            buckets=PROGCACHE_BUCKETS, lint="off")
+        check(engine._progcache is None, "the parent's engine has a cache")
+        engine.warmup((cfg["max_length"],))
+        parent_digests = _logit_digests(engine, _progcache_requests(
+            cfg["vocab"], cfg["max_length"]))
+        parent_launches = flash_attention_fwd.launches - flash0
+        parent_costs = _cost_records(engine)
+        shipped = serve.ship_programs(engine, prefix)
+        check(shipped == len(PROGCACHE_BUCKETS),
+              f"ship_programs wrote {shipped} programs")
+        pdir = serve.programs_dir_for(prefix)
+        ship_pc = progcache.ProgramCache(pdir, keep=0)
+        ship_kernel = ship_pc.has(_kernels.kernel_key("flash_attention_fwd"))
+        check(ship_kernel and ship_pc.entries() == shipped + 1,
+              f"programs/ holds {ship_pc.entries()} entries, kernel "
+              f"{ship_kernel}")
+        del engine, logits
+        torch.cuda.empty_cache()
+        parent_s = time.perf_counter() - t_phase
+        cold = _wait_progcache_child("cold", cold_run)
+        cold_run = None
+        with open(warm_run[1] + ".go", "w"):
+            pass
+        warm = _wait_progcache_child("warm", warm_run)
+        warm_run = None
+        d_pc = progcache.ProgramCache(cache_dir, keep=0)
+        sizes = {f: os.path.getsize(os.path.join(cache_dir, f))
+                 for f in os.listdir(cache_dir)}
+        ship_sizes = {f: os.path.getsize(os.path.join(pdir, f))
+                      for f in os.listdir(pdir)}
+        kernel_bytes = {
+            n: os.path.getsize(d_pc._path(_kernels.kernel_key(n).digest))
+            for n in ("flash_attention_fwd", "paged_decode_attention")
+            if d_pc.has(_kernels.kernel_key(n))}
+    finally:
+        for run in (cold_run, warm_run):  # a failure above: stop them
+            if run is not None:
+                run[0].kill()
+                run[0].wait()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        progcache.reset()
+    shutil.rmtree(root, ignore_errors=True)
+
+    n_serve, n_decode = (len(PROGCACHE_BUCKETS),
+                         len(PROGCACHE_DECODE_BUCKETS) + 1)
+    rec = {
+        "phase": "progcache_path", "card": smi, "params": SERVE_LM_PARAMS,
+        "buckets": list(PROGCACHE_BUCKETS),
+        "decode_buckets": PROGCACHE_DECODE_BUCKETS,
+        "streams": len(PROGCACHE_PROMPTS), "new_tokens": PROGCACHE_NEW,
+        "cold_ready_s": cold["ready_s"], "warm_ready_s": warm["ready_s"],
+        "ready_saved_s": cold["ready_s"] - warm["ready_s"],
+        "cold_wall_s": cold["wall_s"], "warm_wall_s": warm["wall_s"],
+        "cold_stages": cold["stages"], "warm_stages": warm["stages"],
+        "parent_s": parent_s, "warm_waited_s": warm["waited_s"],
+        "run_beside": "the cold child beside this process's serving and "
+        "shipping; the warm child's start beside the cold child, its "
+        "start-to-ready without its wait for it",
+        "cold_nvcc": cold["nvcc"], "warm_nvcc": warm["nvcc"],
+        "cold_progcache": cold["progcache"],
+        "warm_progcache": warm["progcache"],
+        "cache_dir_bytes": sum(sizes.values()),
+        "cache_entries": len(sizes), "kernel_entry_bytes": kernel_bytes,
+        "shipped_bytes": sum(ship_sizes.values()),
+        "shipped_entries": len(ship_sizes),
+        "logits_sha256": parent_digests,
+        "scoring_costs": {k: v for k, v in parent_costs.items()},
+        "launches": {"parent": parent_launches, "cold": cold["launches"],
+                     "warm": warm["launches"]},
+        "phase_wall_s": time.perf_counter() - t_phase}
+    emit(rec)
+    for tag, r in (("cold", cold), ("warm", warm)):
+        check(r["in_copy"], f"{tag} child imported {r['package']}")
+        check(not r["libs_at_start"],
+              f"{tag} child's build dir held {r['libs_at_start']}")
+        check(len(r["tokens"]) == len(PROGCACHE_PROMPTS) and all(
+            len(t) == PROGCACHE_NEW for t in r["tokens"]),
+              f"{tag} child's streams: {[len(t) for t in r['tokens']]}")
+    check(cold["nvcc"]["count"] == 2 and sorted(cold["nvcc"]["kernels"])
+          == ["flash_attention_fwd", "paged_decode_attention"]
+          and cold["progcache"]["armed"]["miss"] >= 2,
+          f"the cold child's nvcc runs: {cold['nvcc']}")
+    check(cold["scored_fresh"] == n_serve and cold["decode_fresh"]
+          == n_decode and not any(cold["compile_log"]["serve"]
+                                  + cold["compile_log"]["decode"]),
+          f"the cold child hit: {cold['compile_log']}")
+    # the scoring engine writes its programs through its own dir's cache,
+    # the kernels and the decode programs go through the armed one (D)
+    check(cold["progcache"]["serve"]["write"] == n_serve
+          and cold["progcache"]["armed"]["write"] == n_decode + 2,
+          f"the cold child wrote {cold['progcache']}")
+    check(warm["nvcc"]["count"] == 0,
+          f"the warm child ran nvcc: {warm['nvcc']}")
+    # warmup counts the scoring programs run for the first time (hits
+    # too, as the reference's) and the decode programs that missed
+    check(warm["scored_fresh"] == n_serve and warm["decode_fresh"] == 0
+          and all(warm["compile_log"]["serve"])
+          and all(warm["compile_log"]["decode"])
+          and len(warm["compile_log"]["serve"]) == n_serve
+          and len(warm["compile_log"]["decode"]) == n_decode,
+          f"the warm child's compile_log: {warm['compile_log']}")
+    rejects = sum(p["reject"] for p in warm["progcache"].values())
+    check(rejects == 0, f"the warm child rejected {warm['progcache']}")
+    check(warm["costs"] == cold["costs"],
+          "the warm child's cost records differ from the cold child's: "
+          + str({k: (cold["costs"].get(k), v)
+                 for k, v in warm["costs"].items()
+                 if cold["costs"].get(k) != v})[:3000])
+    check(warm["logits_sha256"] == cold["logits_sha256"]
+          == parent_digests,
+          f"logits differ: parent {parent_digests}, cold "
+          f"{cold['logits_sha256']}, warm {warm['logits_sha256']}")
+    check(warm["tokens"] == cold["tokens"], "greedy tokens differ")
+    check(warm["launches"] == cold["launches"]
+          and cold["launches"]["flash_attention_fwd"] > 0
+          and cold["launches"]["flash_decode_attention"] > 0,
+          f"launches: cold {cold['launches']}, warm {warm['launches']}")
+    layers = cfg["layers"]
+    check(parent_launches == layers * (n_serve + len(PROGCACHE_BUCKETS)),
+          f"the parent's flash forward launches {parent_launches}")
+    return {
+        "flash_attention_fwd": parent_launches
+        + cold["launches"]["flash_attention_fwd"]
+        + warm["launches"]["flash_attention_fwd"],
+        "flash_decode_attention": cold["launches"]["flash_decode_attention"]
+        + warm["launches"]["flash_decode_attention"]}
+
+
 NP_SEED = 3
 NP_TOL = 1e-4              # card vs CPU, relative to each tensor's max
 
@@ -6561,6 +7035,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--health-path"]:  # health_path's child process
         _health_child(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--progcache-child"]:  # progcache_path's children
+        _progcache_child(sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5],
+                         float(sys.argv[6]))
+        return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import mxnet_tpu_torch  # noqa: F401  (raises when run outside a checkout)
 
@@ -6611,6 +7089,7 @@ def main() -> int:
     mesh = run(phase_mesh_path, torch, dev, smi)
     serve_mesh = run(phase_serve_mesh_path, torch, dev, smi, zoo_ckpt)
     train_fleet = run(phase_train_fleet_path, torch, dev, smi)
+    cached = run(phase_progcache_path, torch, dev, smi)
     before = [k.launches for k in own]
     run(phase_np_path, torch, dev, smi)
     check([k.launches for k in own] == before,
@@ -6621,7 +7100,8 @@ def main() -> int:
                       + gluon_launches[k] + estimator_launches[k]
                       + module_launches[k] + served[k] + fleet[k]
                       + observed[k] + dist[k] + mesh[k] + serve_mesh[k]
-                      + train_fleet[k] for k in train_launches}
+                      + train_fleet[k] + cached.get(k, 0)
+                      for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
     emit({"kernels": [
@@ -6631,7 +7111,8 @@ def main() -> int:
                       serve_launches + gluon_decode
                       + served["flash_decode_attention"]
                       + fleet["flash_decode_attention"]
-                      + observed["flash_decode_attention"], kern,
+                      + observed["flash_decode_attention"]
+                      + cached["flash_decode_attention"], kern,
                       design=PAGED_DESIGN,
                       chunk=kern["chunk"]),
         # launches: the training path's (bf16), the nd path's, the gluon
@@ -6639,8 +7120,9 @@ def main() -> int:
         # path's (f32), the serve path's LM scoring (f32), the two
         # dist_sync LM workers' (f32, counted in the workers), the mesh
         # path's ranks' (ring blocks, f32 and bf16), the sharded
-        # serving path's tp-2 ranks' (f32, 6 of 12 heads each) and the
-        # training-fleet path's six elastic workers' (f32); the main
+        # serving path's tp-2 ranks' (f32, 6 of 12 heads each), the
+        # training-fleet path's six elastic workers' (f32) and the program
+        # cache path's own and its cold and warm children's (f32); the main
         # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
         # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",

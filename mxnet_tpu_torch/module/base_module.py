@@ -27,8 +27,12 @@ with a synchronize of the executor's device: the launches return once
 queued, and their device time would otherwise land in the next host read
 (the elastic gradient sync), booked as reduce-wait.
 
-The quarantined rejoiner's program-cache warm (queue item A15(d)) is left
-out.
+A quarantined rejoiner warms its fused update step while it waits
+(``_prewarm_update_programs``, as the reference's): with a program cache
+armed it resolves the step for the parameter set of the newest shared
+checkpoint (``Updater.prewarm_batch``: a hit, or a run on copies that
+fills the cache), never touching a weight, a state or a counter; any
+failure there is logged and ignored.
 ``monitor=`` is accepted and never read, as in the reference's ``fit``.
 """
 from __future__ import annotations
@@ -194,6 +198,10 @@ class BaseModule:
                     "elastic: quarantined (generation %d, fleet at epoch "
                     "%d) — waiting for the next epoch boundary",
                     elastic_info.generation, elastic_info.epoch)
+                # resolve the fused update step now, overlapping the wait,
+                # so activation never stalls the fleet's first reduce
+                self._prewarm_update_programs(manager, optimizer,
+                                              optimizer_params, train_data)
                 elastic_info = elastic.await_activation()
                 self.logger.info(
                     "elastic: activated at epoch %d generation %d, shard "
@@ -531,6 +539,55 @@ class BaseModule:
         self.set_params(arg_params, aux_params)
 
     # -- elastic plumbing -------------------------------------------------
+    def _prewarm_update_programs(self, manager, optimizer, optimizer_params,
+                                 train_data) -> bool:
+        """Best-effort elastic-rejoin warm: resolve the fused update step
+        for the parameter set of the newest shared checkpoint from the
+        program cache (or fill the cache from a run on copies), without
+        touching the optimizer's counters or any weight. A key that
+        differs from the live fit's only means the first real step misses;
+        never a wrong program. Returns whether a step was resolved."""
+        from .. import progcache
+
+        if not progcache.active() or manager is None:
+            return False
+        try:
+            state = manager.load_latest()
+            if state is None:
+                return False
+            arg_params = state.arg_params()
+            fixed = getattr(self, "_fixed_param_names", set())
+            all_names = list(getattr(self, "_param_names", []))
+            names = [n for n in all_names if n not in fixed]
+            if not names or any(n not in arg_params for n in names):
+                return False
+            from ..ndarray import array as nd_array
+            from ..optimizer import create as opt_create
+            from ..optimizer.optimizer import Optimizer, Updater
+
+            if isinstance(optimizer, Optimizer):
+                opt = optimizer
+            else:
+                # Module.init_optimizer's construction (the 1/batch rescale
+                # included), so that the statics match the live engine's
+                params = dict(optimizer_params or {})
+                provide = getattr(train_data, "provide_data", None)
+                if "rescale_grad" not in params and provide:
+                    params["rescale_grad"] = 1.0 / provide[0][1][0]
+                opt = opt_create(optimizer, **params)
+            ctx = getattr(self, "_context", None)
+            indices = [i for i, n in enumerate(all_names) if n not in fixed]
+            weights = [nd_array(np.asarray(arg_params[n]), ctx=ctx)
+                       for n in names]
+            warmed = Updater(opt).prewarm_batch(indices, weights)
+            if warmed:
+                self.logger.info("elastic: fused update step warmed from "
+                                 "the program cache while quarantined")
+            return warmed
+        except Exception as e:  # noqa: BLE001 — the warm is optional
+            self.logger.debug("program-cache prewarm skipped: %s", e)
+            return False
+
     @staticmethod
     def _set_partition(train_data, info):
         """Recut the iterator to the fleet's shard assignment (an iterator

@@ -57,9 +57,12 @@ on the first run of each signature (the engines' ``compile_log`` sites):
 
 Activation as the reference's: capture runs while telemetry is enabled or
 ``MXNET_DEVICE_COST=1`` forces it; ``MXNET_DEVICE_COST=0`` vetoes it.
-The reference's ``analyze_compiled`` and ``adopt_cached_cost`` (its
-persisted programs) have no counterpart: the program cache is queue item
-A15 (item 2) of the port.
+Program identity is the program cache's (``progcache.program_key``): a
+capture given ``key=`` files under the key's (site, label) and its record
+carries the key's digest as ``program_key``, and on a cache hit
+:func:`adopt_cached_cost` files the stored record instead of a capture
+run. The reference's ``analyze_compiled`` (XLA's analyses of a compiled
+executable) has no counterpart: there is no compiled executable to ask.
 """
 from __future__ import annotations
 
@@ -72,7 +75,8 @@ from . import metrics as _metrics
 from . import trace as _trace
 
 __all__ = ["active", "capture", "capturing", "Capture", "record", "cost_of",
-           "costs", "attribute", "annotate_span", "roofline_class",
+           "costs", "adopt_cached_cost", "attribute", "annotate_span",
+           "roofline_class",
            "set_peak", "get_peak", "card_peaks", "live_bytes", "sample",
            "LeakDetector", "monitor", "reset", "COST_FIELDS"]
 
@@ -388,7 +392,7 @@ def _mode(cap: Capture):
 
 def capture(fn, args: tuple = (), site: str = None, label: str = None,
             kwargs=None, device=None, arg_tensors=None,
-            pointwise: bool = False):
+            pointwise: bool = False, key=None):
     """Run ``fn(*args, **kwargs)`` once, counted; return ``(result,
     cost)``. ``device`` (the call's device; default the first tensor
     argument's) picks the peak-memory source; ``arg_tensors`` (a pytree:
@@ -397,8 +401,13 @@ def capture(fn, args: tuple = (), site: str = None, label: str = None,
     result: one run serves both the accounting and the request. The
     record is filed under ``(site, label)`` (:func:`record`).
     ``pointwise`` also counts one operation per element of each
-    element-wise op's output (the update engine's site)."""
+    element-wise op's output (the update engine's site). ``key`` (a
+    ``progcache.ProgramKey``) gives the site and label and adds its digest
+    to the record as ``program_key``."""
     import torch
+
+    if key is not None:
+        site, label = key.site, key.label
 
     if device is None:
         ts = _tensors((args, kwargs or {}))
@@ -432,8 +441,34 @@ def capture(fn, args: tuple = (), site: str = None, label: str = None,
             "peak_hbm_bytes": int(arg_bytes + max(temp, 0)),
             "device": device.type, "dtype": cap.dtype(),
             "kernels": {k: dict(v) for k, v in sorted(cap.kernels.items())}}
+    if key is not None:
+        cost["program_key"] = key.digest
     record(site, label, cost)
     return out, cost
+
+
+# the fields of a record that a cache entry carries back (the reference's
+# COST_FIELDS, then the port's own)
+_ADOPTED = ("device", "dtype", "kernels")
+
+
+def adopt_cached_cost(key, meta: Optional[dict]) -> dict:
+    """Cost salvage for a program-cache hit (``progcache``): the record the
+    writer's capture took rides the entry, so the registry and the MFU
+    attribution work on hits without a capture run. Filters ``meta`` to
+    :data:`COST_FIELDS` and the port's ``device``/``dtype``/``kernels``
+    and, when the device plane records, files it under the key's (site,
+    label) with ``program_key``. Returns the cost dict, ``{}`` when the
+    writer captured none (callers skip an all-zero record)."""
+    meta = meta or {}
+    cost = {k: meta[k] for k in COST_FIELDS if k in meta}
+    if not any(cost.values()):
+        return {}
+    cost.update({k: meta[k] for k in _ADOPTED if k in meta})
+    cost["program_key"] = key.digest
+    if active():
+        record(key.site, key.label, cost)
+    return cost
 
 
 def record(site: str, label: str, cost: dict) -> None:

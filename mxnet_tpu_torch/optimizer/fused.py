@@ -29,18 +29,29 @@ counts and, with a loss scaler, its found-inf flag and skip streak. A step
 without stats dispatches exactly the operators of a step with the plane
 off, and the weights are bitwise the same either way.
 
-Device plane: the first run of each signature (optimizer, parameter
-shapes and dtypes, scaler, clip, stats) is captured by
-``obs.device.capture`` (site ``update``, label the optimizer's class name)
-into ``compile_log``; later runs carry the analytic MFU on their
-``update.fused`` span. The element-wise update's operations are counted
-one per element produced (``capture(pointwise=True)``).
+Device plane: the first run of each signature (optimizer and its
+step-shaping hyperparameters, parameter and state avals, multi-precision,
+scaler, clip, stats) is captured by ``obs.device.capture`` (site
+``update``, label the optimizer's class name) into ``compile_log``; later
+runs carry the analytic MFU on their ``update.fused`` span. The
+element-wise update's operations are counted one per element produced
+(``capture(pointwise=True)``).
+
+Program cache (``progcache``, the process-global one): the signature's
+``progcache.program_key`` is looked up at its first run. A hit marks the
+``compile_log`` entry ``cache_hit``, adopts the stored cost instead of a
+capture run and applies the step as always (bitwise the same update); a
+miss writes the program's record. :meth:`FusedUpdateEngine.prewarm` (and
+``Updater.prewarm_batch``) does the lookup, or fills the cache from a run
+on copies, without touching weights, states or counters: what a
+quarantined elastic rejoiner does while it waits.
 
 ``lower_update`` is the in-place form over tensor lists that
 ``parallel.ShardedTrainer`` calls.
 """
 from __future__ import annotations
 
+import copy
 import math
 import os
 import time
@@ -49,6 +60,7 @@ from typing import Dict, List
 import torch
 
 from .. import obs
+from .. import progcache as _progcache
 from ..ndarray import NDArray
 from ..ops import get_op
 from ..ops.elemwise import sign
@@ -448,6 +460,12 @@ class FusedUpdateEngine:
     steps applied.
     """
 
+    # hyperparameters that are values of a step, not its shape (the
+    # reference's list): left out of the program's statics
+    _TRACED_ATTRS = frozenset({"lr", "rescale_grad", "num_update",
+                               "begin_num_update", "m_schedule", "wd",
+                               "multi_precision"})
+
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.exec_count = 0
@@ -457,6 +475,77 @@ class FusedUpdateEngine:
 
     def supported(self) -> bool:
         return type(self.optimizer) in _LOWER
+
+    def _static_key(self):
+        opt = self.optimizer
+        return tuple(sorted(
+            (k, v) for k, v in opt.__dict__.items()
+            if k not in self._TRACED_ATTRS
+            and isinstance(v, (int, float, bool, str))))
+
+    def _signature(self, weights, grads, states, loss_scaler,
+                   clip_global_norm, health_on) -> tuple:
+        """The step program's statics (the reference's key): optimizer
+        class and static hyperparameters, state structure, multi-precision
+        flags, weight/gradient/state avals, scaler, clip and stats."""
+        opt = self.optimizer
+        ws = _as_tensor_list(weights)
+
+        def aval(t):
+            return (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+
+        specs = tuple(_state_spec(s) for s in states)
+        scaler_on = loss_scaler is not None
+        factor, window = ((float(loss_scaler._factor),
+                           int(loss_scaler._window)) if scaler_on
+                          else (2.0, 0))
+        return (type(opt), self._static_key(), specs,
+                tuple(bool(opt._use_mp(w)) for w in ws),
+                tuple(aval(w) for w in ws),
+                tuple(aval(g) for g in _as_tensor_list(grads)),
+                tuple(tuple(aval(x) for x in _as_tensor_list(_leaves(s, [])))
+                      for s in states),
+                scaler_on, factor, window,
+                bool(clip_global_norm and clip_global_norm > 0), health_on)
+
+    def _program_key(self, sig):
+        """The step's ``progcache.ProgramKey``: site ``update``, label the
+        optimizer's class name, statics the signature."""
+        return _progcache.program_key("update", type(self.optimizer).__name__,
+                                      sig)
+
+    def _first(self, sig, n_params, health_on, dev, run):
+        """Resolve a signature's first run: a cache hit adopts the stored
+        cost and ``run(False, None)`` applies the step as always; else
+        ``run(True, key)`` runs it (counted by the device plane when
+        active, returning its cost) and the record is written. Returns the
+        ``compile_log`` entry."""
+        from ..ops import _kernels
+
+        opt = self.optimizer
+        entry = {"site": "update", "optimizer": type(opt).__name__,
+                 "n_params": n_params, "health": health_on,
+                 "cache_hit": False}
+        pc = _progcache.cache()
+        pk = hit = None
+        if pc is not None:
+            pk = self._program_key(sig)
+            entry["program_key"] = pk.digest
+            hit = _progcache.load_program(pc, pk, dev)
+        if hit is not None:
+            entry["cache_hit"] = True
+            cost = obs.device.adopt_cached_cost(pk, hit.cost)
+            run(False, None)
+        else:
+            with _kernels.recording() as launched:
+                cost = run(True, pk)
+            if pc is not None:
+                _progcache.store_program(pc, pk, cost, launched, dev)
+        entry.update(cost or {})
+        self._sig_cost[sig] = cost or {}
+        self.compile_log.append(entry)
+        obs.inc("update.cache_hit" if hit is not None else "update.compile")
+        return entry
 
     def apply(self, indices, weights, grads, states, loss_scaler=None,
               clip_global_norm=None):
@@ -479,26 +568,28 @@ class FusedUpdateEngine:
         t0 = time.monotonic() if rec else 0.0
         dev = _as_tensor_list(weights[:1])[0].device
         sig = None
-        if obs.device.active():
-            # the signature's first run is counted (the zero-cost-when-off
-            # contract: no signature is built while capture is off)
-            sig = (type(opt), tuple((tuple(w.shape), str(w.dtype))
-                                    for w in _as_tensor_list(weights)),
-                   loss_scaler is not None,
-                   bool(clip_global_norm and clip_global_norm > 0),
-                   health_on)
+        if obs.device.active() or _progcache.active():
+            # the signature's first run is counted and looked up (the
+            # zero-cost-when-off contract: no signature is built while
+            # capture and the cache are off)
+            sig = self._signature(weights, grads, states, loss_scaler,
+                                  clip_global_norm, health_on)
         first = sig is not None and sig not in self._sig_cost
         with obs.trace.span("update.fused", optimizer=type(opt).__name__,
                             n_params=len(indices), compile=first) as sp:
             if first:
-                _, cost = obs.device.capture(
-                    self._apply, args, site="update",
-                    label=type(opt).__name__, pointwise=True, device=dev)
-                self._sig_cost[sig] = cost
-                self.compile_log.append(
-                    {"site": "update", "optimizer": type(opt).__name__,
-                     "n_params": len(indices), "health": health_on,
-                     "cache_hit": False, **cost})
+                def run(count, pk):
+                    if count and obs.device.active():
+                        return obs.device.capture(
+                            self._apply, args, site="update",
+                            label=type(opt).__name__, pointwise=True,
+                            device=dev, key=pk)[1]
+                    self._apply(*args)
+                    return None
+
+                entry = self._first(sig, len(indices), health_on, dev, run)
+                if isinstance(sp, obs.trace._Span):
+                    sp.attrs["cache_hit"] = entry["cache_hit"]
             else:
                 self._apply(*args)
             cost = self._sig_cost.get(sig) if rec and not first else None
@@ -513,6 +604,56 @@ class FusedUpdateEngine:
             obs.observe("update.compile_seconds" if first
                         else "update.execute_seconds",
                         time.monotonic() - t0)
+
+    def prewarm(self, indices, weights, grads, states, loss_scaler=None,
+                clip_global_norm=None) -> bool:
+        """Resolve the step ``apply`` would run on these arrays WITHOUT
+        applying it: weights, states, the optimizer's counters and the loss
+        scaler stay as they are. A cache hit is adopted as at a first run;
+        a miss runs the step once on copies (counted by the device plane
+        when active) and writes its record. The elastic rejoiner calls this
+        while quarantined, so the real first step finds its program seen.
+        Returns True when the signature is now resolved."""
+        if not self.supported() or not weights:
+            return False
+        health_on = obs.health.stats_for_this_step()
+        sig = self._signature(weights, grads, states, loss_scaler,
+                              clip_global_norm, health_on)
+        if sig in self._sig_cost:
+            return True
+        opt = self.optimizer
+        dev = _as_tensor_list(weights[:1])[0].device
+        shadow = copy.copy(opt)
+        shadow._index_update_count = dict(opt._index_update_count)
+        if getattr(opt, "lr_scheduler", None) is not None:
+            shadow.lr_scheduler = copy.deepcopy(opt.lr_scheduler)
+        args = (list(indices), [NDArray(t.clone())
+                                for t in _as_tensor_list(weights)],
+                [NDArray(t.clone()) for t in _as_tensor_list(grads)],
+                [_clone_state(s) for s in states],
+                copy.copy(loss_scaler) if loss_scaler is not None else None,
+                clip_global_norm, health_on)
+
+        def run(count, pk):
+            if not count:
+                return None  # a hit: nothing runs
+            saved = (self.optimizer, self.exec_count, self.last_health)
+            self.optimizer = shadow
+            try:
+                if obs.device.active():
+                    return obs.device.capture(
+                        self._apply, args, site="update",
+                        label=type(opt).__name__, pointwise=True,
+                        device=dev, key=pk)[1]
+                self._apply(*args)
+                return None
+            finally:
+                self.optimizer, self.exec_count, self.last_health = saved
+
+        entry = self._first(sig, len(indices), health_on, dev, run)
+        obs.event("progcache.prewarm", optimizer=type(opt).__name__,
+                  cache_hit=entry["cache_hit"])
+        return True
 
     @torch.no_grad()
     def _apply(self, indices, weights, grads, states, loss_scaler,
@@ -632,6 +773,25 @@ class FusedUpdateEngine:
         scaler.last_overflow = NDArray(found)
         scaler.skip_streak = NDArray(torch.where(found, streak + 1,
                                                  torch.zeros_like(streak)))
+
+
+def _state_spec(s):
+    """The nesting of one parameter's state (None, a leaf, or tuples)."""
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_state_spec(x) for x in s)
+    return "leaf"
+
+
+def _clone_state(s):
+    """A copy of one parameter's state, every leaf a new array."""
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_clone_state(x) for x in s)
+    return NDArray(s._data.clone()) if isinstance(s, NDArray) \
+        else s.clone()
 
 
 def _unwrap_state(s):

@@ -588,6 +588,32 @@ class Updater:
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
 
+    def prewarm_batch(self, indices, weights, loss_scaler=None,
+                      clip_global_norm=None) -> bool:
+        """Resolve the fused step for this parameter set WITHOUT running
+        it on the real arrays (``FusedUpdateEngine.prewarm``): from the
+        program cache, or filling it. The optimizer's counters, the
+        weights and the states are untouched. The elastic rejoiner warms
+        here while quarantined. Returns True when the step is resolved."""
+        from .fused import fused_update_enabled
+
+        if not fused_update_enabled() or len(set(indices)) != len(indices):
+            return False
+        eng = self._get_engine()
+        if not eng.supported():
+            return False
+        # existing states are reused; missing ones are built locally and
+        # dropped: only their structure and avals shape the program, and
+        # keeping a state made from prewarm-time weights would seed the
+        # real first update with a stale master copy
+        states = [self.states[i] if i in self.states
+                  else self.optimizer.create_state_multi_precision(i, w)
+                  for i, w in zip(indices, weights)]
+        grads = [w.zeros_like() for w in weights]
+        return eng.prewarm(indices, weights, grads, states,
+                           loss_scaler=loss_scaler,
+                           clip_global_norm=clip_global_norm)
+
     def update_batch(self, indices, grads, weights, loss_scaler=None,
                      clip_global_norm=None):
         """Update a whole parameter set at once, with global-norm clipping

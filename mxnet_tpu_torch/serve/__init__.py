@@ -27,9 +27,10 @@ An engine sharded over a mesh of several ranks (``InferenceEngine(mesh=,
 rules=, data_spec=)``) runs in every rank of its job, rank 0 leading
 (``group.py``); ``ReplicaPool.sharded`` serves such groups, each a job of
 its own on a slice of the mesh, and ``python -m
-mxnet_tpu_torch.serve.server --tp N`` starts its own N ranks. The
-persisted programs of :func:`ship_programs` are queue item A15 of the
-port.
+mxnet_tpu_torch.serve.server --tp N`` starts its own N ranks.
+:func:`ship_programs` writes an engine's programs and the kernels they
+launch (``progcache``) into a ``programs/`` payload beside the artifact,
+and :func:`load` warms from it when given no ``progcache_dir``.
 
 Typical session::
 
@@ -59,7 +60,6 @@ import os
 import re
 from typing import Optional, Tuple
 
-from ..base import MXNetError
 from .batcher import DynamicBatcher, Future
 from .client import ServeClient
 from .decode import (DecodeEngine, DecodeScheduler,  # noqa: F401
@@ -162,13 +162,55 @@ def _load_artifact(path: str, epoch: Optional[int], symbol, prefix: str):
 
 
 def programs_dir_for(path: str) -> str:
-    raise MXNetError("serve.programs_dir_for: persisted programs are queue "
-                     "item A15 of the port")
+    """The conventional location of an artifact's shipped program-cache
+    payload (``progcache``): ``<dir>/programs`` for a checkpoint-manager
+    directory, ``<prefix>-programs`` for the file kinds.
+    :func:`ship_programs` writes it; :func:`load` discovers it."""
+    if os.path.isdir(path):
+        return os.path.join(path, "programs")
+    return f"{path}-programs"
 
 
 def ship_programs(engine: InferenceEngine, path: str) -> int:
-    raise MXNetError("serve.ship_programs: persisted programs are queue "
-                     "item A15 of the port")
+    """Export ``engine``'s programs, with the entries of the kernels they
+    launch, as the artifact's ``programs/`` payload, so that every process
+    that :func:`load`s the artifact warms from it: no ``nvcc`` run, no
+    capture run. For a Gluon export the descriptor also records the
+    payload's dirname. Returns the number of programs written."""
+    d = programs_dir_for(path)
+    n = engine.save_programs(d)
+    if n == 0:
+        # a payload dir with nothing in it must not exist: load() would
+        # discover it and let it override a populated env-armed cache
+        try:
+            os.rmdir(d)
+        except OSError:
+            pass  # foreign files in it, or already gone: leave it
+    sym_file = f"{path}-symbol.json"
+    if n and os.path.exists(sym_file):
+        try:
+            with open(sym_file) as f:
+                desc = json.load(f)
+            if isinstance(desc, dict) \
+                    and desc.get("format") == "mxnet_tpu-hybrid":
+                from ..checkpoint.atomic import atomic_write_json
+
+                desc["programs"] = os.path.basename(d)
+                atomic_write_json(sym_file, desc)
+        except (OSError, ValueError):
+            pass  # the payload still loads by the dir convention
+    return n
+
+
+def _discover_programs(path: str) -> Optional[str]:
+    d = programs_dir_for(path)
+    try:
+        # only a payload with at least one entry beats the env-armed cache
+        if any(e.endswith(".mxprog") for e in os.listdir(d)):
+            return d
+    except OSError:
+        pass
+    return None
 
 
 def load(path: str, epoch: Optional[int] = None, symbol=None, *,
@@ -176,8 +218,15 @@ def load(path: str, epoch: Optional[int] = None, symbol=None, *,
     """Build an :class:`InferenceEngine` from any trained artifact (see
     the module docstring for the three kinds). Extra kwargs go to the
     engine (``max_batch_size``, ``buckets``, ``data_names``, ``lint``,
-    ``ctx``, ``mesh``, ``rules``, ``data_spec``)."""
+    ``ctx``, ``mesh``, ``rules``, ``data_spec``, ``progcache_dir``). An
+    artifact shipping a ``programs/`` payload (:func:`ship_programs`)
+    becomes the engine's program cache unless ``progcache_dir`` is
+    given."""
     sym, arg, aux = _load_artifact(path, epoch, symbol, prefix)
+    if "progcache_dir" not in engine_kwargs:
+        shipped = _discover_programs(path)
+        if shipped is not None:
+            engine_kwargs["progcache_dir"] = shipped
     return InferenceEngine(sym, arg, aux, **engine_kwargs)
 
 

@@ -19,8 +19,15 @@ Growing a sequence never changes a shape: the KV pool is one fixed tensor
 reference donates the buffer to each program instead), and growth is a
 host-side page-table edit (``serve/kvcache.py``). PyTorch runs eagerly, so
 ``compile_log`` records each distinct shape signature the first time it
-runs (``cache_hit: False``): ``warmup()`` records ``len(buckets) + 1`` and
-no traffic mix adds another.
+runs: ``warmup()`` records ``len(buckets) + 1`` and no traffic mix adds
+another. With a program cache (``progcache_dir=`` or the process-global
+one) a signature's first run looks up its ``progcache.program_key``
+(site ``decode``, label the prefill bucket or ``step``; statics the
+model's config, slots, pages, buckets, parameter avals and device type),
+as ``serve/engine.py``'s engine does: a hit is a ``cache_hit`` entry that
+adopts the stored cost and loads the paged and flash kernels from their
+entries; a miss writes its record. ``warmup()`` returns the signatures
+that missed (0 on a warm start).
 
 :class:`DecodeScheduler` — the host half, ported one to one: requests join
 and leave the running decode batch at step boundaries; priority lanes and
@@ -58,6 +65,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from .. import progcache as _progcache
 from .._env import env_float, env_int
 from ..context import as_device
 from ..obs import context as obs_context
@@ -119,13 +127,16 @@ class DecodeEngine:
     device : str or torch.device, optional
         Where the parameters and the KV pool live. Default ``cuda:0``;
         with no card it raises. Pass ``"cpu"`` to run on the CPU.
+    progcache_dir : str, optional
+        Explicit persistent program cache; default the process-wide
+        ``progcache.cache()`` (``MXNET_PROGCACHE_DIR``).
     """
 
     def __init__(self, lm, params=None, *, slots: Optional[int] = None,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  prompt_buckets: Optional[List[int]] = None,
-                 device=None):
+                 device=None, progcache_dir: Optional[str] = None):
         from ..models.transformer import decode_config, decode_params
 
         self.device = as_device(device)
@@ -181,6 +192,19 @@ class DecodeEngine:
         self.cache_hits = 0
         self.exec_count = 0
         self._stat_lock = threading.Lock()
+
+        self._progcache = (_progcache.ProgramCache(progcache_dir)
+                           if progcache_dir else _progcache.cache())
+        self._sig_key: Dict[tuple, object] = {}
+        avals = [(k, tuple(v.shape), str(v.dtype))
+                 for k, v in sorted(self._params.items()) if k != "layers"]
+        avals += [(i, k, tuple(v.shape), str(v.dtype))
+                  for i, lp in enumerate(self._params["layers"])
+                  for k, v in sorted(lp.items())]
+        self._key_statics = (
+            tuple(sorted(self.cfg.items())), self.slots, self.page_size,
+            self.num_pages, self.max_pages, tuple(self.buckets),
+            tuple(avals), self.device.type)
 
     # -- device work ---------------------------------------------------
 
@@ -241,6 +265,35 @@ class DecodeEngine:
         logits = _dense(x, params["dec_w"], params["dec_b"])
         return sample_token(logits, self._generator(seed), temps)
 
+    def _program_key(self, sig, label: str):
+        pk = self._sig_key.get(sig)
+        if pk is None:
+            pk = _progcache.program_key("decode", label,
+                                        (self._key_statics, sig))
+            self._sig_key[sig] = pk
+        return pk
+
+    def _lookup(self, entry, sig, label: str):
+        """A first run's cache lookup: on a hit the entry becomes a
+        ``cache_hit`` with the stored cost, and the program's kernels load
+        from their entries. Returns (key, hit Program); (None, None)
+        without a cache."""
+        if self._progcache is None:
+            return None, None
+        pk = self._program_key(sig, label)
+        entry["program_key"] = pk.digest
+        hit = _progcache.load_program(self._progcache, pk, self.device)
+        if hit is None:
+            return pk, None
+        entry["cache_hit"] = True
+        cost = obs.device.adopt_cached_cost(pk, hit.cost)
+        if cost:
+            entry.update(cost)
+            self._sig_cost[sig] = cost
+        with self._stat_lock:
+            self.cache_hits += 1
+        return pk, hit
+
     def _execute(self, kind: str, label: str, fn, args):
         """Run one call with shape accounting: a ``compile_log`` entry the
         first time a signature runs (counted by the device plane when it
@@ -258,18 +311,18 @@ class DecodeEngine:
                 entry = {"sig": sig, "kind": kind, "label": label,
                          "cache_hit": False}
                 self.compile_log.append(entry)
+        pk = hit = None
+        if entry is not None:
+            pk, hit = self._lookup(entry, sig, label)
+        fresh = entry is not None and hit is None
         with obs.trace.span("decode.execute", kind=kind, label=label,
                             compile=entry is not None,
-                            cache_hit=False) as sp:
+                            cache_hit=hit is not None) as sp:
             dev = tuple(torch.from_numpy(np.ascontiguousarray(a))
                         .to(self.device)
                         if isinstance(a, np.ndarray) else a for a in args)
-            if entry is not None and obs.device.active():
-                toks, cost = obs.device.capture(
-                    fn, dev, site="decode", label=label, device=self.device,
-                    arg_tensors=(self._params, self.kv, dev))
-                entry.update(cost)
-                self._sig_cost[sig] = cost
+            if fresh:
+                toks = self._fresh_run(entry, sig, label, fn, dev, pk)
             else:
                 toks = fn(*dev)
             host = toks.cpu().numpy()
@@ -280,9 +333,12 @@ class DecodeEngine:
                                else time.monotonic() - t0)
         if rec:
             dt = time.monotonic() - t0
-            if entry is not None:
+            if fresh:
                 obs.inc("decode.compile")
                 obs.observe("decode.compile_seconds", dt)
+            elif hit is not None:
+                obs.inc("decode.cache_hit")
+                obs.observe("decode.deserialize_seconds", dt)
             else:
                 obs.observe("decode.execute_seconds", dt)
             obs.device.sample()  # the live-memory counter lane, per call
@@ -290,6 +346,27 @@ class DecodeEngine:
             self._programs[sig] += 1
             self.exec_count += 1
         return host
+
+    def _fresh_run(self, entry, sig, label, fn, dev, pk):
+        """A signature's first run without a cache hit: counted by the
+        device plane when it is active and, with a cache, written with
+        the kernels it launched."""
+        from ..ops import _kernels
+
+        cost = None
+        with _kernels.recording() as launched:
+            if obs.device.active():
+                toks, cost = obs.device.capture(
+                    fn, dev, site="decode", label=label, device=self.device,
+                    arg_tensors=(self._params, self.kv, dev), key=pk)
+                entry.update(cost)
+                self._sig_cost[sig] = cost
+            else:
+                toks = fn(*dev)
+        if pk is not None:
+            _progcache.store_program(self._progcache, pk, cost, launched,
+                                     self.device, meta={"kind": sig[0]})
+        return toks
 
     def _annotate(self, sp, kind, args, cost, seconds) -> None:
         """Fold this call's cost into its span: the record's, and for a
@@ -396,6 +473,9 @@ class DecodeEngine:
                 "programs": {repr(k): v for k, v in self._programs.items()},
             }
         out["pool"] = self.pool.stats()
+        if self._progcache is not None:
+            out["progcache"] = dict(self._progcache.stats,
+                                    dir=self._progcache.root)
         return out
 
 

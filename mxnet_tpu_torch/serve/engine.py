@@ -16,9 +16,22 @@ launches the flash forward kernel):
   A request larger than the top bucket is chunked through it.
 - **Program accounting**: PyTorch runs eagerly, so a "program" is one
   ``(signature, bucket)``. ``compile_log`` records each the first time it
-  runs (``cache_hit: False``, as ``serve/decode.py``'s engine does);
-  ``warmup`` records every bucket and no traffic adds another, so
-  ``num_programs <= len(buckets)`` per feature signature.
+  runs, as ``serve/decode.py``'s engine does; ``warmup`` records every
+  bucket and no traffic adds another, so ``num_programs <= len(buckets)``
+  per feature signature.
+- **Program cache** (``progcache``; ``progcache_dir=``, an artifact's
+  shipped ``programs/``, or the process-global cache): a signature's
+  ``progcache.program_key`` (site ``serve``, label ``bucket<B>``; statics
+  the graph's JSON, the argument layout, the parameter avals, the pad
+  value, the device type and, on a mesh, its axes, the parameters'
+  specs and ``data_spec``) is looked up at its first run. A hit marks the
+  entry and the span ``cache_hit``, adopts the stored cost record instead
+  of a capture run and loads the kernels the program launched from their
+  entries (no ``nvcc``); a miss runs as before and writes the program's
+  record and its kernels' entries. The outputs are the same either way:
+  the cache changes no op that runs. The peers of a sharded engine look
+  the same keys up at their first run of a bucket, so they load their
+  kernels from the cache the leader hits.
 - **Hot reload**: ``reload`` (or ``prepare_reload`` + ``commit_reload``)
   validates the new parameter set against the serving shapes and dtypes,
   places it on the device, and swaps the whole set under a lock. A batch in
@@ -39,14 +52,13 @@ launches the flash forward kernel):
   the leader computes it alone, as one process would. A reload keeps the
   placements. On a mesh of one rank the engine is the unsharded one.
 
-Differences from the reference, each raising :class:`MXNetError` where it
-applies: ``progcache_dir=`` and ``save_programs`` (persisted programs),
-and the ``lint="error"`` pre-flight (``Symbol.lint``) belong to queue
-item A15. The default ``lint="warn"`` warns once that the pre-flight did
-not run (``lint_report`` stays None). ``warmup`` runs its buckets one
-after the other on the calling thread. ``ctx=`` places an engine without
-a mesh (default: the current context, the card unless a ``with mx.cpu():``
-scope is open); a mesh places it on its rank's device.
+Differences from the reference: the ``lint="error"`` pre-flight
+(``Symbol.lint``) belongs to queue item A15 and raises
+:class:`MXNetError`; the default ``lint="warn"`` warns once that the
+pre-flight did not run (``lint_report`` stays None). ``warmup`` runs its
+buckets one after the other on the calling thread. ``ctx=`` places an
+engine without a mesh (default: the current context, the card unless a
+``with mx.cpu():`` scope is open); a mesh places it on its rank's device.
 
 Telemetry (``obs``): each batch runs in a ``serve.execute`` span and feeds
 the ``serve.*`` counters and histograms; reloads are ``serve.reload``
@@ -72,6 +84,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from .. import progcache as _progcache
 from ..base import MXNetError, dtype_name
 from ..ndarray.serialization import host_array
 from ..parallel.sharding import is_replicated
@@ -196,6 +209,11 @@ class InferenceEngine:
     data_spec : PartitionSpec, optional
         Spec of the request batches (default ``P("dp")``, pruned per
         bucket shape: a pure-``tp`` slice replicates the batch).
+    progcache_dir : str, optional
+        Directory of a persistent program cache for THIS engine
+        (``progcache``), e.g. an artifact's shipped ``programs/``. Default:
+        the process-global cache (``MXNET_PROGCACHE_DIR`` /
+        ``MXNET_PROGCACHE=1``), or none.
     ctx : Context or device, optional
         Where the parameters live and the batches run, without a mesh.
     """
@@ -212,9 +230,6 @@ class InferenceEngine:
         from ..context import as_device, current_context
         from ..executor import _build_graph_fn
 
-        if progcache_dir is not None:
-            raise MXNetError("InferenceEngine(progcache_dir=): persisted "
-                             "programs are queue item A15 of the port")
         if lint not in ("off", "warn", "error"):
             raise ValueError(f"lint must be 'off'|'warn'|'error', got {lint!r}")
         self.lint_report = None
@@ -323,6 +338,15 @@ class InferenceEngine:
         self._free_cache: Dict[tuple, tuple] = {}
         self.exec_count = 0
         self.cache_hits = 0
+        # the persistent program cache: an explicit dir (an artifact's
+        # programs/) beats the process-global one
+        self._progcache = (_progcache.ProgramCache(progcache_dir)
+                           if progcache_dir else _progcache.cache())
+        self._sig_key: Dict[tuple, object] = {}   # sig -> ProgramKey
+        self._launched: Dict[tuple, set] = {}     # sig -> its kernels
+        self._key_statics = None
+        if self._progcache is not None:
+            self._key_statics = self._compute_key_statics()
         if self._channel is not None and not self._channel.is_leader:
             from .group import PeerExit
 
@@ -346,6 +370,46 @@ class InferenceEngine:
     def data_names(self) -> List[str]:
         return list(self._data_names)
 
+    def _compute_key_statics(self):
+        """The serve programs' statics for ``progcache.program_key``: the
+        graph's JSON, the argument layout, the parameter avals, the pad
+        value, the device type and, on a mesh, its axes, each parameter's
+        spec and the batch spec (a program of one placement never serves
+        another)."""
+        mesh_desc = None
+        if self.mesh is not None:
+            mesh_desc = (tuple(sorted(self.mesh.shape.items())),
+                         self.mesh.size,
+                         tuple((n, repr(self._param_sh[n].spec))
+                               for n in self._param_names),
+                         repr(self._data_spec))
+        return (self.symbol.tojson().encode("utf-8"),
+                tuple(self._data_names), tuple(self._param_names),
+                tuple(self._aux_names), tuple(self._free_names),
+                self._param_avals, self._aux_avals, self._pad_value,
+                self.device.type, mesh_desc)
+
+    def _program_key(self, sig, bucket: int):
+        """One ``progcache.ProgramKey`` per signature: the derivation the
+        cost registry and the cache's file names share."""
+        pk = self._sig_key.get(sig)
+        if pk is None:
+            if self._key_statics is None:
+                self._key_statics = self._compute_key_statics()
+            pk = _progcache.program_key("serve", f"bucket{bucket}",
+                                        (self._key_statics, sig))
+            self._sig_key[sig] = pk
+        return pk
+
+    def _cached_program(self, sig, bucket: int):
+        """Look ``sig``'s program up in the engine's cache (a hit loads its
+        kernels). Returns (key, Program or None); (None, None) without a
+        cache."""
+        if self._progcache is None:
+            return None, None
+        pk = self._program_key(sig, bucket)
+        return pk, _progcache.load_program(self._progcache, pk, self.device)
+
     def stats(self) -> dict:
         staged = self._staged
         with self._stat_lock:
@@ -361,6 +425,9 @@ class InferenceEngine:
                 "cache_hits": self.cache_hits,
                 "device": str(self.device),
             }
+        if self._progcache is not None:
+            out["progcache"] = dict(self._progcache.stats,
+                                    dir=self._progcache.root)
         if self.mesh is not None:
             out["mesh"] = self.mesh.shape
             out["mesh_devices"] = self.mesh.size
@@ -545,6 +612,8 @@ class InferenceEngine:
         on_mesh = self._on_mesh([tuple(a.shape) for a in arrays])
         # the span's attrs are read before the announcement; the
         # compile_log entry is decided under the lock inside it
+        # the span's attrs are set before the announcement; a first run's
+        # cache_hit is added once the lookup has answered
         with obs.trace.span("serve.execute", bucket=bucket, rows=n_valid,
                             compile=sig not in self._programs,
                             cache_hit=False,
@@ -562,17 +631,9 @@ class InferenceEngine:
                                  "version_at_compile": snapshot.version,
                                  "cache_hit": False}
                         self.compile_log.append(entry)
-                if entry is not None and obs.device.active():
-                    # the signature's first run, counted: its cost record
-                    # goes into the compile_log entry
-                    outs, cost = obs.device.capture(
-                        self._forward, (tensors, snapshot, bucket, on_mesh),
-                        site="serve", label=f"bucket{bucket}",
-                        device=self.device,
-                        arg_tensors=(tensors, snapshot.arg_vals,
-                                     snapshot.aux_vals))
-                    entry.update(cost)
-                    self._sig_cost[sig] = cost
+                if entry is not None:
+                    outs = self._first_run(entry, sp, sig, bucket, tensors,
+                                           snapshot, on_mesh)
                 else:
                     outs = self._forward(tensors, snapshot, bucket, on_mesh)
             # on the host (numpy, or CPU bfloat16): the batch's one wait
@@ -597,6 +658,49 @@ class InferenceEngine:
             self.exec_count += 1
         return ([o[:n_valid] if o.ndim else o for o in host],
                 snapshot.version)
+
+    def _first_run(self, entry, sp, sig, bucket, tensors, snapshot,
+                   on_mesh) -> list:
+        """A signature's first run: a cache hit adopts the stored cost and
+        runs; otherwise the run is counted (device plane active) and, with
+        a cache, recorded with the kernels it launched and written."""
+        from ..ops import _kernels
+
+        pk, hit = self._cached_program(sig, bucket)
+        if pk is not None:
+            entry["program_key"] = pk.digest
+        if hit is not None:
+            self._launched[sig] = set(hit.kernels)
+            entry["cache_hit"] = True
+            if isinstance(sp, obs.trace._Span):
+                sp.attrs["cache_hit"] = True
+            cost = obs.device.adopt_cached_cost(pk, hit.cost)
+            if cost:
+                entry.update(cost)
+                self._sig_cost[sig] = cost
+            with self._stat_lock:
+                self.cache_hits += 1
+            return self._forward(tensors, snapshot, bucket, on_mesh)
+        cost = None
+        with _kernels.recording() as launched:
+            if obs.device.active():
+                # the signature's first run, counted: its cost record
+                # goes into the compile_log entry
+                outs, cost = obs.device.capture(
+                    self._forward, (tensors, snapshot, bucket, on_mesh),
+                    site="serve", label=f"bucket{bucket}",
+                    device=self.device, key=pk,
+                    arg_tensors=(tensors, snapshot.arg_vals,
+                                 snapshot.aux_vals))
+                entry.update(cost)
+                self._sig_cost[sig] = cost
+            else:
+                outs = self._forward(tensors, snapshot, bucket, on_mesh)
+        self._launched[sig] = launched
+        if pk is not None:
+            _progcache.store_program(self._progcache, pk, cost, launched,
+                                     self.device, meta={"bucket": bucket})
+        return outs
 
     def predict(self, *inputs):
         """Single-call inference: arrays in, host arrays out (one, or a
@@ -625,8 +729,22 @@ class InferenceEngine:
 
     def save_programs(self, directory: str, keep: Optional[int] = None,
                       durable: bool = True) -> int:
-        raise MXNetError("InferenceEngine.save_programs: persisted programs "
-                         "are queue item A15 of the port")
+        """Export every program this engine has run into ``directory`` as
+        a program-cache payload (the artifact ``programs/`` convention
+        ``serve.load`` discovers; ``serve.ship_programs`` wraps this), with
+        the entries of the kernels they launched: from the engine's cache,
+        or, where they were built with no cache armed, packed from the
+        build directory. Returns the number of program entries written."""
+        pc = _progcache.ProgramCache(directory, keep=keep or 0,
+                                     durable=durable)
+        written = 0
+        for e in list(self.compile_log):
+            sig, bucket = e["sig"], e["bucket"]
+            written += _progcache.store_program(
+                pc, self._program_key(sig, bucket), self._sig_cost.get(sig),
+                self._launched.get(sig, ()), self.device,
+                meta={"bucket": bucket})
+        return written
 
     def close(self) -> None:
         """Stop the peers of a sharded engine (the leader's call; their
@@ -647,6 +765,13 @@ class InferenceEngine:
         from . import group
 
         if op == group.OP_FORWARD:
+            # the leader's first run of a bucket looked its program up:
+            # look up the same key, so a hit loads the same kernels here
+            sig = tuple((tuple(t.shape), dtype_name(t.dtype))
+                        for t in arrays)
+            if sig not in self._programs:
+                self._programs[sig] = 0
+                self._cached_program(sig, ints[0])
             self._forward(arrays, self._params, ints[0], True)
         elif op in (group.OP_PREPARE, group.OP_RELOAD):
             vals = [torch.empty(s, dtype=d, device=self.device)

@@ -59,9 +59,12 @@ and emits the membership events (``fleet.replica_*``, ``fleet.reload``,
 ``ProcReplica`` inherits the parent's telemetry switches; with
 ``obs_dir=`` (or ``MXNET_OBS_DIR``) its child streams
 ``<obs_dir>/replica-<pid>.jsonl`` and keeps its flight recorder's
-bundles there. The reference's ``MXNET_CHAOS_KILL_REPLICA<i>`` kill
-points and the program cache (``progcache_dir=``) are queue item A15 of
-the port (its items 4 and 2), each raising naming its item.
+bundles there. ``ProcReplica(progcache_dir=)`` pins the child's program
+cache (``MXNET_PROGCACHE_DIR``; otherwise the parent's ``MXNET_PROGCACHE*``
+rides the inherited environment), so a restart or an autoscaler's
+scale-out warms its programs and kernels from disk. The reference's
+``MXNET_CHAOS_KILL_REPLICA<i>`` kill points are queue item A15 of the
+port (its item 4) and raise naming it.
 ``ReplicaPool.sharded``
 takes a picklable ``make_server`` (a module-level function or a
 ``functools.partial`` of one): it runs in every rank of each group.
@@ -251,17 +254,19 @@ class ProcReplica:
     half of the timeline and its last bundle on disk
     (``tools/trace_report.py`` merges them back in by pid lane).
 
+    Program cache: ``progcache_dir`` pins the child's
+    ``MXNET_PROGCACHE_DIR`` (an inherited ``MXNET_PROGCACHE=0`` veto is
+    left standing); without it the parent's ``MXNET_PROGCACHE*`` rides the
+    inherited environment. Every start of the replica (a restart after a
+    kill included) warms from that cache.
+
     The reference's per-replica chaos (``MXNET_CHAOS_KILL_REPLICA<i>``)
-    and its program cache (``progcache_dir=``) are queue item A15 of the
-    port (its items 4 and 2) and raise when given."""
+    is queue item A15 of the port (its item 4) and raises when given."""
 
     def __init__(self, model: str, *, args: Sequence[str] = (),
                  env: Optional[dict] = None, log_path: Optional[str] = None,
                  obs_dir: Optional[str] = None,
                  progcache_dir: Optional[str] = None):
-        if progcache_dir:
-            raise MXNetError("ProcReplica(progcache_dir=): persisted "
-                             "programs are queue item A15 of the port")
         chaos = [k for k in list(env or {}) + list(os.environ)
                  if k.startswith("MXNET_CHAOS_KILL_REPLICA")]
         if chaos:
@@ -272,6 +277,7 @@ class ProcReplica:
         self._env = dict(env or {})
         self._log_path = log_path
         self._obs_dir = obs_dir or os.environ.get("MXNET_OBS_DIR")
+        self._progcache_dir = progcache_dir
         self.proc: Optional[subprocess.Popen] = None
         self.idx = -1  # assigned by the pool
 
@@ -279,6 +285,8 @@ class ProcReplica:
         port = _free_port()
         env = _job_env()
         env.update(self._env)
+        if self._progcache_dir:
+            env["MXNET_PROGCACHE_DIR"] = str(self._progcache_dir)
         if obs.enabled() and self._obs_dir:
             # the flight recorder's bundles land beside the JSONL stream
             env.setdefault("MXNET_OBS_BLACKBOX_DIR", self._obs_dir)

@@ -688,8 +688,10 @@ def main(argv=None):  # pragma: no cover - CLI shim
                     help="comma-separated per-row feature shape to run "
                          "every bucket for, e.g. 3,224,224")
     ap.add_argument("--progcache-dir", type=str, default=None,
-                    help="persistent program cache (queue item A15 of the "
-                         "port: raises when given)")
+                    help="persistent program-cache directory (progcache); "
+                         "overrides MXNET_PROGCACHE_DIR: warmup loads the "
+                         "bucket programs and their kernels from it "
+                         "instead of building and counting them")
     ap.add_argument("--tp", type=int, default=0,
                     help="tensor-parallel engine over N ranks (mesh axis "
                          "'tp', parameters replicated on the CLI path): "
@@ -698,8 +700,9 @@ def main(argv=None):  # pragma: no cover - CLI shim
                          "the other N-1; rank 0 serves")
     args = ap.parse_args(argv)
     if args.progcache_dir:
-        raise ServeError("--progcache-dir: persisted programs are queue "
-                         "item A15 of the port")
+        from .. import progcache
+
+        progcache.configure(args.progcache_dir)
 
     from . import load
 

@@ -24,7 +24,9 @@ store on the CPU, and two ``dist_sync`` ranks sharing the card form a
 gloo group and pass the known values on CUDA tensors. The device plane's
 cost records of a decode engine on the card equal those on the CPU. A
 ``Module.fit`` with the training-fleet plane on books the card's
-forward+backward time as compute.
+forward+backward time as compute. The paged kernel loads from its
+program-cache entry with no ``nvcc`` run, bitwise the built library, and
+a truncated entry is rejected and rebuilt.
 """
 import contextlib
 import math
@@ -1884,3 +1886,62 @@ def test_fleet_accounting_books_card_time_as_compute(cuda_device):
     summary = fleetstats.summarize_windows(windows)
     assert summary["steps"] == steps
     assert summary["phases"]["compute"] >= 0.9 * fb_s, (summary, fb_s)
+
+
+def test_kernel_entry_loads_without_nvcc_and_rejects_truncated(
+        cuda_device, tmp_path, monkeypatch):
+    """The program cache's kernel entries on the card (``progcache``,
+    ``ops/_kernels``): with a temporary build dir and cache, the paged
+    kernel built by ``nvcc`` goes into the cache; from a second empty build
+    dir it loads from its entry with no ``nvcc`` run, the same bytes, and
+    its output is bitwise the built library's; a truncated entry is a
+    counted reject followed by a build that replaces it."""
+    from mxnet_tpu_torch import progcache
+    from mxnet_tpu_torch.ops import _kernels
+
+    name = "paged_decode_attention"
+    q, k, v, table, lengths = _case(cuda_device, torch.float32, 64, seed=9)
+    pc = progcache.ProgramCache(str(tmp_path / "pc"))
+
+    def fresh(build_dir):  # as a new process on an empty build dir
+        _kernels._loaded.pop(name, None)
+        _kernels._entries.pop(name, None)
+        monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / build_dir)
+
+    def run():
+        out = tfa.flash_decode_attention(q, k, v, table, lengths)
+        torch.cuda.synchronize()
+        return out
+
+    try:
+        fresh("build1")
+        builds = _kernels.build_stats()["count"]
+        _kernels.load(name, cache=pc)
+        assert _kernels.build_stats()["count"] == builds + 1
+        built = _kernels._lib_path(name).read_bytes()
+        want = run()
+        key = _kernels.kernel_key(name)
+        assert pc.stats["write"] == 1 and pc.has(key)
+
+        fresh("build2")
+        _kernels.preload({name: key.digest}, pc)
+        assert _kernels.build_stats()["count"] == builds + 1
+        assert pc.stats["hit"] == 1 and pc.stats["reject"] == 0
+        assert _kernels._lib_path(name).read_bytes() == built
+        assert torch.equal(run(), want)
+
+        path = pc._path(key.digest)
+        with open(path, "rb") as f:
+            raw = f.read()
+        with open(path, "wb") as f:
+            f.write(raw[:len(raw) // 2])
+        fresh("build3")
+        _kernels.load(name, cache=pc)
+        assert pc.stats["reject"] == 1
+        assert _kernels.build_stats()["count"] == builds + 2
+        assert isinstance(pc._read_entry(path, key, "gpu"), tuple)
+        assert torch.equal(run(), want)
+    finally:
+        fresh("build1")
+        _kernels._loaded.pop(name, None)
+        monkeypatch.undo()

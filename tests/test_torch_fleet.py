@@ -471,8 +471,10 @@ def test_sharded_pool_and_telemetry_name_their_items(tmp_path):
         pool.stop()
     prefix = _save_linear_ckpt(tmp_path)
     ProcReplica(prefix, obs_dir=str(tmp_path))  # ported: no raise
-    for kw in ({"progcache_dir": str(tmp_path)},
-               {"env": {"MXNET_CHAOS_KILL_REPLICA0": "serve:post_recv@1"}}):
+    # ported: the child's program cache is pinned, restarts included
+    rep = ProcReplica(prefix, progcache_dir=str(tmp_path))
+    assert rep._progcache_dir == str(tmp_path)
+    for kw in ({"env": {"MXNET_CHAOS_KILL_REPLICA0": "serve:post_recv@1"}},):
         with pytest.raises(MXNetError, match="A15"):
             ProcReplica(prefix, **kw)
 
@@ -753,7 +755,7 @@ def test_fleet_streams_equal_reference_tokens_and_leak_no_page(ref_lm):
     live.pool.assert_baseline()
 
 
-def test_server_cli_platform_pin_and_later_flags(monkeypatch):
+def test_server_cli_platform_pin_and_later_flags(monkeypatch, tmp_path):
     from mxnet_tpu_torch.serve import server as tsrv
 
     monkeypatch.setenv("MXNET_SERVE_PLATFORM", "cpu")
@@ -761,9 +763,20 @@ def test_server_cli_platform_pin_and_later_flags(monkeypatch):
     monkeypatch.setenv("MXNET_SERVE_PLATFORM", "tpu")
     with pytest.raises(ValueError):
         tsrv._serve_context()
-    for flags, item in ((["--progcache-dir", "/nowhere"], "A15"),):
-        with pytest.raises(ServeError, match=item):
-            tsrv.main(["/nowhere/model"] + flags)
+    # --progcache-dir arms the process-global cache (no longer a raise);
+    # the missing artifact is what stops this server
+    from mxnet_tpu_torch import progcache
+
+    d = os.path.join(str(tmp_path), "programs")
+    monkeypatch.setenv("MXNET_SERVE_PLATFORM", "cpu")
+    monkeypatch.setenv("MXNET_PROGCACHE_DIR", "")
+    monkeypatch.delenv("MXNET_PROGCACHE", raising=False)
+    try:
+        with pytest.raises(ServeError, match="nowhere"):
+            tsrv.main(["/nowhere/model", "--progcache-dir", d])
+        assert progcache.cache().root == d and os.path.isdir(d)
+    finally:
+        progcache.reset()
 
 
 def _session_pids(sid):

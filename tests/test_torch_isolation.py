@@ -31,7 +31,7 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.parallel, mxnet_tpu_torch.optimizer, "
             "mxnet_tpu_torch.gluon, mxnet_tpu_torch.ndarray, "
             "mxnet_tpu_torch.autograd, mxnet_tpu_torch.random, "
-            "mxnet_tpu_torch.tools.nd_lm, "
+            "mxnet_tpu_torch.tools.nd_lm, mxnet_tpu_torch.progcache, "
             "mxnet_tpu_torch.tools.launch_cost_probe, "
             "mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor, "
             "mxnet_tpu_torch.module, mxnet_tpu_torch.checkpoint, "

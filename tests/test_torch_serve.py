@@ -171,11 +171,35 @@ def test_engine_lint_preflight_names_a15():
         InferenceEngine(net, arg, lint="loud")
 
 
-@pytest.mark.parametrize("kw,item", [({"progcache_dir": "x"}, "A15")])
-def test_engine_later_items_raise(kw, item):
-    net, arg = _mlp(sym)
-    with pytest.raises(MXNetError, match=item):
-        InferenceEngine(net, arg, lint="off", **kw)
+@pytest.mark.parametrize("where", ["explicit", "global"])
+def test_engine_later_items_raise(where, tmp_path, monkeypatch):
+    """``progcache_dir=`` (and the process-global cache) no longer raise:
+    a second engine's buckets are cache hits, bitwise the first's, and
+    ``stats()`` reports the cache as the reference's does."""
+    from mxnet_tpu_torch import progcache
+
+    d = str(tmp_path / "programs")
+    monkeypatch.delenv("MXNET_PROGCACHE", raising=False)
+    kw = {"progcache_dir": d}
+    if where == "global":
+        monkeypatch.setenv("MXNET_PROGCACHE_DIR", d)
+        progcache.reset()
+        kw = {}
+    try:
+        net, arg = _mlp(sym)
+        x = np.random.RandomState(2).rand(3, 6).astype(np.float32)
+        outs = []
+        for hits in (False, True):
+            eng = InferenceEngine(net, arg, max_batch_size=4, lint="off",
+                                  **kw)
+            assert eng.warmup((6,)) == 3
+            assert [e["cache_hit"] for e in eng.compile_log] == [hits] * 3
+            assert eng.stats()["progcache"]["dir"] == d
+            assert eng.stats()["cache_hits"] == (3 if hits else 0)
+            outs.append(eng.predict(x))
+        assert np.array_equal(outs[0], outs[1])
+    finally:
+        progcache.reset()
 
 
 @pytest.mark.parametrize("kw", ["mesh", "rules", "data_spec"])
@@ -199,13 +223,34 @@ def test_engine_mesh_keywords_on_one_rank(kw):
     assert st["sharded_params"] == (kw == "rules")
 
 
-def test_programs_shipping_names_a15():
-    _net, _arg, engine = _linear_engine()
-    for call in (lambda: engine.save_programs("d"),
-                 lambda: serve.ship_programs(engine, "p"),
-                 lambda: serve.programs_dir_for("p")):
-        with pytest.raises(MXNetError, match="A15"):
-            call()
+def test_programs_shipping_names_a15(tmp_path, monkeypatch):
+    """``save_programs``, ``ship_programs`` and ``programs_dir_for`` (once
+    queue item A15) ship an engine's programs beside its artifact, and
+    ``serve.load`` warms from them: every bucket a hit, bitwise."""
+    from mxnet_tpu_torch import progcache
+    from mxnet_tpu_torch.model import save_checkpoint
+
+    monkeypatch.setenv("MXNET_PROGCACHE", "0")  # no global cache here
+    progcache.reset()
+    try:
+        net, arg, engine = _linear_engine(scale=3.0)
+        prefix = str(tmp_path / "lin")
+        save_checkpoint(prefix, 0, net,
+                        {k: nd.array(v) for k, v in arg.items()}, {})
+        engine.warmup((4,))
+        assert serve.programs_dir_for(prefix) == prefix + "-programs"
+        assert serve.programs_dir_for(str(tmp_path)) == \
+            str(tmp_path / "programs")
+        assert engine.save_programs(str(tmp_path / "d")) == 4
+        assert serve.ship_programs(engine, prefix) == 4
+        loaded = serve.load(prefix, epoch=0, max_batch_size=8, lint="off")
+        assert loaded.stats()["progcache"]["dir"] == prefix + "-programs"
+        assert loaded.warmup((4,)) == 4
+        assert all(e["cache_hit"] for e in loaded.compile_log)
+        x = np.arange(12, dtype=np.float32).reshape(3, 4)
+        assert np.array_equal(loaded.predict(x), engine.predict(x))
+    finally:
+        progcache.reset()
 
 
 def test_engine_rejects_missing_aux():

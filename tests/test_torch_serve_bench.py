@@ -123,8 +123,11 @@ def test_run_cold_bench_keys_and_gate():
                         "cold_s", "warm_s", "speedup", "warm_wall_win",
                         "compiles_cold", "compiles_warm",
                         "fresh_compiles_cold", "fresh_compiles_warm",
-                        "cache_hits_warm", "host_cores", "note", "ok"}
+                        "cache_hits_warm", "progcache_cold",
+                        "progcache_warm", "host_cores", "note", "ok"}
     assert res["ok"] and res["compiles_cold"] == 2
+    assert res["fresh_compiles_warm"] == 0 and res["cache_hits_warm"] == 2
+    assert res["progcache_warm"]["hit"] == 2
     assert "torch import" in res["note"]
 
 
