@@ -165,7 +165,17 @@ H100): ``python3 chip_smoke.py``. It
    ``DecodeEngine`` + ``DecodeScheduler`` behind ``ServeServer(decode=)``:
    8 concurrent greedy streams of 16 tokens over ``OP_INFER_STREAM``,
    equal to the in-process ``generate``, paged launches counted, no page
-   leaked; tokens/s and the p99 inter-token gap;
+   leaked; tokens/s and the p99 inter-token gap. (a) and (b) load with
+   ``lint="error"`` (the pre-flight's seconds and findings by rule) and
+   prove their program bounds after the traffic
+   (``TraceLinter.check_serve_engine`` empty); then ``lint_path``: a small
+   ``Module`` rewriting ``optimizer.momentum`` on each of 5 steps under
+   ``TraceLinter.watch`` (exactly one ``update-retrace-churn``) and an
+   engine with a bucket's first run forced twice (``serve-retrace-churn``
+   at error), and one line with the pre-flights, the four bound verdicts
+   (5's decode engine, ``check_decode_engine``; 8's hybridized steps and
+   11's ``Module.fit`` under ``watch``, no churn; the serve engines) and
+   the checked legs' flash-forward and paged launches;
 20. drives ``fleet_path``, the serving fleet, with ``obs`` recording:
    (a) the ResNet-50 checkpoints of 19 (a) behind ``FleetServer`` →
    ``Router`` → ``ReplicaPool.local`` of 2 card replicas, 4 closed-loop
@@ -255,7 +265,10 @@ through ``Module.fit`` clean and with ``MXNET_CHAOS_NAN`` poisoning layer
 0's attention projection, rolled back by the sentinel to a finite
 checkpoint and ending bitwise equal to the clean run, with the breach,
 the provenance and the rollback in ``trace_report``, and checks the
-stats' zero-cost contract. The training path (6) also reads
+stats' zero-cost contract. The child runs beside ``rnn_path``,
+``nmt_path``, ``ssd_path``, ``quant_path`` and ``onnx_path``, which launch
+no kernel of the port's own; its gates are read after them
+(``health_wait``). The training path (6) also reads
 ``ShardedTrainer.step_cost`` of one captured step.
 
 After 23 it drives ``train_fleet_path``, the training-fleet plane: two
@@ -642,6 +655,7 @@ def phase_main_path(torch, dev):
     want = cfg["layers"] * (st["steps"] + 1)  # + warmup's one step
     check(launches == want, f"kernel launches {launches}, want {want} = "
           f"{cfg['layers']} layers x ({st['steps']} steps + warmup)")
+    decode_bound = _prove_bound("decode", eng, launches)
 
     # dense per-token reference: a full causal forward per new token
     params = decode_params(lm)
@@ -674,7 +688,7 @@ def phase_main_path(torch, dev):
            "dense_reference_match": matches,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     emit(res)
-    return launches
+    return launches, decode_bound
 
 
 # the training path's attention shapes (bench.py::bench_lm_long)
@@ -1400,6 +1414,7 @@ def phase_gluon_path(torch, dev, smi):
     weights."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import amp, autograd, gluon, nd
+    from mxnet_tpu_torch.analysis import TraceLinter
     from mxnet_tpu_torch.models.transformer import (decode_config,
                                                     decode_params,
                                                     from_numpy_params,
@@ -1495,15 +1510,11 @@ def phase_gluon_path(torch, dev, smi):
     flat = nd_lm.flat_params(gluon_parameters(net))
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
-    losses, times, ops, agreement = [], {"hybrid": [], "plain": []}, {
-        "hybrid": [], "plain": []}, None
-    n_hybrid = GLUON_WARMUP + GLUON_STEPS
-    for i in range(n_hybrid + GLUON_PLAIN_STEPS):
-        kind = "hybrid" if i < n_hybrid else "plain"
-        if i == n_hybrid:
-            check(len(net._cached_op._cache) == 1, "the hybridized LM ran "
-                  f"{len(net._cached_op._cache)} cached entries, want 1")
-            net.hybridize(False)
+    losses, times, ops = [], {"hybrid": [], "plain": []}, {
+        "hybrid": [], "plain": []}
+    agreement = {}
+
+    def train_step(i, kind):
         calls0 = invoke.calls
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1518,12 +1529,12 @@ def phase_gluon_path(torch, dev, smi):
                 err[name] = float((g - r).abs().max()
                                   / r.abs().max().clamp_min(1e-30))
             worst = max(err, key=err.get)
-            agreement = {"loss_gluon": lval, "loss_oracle": ref_loss,
-                         "loss_rel_diff": abs(lval - ref_loss) / ref_loss,
-                         "grad_err_of_max_worst": err[worst],
-                         "worst_param": worst, "tolerance":
-                         {"grad_of_max": ND_GRAD_TOL,
-                          "loss_rel": ND_LOSS_TOL}}
+            agreement.update({
+                "loss_gluon": lval, "loss_oracle": ref_loss,
+                "loss_rel_diff": abs(lval - ref_loss) / ref_loss,
+                "grad_err_of_max_worst": err[worst], "worst_param": worst,
+                "tolerance": {"grad_of_max": ND_GRAD_TOL,
+                              "loss_rel": ND_LOSS_TOL}})
             check(agreement["loss_rel_diff"] <= ND_LOSS_TOL,
                   f"gluon f32 loss {lval} vs the oracle's {ref_loss}")
             check(err[worst] <= ND_GRAD_TOL,
@@ -1534,6 +1545,18 @@ def phase_gluon_path(torch, dev, smi):
         if i >= GLUON_WARMUP:
             times[kind].append(1e3 * (time.perf_counter() - t0))
             ops[kind].append(invoke.calls - calls0)
+
+    n_hybrid = GLUON_WARMUP + GLUON_STEPS
+    # the hybridized steps under TraceLinter.watch: no retrace churn
+    with TraceLinter().watch(net) as tl:
+        for i in range(n_hybrid):
+            train_step(i, "hybrid")
+    check(len(net._cached_op._cache) == 1, "the hybridized LM ran "
+          f"{len(net._cached_op._cache)} cached entries, want 1")
+    gluon_watch = _watch_verdict("gluon", tl.report(), "retrace-churn")
+    net.hybridize(False)
+    for i in range(n_hybrid, n_hybrid + GLUON_PLAIN_STEPS):
+        train_step(i, "plain")
     net.hybridize()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     prof_ms, idle, device_ms = _device_profile(
@@ -1650,7 +1673,8 @@ def phase_gluon_path(torch, dev, smi):
     med = float(np.median(times["hybrid"]))
     return launches, decode_launches, {
         "step_ms_hybridized_median": med,
-        "tokens_per_s": batch * seq / med * 1e3, "device_idle_share": idle}
+        "tokens_per_s": batch * seq / med * 1e3,
+        "device_idle_share": idle}, gluon_watch
 
 
 # bench.py::bench_resnet / _resnet_trainer: ResNet-50 v1, batch 64 at
@@ -2061,6 +2085,7 @@ def phase_module_path(torch, dev, smi):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, nd
     from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.analysis import TraceLinter
     from mxnet_tpu_torch.gluon.model_zoo import get_model
     from mxnet_tpu_torch.io import DataBatch, NDArrayIter
     from mxnet_tpu_torch.models.transformer import (decode_config,
@@ -2207,12 +2232,16 @@ def phase_module_path(torch, dev, smi):
     it = NDArrayIter(fit_x, fit_x, batch_size=batch)
     seen = []
     t0 = time.perf_counter()
-    mod.fit(it, num_epoch=1, eval_metric="ce", optimizer="adam",
-            optimizer_params={"learning_rate": MODULE_LR},
-            batch_end_callback=lambda p: seen.append(
-                float(p.eval_metric.get_name_value()[0][1])))
+    # under TraceLinter.watch: the fused update never recompiles
+    with TraceLinter().watch(mod) as tl:
+        mod.fit(it, num_epoch=1, eval_metric="ce", optimizer="adam",
+                optimizer_params={"learning_rate": MODULE_LR},
+                batch_end_callback=lambda p: seen.append(
+                    float(p.eval_metric.get_name_value()[0][1])))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    module_watch = _watch_verdict("module", tl.report(),
+                                  "update-retrace-churn")
     check(len(seen) == MODULE_FIT_BATCHES and
           all(math.isfinite(v) for v in seen),
           f"Module.fit ran {len(seen)} batches, metric {seen}")
@@ -2328,7 +2357,7 @@ def phase_module_path(torch, dev, smi):
     torch.cuda.empty_cache()
     check(flash_attention_fwd.launches == launches["flash_attention_fwd"],
           "the module ResNet leg launched flash attention")
-    return launches
+    return launches, module_watch
 
 
 # the training-health plane (health_path): the reference flagship's run
@@ -2344,6 +2373,11 @@ HEALTH_BATCHES, HEALTH_LR, HEALTH_CKPT_PERIOD, HEALTH_KEEP = 3, 1e-5, 2, 2
 HEALTH_POISON_AT = 3
 HEALTH_TIMED_STEPS, HEALTH_EVERY = 10, 10  # (b): steps each way, the period
 HEALTH_CHILD_TIMEOUT = 420                 # seconds
+# the phases that run beside the health child (none of them launches a
+# kernel of the port's own; the child's gates are counts and bitwise
+# comparisons inside it, its timings reported, not gated)
+HEALTH_BESIDE = ("rnn_path", "nmt_path", "ssd_path", "quant_path",
+                 "onnx_path")  # each record carries "run_beside"
 HEALTH_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 # the default order's time at the main path's shapes before the
 # fixed-order variant existed (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
@@ -2634,7 +2668,10 @@ def phase_health_path(torch, dev, smi):
     with it on but the stats off dispatch the same operators and no
     ``d2h``; a sampled one adds only the stats operators and one ``d2h``.
     The step ms with the plane off and at every=HEALTH_EVERY are
-    reported as ``health_overhead_pct`` (not gated)."""
+    reported as ``health_overhead_pct`` (not gated).
+
+    Returns the started child: the phases after this one run beside it
+    until :func:`phase_health_wait` reads it (``HEALTH_BESIDE``)."""
     ordered = _ordered_bwd_leg(torch, dev)
     emit({"phase": "health_path", "leg": "ordered_bwd", "card": smi,
           "B": FA_B, "H": FA_H, "S": FA_S, "D": FA_D, "dtype": "float32",
@@ -2645,23 +2682,43 @@ def phase_health_path(torch, dev, smi):
     if os.path.exists(path):
         os.remove(path)
     root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--health-path", path], cwd=root,
-                          env={**os.environ, **HEALTH_ENV},
-                          timeout=HEALTH_CHILD_TIMEOUT,
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    child_s = time.perf_counter() - t0
+    # its output goes to a file: a pipe nobody reads while the phases
+    # beside it run could fill and stall the child
+    log = open(path + ".log", "w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--health-path", path], cwd=root,
+                            env={**os.environ, **HEALTH_ENV},
+                            stdout=log, stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "path": path, "log": log,
+            "t0": time.perf_counter(), "ordered": ordered, "smi": smi}
+
+
+def phase_health_wait(job):
+    """The health child of :func:`phase_health_path`: wait for it (within
+    HEALTH_CHILD_TIMEOUT of its start), then its gates."""
+    proc, path, smi, log = job["proc"], job["path"], job["smi"], job["log"]
+    left = HEALTH_CHILD_TIMEOUT - (time.perf_counter() - job["t0"])
+    try:
+        proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    child_s = time.perf_counter() - job["t0"]
+    log.seek(0)
+    out = log.read()
+    log.close()
+    os.remove(path + ".log")
+    check(child_s <= HEALTH_CHILD_TIMEOUT, f"the health_path child "
+          f"outlasted {HEALTH_CHILD_TIMEOUT} s:\n{out[-4000:]}")
     check(proc.returncode == 0 and os.path.exists(path),
           f"the health_path child exited {proc.returncode}:\n"
-          f"{proc.stdout[-4000:]}")
+          f"{out[-4000:]}")
     with open(path) as f:
         res = json.load(f)
     os.remove(path)
     fl, zc = res["flagship"], res["zero_cost"]
     emit({"phase": "health_path", "leg": "flagship", "card": smi,
-          "child_s": child_s, **res})
+          "child_s": child_s, "run_beside": list(HEALTH_BESIDE), **res})
     check(res["deterministic"], "the child did not run under the switch")
     check(fl["chaos_events"] == 1 and "chaos.nan" in fl["actions"],
           f"chaos.nan events: {fl['chaos_events']}, actions {fl['actions']}")
@@ -2691,7 +2748,7 @@ def phase_health_path(torch, dev, smi):
           and smp["eager_ops"] > off["eager_ops"]
           and smp["h2d_transfers"] == 0 and zc["sampled_report_ok"],
           f"a sampled update {smp} against {off}")
-    return {"ordered": ordered,
+    return {"ordered": job["ordered"],
             "ordered_launches": fl["bwd_ordered_launches"],
             "bwd_launches": fl["bwd_launches"]}
 
@@ -3514,7 +3571,8 @@ def phase_rnn_path(torch, dev, smi):
     BucketingModule SGD lr 0.01, one epoch on mx.rnn.SequentialRNNCell of
     LSTMCells, and one on FusedRNNCell given the same weights packed:
     their first-batch losses agree; step ms per bucket."""
-    emit({"phase": "rnn_path", "card": smi,
+    emit({"phase": "rnn_path", "run_beside": ["health_path child"],
+          "card": smi,
           "word_lm": _word_lm_leg(torch, dev, smi),
           "bucketing": _bucketing_leg(torch, dev)})
 
@@ -3597,7 +3655,8 @@ def phase_nmt_path(torch, dev, smi):
     flash = (flash_attention_fwd.launches - flash0[0],
              flash_attention_bwd.launches - flash0[1])
     check(flash == (0, 0), f"nmt path launched flash attention {flash}")
-    emit({"phase": "nmt_path", "model": "Seq2SeqTransformer()", "card": smi,
+    emit({"phase": "nmt_path", "run_beside": ["health_path child"],
+          "model": "Seq2SeqTransformer()", "card": smi,
           "layers": "6 + 6", "units": 512, "hidden": 2048, "heads": 8,
           "dropout": 0.1, "vocab": [32000, 32000], "parameters": n_params,
           "batch": NMT_BATCH, "src_len": NMT_SRC_LEN,
@@ -3837,7 +3896,8 @@ def phase_ssd_path(torch, dev, smi):
     map_name, map_value = m.get()
     check(math.isfinite(map_value) and 0.0 <= map_value <= 1.0,
           f"VOC07 mAP {map_value}")
-    emit({"phase": "ssd_path", "model": "ssd_300(num_classes=20)",
+    emit({"phase": "ssd_path", "run_beside": ["health_path child"],
+          "model": "ssd_300(num_classes=20)",
           "card": smi, "image_size": SSD_SIZE, "batch": SSD_BATCH,
           "anchors": n_anchors, "parameters": n_params,
           "data": "synthetic (seed 0), 1-3 boxes an image, "
@@ -4023,7 +4083,8 @@ def phase_quant_path(torch, dev, smi):
     top1 = float((i8.argmax(1) == f32.argmax(1)).float().mean())
     check(math.isfinite(err) and bool(torch.isfinite(i8).all()),
           f"int8 logits not finite (error {err})")
-    emit({"phase": "quant_path", "model": "resnet50_v1", "card": smi,
+    emit({"phase": "quant_path", "run_beside": ["health_path child"],
+          "model": "resnet50_v1", "card": smi,
           "batch": QUANT_BATCH, "image_size": ZOO_SIZE,
           "calib_mode": "naive",
           "calib_examples": QUANT_BATCH * QUANT_CALIB_BATCHES,
@@ -4084,7 +4145,8 @@ def phase_onnx_path(torch, dev, smi):
     check(got.is_cuda and torch.allclose(got, want, rtol=1e-5, atol=1e-6),
           f"the imported ONNX graph differs from the net by {err}")
     n_nodes = sum(1 for n in isym._base()._topo() if n._op)
-    emit({"phase": "onnx_path", "model": "resnet50_v1", "card": smi,
+    emit({"phase": "onnx_path", "run_beside": ["health_path child"],
+          "model": "resnet50_v1", "card": smi,
           "batch": ONNX_BATCH, "image_size": ZOO_SIZE, "opset": 9,
           "file_bytes": nbytes, "export_s": export_s,
           "import_s": import_s, "imported_nodes": n_nodes,
@@ -4278,8 +4340,9 @@ def _serve_zoo_leg(torch, dev, smi):
               "the second checkpoint predicts the same as the first")
         t0 = time.perf_counter()
         engine = serve.load(prefix, epoch=1, buckets=SERVE_BUCKETS,
-                            lint="off")
+                            lint="error")
         res["load_s"] = time.perf_counter() - t0
+        res["preflight"] = _preflight("resnet", engine)
         t0 = time.perf_counter()
         warm = engine.warmup(shape)
         _sync(torch, dev)
@@ -4314,6 +4377,7 @@ def _serve_zoo_leg(torch, dev, smi):
           > 0, f"replies by version {loop['versions']}: want both")
     check(engine.num_programs <= len(SERVE_BUCKETS),
           f"{engine.num_programs} programs for {len(SERVE_BUCKETS)} buckets")
+    res["bound"] = _prove_bound("serve_resnet", engine)
     lat = loop["latency_ms"]
     res.update({
         "requests": loop["requests"], "rows": loop["rows"],
@@ -4388,8 +4452,9 @@ def _serve_lm_leg(torch, dev, smi):
     # package: the checkpoint's parameters, the traced graph
     t0 = time.perf_counter()
     engine = serve.load(prefix, epoch=0, symbol=logits,
-                        buckets=SERVE_LM_BUCKETS, lint="off")
+                        buckets=SERVE_LM_BUCKETS, lint="error")
     load_s = time.perf_counter() - t0
+    preflight = _preflight("lm", engine)
     for f in (f"{prefix}-0000.params", f"{prefix}-symbol.json"):
         os.remove(f)
     warm = engine.warmup((seq,))
@@ -4431,6 +4496,7 @@ def _serve_lm_leg(torch, dev, smi):
         check(launches == cfg["layers"] * forwards,
               f"flash forward launches {launches}, want {cfg['layers']} "
               f"layers x {forwards} forwards")
+    bound = _prove_bound("serve_lm", engine, launches)
     del mod, ref, got, outs, engine
     rec = {"model": "transformer_lm", "params": n_params,
            "buckets": list(SERVE_LM_BUCKETS), "seq": seq,
@@ -4438,7 +4504,8 @@ def _serve_lm_leg(torch, dev, smi):
            max(SERVE_LM_BUCKETS) * seq / (ms[str(max(SERVE_LM_BUCKETS))]
                                           / 1e3),
            "checkpoint_save_s": save_s, "load_s": load_s,
-           "held_bucket": hold, "bitwise_vs_predict": True,
+           "preflight": preflight, "bound": bound, "held_bucket": hold,
+           "bitwise_vs_predict": True,
            "flash_fwd_launches": launches, "forwards": forwards}
     if prof is not None:
         (rec["profiled_top_bucket_ms"], rec["device_idle"],
@@ -4548,7 +4615,131 @@ def phase_serve_path(torch, dev, smi):
     emit({"phase": "serve_path", "card": smi, "resnet_over_wire": zoo,
           "lm_scoring": lm, "lm_streaming": stream,
           "kernel_launches": launches})
-    return launches, ckpt
+    return launches, ckpt, {
+        "preflight": {"resnet": zoo["preflight"], "lm": lm["preflight"]},
+        "bounds": {"serve_resnet": zoo["bound"], "serve_lm": lm["bound"]}}
+
+
+# ---------------------------------------------------------------------------
+# lint_path: the static analyzers' verdicts on the legs above, and a
+# negative leg
+# ---------------------------------------------------------------------------
+
+LINT_MOMENTUM_STEPS = 5
+
+
+def _rule_counts(findings):
+    out = {}
+    for f in findings:
+        out[f.rule_id] = out.get(f.rule_id, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def _preflight(leg, engine):
+    """An ``InferenceEngine(lint="error")``'s pre-flight: it loaded, so no
+    error; its wall seconds and findings by rule id."""
+    rep = engine.lint_report
+    check(rep is not None and not rep.has_errors,
+          f"{leg} pre-flight: {rep.format() if rep else 'did not run'}")
+    return {"seconds": engine.lint_seconds, "findings": _rule_counts(rep)}
+
+
+def _prove_bound(leg, engine, launches=None):
+    """``TraceLinter.check_serve_engine`` (an InferenceEngine) or
+    ``check_decode_engine`` (a DecodeEngine) after a leg's traffic: an
+    empty list is the proof. Returns the verdict's record."""
+    from mxnet_tpu_torch.analysis import TraceLinter
+    from mxnet_tpu_torch.serve import DecodeEngine
+
+    tl = TraceLinter()
+    found = (tl.check_decode_engine(engine)
+             if isinstance(engine, DecodeEngine)
+             else tl.check_serve_engine(engine))
+    check(not found, f"{leg} program bound: "
+          f"{[f.format() for f in found]}")
+    return {"findings": [], "programs": len(engine.compile_log),
+            "launches": launches}
+
+
+def _watch_verdict(leg, report, rule):
+    """A ``TraceLinter.watch`` report over a leg's steps: no ``rule``.
+    Returns the verdict's record."""
+    found = report.by_rule(rule).findings
+    check(not found, f"{leg}: {[f.format() for f in found]}")
+    return {"findings": [], "watch_findings": _rule_counts(report)}
+
+
+def phase_lint_path(torch, dev, verdicts):
+    """The negative legs, on the card: (a) a small ``Module`` whose loop
+    rewrites ``optimizer.momentum`` from a Python float on each of
+    LINT_MOMENTUM_STEPS steps, under ``TraceLinter.watch``: exactly one
+    ``update-retrace-churn``, naming the static hyperparameters; (b) an
+    ``InferenceEngine`` whose bucket-2 program is forced to run its first
+    run twice: ``check_serve_engine`` reports ``serve-retrace-churn`` at
+    error. Then one line: the pre-flights, the four bound verdicts of the
+    legs before (``verdicts``: the phases' returned records of decode,
+    the gluon and module watches, serving), these rule ids and the
+    checked legs' flash-forward and paged launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.analysis import Severity, TraceLinter
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.module import Module
+
+    ctx = mx.Context(dev)
+    data = sym.Variable("data")
+    net = sym.FullyConnected(data, num_hidden=16, name="fc1")
+    net = sym.Activation(net, act_type="relu", name="relu1")
+    net = sym.SoftmaxOutput(sym.FullyConnected(net, num_hidden=4,
+                                               name="fc2"), name="softmax")
+    rng = np.random.RandomState(0)
+    x = rng.randn(2 * LINT_MOMENTUM_STEPS, 6).astype(np.float32)
+    y = rng.randint(0, 4, 2 * LINT_MOMENTUM_STEPS).astype(np.float32)
+    mod = Module(net, context=ctx)
+    mod.bind(data_shapes=[("data", (2, 6))],
+             label_shapes=[("softmax_label", (2,))], lint="error")
+    mod.init_params()
+    with TraceLinter().watch(mod) as tl:
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        for i, batch in enumerate(NDArrayIter(x, y, batch_size=2)):
+            mod._optimizer.momentum = 0.9 - 0.01 * i  # a static, rewritten
+            mod.forward_backward(batch)
+            mod.update()
+    churn = tl.report().by_rule("update-retrace-churn").findings
+    check(len(churn) == 1 and "static hyperparameters" in churn[0].message,
+          f"momentum leg: {[f.format() for f in churn]}")
+    arg, _aux = mod.get_params()
+    engine = serve.InferenceEngine(net, arg, buckets=(1, 2, 4),
+                                   lint="error", ctx=ctx)
+    q = rng.rand(2, 6).astype(np.float32)
+    first = engine.infer([q])[0][0]
+    engine._programs.clear()  # the bucket's first run, a second time
+    again = engine.infer([q])[0][0]
+    check(np.array_equal(first, again), "the forced rerun differs")
+    forced = TraceLinter().check_serve_engine(engine)
+    check([(f.rule_id, f.severity) for f in forced]
+          == [("serve-retrace-churn", Severity.ERROR)],
+          f"forced serve leg: {[f.format() for f in forced]}")
+    b = verdicts["bounds"]
+    rec = {"phase": "lint_path",
+           "preflight": verdicts["preflight"],
+           "bounds": {"decode": b["decode"]["findings"],
+                      "gluon_watch": b["gluon"]["findings"],
+                      "module_watch": b["module"]["findings"],
+                      "serve": {k: b[k]["findings"]
+                                for k in ("serve_resnet", "serve_lm")}},
+           "negative": {"momentum_watch": [f.rule_id for f in churn],
+                        "momentum_message": churn[0].message,
+                        "forced_serve": [f.rule_id for f in forced]},
+           "launches": {"paged_decode_main_path": b["decode"]["launches"],
+                        "flash_fwd_serve_lm": b["serve_lm"]["launches"]},
+           "programs": {k: v.get("programs") for k, v in b.items()},
+           "watch_findings": {k: b[k]["watch_findings"]
+                              for k in ("gluon", "module")}}
+    emit(rec)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -7057,32 +7248,42 @@ def main() -> int:
     flash = run(phase_flash_kernels, torch, dev)
     run(phase_flash_head_dims, torch, dev)
     probe = run(phase_probe)
-    serve_launches = run(phase_main_path, torch, dev)
+    serve_launches, decode_bound = run(phase_main_path, torch, dev)
     train_launches = run(phase_train_path, torch, dev)
     nd_launches = run(phase_nd_path, torch, dev, smi)
-    gluon_launches, gluon_decode, gluon_summary = run(phase_gluon_path,
-                                                      torch, dev, smi)
+    gluon_launches, gluon_decode, gluon_summary, gluon_watch = run(
+        phase_gluon_path, torch, dev, smi)
     estimator_launches = run(phase_estimator_path, torch, dev, smi,
                              gluon_summary)
     zoo = run(phase_zoo_path, torch, dev, smi)
     run(phase_data_path, torch, dev, smi, zoo)
     run(phase_bert_path, torch, dev, smi)
-    module_launches = run(phase_module_path, torch, dev, smi)
-    health = run(phase_health_path, torch, dev, smi)
-    run(phase_rnn_path, torch, dev, smi)
-    run(phase_nmt_path, torch, dev, smi)
+    module_launches, module_watch = run(phase_module_path, torch, dev, smi)
+    health_job = run(phase_health_path, torch, dev, smi)
     # the detection, int8 and ONNX paths run no kernel of the port's own
     from mxnet_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_fwd, flash_decode_attention)
 
     own = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention)
-    before = [k.launches for k in own]
-    run(phase_ssd_path, torch, dev, smi)
-    run(phase_quant_path, torch, dev, smi)
-    run(phase_onnx_path, torch, dev, smi)
-    check([k.launches for k in own] == before,
-          "the ssd, quant or onnx path launched an attention kernel")
-    served, zoo_ckpt = run(phase_serve_path, torch, dev, smi)
+    try:  # HEALTH_BESIDE, beside the health child
+        run(phase_rnn_path, torch, dev, smi)
+        run(phase_nmt_path, torch, dev, smi)
+        before = [k.launches for k in own]
+        run(phase_ssd_path, torch, dev, smi)
+        run(phase_quant_path, torch, dev, smi)
+        run(phase_onnx_path, torch, dev, smi)
+        check([k.launches for k in own] == before,
+              "the ssd, quant or onnx path launched an attention kernel")
+    except BaseException:
+        health_job["proc"].kill()  # no child outlives a failed phase
+        health_job["proc"].wait()
+        raise
+    health = run(phase_health_wait, health_job)
+    served, zoo_ckpt, serve_verdicts = run(phase_serve_path, torch, dev, smi)
+    run(phase_lint_path, torch, dev, {
+        "preflight": serve_verdicts["preflight"],
+        "bounds": {"decode": decode_bound, "gluon": gluon_watch,
+                   "module": module_watch, **serve_verdicts["bounds"]}})
     fleet = run(phase_fleet_path, torch, dev, smi, zoo_ckpt)
     observed = run(phase_obs_path, torch, dev, smi, zoo_ckpt)
     dist = run(phase_dist_path, torch, dev, smi)

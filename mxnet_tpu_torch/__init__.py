@@ -96,15 +96,16 @@ _SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
                "gluon", "image", "initializer", "io", "kvstore", "metric",
                "model", "models", "module", "monitor", "name", "native",
                "ndarray", "obs", "operator", "ops", "optimizer", "parallel",
-               "profiler", "random", "registry", "rnn", "serve", "subgraph",
+               "profiler", "random", "registry", "rnn", "runtime", "serve",
+               "subgraph",
                "symbol", "test_utils", "util", "visualization")
 # the reference's short names
 _ALIASES = {"nd": "ndarray", "init": "initializer", "sym": "symbol",
             "mod": "module", "mon": "monitor", "viz": "visualization",
             "recordio": "io.recordio", "np": "numpy", "kv": "kvstore",
             "npx": "numpy_extension", "lr_scheduler": "optimizer.lr_scheduler"}
-# the reference's modules of queue item A15(g), not ported yet: they raise
-_LATER = ("platform", "runtime")
+# the reference's module of queue item A15(g), not ported yet: it raises
+_LATER = ("platform",)
 
 
 def __getattr__(name):

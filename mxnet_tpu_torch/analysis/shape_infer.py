@@ -10,20 +10,23 @@ is not a device that computes, so this is no fallback.
 
 ``Symbol.infer_shape``/``infer_type``, ``Symbol.shape`` (the shape hints
 alone: ``b, s, u = x.shape`` inside a traced ``hybrid_forward``) and
-``simple_bind`` share it. The first failure raises a node-attributed
-:class:`~mxnet_tpu_torch.base.GraphAnalysisError`. Nodes are evaluated in
-predict mode (the output shapes of Dropout and BatchNorm do not depend on
-it).
+``simple_bind`` share it, and so does the ``shape-preflight`` lint pass
+(``graph_passes.py``). In raise mode the first failure raises a
+node-attributed :class:`~mxnet_tpu_torch.base.GraphAnalysisError`; in
+collect mode (the lint pass) failures become error ``Finding``s and the
+walk goes on past them. Nodes are evaluated in predict mode (the output
+shapes of Dropout and BatchNorm do not depend on it).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Set
 
 import numpy as np
 import torch
 
 from ..base import GraphAnalysisError, dtype_np, dtype_torch
+from .findings import Finding, Severity
 
 __all__ = ["InferResult", "infer_graph"]
 
@@ -38,6 +41,9 @@ class InferResult:
     out_dtypes: List[Any] = field(default_factory=list)
     node_out: Dict[int, Any] = field(default_factory=dict)    # id(node) -> shape|[shapes]
     node_dtype: Dict[int, Any] = field(default_factory=dict)  # id(node) -> dtype|[dtypes]
+    node_in: Dict[int, List[Optional[tuple]]] = field(default_factory=dict)
+    findings: List[Finding] = field(default_factory=list)
+    failed: Set[int] = field(default_factory=set)
 
 
 def _np_dtype(d):
@@ -57,10 +63,15 @@ def _var_dtype(node, known_dtypes):
 
 def infer_graph(sym, known_shapes: Dict[str, tuple],
                 known_dtypes: Optional[Dict[str, Any]] = None,
+                collect: bool = False,
                 use_hint_cache: bool = False) -> InferResult:
     """Walk ``sym`` in topo order inferring every node's output shape and
-    dtype; raise :class:`GraphAnalysisError` at the first failure, naming
-    the node, its op and its input shapes.
+    dtype.
+
+    ``collect=False``: raise :class:`GraphAnalysisError` at the first
+    failure, naming the node, its op and its input shapes.
+    ``collect=True``: record failures as error findings and keep walking
+    (nodes downstream of a failure are skipped, not reported again).
 
     ``use_hint_cache`` reuses and fills per-node ``_hint_shape`` memos.
     Valid only with no explicit known shapes or dtypes (the
@@ -77,9 +88,13 @@ def infer_graph(sym, known_shapes: Dict[str, tuple],
     if known_dtypes:
         res.dtypes = {k: _np_dtype(v) for k, v in known_dtypes.items()}
 
-    def fail(rule_id, msg, node_name, op, in_shapes=None):
-        raise GraphAnalysisError(msg, node=node_name, op=op,
-                                 rule_id=rule_id, input_shapes=in_shapes)
+    def fail(rule_id, msg, node_name, op, in_shapes=None, fix_hint=None):
+        if not collect:
+            raise GraphAnalysisError(msg, node=node_name, op=op,
+                                     rule_id=rule_id, input_shapes=in_shapes)
+        res.findings.append(Finding(rule_id, Severity.ERROR, msg,
+                                    node=node_name, op=op, fix_hint=fix_hint,
+                                    details={"input_shapes": in_shapes}))
 
     use_hint_cache = use_hint_cache and not known_shapes and not known_dtypes
     old_train = autograd.set_training(False)
@@ -109,7 +124,11 @@ def infer_graph(sym, known_shapes: Dict[str, tuple],
             if inline_opdef is None and not has_op(node._op):
                 fail("unknown-op",
                      f"operator {node._op!r} is not in the op registry",
-                     node._name, node._op)
+                     node._name, node._op,
+                     fix_hint="check the op name / load a graph exported "
+                              "by this framework version")
+                res.failed.add(id(node))
+                continue
             opdef = inline_opdef or get_op(node._op)
             kwargs = coerce_kwargs({k: v for k, v in node._attrs.items()
                                     if not k.startswith("__")})
@@ -125,6 +144,7 @@ def infer_graph(sym, known_shapes: Dict[str, tuple],
                     break
             in_shapes: List[tuple] = []
             in_dtypes: List[Any] = []
+            skip = False
             for pos, i in enumerate(node._inputs):
                 base = i._base()
                 s = res.node_out.get(id(base))
@@ -142,15 +162,28 @@ def infer_graph(sym, known_shapes: Dict[str, tuple],
                         fail("missing-shape",
                              f"cannot infer shape of {base._name!r} (input "
                              f"{arg!r} of {node._op}); provide it "
-                             "explicitly", base._name, node._op)
-                    res.shapes[base._name] = tuple(s)
-                    res.node_out[id(base)] = tuple(s)
-                    d = _var_dtype(base, known_dtypes)
-                    res.dtypes[base._name] = d
-                    res.node_dtype[id(base)] = d
+                             "explicitly", base._name, node._op,
+                             fix_hint=f"pass {base._name}=<shape> to "
+                                      "infer_shape/bind, or set shape= on "
+                                      "the Variable")
+                        skip = True
+                    else:
+                        res.shapes[base._name] = tuple(s)
+                        res.node_out[id(base)] = tuple(s)
+                        d = _var_dtype(base, known_dtypes)
+                        res.dtypes[base._name] = d
+                        res.node_dtype[id(base)] = d
+                if s is None:
+                    # an upstream failure, already reported: no cascade
+                    skip = True
+                    break
                 in_shapes.append(tuple(s))
                 in_dtypes.append(d if d is not None else
                                  np.dtype(np.float32))
+            res.node_in[id(node)] = in_shapes
+            if skip:
+                res.failed.add(id(node))
+                continue
             metas = [torch.empty(s, dtype=dtype_torch(d), device=_META)
                      for s, d in zip(in_shapes, in_dtypes)]
             try:
@@ -163,7 +196,11 @@ def infer_graph(sym, known_shapes: Dict[str, tuple],
                 fail("shape-mismatch",
                      f"shape inference failed at {node._op} ({node._name}): "
                      f"inputs [{shown}] attrs {kwargs or '{}'}: {e}",
-                     node._name, node._op, in_shapes=in_shapes)
+                     node._name, node._op, in_shapes=in_shapes,
+                     fix_hint="fix the input shapes or the op attrs shown "
+                              "above")
+                res.failed.add(id(node))
+                continue
             if isinstance(out, (list, tuple)):
                 res.node_out[id(node)] = [tuple(o.shape) for o in out]
                 res.node_dtype[id(node)] = [_np_dtype(o.dtype) for o in out]
@@ -175,8 +212,8 @@ def infer_graph(sym, known_shapes: Dict[str, tuple],
 
     if use_hint_cache:
         for node in sym._topo():
-            if id(node) in res.node_out and \
-                    "_hint_shape" not in node.__dict__:
+            if id(node) in res.node_out and id(node) not in res.failed \
+                    and "_hint_shape" not in node.__dict__:
                 node._hint_shape = res.node_out[id(node)]
                 node._hint_dtype = res.node_dtype.get(id(node))
 

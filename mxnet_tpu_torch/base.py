@@ -76,17 +76,20 @@ class MXNetError(RuntimeError):
 
 
 class GraphAnalysisError(MXNetError, ValueError):
-    """Shape or type inference failure naming where the graph broke:
-    ``node``, ``op``, ``rule_id`` and the node's ``input_shapes``. A
-    ValueError as well, as the reference's."""
+    """Shape or type inference failure, or a lint report's errors
+    (``Report.raise_if_errors``, ``bind(lint="error")``), naming where the
+    graph broke: ``node``, ``op``, ``rule_id``, the node's
+    ``input_shapes`` and the error ``findings``. A ValueError as well, as
+    the reference's."""
 
     def __init__(self, message, node=None, op=None, rule_id=None,
-                 input_shapes=None):
+                 input_shapes=None, findings=None):
         super().__init__(message)
         self.node = node
         self.op = op
         self.rule_id = rule_id
         self.input_shapes = input_shapes
+        self.findings = findings or []
 
 
 def get_env(name: str, default=None, typ=str):

@@ -26,8 +26,10 @@ first run of each signature of the forward and of the backward is
 counted by ``obs.device.capture`` (site ``executor``) into
 ``compile_log``, and later runs carry the analytic MFU on their
 ``device.forward``/``device.backward`` spans; each counts one program
-call for ``profiler.count_dispatches``. The ``lint=`` pre-flight belongs
-to the analysis plane (queue item A15(e)).
+call for ``profiler.count_dispatches``. ``lint="warn"|"error"`` (default
+``MXNET_GRAPH_LINT``, else off) runs the graph linter over the bound
+shapes before anything is allocated: "error" rejects a bad graph with node
+attribution, "warn" warns and goes on; the report is ``lint_report``.
 """
 from __future__ import annotations
 
@@ -142,11 +144,40 @@ class Executor:
     Executor). ``grad_req`` is ``write``, ``add`` or ``null``."""
 
     def __init__(self, symbol, ctx=None, grad_req="write", shapes=None,
-                 args=None, args_grad=None, aux_states=None):
+                 args=None, args_grad=None, aux_states=None, lint=None):
         self._symbol = symbol
         self._ctx = Context(ctx) if ctx is not None else current_context()
         self._device = as_device(self._ctx)
         self.outputs_nd: List[NDArray] = []
+        self.lint_report = None
+
+        # the pre-flight runs before any inference or allocation: "error"
+        # rejects a bad graph with node attribution instead of a failure
+        # deep inside a forward; "warn" reports and goes on
+        if lint is None:
+            import os
+
+            lint = os.environ.get("MXNET_GRAPH_LINT", "off")
+        if lint not in ("off", "warn", "error"):
+            raise ValueError(f"lint must be 'off'|'warn'|'error', got "
+                             f"{lint!r}")
+        if lint != "off":
+            known = {k: tuple(v) for k, v in (shapes or {}).items()}
+            if not known and args is not None:
+                named = args.items() if isinstance(args, dict) \
+                    else zip(symbol.list_arguments(), args)
+                known = {k: tuple(v.shape) if hasattr(v, "shape")
+                         else np.shape(v) for k, v in named}
+            from .analysis import GraphLinter
+
+            self.lint_report = GraphLinter().lint(symbol, shapes=known)
+            if lint == "error":
+                self.lint_report.raise_if_errors()
+            elif self.lint_report:
+                import warnings
+
+                warnings.warn("graph lint: " + self.lint_report.format(),
+                              stacklevel=2)
 
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()

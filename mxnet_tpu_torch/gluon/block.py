@@ -28,7 +28,8 @@ folds in training, as the eager layer does (the reference's trace leaves
 them plain arguments). ``export`` writes the ``.params`` file and the
 traced graph; ``SymbolBlock``/``imports`` run a graph as a block.
 ``export(format="onnx")`` writes an ONNX file too (``contrib/onnx.py``);
-``lint`` waits for the analysis plane (A15); ``optimize_for`` hybridizes,
+``lint`` scans the forward's source and lints the traced graph
+(``analysis``); ``optimize_for`` hybridizes,
 as the reference's does; ``load_stablehlo`` raises by design.
 """
 from __future__ import annotations
@@ -373,8 +374,47 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def lint(self, shapes=None, passes=None, **shape_kwargs):
-        raise MXNetError("HybridBlock.lint: the analysis plane (queue item "
-                         "A15) is not ported yet")
+        """Static-analyze this block before it runs.
+
+        Runs the :class:`~mxnet_tpu_torch.analysis.TraceLinter` source
+        checks (host syncs in forward bodies) and — when the block traces
+        symbolically — the full :class:`~mxnet_tpu_torch.analysis.
+        GraphLinter` over its graph with the given input shapes::
+
+            report = net.lint(data=(2, 3, 32, 32))
+            report.raise_if_errors()
+
+        ``shapes`` maps input Variable names to shapes (one per positional
+        forward input, in order). Blocks whose forward is not F-generic
+        get an info-level ``not-symbolically-traceable`` finding and only
+        the source checks.
+        """
+        from .. import symbol as sym_mod
+        from ..analysis import (Finding, GraphLinter, Report, Severity,
+                                TraceLinter)
+
+        all_shapes = dict(shapes or {})
+        all_shapes.update({k: tuple(v) for k, v in shape_kwargs.items()})
+        report = Report(TraceLinter().scan_source(self))
+        ins = [sym_mod.Variable(n, shape=s) for n, s in all_shapes.items()]
+        try:
+            out = self(*ins) if ins else self(sym_mod.Variable("data"))
+            if isinstance(out, (list, tuple)):
+                out = sym_mod.Group(list(out))
+        except Exception as e:
+            report.add(Finding(
+                "not-symbolically-traceable", Severity.INFO,
+                f"block does not trace symbolically ({type(e).__name__}: "
+                f"{str(e)[:200]}); graph passes skipped",
+                node=getattr(self, "name", None),
+                fix_hint="make hybrid_forward F-generic (ops via F, "
+                         "F.split over tensor indexing) to enable graph "
+                         "lint"))
+            return report
+        param_names = {p.name for p in self._iter_params()}
+        report.extend(GraphLinter(passes=passes, param_names=param_names)
+                      .lint(out, shapes=all_shapes))
+        return report
 
     def export(self, path, epoch=0, format="json", example_inputs=None):
         """Save for deployment: ``{path}-{epoch:04d}.params`` and

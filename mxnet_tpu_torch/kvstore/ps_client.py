@@ -98,7 +98,7 @@ class PSClient:
         # the lock spans send and receive: the wire is serial per socket,
         # and push() pairs its seq allocation with the send
         with self._lock:
-            return self._rpc_locked(opcode, key, payload, timeout, retries)
+            return self._rpc_locked(opcode, key, payload, timeout, retries)  # lint: disable=blocking-call-under-lock
 
     def _rpc_locked(self, opcode, key="", payload=b"", timeout=None,
                     retries=None):
@@ -168,7 +168,8 @@ class PSClient:
         # sends of one key would make the server drop the lower seq
         with self._lock:
             self._push_seq += 1
-            _, _, reply = self._rpc_locked(
+            # the seq allocation and its send: one step under the lock
+            _, _, reply = self._rpc_locked(  # lint: disable=blocking-call-under-lock
                 OP_PUSH_SEQ, key,
                 struct.pack("<QQ", self._client_id, self._push_seq)
                 + payload)
@@ -186,7 +187,8 @@ class PSClient:
         """Push only the touched rows, seq-tagged like the dense push."""
         with self._lock:
             self._push_seq += 1
-            _, _, payload = self._rpc_locked(
+            # the seq allocation and its send: one step under the lock
+            _, _, payload = self._rpc_locked(  # lint: disable=blocking-call-under-lock
                 OP_PUSH_SPARSE_SEQ, key,
                 struct.pack("<QQ", self._client_id, self._push_seq)
                 + _pack_sparse(indices, rows))
@@ -274,7 +276,8 @@ class PSClient:
             epoch = self._barrier_epoch
             self._barrier_epoch += 1
             payload = struct.pack("<QQ", self._client_id, epoch)
-            _, _, reply = self._rpc_locked(OP_BARRIER, payload=payload,
+            # the epoch and its barrier frame: one step under the lock
+            _, _, reply = self._rpc_locked(OP_BARRIER, payload=payload,  # lint: disable=blocking-call-under-lock
                                            timeout=timeout)
         if bytes(reply[:1]) != b"\x01":
             return

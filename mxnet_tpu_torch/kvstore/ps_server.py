@@ -343,7 +343,7 @@ class PSServer:
             except OSError:
                 break
             self._conns.append(conn)
-            t = threading.Thread(target=self._handle, args=(conn,),
+            t = threading.Thread(target=self._handle_loop, args=(conn,),
                                  daemon=True)
             t.start()
             self._threads = [th for th in self._threads if th.is_alive()]
@@ -600,7 +600,7 @@ class PSServer:
             obs.inc("kvstore.server.threads_leaked", leaked)
 
     # ------------------------------------------------------------------
-    def _handle(self, conn: socket.socket):
+    def _handle_loop(self, conn: socket.socket):
         try:
             while True:
                 opcode, key, payload = _recv_msg(conn)
@@ -638,6 +638,28 @@ class PSServer:
                 self._conns.remove(conn)
             except ValueError:
                 pass
+
+    def _reduce(self, conn, opcode, key, payload) -> None:
+        """Answer one OP_REDUCE / OP_REDUCE_SCOPED frame (the scoped form
+        carries the contributor count after the 24-byte header)."""
+        head = 28 if opcode == OP_REDUCE_SCOPED else 24
+        if self._elastic is None or len(payload) < head:
+            _send_msg(conn, opcode, key, struct.pack("<BQI", ST_ERROR, 0, 0))
+            return
+        cid, round_id, wait = struct.unpack_from("<QQd", payload, 0)
+        expected = (struct.unpack_from("<I", payload, 24)[0]
+                    if opcode == OP_REDUCE_SCOPED else 0)
+        # summed, never written: the frame's buffer is its storage
+        arr = _unpack_array(payload[head:], copy=False)
+        st, gen, n, result = self._elastic.reduce(
+            cid, key, round_id, arr,
+            timeout=max(1.0, min(float(wait), 3600.0)),
+            expected=int(expected))
+        # the released sum goes out as a view: one array, read by every
+        # contributor's handler, copied by none
+        _send_msg(conn, opcode, key,
+                  [struct.pack("<BQI", st, gen, n)]
+                  + (_array_parts(result) if st == ST_OK else []))
 
     def _handle_one(self, conn: socket.socket, opcode: int, key: str,
                     payload) -> bool:
@@ -783,28 +805,13 @@ class PSServer:
             _send_msg(conn, OP_JOIN, key,
                       struct.pack("<BQQIII", st, gen, epoch, part, nparts,
                                   count))
-        elif opcode in (OP_REDUCE, OP_REDUCE_SCOPED):
-            # the elastic sum-allreduce; the scoped form completes at an
-            # explicit contributor count (the hierarchical reduction)
-            head = 28 if opcode == OP_REDUCE_SCOPED else 24
-            if self._elastic is None or len(payload) < head:
-                _send_msg(conn, opcode, key,
-                          struct.pack("<BQI", ST_ERROR, 0, 0))
-                return True
-            cid, round_id, wait = struct.unpack_from("<QQd", payload, 0)
-            expected = (struct.unpack_from("<I", payload, 24)[0]
-                        if opcode == OP_REDUCE_SCOPED else 0)
-            # summed, never written: the frame's buffer is its storage
-            arr = _unpack_array(payload[head:], copy=False)
-            st, gen, n, result = self._elastic.reduce(
-                cid, key, round_id, arr,
-                timeout=max(1.0, min(float(wait), 3600.0)),
-                expected=int(expected))
-            # the released sum goes out as a view: one array, read by
-            # every contributor's handler, copied by none
-            _send_msg(conn, opcode, key,
-                      [struct.pack("<BQI", st, gen, n)]
-                      + (_array_parts(result) if st == ST_OK else []))
+        elif opcode == OP_REDUCE:
+            # the elastic sum-allreduce over the live membership
+            self._reduce(conn, opcode, key, payload)
+        elif opcode == OP_REDUCE_SCOPED:
+            # completes at an explicit contributor count (the
+            # hierarchical reduction's group-local and cross-group stages)
+            self._reduce(conn, opcode, key, payload)
         elif opcode == OP_EPOCH:
             if self._elastic is None or len(payload) < 24:
                 _send_msg(conn, OP_EPOCH, key,
@@ -1169,7 +1176,9 @@ class PSServer:
 
         w = NDArray(np.array(weight_np), ctx=cpu())
         self._updater(key, NDArray(np.asarray(grad), ctx=cpu()), w)
-        self._weights[key] = w.asnumpy()
+        # the PS keeps its weights on the host: asnumpy of this CPU NDArray
+        # copies no device memory
+        self._weights[key] = w.asnumpy()  # lint: disable=host-sync-on-hot-path
 
 
 def main():

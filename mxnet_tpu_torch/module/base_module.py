@@ -106,7 +106,9 @@ class BaseModule:
         if dev is not None and getattr(dev, "type", None) == "cuda":
             import torch
 
-            torch.cuda.synchronize(dev)
+            # only while the fleet plane records: the phase's time must include
+            # its queued device work
+            torch.cuda.synchronize(dev)  # lint: disable=host-sync-on-hot-path
 
     def score(self, eval_data, eval_metric, num_batch=None, reset=True, epoch=0,
               batch_end_callback=None):
@@ -612,7 +614,7 @@ class BaseModule:
         if not targets:
             return
         # the elastic broadcast rides the host-side PS wire
-        vals = kv.broadcast_arrays([t.asnumpy() for t in targets], root)
+        vals = kv.broadcast_arrays([t.asnumpy() for t in targets], root)  # lint: disable=host-sync-on-hot-path
         if not root:
             for t, v in zip(targets, vals):
                 t._set_data(_host_tensor(v, t))
@@ -633,7 +635,7 @@ class BaseModule:
             return
         grads = [exec_.grad_dict[n] for n in names]
         # the elastic reduce is host-mediated: gradients cross the PS wire
-        means, _n = kv.allreduce_mean([g.asnumpy() for g in grads])
+        means, _n = kv.allreduce_mean([g.asnumpy() for g in grads])  # lint: disable=host-sync-on-hot-path
         for g, m in zip(grads, means):
             g._set_data(_host_tensor(m, g))
 

@@ -77,13 +77,10 @@ class Module(BaseModule):
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write", lint=None):
-        """``lint`` (the graph linter's pre-flight) belongs to the analysis
-        plane (queue item A15): anything but None or "off" raises."""
-        if lint not in (None, "off"):
-            from ..base import MXNetError
-
-            raise MXNetError("Module.bind(lint=...): the graph linters "
-                             "(queue item A15) are not ported yet")
+        """``lint="warn"|"error"|"off"`` runs the static analyzer over the
+        graph (with these shapes) before anything is allocated; "error"
+        raises a node-attributed GraphAnalysisError on error-severity
+        findings. Default: the MXNET_GRAPH_LINT env var ("off")."""
         if self.binded and not force_rebind:
             return
         self._data_shapes = _as_descs(data_shapes)
@@ -93,7 +90,7 @@ class Module(BaseModule):
         self.for_training = for_training
         self._exec = self.symbol.simple_bind(
             ctx=self._context, grad_req=grad_req if for_training else "null",
-            **shapes)
+            lint=lint, **shapes)
         if shared_module is not None and shared_module._exec is not None:
             for n, v in shared_module._exec.arg_dict.items():
                 if n in self._exec.arg_dict and n in self._param_names:

@@ -250,7 +250,9 @@ def build_all(names=None) -> Dict[str, float]:
         builds = {n: _start_build(n) for n in missing}
         secs = {n: 0.0 for n in names}
         for n, build in builds.items():
-            _finish_build(n, build)
+            # _lock serialises builds on purpose: a second caller waits for the
+            # first's library instead of starting a duplicate nvcc
+            _finish_build(n, build)  # lint: disable=blocking-call-under-lock
             secs[n] = time.perf_counter() - t0
         if pc is not None:
             for n in names:  # a built one replaces a rejected entry
@@ -277,7 +279,8 @@ def load(name: str, cache=None):
                 rejected = mod is None and pc.has(kernel_key(name))
             if mod is None:
                 if not path.exists():
-                    _finish_build(name, _start_build(name))
+                    # _lock serialises builds on purpose (see build_all)
+                    _finish_build(name, _start_build(name))  # lint: disable=blocking-call-under-lock
                 mod = _import(name, path)
             if pc is not None:
                 _store(name, pc, replace=rejected)

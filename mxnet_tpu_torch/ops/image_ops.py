@@ -189,8 +189,8 @@ def _crop(data, x=0, y=0, width=1, height=1):
     # x/y are host ints by contract (slice bounds), as the reference's
     ha, wa, _ = _hwc_axes(data)
     idx = [slice(None)] * data.ndim
-    idx[ha] = slice(int(y), int(y) + int(height))
-    idx[wa] = slice(int(x), int(x) + int(width))
+    idx[ha] = slice(int(y), int(y) + int(height))  # lint: disable=host-call-in-op
+    idx[wa] = slice(int(x), int(x) + int(width))  # lint: disable=host-call-in-op
     return data[tuple(idx)]
 
 

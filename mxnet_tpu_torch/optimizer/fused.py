@@ -46,14 +46,22 @@ miss writes the program's record. :meth:`FusedUpdateEngine.prewarm` (and
 on copies, without touching weights, states or counters: what a
 quarantined elastic rejoiner does while it waits.
 
+Signature accounting (``compile_log``) runs while the device plane
+captures, the program cache is armed, or a ``TraceLinter.watch`` block is
+open (:func:`track_signatures`), whose ``check_update_engine`` reads the
+entries' ``static``/``avals``/``state_structure``/``flags``; otherwise no
+signature is built (zero cost when off).
+
 ``lower_update`` is the in-place form over tensor lists that
 ``parallel.ShardedTrainer`` calls.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import os
+import threading
 import time
 from typing import Dict, List
 
@@ -71,6 +79,24 @@ from .optimizer import (DCASGD, FTML, LAMB, LARS, NAG, SGD, SGLD, AdaDelta,
 
 __all__ = ["FusedUpdateEngine", "fused_update_enabled", "lower_update",
            "supports"]
+
+
+_TRACKING = [0]  # open track_signatures() scopes
+_TRACKING_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def track_signatures():
+    """Record every engine's new update signatures into its
+    ``compile_log`` for the scope's duration, with the device plane and
+    the program cache off (``TraceLinter.watch`` opens one)."""
+    with _TRACKING_LOCK:
+        _TRACKING[0] += 1
+    try:
+        yield
+    finally:
+        with _TRACKING_LOCK:
+            _TRACKING[0] -= 1
 
 
 def fused_update_enabled() -> bool:
@@ -523,7 +549,12 @@ class FusedUpdateEngine:
         from ..ops import _kernels
 
         opt = self.optimizer
+        # the signature's parts that TraceLinter.check_update_engine
+        # diagnoses a recompiling loop from (the reference's fields)
         entry = {"site": "update", "optimizer": type(opt).__name__,
+                 "static": sig[1], "avals": sig[4],
+                 "state_structure": sig[2],
+                 "flags": (sig[7], sig[10], sig[11]),
                  "n_params": n_params, "health": health_on,
                  "cache_hit": False}
         pc = _progcache.cache()
@@ -568,10 +599,10 @@ class FusedUpdateEngine:
         t0 = time.monotonic() if rec else 0.0
         dev = _as_tensor_list(weights[:1])[0].device
         sig = None
-        if obs.device.active() or _progcache.active():
+        if obs.device.active() or _progcache.active() or _TRACKING[0]:
             # the signature's first run is counted and looked up (the
             # zero-cost-when-off contract: no signature is built while
-            # capture and the cache are off)
+            # capture, the cache and signature tracking are off)
             sig = self._signature(weights, grads, states, loss_scaler,
                                   clip_global_norm, health_on)
         first = sig is not None and sig not in self._sig_cost

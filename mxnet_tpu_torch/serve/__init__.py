@@ -217,8 +217,10 @@ def load(path: str, epoch: Optional[int] = None, symbol=None, *,
          prefix: str = "ckpt", **engine_kwargs) -> InferenceEngine:
     """Build an :class:`InferenceEngine` from any trained artifact (see
     the module docstring for the three kinds). Extra kwargs go to the
-    engine (``max_batch_size``, ``buckets``, ``data_names``, ``lint``,
-    ``ctx``, ``mesh``, ``rules``, ``data_spec``, ``progcache_dir``). An
+    engine (``max_batch_size``, ``buckets``, ``data_names``, ``lint`` —
+    the model-load pre-flight, ``"error"`` refusing a graph with an error
+    finding —, ``ctx``, ``mesh``, ``rules``, ``data_spec``,
+    ``progcache_dir``). An
     artifact shipping a ``programs/`` payload (:func:`ship_programs`)
     becomes the engine's program cache unless ``progcache_dir`` is
     given."""

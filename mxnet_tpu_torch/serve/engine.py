@@ -52,10 +52,13 @@ launches the flash forward kernel):
   the leader computes it alone, as one process would. A reload keeps the
   placements. On a mesh of one rank the engine is the unsharded one.
 
-Differences from the reference: the ``lint="error"`` pre-flight
-(``Symbol.lint``) belongs to queue item A15 and raises
-:class:`MXNetError`; the default ``lint="warn"`` warns once that the
-pre-flight did not run (``lint_report`` stays None). ``warmup`` runs its
+The model-load pre-flight is the reference's: ``lint="warn"`` (the
+default) runs ``Symbol.lint`` over the graph and warns on findings,
+``"error"`` raises a node-attributed ``GraphAnalysisError`` on an error
+finding, ``"off"`` runs nothing; the report is ``lint_report`` and its
+wall seconds ``lint_seconds``.
+
+Differences from the reference: ``warmup`` runs its
 buckets one after the other on the calling thread. ``ctx=`` places an
 engine without a mesh (default: the current context, the card unless a
 ``with mx.cpu():`` scope is open); a mesh places it on its rank's device.
@@ -192,8 +195,9 @@ class InferenceEngine:
         Explicit batch buckets (sorted, deduped). Default:
         ``default_buckets(max_batch_size)``.
     lint : "off" | "warn" | "error"
-        The pre-flight ``Symbol.lint`` is queue item A15: "error" raises,
-        "warn" warns that it did not run, "off" runs nothing.
+        The model-load pre-flight ``Symbol.lint`` (its report is
+        ``lint_report``): "error" raises on an error finding, "warn"
+        warns on any finding, "off" runs nothing.
     pad_value : float
         Fill of the padding rows.
     mesh : parallel.Mesh, optional
@@ -232,13 +236,6 @@ class InferenceEngine:
 
         if lint not in ("off", "warn", "error"):
             raise ValueError(f"lint must be 'off'|'warn'|'error', got {lint!r}")
-        self.lint_report = None
-        if lint == "error":
-            raise MXNetError("InferenceEngine(lint='error'): the Symbol.lint "
-                             "pre-flight is queue item A15 of the port")
-        if lint == "warn":
-            warnings.warn("serve model-load lint did not run: Symbol.lint "
-                          "is queue item A15 of the port", stacklevel=2)
 
         self.symbol = symbol
         self.mesh = mesh
@@ -286,6 +283,20 @@ class InferenceEngine:
                 f"aux states {missing_aux} missing from aux_params — an "
                 "untrained BatchNorm served with default stats is a silent "
                 "accuracy bug; export the full checkpoint")
+
+        # pre-flight static analysis at model load, not at the first
+        # request: "error" refuses a graph with an error finding
+        self.lint_report = None
+        self.lint_seconds = 0.0
+        if lint != "off":
+            t0 = time.perf_counter()
+            self.lint_report = symbol.lint()
+            self.lint_seconds = time.perf_counter() - t0
+            if lint == "error":
+                self.lint_report.raise_if_errors()
+            elif self.lint_report:
+                warnings.warn("serve model-load lint: "
+                              + self.lint_report.format(), stacklevel=2)
 
         # the placement is resolved here, once: a reload lands with the
         # same shardings, and a bucket's batch placement is cached by shape
@@ -344,9 +355,8 @@ class InferenceEngine:
                            if progcache_dir else _progcache.cache())
         self._sig_key: Dict[tuple, object] = {}   # sig -> ProgramKey
         self._launched: Dict[tuple, set] = {}     # sig -> its kernels
-        self._key_statics = None
-        if self._progcache is not None:
-            self._key_statics = self._compute_key_statics()
+        # computed once, here: the graph's JSON stays off the request path
+        self._key_statics = self._compute_key_statics()
         if self._channel is not None and not self._channel.is_leader:
             from .group import PeerExit
 
@@ -394,8 +404,6 @@ class InferenceEngine:
         cost registry and the cache's file names share."""
         pk = self._sig_key.get(sig)
         if pk is None:
-            if self._key_statics is None:
-                self._key_statics = self._compute_key_statics()
             pk = _progcache.program_key("serve", f"bucket{bucket}",
                                         (self._key_statics, sig))
             self._sig_key[sig] = pk
@@ -637,7 +645,7 @@ class InferenceEngine:
                 else:
                     outs = self._forward(tensors, snapshot, bucket, on_mesh)
             # on the host (numpy, or CPU bfloat16): the batch's one wait
-            host = [host_array(o) for o in outs]
+            host = [host_array(o) for o in outs]  # lint: disable=host-sync-on-hot-path
             cost = self._sig_cost.get(sig) if rec and entry is None \
                 else None
             if cost:  # after the wait: the span's wall covers the work

@@ -72,7 +72,6 @@ takes a picklable ``make_server`` (a module-level function or a
 from __future__ import annotations
 
 import contextlib
-import gc
 import os
 import queue
 import select
@@ -230,11 +229,7 @@ class LocalReplica:
     def stop(self) -> None:
         if self.server is not None:
             self.server.stop()
-            # the stopped server, its engine and its parameters become
-            # unreachable here: a restart must not keep a dead incarnation's
-            # copy of the model on the card
             self.server = None
-            gc.collect()
 
 
 class ProcReplica:
@@ -732,7 +727,7 @@ class ReplicaPool:
             # pool lock + leaving/removed terminal states) owns this
             # bring-up; remove_replica reaps a member whose thread wedged
             threading.Thread(target=self._bring_up, args=(m,),
-                             daemon=True).start()
+                             daemon=True).start()  # lint: disable=thread-fire-and-forget
         return idx
 
     def remove_replica(self, idx: int, *, drain_timeout: float = 30.0
@@ -1010,7 +1005,7 @@ class ReplicaPool:
                     # clears it in a finally — the supervisor loop is the
                     # join point for this state machine
                     threading.Thread(target=self._restart, args=(m,),
-                                     daemon=True).start()
+                                     daemon=True).start()  # lint: disable=thread-fire-and-forget
             self._gauge()
 
 
@@ -1202,7 +1197,7 @@ class Router:
         # deliberately unjoined racer: the reply comes back over q and
         # INFER is read-only — the losing attempt is wasted capacity, not
         # an orphaned mutation; a wedged racer dies with its socket timeout
-        threading.Thread(target=run, args=(primary,), daemon=True).start()
+        threading.Thread(target=run, args=(primary,), daemon=True).start()  # lint: disable=thread-fire-and-forget
         try:
             member, (ok, val), notes = q.get(timeout=self.hedge_ms / 1e3)
             renote(notes)
@@ -1221,7 +1216,8 @@ class Router:
                   secondary=secondary.idx)
         # the primary was slow enough to duplicate: a tail signal
         obs.tail.note(hedged=True)
-        threading.Thread(target=run, args=(secondary,), daemon=True).start()
+        # the hedge racer: unjoined for the primary's reason above
+        threading.Thread(target=run, args=(secondary,), daemon=True).start()  # lint: disable=thread-fire-and-forget
         budget = self._client_timeout if deadline is None \
             else max(deadline - time.monotonic(), 0.0)
         end = time.monotonic() + budget + 0.5
@@ -1583,7 +1579,7 @@ class Router:
                 # (reloads are serialized fleet-wide) and the drain is
                 # bounded by flip_timeout
                 self._commit_all(members, token, path, epoch, prefix,
-                                 new_version)
+                                 new_version)  # lint: disable=blocking-call-under-lock
             obs.inc("fleet.reloads")
             obs.event("fleet.reload", version=new_version)
             return new_version

@@ -250,7 +250,9 @@ def spawn_peers(n: int, argv: Sequence[str], payload: Optional[bytes] = None
             os._exit(1)
 
     for p in procs:
-        threading.Thread(target=watch, args=(p,), daemon=True).start()
+        # daemon watchers, one per rank: each ends the whole group (os._exit)
+        # when its rank dies, so the process's lifetime supervises them
+        threading.Thread(target=watch, args=(p,), daemon=True).start()  # lint: disable=thread-fire-and-forget
     return procs
 
 
@@ -263,7 +265,9 @@ def watch_parent() -> None:
             time.sleep(0.5)
         os._exit(1)
 
-    threading.Thread(target=loop, daemon=True,
+    # a daemon that ends this process when its parent dies: the process's
+    # lifetime is its join point
+    threading.Thread(target=loop, daemon=True,  # lint: disable=thread-fire-and-forget
                      name="mxnet-serve-parent-watch").start()
 
 

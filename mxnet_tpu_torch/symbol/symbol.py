@@ -13,8 +13,8 @@ reference's behavior that makes ``Module.init_params`` work); ``moving_*``
 args become auxiliary states. ``tojson`` gives the reference's JSON for
 graphs of registered ops; the ``_invoke_fn`` placeholder of
 :func:`invoke_fn` cannot be loaded back, in either package.
-``optimize_for`` applies a graph pass of ``subgraph.py``; ``lint`` (the
-analysis plane, queue item A15) raises.
+``optimize_for`` applies a graph pass of ``subgraph.py``; ``lint`` runs
+the graph linter (``analysis.GraphLinter``).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..base import GraphAnalysisError, MXNetError
+from ..base import GraphAnalysisError
 from ..ops import get_op, has_op
 from ..ops.registry import OpDef, coerce_kwargs
 
@@ -347,24 +347,39 @@ class Symbol:
     # ----------------------------------------------------------- analysis
     def lint(self, shapes: Optional[Dict[str, tuple]] = None, passes=None,
              **shape_kwargs):
-        raise MXNetError("Symbol.lint: the graph linters (the analysis "
-                         "plane, queue item A15) are not ported yet")
+        """Run the static analyzer over this graph (nothing runs).
+
+        Returns an :class:`mxnet_tpu_torch.analysis.Report`. Pass input
+        shapes (``sym.lint(data=(2, 3, 32, 32))``) to enable the
+        shape/dtype pre-flight; without them (and without ``shape=``
+        hints on the Variables) only the structural passes run.
+        ``passes`` selects a subset by name (see
+        ``mxnet_tpu_torch.analysis.list_passes``).
+        """
+        from ..analysis import GraphLinter
+
+        return GraphLinter(passes=passes).lint(self, shapes=shapes,
+                                               **shape_kwargs)
 
     # ---------------------------------------------------------- execution
-    def simple_bind(self, ctx=None, grad_req="write", **shapes):
+    def simple_bind(self, ctx=None, grad_req="write", lint=None, **shapes):
         """An :class:`~mxnet_tpu_torch.executor.Executor` with arrays of the
         inferred shapes on ``ctx`` (default: the current context, the
-        card unless a ``with mx.cpu():`` scope is open)."""
+        card unless a ``with mx.cpu():`` scope is open). ``lint``
+        (``"off"|"warn"|"error"``, default ``MXNET_GRAPH_LINT``) runs the
+        graph linter over these shapes first."""
         from ..executor import Executor
 
-        return Executor(self, ctx=ctx, grad_req=grad_req, shapes=shapes)
+        return Executor(self, ctx=ctx, grad_req=grad_req, shapes=shapes,
+                        lint=lint)
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
-             aux_states=None, **kwargs):
+             aux_states=None, lint=None, **kwargs):
         from ..executor import Executor
 
         return Executor(self, ctx=ctx, grad_req=grad_req, args=args,
-                        args_grad=args_grad, aux_states=aux_states)
+                        args_grad=args_grad, aux_states=aux_states,
+                        lint=lint)
 
     def optimize_for(self, backend, args=None, aux=None, **kwargs):
         """Apply a registered graph pass (reference Symbol.optimize_for /

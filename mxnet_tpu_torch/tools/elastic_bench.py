@@ -38,6 +38,8 @@ import sys
 import threading
 import time
 
+from . import join_all
+
 
 def _segment(cli, grad, ops: int) -> float:
     t0 = time.perf_counter()
@@ -123,8 +125,7 @@ def run_elastic_bench(workers: int = 3, ops: int = 200, segments: int = 5,
                 break
             time.sleep(0.01)
         stop.set()
-        for t in threads:
-            t.join(timeout=30)
+        join_all(threads, 30, "elastic workers")
 
         # -- rejoin: quarantined join → boundary activation --------------
         joiner = ElasticWorkerSession("127.0.0.1", srv_el.port,
@@ -140,14 +141,15 @@ def run_elastic_bench(workers: int = 3, ops: int = 200, segments: int = 5,
         wt = threading.Thread(target=_wait, daemon=True)
         wt.start()
         if info.active:  # fleet died down to 0 actives → instant takeover
-            wt.join(timeout=60)
+            join_all([wt], 60, "rejoin wait")
             rejoin_s = 0.0
         else:
             time.sleep(hb_interval)
-            for s in sessions[:-1]:
-                threading.Thread(target=s.epoch_end, args=(0,),
-                                 daemon=True).start()
-            wt.join(timeout=60)
+            enders = [threading.Thread(target=s.epoch_end, args=(0,),
+                                       daemon=True) for s in sessions[:-1]]
+            for t in enders:
+                t.start()
+            join_all([wt] + enders, 60, "epoch boundary")
             rejoin_s = got["t"] - t_join if "t" in got else None
         for s in sessions[:-1] + [joiner]:
             s.close()
@@ -227,8 +229,7 @@ def run_straggler_bench(workers: int = 3, window: int = 4, factor: float = 1.5,
         t0 = time.perf_counter()
         for t in threads:
             t.start()
-        for t in threads:
-            t.join(timeout=300)
+        join_all(threads, 300, "straggler workers")
         time.sleep(max(0.3, hb_interval * 6))  # final ships + judging
         stats = srv.fleet.stats()
         ranks = stats["ranks"]
@@ -320,8 +321,7 @@ def run_async_bench(workers: int = 3, steps: int = 24, staleness: int = 16,
                                     daemon=True) for r in range(workers)]
         for t in threads:
             t.start()
-        for t in threads:
-            t.join(timeout=300)
+        join_all(threads, 300, "sync workers")
     finally:
         for s in sessions:
             try:
@@ -356,8 +356,7 @@ def run_async_bench(workers: int = 3, steps: int = 24, staleness: int = 16,
                                     daemon=True) for r in range(workers)]
         for t in threads:
             t.start()
-        for t in threads:
-            t.join(timeout=300)
+        join_all(threads, 300, "async workers")
     finally:
         for c in clis:
             try:

@@ -59,6 +59,8 @@ import time
 
 import numpy as np
 
+from . import join_all
+
 
 def _percentile(sorted_vals, q):
     if not sorted_vals:
@@ -177,8 +179,7 @@ def run_bench(model="mlp", mode="closed", duration=5.0, clients=4, qps=200.0,
                    for _ in range(clients)]
         for t in threads:
             t.start()
-        for t in threads:
-            t.join()
+        join_all(threads, duration + 60, "closed-loop clients")
         offered = None
     elif mode == "open":
         # Poisson arrivals: a dispatcher sleeps exponential gaps and hands
@@ -208,8 +209,7 @@ def run_bench(model="mlp", mode="closed", duration=5.0, clients=4, qps=200.0,
             th.start()
             inflight.append(th)
             n_sent += 1
-        for th in inflight:
-            th.join(timeout=30)
+        join_all(inflight, 30, "open-loop requests")
         for cli in pool:
             cli.close()
         offered = n_sent / (time.perf_counter() - t_start)
@@ -465,8 +465,7 @@ def run_decode_bench(duration=4.0, clients=6, slots=4, page_size=8,
                for i in range(clients)]
     for th in threads:
         th.start()
-    for th in threads:
-        th.join(timeout=duration + 60)
+    join_all(threads, duration + 60, "decode clients")
     wall = time.perf_counter() - t_start
     st = sched.stats()
     srv.stop()
@@ -530,8 +529,7 @@ def _closed_drive(addr, payload, clients, duration, deadline_ms=None):
     threads = [threading.Thread(target=worker) for _ in range(clients)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join()
+    join_all(threads, duration + 60, "load clients")
     return sorted(lats), shed[0], errors[0], time.perf_counter() - t_start
 
 
@@ -731,8 +729,7 @@ def run_ramp_bench(model="mlp", duration=14.0, qps_lo=30.0, qps_hi=450.0,
                                   args=(idx, time.perf_counter() - t_start))
             th.start()
             inflight.append(th)
-        for th in inflight:
-            th.join(timeout=30)
+        join_all(inflight, 30, "autoscale requests")
     finally:
         scaler.stop()
         events = [{"t_s": round(e["t"] - t_mono0, 2),
@@ -912,8 +909,7 @@ def run_prof_overhead(model="mlp", duration=4.0, hz=None, clients=4,
         t0 = time.perf_counter()
         for t in threads:
             t.start()
-        for t in threads:
-            t.join()
+        join_all(threads, seg_s + 60, "overhead clients")
         return sum(done) / (time.perf_counter() - t0)
 
     was_on = obs.enabled()
@@ -1102,8 +1098,7 @@ def run_chaos_bench(model="mlp", duration=12.0, qps=120.0, replicas=3,
                               args=(idx, time.perf_counter() - t_start))
         th.start()
         inflight.append(th)
-    for th in inflight:
-        th.join(timeout=30)
+    join_all(inflight, 30, "chaos requests")
     if killed[0] and t_recovered[0] is None and dipped[0] \
             and len(pool.ready_members()) >= replicas:
         t_recovered[0] = time.perf_counter()

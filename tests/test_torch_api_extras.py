@@ -485,10 +485,10 @@ def test_lazy_module_names_match_reference(name, target):
 # the top-level, context and base surfaces (queue C's C2)
 # ---------------------------------------------------------------------------
 
-# deliberate differences: the TPU's names; the modules of queue item
-# A15(g), which raise naming it
+# deliberate differences: the TPU's names; the module of queue item
+# A15(g), which raises naming it
 _SURFACE_DELIBERATE = {"tpu", "num_tpus"}
-_SURFACE_LATER = {"platform", "runtime"}
+_SURFACE_LATER = {"platform"}
 
 
 @pytest.mark.parametrize("where", ["top", "context", "base"])
@@ -496,7 +496,7 @@ def test_reference_surface_resolves_on_the_port(where):
     """Every public name of ``mxnet_tpu`` (its lazy submodules included)
     and every name of the ``__all__`` of ``mxnet_tpu.context`` and
     ``mxnet_tpu.base`` resolves on the port,
-    but the listed deliberate ones; A15(g)'s modules raise naming it."""
+    but the listed deliberate ones; A15(g)'s module raises naming it."""
     import importlib
 
     from mxnet_tpu_torch.base import MXNetError

@@ -1945,3 +1945,58 @@ def test_kernel_entry_loads_without_nvcc_and_rejects_truncated(
         fresh("build1")
         _kernels._loaded.pop(name, None)
         monkeypatch.undo()
+
+
+def test_lint_error_preflight_and_program_bounds_on_the_card(cuda_device):
+    """A small LM at S = the flash length, traced with any batch and
+    loaded by ``InferenceEngine(lint="error")`` on the card: the
+    pre-flight finds no error, the serve engine's program bound holds
+    after mixed traffic (``TraceLinter.check_serve_engine`` is empty) and
+    its forwards launch the flash-forward kernel; a decode engine's
+    two-program bound holds after mixed prompts and its steps launch the
+    paged kernel."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serve
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.analysis import TraceLinter
+    from mxnet_tpu_torch.ops.attention import _FLASH_MIN_SEQ
+
+    seq = _FLASH_MIN_SEQ
+    mx.random.seed(5)
+    with mx.gpu(0):
+        net = tt.transformer_lm(vocab_size=97, units=64, hidden_size=128,
+                                num_layers=2, num_heads=4, max_length=seq)
+        net.initialize()
+        with mx.name.NameManager():
+            logits = net(sym.var("data", shape=(0, seq)))
+    arg = {p.name: p.data() for p in net.collect_params().values()}
+    engine = serve.InferenceEngine(logits, arg, buckets=(1, 2, 4),
+                                   lint="error", ctx=mx.gpu(0))
+    assert engine.lint_report is not None
+    assert not engine.lint_report.has_errors, engine.lint_report.format()
+    flash0 = tfa.flash_attention_fwd.launches
+    rng = np.random.RandomState(0)
+    for n in (1, 3, 2, 4, 1, 3):
+        rows = rng.randint(0, 97, (n, seq)).astype(np.float32)
+        outs, _v = engine.infer([rows])
+        assert outs[0].shape == (n, seq, 97) and np.isfinite(outs[0]).all()
+    assert tfa.flash_attention_fwd.launches > flash0
+    assert len(engine.compile_log) == 3
+    assert TraceLinter().check_serve_engine(engine) == []
+
+    cfg, params = _seeded_lm(vocab_size=97, units=32, hidden_size=64,
+                             num_layers=2, num_heads=4, max_length=64)
+    eng = DecodeEngine(cfg, params, device=cuda_device, slots=4,
+                       page_size=8, num_pages=16, prompt_buckets=[8, 16])
+    paged0 = tfa.flash_decode_attention.launches
+    sched = DecodeScheduler(eng, max_new_tokens=4)
+    try:
+        for n in (3, 13, 8, 5, 16):
+            assert len(list(sched.generate(np.arange(1, n + 1) % 90 + 1))) \
+                == 4
+    finally:
+        sched.close()
+    assert tfa.flash_decode_attention.launches > paged0
+    assert sorted(e["kind"] for e in eng.compile_log) == [
+        "prefill", "prefill", "step"]
+    assert TraceLinter().check_decode_engine(eng) == []

@@ -195,6 +195,33 @@ def test_failover_on_replica_death_and_pool_restart():
         pool.stop()
 
 
+def test_restart_frees_the_dead_incarnation_without_a_gc_pause(monkeypatch):
+    # a full collection holds the GIL while it walks the heap (about 1 s in
+    # a test process), stalling the surviving replica and the router past
+    # their RPC timeouts: a restart runs none, and the dead incarnation's
+    # engine goes by reference counting alone
+    import gc
+    import weakref
+
+    collects = []
+    monkeypatch.setattr(gc, "collect", lambda *a, **k: collects.append(a))
+    pool = _local_pool(2, probe_interval=0.1)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        dead = weakref.ref(pool.members()[0].handle.server._engine)
+        pool.kill(0)
+        m0 = pool.members()[0]
+        _wait(lambda: m0.restarts >= 1 and m0.state == "ready", 30,
+              "the restart of replica 0")
+        assert dead() is None
+        assert collects == []
+    finally:
+        if was:
+            gc.enable()
+        pool.stop()
+
+
 def test_breaker_trips_after_consecutive_failures():
     pool = _local_pool(2, backoff_base=5.0, backoff_cap=5.0,
                        probe_interval=5.0)  # the corpse stays listed
@@ -207,6 +234,34 @@ def test_breaker_trips_after_consecutive_failures():
         assert st["replicas"]["1"]["breaker"]["state"] == "open"
         assert st["breaker_trips"] >= 1
         assert st["replicas"]["1"]["errors"] >= 2
+    finally:
+        pool.stop()
+
+
+def test_breaker_trips_on_a_replica_that_stalls_past_the_deadline():
+    # the RPC's timeout is the request's budget plus a grace, so a stalled
+    # replica always fails after the deadline: the failure must still
+    # count against its breaker, and the router then routes around it
+    replicas = [LocalReplica(_linear_factory(delay=1.0)),
+                LocalReplica(_linear_factory())]
+    pool = ReplicaPool(replicas, probe_interval=0.2,
+                       ready_timeout=60).start()
+    try:
+        router = Router(pool, breaker_threshold=2, breaker_cooldown=30.0)
+        router._rr = 0  # the stalled replica is first on every other call
+        for _ in range(4):
+            try:
+                router.infer([X], deadline_ms=100)
+            except DeadlineExceeded:
+                # the stalled attempt used up the budget; the replica's
+                # batch ends before the next attempt, which so stalls too
+                time.sleep(0.5)
+        st = router.stats()["replicas"]["0"]
+        assert st["breaker"]["state"] == "open"
+        assert st["errors"] == 2 and router.stats()["breaker_trips"] >= 1
+        for _ in range(4):  # routed around the open breaker, in budget
+            outs, _ = router.infer([X], deadline_ms=500)
+            np.testing.assert_array_equal(outs[0], X)
     finally:
         pool.stop()
 

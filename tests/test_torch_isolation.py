@@ -93,7 +93,11 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.obs.fleetstats, mxnet_tpu_torch.chaos.slow, "
             "mxnet_tpu_torch.tools.train_report, "
             "mxnet_tpu_torch.tools.elastic_bench, "
-            "mxnet_tpu_torch.tools.fleet_report\n"
+            "mxnet_tpu_torch.tools.fleet_report, "
+            "mxnet_tpu_torch.analysis, mxnet_tpu_torch.analysis.cli, "
+            "mxnet_tpu_torch.analysis.repo_lint, mxnet_tpu_torch.runtime, "
+            "mxnet_tpu_torch.tools.lint_repo, "
+            "mxnet_tpu_torch.tools.graph_lint\n"
             "import mxnet_tpu_torch as mx\n"
             "assert mx.np.linalg and mx.npx.relu and mx.util.get_gpu_count "
             "and mx.operator.CustomOp and mx.nd.sparse.csr_matrix\n"
@@ -102,6 +106,7 @@ def test_import_loads_neither_jax_nor_reference():
             "and mx.serve.load and mx.serve.load_params\n"
             "assert mx.kv.create('device').type == 'device' "
             "and mx.kvstore.KVStore\n"
+            "assert mx.runtime.feature_list() and mx.analysis.GraphLinter\n"
             "from mxnet_tpu_torch import nd, autograd\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "

@@ -161,12 +161,24 @@ def test_engine_warmup_precompiles_every_bucket():
 
 
 def test_engine_lint_preflight_names_a15():
+    """The model-load pre-flight (queue item A15(e)): "warn" keeps the
+    report of a clean graph, "error" refuses a graph with an error
+    finding (two nodes of one name) with node attribution, "off" runs
+    nothing."""
+    from mxnet_tpu_torch.analysis import GraphAnalysisError
+
     net, arg = _mlp(sym)
-    with pytest.warns(UserWarning, match="A15"):
-        engine = InferenceEngine(net, arg, max_batch_size=2, lint="warn")
-    assert engine.lint_report is None
-    with pytest.raises(MXNetError, match="A15"):
-        InferenceEngine(net, arg, lint="error")
+    engine = InferenceEngine(net, arg, max_batch_size=2, lint="warn")
+    assert engine.lint_report is not None
+    assert not engine.lint_report.has_errors, engine.lint_report.format()
+    assert InferenceEngine(net, arg, lint="off").lint_report is None
+    x = sym.var("data")
+    dup = sym.Group([sym.relu(x, name="same"), sym.sigmoid(x, name="same")])
+    with pytest.raises(GraphAnalysisError) as ei:
+        InferenceEngine(dup, {}, lint="error")
+    assert ei.value.rule_id == "duplicate-name" and ei.value.node == "same"
+    with pytest.warns(UserWarning, match="duplicate-name"):
+        InferenceEngine(dup, {}, lint="warn")
     with pytest.raises(ValueError):
         InferenceEngine(net, arg, lint="loud")
 
