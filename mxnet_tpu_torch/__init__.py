@@ -96,16 +96,14 @@ _SUBMODULES = ("amp", "analysis", "attribute", "autograd", "callback",
                "gluon", "image", "initializer", "io", "kvstore", "metric",
                "model", "models", "module", "monitor", "name", "native",
                "ndarray", "obs", "operator", "ops", "optimizer", "parallel",
-               "profiler", "random", "registry", "rnn", "runtime", "serve",
-               "subgraph",
+               "platform", "profiler", "random", "registry", "rnn",
+               "runtime", "serve", "subgraph",
                "symbol", "test_utils", "util", "visualization")
 # the reference's short names
 _ALIASES = {"nd": "ndarray", "init": "initializer", "sym": "symbol",
             "mod": "module", "mon": "monitor", "viz": "visualization",
             "recordio": "io.recordio", "np": "numpy", "kv": "kvstore",
             "npx": "numpy_extension", "lr_scheduler": "optimizer.lr_scheduler"}
-# the reference's module of queue item A15(g), not ported yet: it raises
-_LATER = ("platform",)
 
 
 def __getattr__(name):
@@ -117,7 +115,4 @@ def __getattr__(name):
         from .ndarray import NDArray
 
         return NDArray
-    if name in _LATER:
-        raise MXNetError(f"mx.{name} is queue item A15(g) of the port, not "
-                         "ported yet")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

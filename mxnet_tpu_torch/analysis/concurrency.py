@@ -14,8 +14,9 @@ Rules (see docs/ANALYSIS.md "Concurrency lint" for the catalog):
 
 - ``lock-order-cycle`` (error) — the per-module lock-acquisition graph
   (nesting + same-class interprocedural propagation) contains a cycle:
-  some interleaving deadlocks. (The reference's runtime twin,
-  ``mxnet_tpu.tsan``, is queue item A15(f) of the port.)
+  some interleaving deadlocks. (Its runtime twin is ``tsan.py``: the
+  serve and PS planes' locks record their order live under
+  ``MXNET_TSAN=1``.)
 - ``blocking-call-under-lock`` (warning) — socket ``recv``/``sendall``/
   ``accept``/``connect``, ``subprocess`` waits, ``time.sleep``,
   ``os.fsync``, device waits (``torch.cuda.synchronize``,

@@ -6,10 +6,9 @@ A machine-checked definition of "zero-copy" and "non-blocking hot path":
 the data-plane bug classes that get fixed by hand again and again —
 blocking host syncs on request paths, per-frame buffer copies, unbounded
 server-side caches, and leaked sockets/threads on exception paths —
-turned into contracts, the way ``concurrency.py`` does for locks. (The
-reference's runtime twin, ``mxnet_tpu.copytrack``, which *measures* the
-copies and syncs this pass can only prove reachable, is queue item
-A15(f) of the port.)
+turned into contracts, the way ``concurrency.py`` does for locks. (Its
+runtime twin, ``copytrack.py``, *measures* the copies and syncs this
+pass can only prove reachable.)
 
 Rules (docs/ANALYSIS.md "Data-plane lint" has the catalog):
 

@@ -4,8 +4,7 @@
 Every analyzer emits the same structured ``Finding`` so that its users
 can filter by severity and rule and render uniformly. The training-health
 plane's blame pass (``obs/health.py``) anchors its NaN provenance to a
-graph node with one; the linters that report the rest are queue item
-A15(e) of the port.
+graph node with one; the linters of ``analysis/`` report the rest.
 """
 from __future__ import annotations
 

@@ -18,9 +18,9 @@ class Speedometer:
 
     Uses ``time.monotonic()`` (wall-clock steps from NTP would corrupt the
     rate) and guards the zero-elapsed division (``frequent=1`` fires on the
-    first measured batch, which can land in the same clock tick). The
-    reference's obs gauge of the rate belongs to the host planes (queue
-    item A15).
+    first measured batch, which can land in the same clock tick). Each
+    measured rate also sets the ``obs`` gauge
+    ``training.samples_per_sec``.
     """
 
     def __init__(self, batch_size, frequent=50, auto_reset=True):
@@ -32,6 +32,8 @@ class Speedometer:
         self.last_count = 0
 
     def __call__(self, param):
+        from . import obs
+
         count = param.nbatch
         if self.last_count > count:
             self.init = False
@@ -41,6 +43,7 @@ class Speedometer:
                 elapsed = time.monotonic() - self.tic
                 speed = (self.frequent * self.batch_size
                          / max(elapsed, 1e-9))
+                obs.set_gauge("training.samples_per_sec", speed)
                 if param.eval_metric is not None:
                     name_value = param.eval_metric.get_name_value()
                     if self.auto_reset:

@@ -1,33 +1,35 @@
 """Deterministic fault injection (counterpart of ``mxnet_tpu/chaos/``).
 
-Ported: :mod:`.nan`, which poisons a named tensor with NaN at a counted
-occurrence of it entering an Executor forward (``MXNET_CHAOS_NAN``), so
-that the training-health plane's detection, provenance and rollback
-(``obs/health.py``) can be tested end to end; :mod:`.slow`, which delays
-a named rank's step phase at counted occurrences (``MXNET_CHAOS_SLOW``),
-so that the training-fleet straggler detector (``obs/fleetstats.py``)
-must name the injected rank and blame the injected phase.
+Five injector families, each env-gated so that production code paths cost
+one lookup when chaos is off:
 
-The reference's other injectors (``rpc``: parameter-server RPC drops and
-delays; ``proc``: SIGKILL at named code points; ``platform``: a hung
-first touch of the accelerator) are queue item A15(f) of the port: each
-raises ``MXNetError`` naming it.
+- :mod:`.rpc` — drop / delay / duplicate parameter-server and serve RPCs
+  at exact occurrence counts (``MXNET_CHAOS_RPC`` or programmatic rules).
+  Hooks live in ``kvstore/ps_client.py`` and ``serve/client.py``.
+- :mod:`.proc` — SIGKILL the current process at named code points
+  (``MXNET_CHAOS_KILL``, e.g. the checkpoint writer mid-rename or a serve
+  replica's ``serve:pre_reply``), and helpers to run a training
+  subprocess and kill it at a chosen step. The serving fleet
+  (``serve/fleet.py``) forwards ``MXNET_CHAOS_KILL_REPLICA<i>`` to replica
+  *i* as its ``MXNET_CHAOS_KILL``, so one env var SIGKILLs exactly one
+  member of a fleet at a named point.
+- :mod:`.platform` — hang the guarded platform entry points
+  (``MXNET_CHAOS_TUNNEL_HANG``) the way a dead accelerator does, so every
+  tool's bounded exit with its platform-error artifact is testable.
+- :mod:`.nan` — poison a named tensor with NaN at a counted occurrence of
+  it entering an Executor forward (``MXNET_CHAOS_NAN``), so the
+  training-health plane's detection, provenance and rollback
+  (``obs/health.py``) can be tested end to end.
+- :mod:`.slow` — delay a named rank's step phase at counted occurrences
+  (``MXNET_CHAOS_SLOW``), so the training-fleet straggler detector
+  (``obs/fleetstats.py``) must name the injected rank and blame the
+  injected phase.
 
 Determinism is the point: every injector fires on a counted occurrence of
 a named event, never on a timer or a random draw.
 """
 from __future__ import annotations
 
-from ..base import MXNetError
-from . import nan, slow
+from . import nan, platform, proc, rpc, slow
 
-__all__ = ["nan", "slow"]
-
-_LATER = {"rpc": "A15(f)", "proc": "A15(f)", "platform": "A15(f)"}
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise MXNetError(f"chaos.{name} is queue item {_LATER[name]} of the "
-                         "port, not ported yet")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["rpc", "proc", "platform", "nan", "slow"]

@@ -15,9 +15,10 @@ then the directory is renamed into place and the parent fsynced. A crash at
 ANY instant (the chaos suite SIGKILLs mid-rename to prove it) therefore
 leaves either the previous set of valid checkpoints, or the previous set
 plus one fully valid new one — never a half-written one that parses.
-The reference's chaos kill points (``MXNET_CHAOS_KILL``) and its obs
-counters and spans belong to the host planes (queue item A15): with
-``MXNET_CHAOS_KILL`` set, a manager refuses to start.
+The writer brackets its commit with the chaos kill points
+``ckpt:post_arrays``, ``ckpt:pre_rename`` and ``ckpt:post_rename``
+(``chaos/proc.py``, ``MXNET_CHAOS_KILL``). The reference's obs counters
+and spans of the writer are left out.
 
 Validation on load checks the manifest parses, arrays.bin's footer CRC, and
 every per-array CRC; ``load_latest`` walks newest→oldest and silently skips
@@ -40,7 +41,6 @@ from typing import List, Optional
 
 import torch
 
-from ..base import MXNetError
 from .atomic import atomic_write_json, crc32_bytes, fsync_dir, read_json
 from .state import FORMAT_VERSION, TrainingState
 
@@ -74,10 +74,6 @@ class CheckpointManager:
 
     def __init__(self, directory: str, prefix: str = "ckpt",
                  keep_last: int = 3, async_write: bool = True):
-        if os.environ.get("MXNET_CHAOS_KILL"):
-            raise MXNetError("CheckpointManager: MXNET_CHAOS_KILL is set, "
-                             "but the chaos plane's kill points (queue "
-                             "item A15) are not ported yet")
         self.directory = str(directory)
         self.prefix = prefix
         self.keep_last = int(keep_last)
@@ -223,6 +219,7 @@ class CheckpointManager:
                 self._queue.task_done()
 
     def _write(self, step: int, state: TrainingState):
+        from ..chaos.proc import kill_point
         from ..ndarray.serialization import raw_bytes, save_nd
 
         final = self._path(step)
@@ -239,6 +236,7 @@ class CheckpointManager:
             names = sorted(state.arrays)
             arrays = [state.arrays[n] for n in names]
             save_nd(os.path.join(staging, _ARRAYS_FILE), arrays, names)
+            kill_point("ckpt:post_arrays")  # chaos: die, no manifest
             manifest = {
                 "format": FORMAT_VERSION,
                 "step": step,
@@ -251,6 +249,7 @@ class CheckpointManager:
             atomic_write_json(os.path.join(staging, _MANIFEST_FILE),
                               manifest)
             fsync_dir(staging)
+            kill_point("ckpt:pre_rename")  # chaos: die mid-commit
             if os.path.exists(final):
                 # same-step rewrite (epoch-end on top of a batch-period
                 # save): both snapshots resume identically, so keep the
@@ -267,6 +266,7 @@ class CheckpointManager:
                     shutil.rmtree(staging, ignore_errors=True)
                 else:
                     fsync_dir(self.directory)
+            kill_point("ckpt:post_rename")
         except BaseException:
             shutil.rmtree(staging, ignore_errors=True)
             raise

@@ -29,8 +29,10 @@ The training-fleet plane rides this one: a :class:`Heartbeater` with a
 ``part_provider`` carries the worker's telemetry part (``obs/fleetstats.py``
 ``wire_part``) after the beat's 16-byte identity, and the membership,
 reduce and epoch paths emit the reference's ``elastic.*`` events and
-spans; the server records each reduce contributor's wait by rank. The
-reference's chaos and tsan hooks (queue item A15(f)) are left out. Env
+spans; the server records each reduce contributor's wait by rank. Its
+locks are the sanitizer's (``tsan.py``: ``elastic.state.cv``,
+``elastic.wal``, ``ps.key``), and the server's ``ps:post_apply`` kill
+point makes a warm restart from snapshot and WAL testable. Env
 knobs:
 ``MXNET_ELASTIC``, ``MXNET_ELASTIC_HEARTBEAT_S``, ``MXNET_ELASTIC_MISS_K``,
 ``MXNET_ELASTIC_JOIN_TIMEOUT_S``, ``MXNET_ELASTIC_REDUCE_TIMEOUT_S``,
@@ -47,7 +49,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .. import obs
+from .. import obs, tsan
 from ..base import MXNetError, get_env
 from ..wire import PS_WIRE
 
@@ -145,7 +147,7 @@ class ElasticState:
     def __init__(self, hb_interval: Optional[float] = None,
                  miss_k: Optional[int] = None, on_change=None,
                  on_prune=None):
-        self.cv = threading.Condition()
+        self.cv = tsan.condition("elastic.state.cv")
         self.members: Dict[int, _Member] = {}
         self.generation = 0
         self.epoch = 0  # the epoch in progress fleet-wide
@@ -604,7 +606,7 @@ def install_server_state(server, state) -> None:
         if name.startswith("w:"):
             key = name[2:]
             server._weights[key] = np.array(arr)
-            server._locks[key] = threading.Lock()
+            server._locks[key] = tsan.lock("ps.key")
     with server._seq_lock:
         for cid, key, seq in state.meta.get("seq", []):
             server._record_seq(int(cid), key, int(seq))
@@ -662,7 +664,7 @@ class PushWAL:
 
     def __init__(self, directory: str):
         self._dir = directory
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("elastic.wal")
         self._file = None
         self._fsync = bool(get_env("MXNET_PS_WAL_FSYNC", True, bool))
 

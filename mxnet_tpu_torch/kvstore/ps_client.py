@@ -11,8 +11,10 @@ Each attempt runs under a ``kvstore.rpc`` span; inside a traced flow the
 key carries that span's context after ``\x1f`` (``obs/context.py``), which
 the python server strips before any lookup, so both halves of an RPC share
 one trace id. Outside a trace keys go on the wire as given. Retries count
-``kvstore.rpc.retries`` and their backoff. The reference's chaos hooks
-(frame drops and duplicates, queue item A15(f)) are left out.
+``kvstore.rpc.retries`` and their backoff. Chaos hooks: ``chaos.rpc`` can
+drop a request or its reply, delay it or duplicate its frame at exact
+occurrence counts (``MXNET_CHAOS_RPC``), which is how the exactly-once
+retry contract is tested.
 """
 from __future__ import annotations
 
@@ -20,18 +22,18 @@ import json
 import os
 import socket
 import struct
-import threading
 import time
 
 import numpy as np
 
-from .. import obs
+from .. import obs, tsan
+from ..chaos import rpc as chaos_rpc
 from ..obs import context as obs_context
 from ..base import (MXNetError, capped_backoff, configure_socket_keepalive,
                     get_env)
 from .elastic import (OP_CLOCK, OP_CLOCK_PULL, OP_HB, OP_PULL_STALE, ST_OK,
                       StaleMemberError)
-from .ps_server import (OP_BARRIER, OP_INIT, OP_NAMES, OP_PULL,
+from .ps_server import (OP_BARRIER, OP_INIT, OP_PULL,
                         OP_PULL_SPARSE, OP_PUSH_SEQ, OP_PUSH_SPARSE_SEQ,
                         OP_SET_OPT, OP_SHUTDOWN, OP_STATS, OP_TELEMETRY,
                         _pack_array, _pack_sparse, _recv_msg, _send_msg,
@@ -49,7 +51,7 @@ class PSClient:
         self._retries = max(1, int(retries))
         self._retry_interval = retry_interval
         self._retry_max_interval = retry_max_interval
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("ps.client")
         self._sock = None
         # a connection idle past this many seconds is pinged (OP_HB)
         # before reuse, so a dead server shows at the next RPC; None keeps
@@ -105,7 +107,7 @@ class PSClient:
         """Caller holds ``self._lock``."""
         retries = self._retries if retries is None else retries
         last_err = None
-        opname = OP_NAMES.get(opcode, str(opcode))
+        opname = chaos_rpc.OP_NAMES.get(opcode, str(opcode))
         for attempt in range(retries):
             try:
                 self._ping_stale_connection()
@@ -121,8 +123,14 @@ class PSClient:
                     # context; the python server strips it before lookup
                     wire_key = obs_context.inject_key(
                         key, obs_context.current())
+                    dup = chaos_rpc.on_send(opcode, key)
                     _send_msg(self._sock, opcode, wire_key, payload)
+                    if dup == "dup":  # chaos: duplicated frame on the wire
+                        _send_msg(self._sock, opcode, wire_key, payload)
                     reply = _recv_msg(self._sock)
+                    if dup == "dup":
+                        reply = _recv_msg(self._sock)  # drain the 2nd reply
+                    chaos_rpc.on_reply(opcode, key)
                 if rec:
                     obs.observe(f"kvstore.rpc.{opname}_seconds",
                                 time.monotonic() - t0)

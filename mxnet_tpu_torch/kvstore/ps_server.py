@@ -66,11 +66,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import obs
+from .. import copytrack, obs, tsan
 from ..obs import context as obs_context
 from ..base import CODE_TO_DTYPE, DTYPE_TO_CODE, MXNetError, get_env
 from ..ndarray.serialization import host_array, raw_bytes
 from ..wire import PS_WIRE
+from ..chaos.proc import kill_point
 from . import elastic as elastic_mod
 from .compression import TWO_BIT_DTYPE_CODE, dequantize_2bit
 from .elastic import (OP_CLOCK, OP_CLOCK_PULL, OP_EPOCH, OP_HB, OP_JOIN,
@@ -90,6 +91,12 @@ __all__ = ["PSServer", "main", "OP_NAMES", "_pack_array", "_unpack_array",
 
 OP_NAMES = dict(PS_WIRE.names())
 
+# one rule table fault-injects both planes (the serve/server.py idiom):
+# the full PS table, so the elastic and telemetry ops are targetable too
+from ..chaos import rpc as _chaos_rpc  # noqa: E402
+
+_chaos_rpc.OP_NAMES.update(OP_NAMES)
+
 _BF16 = DTYPE_TO_CODE["bfloat16"]
 
 
@@ -103,13 +110,18 @@ def _array_parts(arr) -> list:
     head = (struct.pack("<B", len(shape))
             + struct.pack(f"<{len(shape)}I", *shape) + struct.pack("<B", code))
     if isinstance(arr, torch.Tensor):
-        return [head, raw_bytes(arr)]
-    return [head, memoryview(np.ascontiguousarray(arr).reshape(-1)
-                             .view(np.uint8))]
+        body = raw_bytes(arr)
+    else:
+        body = memoryview(np.ascontiguousarray(arr).reshape(-1)
+                          .view(np.uint8))
+    copytrack.TRACKER.serialized(len(body))
+    return [head, body]
 
 
 def _pack_array(arr) -> bytes:
-    return b"".join(_array_parts(arr))
+    parts = _array_parts(arr)
+    copytrack.TRACKER.copied(len(parts[1]))  # the join copies the elements
+    return b"".join(parts)
 
 
 def _array_nbytes(buf: memoryview) -> int:
@@ -155,7 +167,10 @@ def _unpack_array(buf: memoryview, copy: bool = True):
             torch.bfloat16)
     data = np.frombuffer(buf, dtype=np.dtype(CODE_TO_DTYPE[code]),
                          offset=off).reshape(shape)
-    return data if data.flags.writeable and not copy else data.copy()
+    if data.flags.writeable and not copy:
+        return data
+    copytrack.TRACKER.copied(data.nbytes)
+    return data.copy()
 
 
 def _pack_sparse(indices: np.ndarray, rows: np.ndarray) -> bytes:
@@ -174,9 +189,11 @@ def _pack_arrays(arrays) -> bytes:
     if len(arrays) > 255:
         raise ValueError(f"too many arrays for one frame ({len(arrays)})")
     # as the reference: numpy inputs made contiguous, so 0-d packs as (1,)
-    return struct.pack("<B", len(arrays)) + b"".join(
+    buf = struct.pack("<B", len(arrays)) + b"".join(
         _pack_array(a if isinstance(a, torch.Tensor)
                     else np.ascontiguousarray(a)) for a in arrays)
+    copytrack.TRACKER.copied(len(buf) - 1)  # the gather join re-copies
+    return buf
 
 
 def _unpack_arrays(buf: memoryview):
@@ -206,6 +223,7 @@ def _send_parts(sock, parts) -> None:
     a partial send."""
     views = [memoryview(p) for p in parts if len(p)]
     if not hasattr(sock, "sendmsg"):
+        copytrack.TRACKER.copied(sum(len(v) for v in views))
         sock.sendall(b"".join(views))
         return
     while views:
@@ -257,13 +275,13 @@ class PSServer:
         self._updater = None
         self._optimizer = None
         self._opt_spec: Optional[str] = None
-        self._global_lock = threading.Lock()
+        self._global_lock = tsan.lock("ps.global")
         self._num_workers = num_workers
         # the elastic membership plane is made at the first OP_JOIN, so a
         # classic fleet pays nothing for it (not even its liveness thread)
         self._elastic: Optional[elastic_mod.ElasticState] = None
         self._elastic_cfg = (hb_interval, miss_k)
-        self._elastic_lock = threading.Lock()
+        self._elastic_lock = tsan.lock("ps.elastic")
         # durable state: periodic snapshots, warm restart from the newest
         self._snapshot_dir = snapshot_dir or get_env(
             "MXNET_PS_SNAPSHOT_DIR", None)
@@ -273,7 +291,7 @@ class PSServer:
         self._snap_mgr = None
         self._snap_step = 0
         self._snap_thread: Optional[threading.Thread] = None
-        self._snap_lock = threading.Lock()
+        self._snap_lock = tsan.lock("ps.snapshot")
         self._wal: Optional[elastic_mod.PushWAL] = None
         # (client_id, key) -> last applied seq, LRU-bounded against client
         # churn; its own lock, since handlers of different keys share it
@@ -281,7 +299,7 @@ class PSServer:
         # key-indexed mirror of _applied_seq (same lock): a snapshot copies
         # one key's entries under that key's lock
         self._seq_by_key: Dict[str, Dict[int, int]] = {}
-        self._seq_lock = threading.Lock()
+        self._seq_lock = tsan.lock("ps.seq")
         self._barrier_timeout = barrier_timeout
         self._barrier_count = 0
         self._barrier_gen = 0
@@ -291,7 +309,7 @@ class PSServer:
         self._barrier_arrived: Dict = {}
         self._barrier_released: "OrderedDict" = OrderedDict()
         self._barrier_stamps: Dict = {}  # token -> arrival (monotonic)
-        self._barrier_cv = threading.Condition()
+        self._barrier_cv = tsan.condition("ps.barrier")
         # the training-fleet plane: worker parts cached off heartbeats and
         # the straggler detector over them; OP_TELEMETRY drains exactly
         # once through the collection-token LRU
@@ -301,7 +319,7 @@ class PSServer:
             member_ranks=self._live_ranks)
         self._hot_keys = _fleetstats.HotKeyTable()
         self._telemetry_tokens: "OrderedDict" = OrderedDict()
-        self._telemetry_lock = threading.Lock()
+        self._telemetry_lock = tsan.lock("ps.telemetry")
         # bounded-staleness async clocks: rank -> last COMPLETED step, the
         # cid -> rank table and the staleness widening the straggler
         # policy grants a rank. Made before _init_durability, which
@@ -310,7 +328,7 @@ class PSServer:
         self._clock: Dict[int, int] = {}
         self._clock_rank: Dict[int, int] = {}
         self._staleness_widen: Dict[int, int] = {}
-        self._clock_cv = threading.Condition()
+        self._clock_cv = tsan.condition("ps.clock")
         if async_staleness is None:
             env = get_env("MXNET_ASYNC_STALENESS", None)
             async_staleness = int(env) if env is not None else None
@@ -515,7 +533,7 @@ class PSServer:
             with self._global_lock:
                 if key not in self._weights:
                     self._weights[key] = _unpack_array(memoryview(payload))
-                    self._locks[key] = threading.Lock()
+                    self._locks[key] = tsan.lock("ps.key")
             return
         if kind == 3:
             spec = bytes(payload).decode("ascii", errors="replace")
@@ -670,7 +688,7 @@ class PSServer:
                 created = key not in self._weights
                 if created:
                     self._weights[key] = arr
-                    self._locks[key] = threading.Lock()
+                    self._locks[key] = tsan.lock("ps.key")
             if created and self._wal is not None:
                 self._wal.append(2, 0, 0, key, bytes(payload))
             _send_msg(conn, OP_INIT, key, b"\x00")
@@ -715,6 +733,11 @@ class PSServer:
                 if self._wal is not None:
                     obs.observe("kvstore.server.push.wal_seconds", t_wal)
                 self._hot_keys.record(key, len(payload) - 16, t_apply)
+            # chaos: die with the update applied and logged but unacked;
+            # the client must retry and the retry must dedup, across a
+            # warm restart when snapshots are on
+            kill_point("ps:post_apply")
+            kill_point("ps:pre_reply")
             _send_msg(conn, OP_PUSH_SEQ, key, b"\x00")
         elif opcode == OP_PULL:
             rec = obs.enabled()

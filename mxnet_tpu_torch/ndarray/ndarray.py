@@ -29,6 +29,7 @@ waits for the device after every op.
 """
 from __future__ import annotations
 
+import time
 import weakref
 from typing import Any, Optional, Sequence
 
@@ -540,14 +541,18 @@ def invoke(op: Any, inputs: Sequence[NDArray], kwargs: dict):
     torch records it; under ``torch.no_grad()`` otherwise. ``out=`` rebinds
     the given array(s) to the result's tensors (detached, as the
     reference's ``out=`` keeps no graph node). Counts each call in
-    ``invoke.calls``."""
-    from .. import autograd
+    ``invoke.calls``; while ``mx.profiler`` runs with aggregate statistics
+    each op is timed up to the card's finish (``profiler.record_op``)."""
+    from .. import autograd, profiler
 
     opdef = op if isinstance(op, OpDef) else get_op(op)
     kwargs = dict(kwargs)
     out = kwargs.pop("out", None)
     invoke.calls += 1
     datas = [x._data if isinstance(x, NDArray) else x for x in inputs]
+    timing = profiler.aggregate_active()
+    if timing:
+        t0 = time.perf_counter()
     if autograd.is_recording() and opdef.differentiable:
         with torch.enable_grad():
             result = opdef.fn(*datas, **kwargs)
@@ -556,6 +561,9 @@ def invoke(op: Any, inputs: Sequence[NDArray], kwargs: dict):
         with torch.no_grad():
             result = opdef.fn(*datas, **kwargs)
     result = _wrap_result(result, inputs)
+    if timing:
+        _wait_for(result)
+        profiler.record_op(opdef.name, time.perf_counter() - t0)
     if out is not None:
         outs = out if isinstance(out, (list, tuple)) else [out]
         results = result if isinstance(result, tuple) else (result,)
@@ -570,6 +578,14 @@ def invoke(op: Any, inputs: Sequence[NDArray], kwargs: dict):
 
 
 invoke.calls = 0
+
+
+def _wait_for(result) -> None:
+    """Wait for the card to finish ``result`` (a profiled op's time)."""
+    for r in result if isinstance(result, (list, tuple)) else [result]:
+        if isinstance(r, NDArray) and r._data.is_cuda:
+            torch.cuda.synchronize(r._data.device)
+            return
 
 
 def invoke_fn(fn, inputs: Sequence[NDArray], kwargs=None):

@@ -10,7 +10,8 @@ snapshot, the continuous profiler's recent samples + folded stacks, every
 thread's python stack, and the tail buffer's state into one timestamped
 **bundle**:
 
-- ``dump(reason)`` — explicit, and wired into: fatal-signal hooks
+- ``dump(reason)`` — explicit, and wired into: the tsan stall watchdog
+  (``tsan.dump_stacks``), fatal-signal hooks
   (SIGTERM/SIGABRT, chained to any existing handler), the
   uncaught-exception hook, and the serve wire's ``DUMP`` opcode (``wire.py``, ``serve/server.py``) so an
   operator can snapshot a live replica remotely;

@@ -20,10 +20,13 @@ on the first run of each signature (the engines' ``compile_log`` sites):
     nothing and count nothing; an indexed read or write (``index``,
     ``index_put_``, ``embedding``, ...) counts the elements it moves, not
     the whole tensor it indexes;
-  - the peak memory: ``torch.cuda.max_memory_allocated`` around the call
-    on the card; on the CPU the largest sum of the bytes of the
-    intermediates alive at once, as the mode sees them allocated and
-    freed.
+  - the peak memory: on the card the peak of the bytes the call asked
+    the caching allocator for (``requested_bytes`` in
+    ``torch.cuda.memory_stats``), not of the bytes it handed out, which
+    add whatever remainder of a cached block it did not split off and so
+    depend on the process's earlier allocations; on the CPU the largest
+    sum of the bytes of the intermediates alive at once, as the mode sees
+    them allocated and freed.
 
   The port's own kernels launch through CPython entry points
   (``csrc/pyentry.cuh``) that dispatch never sees. Each wrapper in
@@ -390,6 +393,14 @@ def _mode(cap: Capture):
     return mode
 
 
+def _requested(torch, device, which: str) -> int:
+    """The bytes asked of the card's caching allocator, ``current`` or
+    ``peak`` (since the last reset): a program's own demand, the same in
+    every process that runs it."""
+    return int(torch.cuda.memory_stats(device).get(
+        f"requested_bytes.all.{which}", 0))
+
+
 def capture(fn, args: tuple = (), site: str = None, label: str = None,
             kwargs=None, device=None, arg_tensors=None,
             pointwise: bool = False, key=None):
@@ -418,7 +429,7 @@ def capture(fn, args: tuple = (), site: str = None, label: str = None,
     arg_bytes = _storage_bytes((args, kwargs or {}) if arg_tensors is None
                                else arg_tensors)
     if cuda:
-        base = torch.cuda.memory_allocated(device)
+        base = _requested(torch, device, "current")
         torch.cuda.reset_peak_memory_stats(device)
     prev = getattr(_tls, "capture", None)
     _tls.capture = cap
@@ -431,7 +442,7 @@ def capture(fn, args: tuple = (), site: str = None, label: str = None,
         _tls.capture = prev
         with _lock:
             _open[0] -= 1
-    temp = (torch.cuda.max_memory_allocated(device) - base if cuda
+    temp = (_requested(torch, device, "peak") - base if cuda
             else cap.peak_live)
     cost = {"flops": int(cap.flops), "bytes_accessed": int(cap.bytes),
             "argument_bytes": int(arg_bytes),

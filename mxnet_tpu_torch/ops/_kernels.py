@@ -146,6 +146,9 @@ def _finish_build(name: str, build) -> None:
     _builds["count"] += 1
     _builds["seconds"] += time.perf_counter() - t0
     _builds["kernels"].append(name)
+    from .. import obs
+
+    obs.inc("kernels.nvcc_builds")  # a replica's telemetry shows its builds
 
 
 def build_stats() -> dict:

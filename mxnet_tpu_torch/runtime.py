@@ -103,6 +103,9 @@ _ENV_REGISTRY = {
                              "other value raises."),
     "MXNET_TEST_DEFAULT_CTX": (None, "Context for test_utils.default_context,"
                                " e.g. 'cpu' or 'gpu:0'."),
+    "MXNET_PLATFORM_TIMEOUT": ("90", "Accelerator-driver watchdog budget "
+                               "(seconds); every driver call must return "
+                               "or the tunnel is declared hung."),
     "MXNET_NO_NATIVE_BUILD": (None, "1 = never build the native C++ "
                               "components (the JPEG record decoder, the "
                               "PS server); PIL/python fallbacks."),
@@ -135,11 +138,33 @@ _ENV_REGISTRY = {
                          "inherit the root's verdict)."),
     "MXNET_OBS_WIRE": ("1", "0 = never put trace context on the wire "
                        "(escape hatch for old peers)."),
+    # sanitizers (tsan.py, copytrack.py)
+    "MXNET_TSAN": (None, "1 = enable the lock-order/stall sanitizer: "
+                   "instrumented locks record acquisition order and a "
+                   "watchdog flags cycles and stalls (tsan.py)."),
+    "MXNET_TSAN_RAISE": (None, "1 = raise on a lock-order violation "
+                         "instead of warning once per pair."),
+    "MXNET_TSAN_STALL_S": ("20", "Stall-watchdog threshold (seconds a "
+                           "lock may be held/waited before a report)."),
+    "MXNET_COPYTRACK": (None, "1 = data-plane copy tracker: wire/batcher/"
+                        "device choke points count wire.bytes_copied, "
+                        "wire.serialize_calls and hotpath.host_syncs "
+                        "(the dataplane lint's runtime twin — "
+                        "analysis/dataplane.py; zero overhead when "
+                        "off)."),
     # fault injection (chaos/)
     "MXNET_CHAOS_KILL": (None, "Chaos: SIGKILL this process at counted "
-                         "guard-point hits, e.g. 'ckpt:pre_rename@3'. The "
-                         "port's CheckpointManager refuses it: the kill "
-                         "points are queue item A15(f)."),
+                         "guard-point hits, e.g. 'ckpt:pre_rename@3' "
+                         "(chaos/proc.py; the fleet supervisor forwards "
+                         "MXNET_CHAOS_KILL_REPLICA<i> to replica i)."),
+    "MXNET_CHAOS_RPC": (None, "Chaos: drop/delay/duplicate PS RPCs at "
+                        "exact occurrence counts, e.g. "
+                        "'push_seq:drop_reply@1;pull:delay@2:0.5' "
+                        "(chaos/rpc.py)."),
+    "MXNET_CHAOS_TUNNEL_HANG": (None, "Chaos: hang named platform guard "
+                                "points the way a dead accelerator "
+                                "tunnel does ('*' = all; "
+                                "chaos/platform.py)."),
     "MXNET_CHAOS_NAN": (None, "Chaos: poison a named tensor with NaN at "
                         "counted forward occurrences, e.g. 'data@5' "
                         "(chaos/nan.py — tests the breach/provenance/"

@@ -29,7 +29,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .. import obs
+from .. import copytrack, obs, tsan
 from ..obs import context as obs_context
 
 from .engine import DeadlineExceeded, Draining, RequestRejected, ServeError
@@ -117,7 +117,7 @@ class DynamicBatcher:
         self.max_queue = int(max_queue)
         self._lanes: List[List[_Request]] = [[] for _ in range(lanes)]
         self._qsize = 0
-        self._cv = threading.Condition()
+        self._cv = tsan.condition("serve.batcher.cv")
         self._running = True
         self._draining = False
         self._inflight = 0
@@ -330,6 +330,7 @@ class DynamicBatcher:
             else:
                 inputs = [np.concatenate([r.data[i] for r in batch], axis=0)
                           for i in range(len(batch[0].data))]
+                copytrack.TRACKER.copied(sum(a.nbytes for a in inputs))
             with obs_context.use(lead_ctx):
                 outs, version = self.engine.infer(inputs, n_valid=rows)
             lo = 0

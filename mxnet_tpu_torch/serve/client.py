@@ -11,8 +11,10 @@ deadline has passed is not re-sent (:class:`DeadlineExceeded`).
 Tracing (``obs``): each RPC runs in a ``serve.client.rpc`` span whose
 context rides the frame's key field (``obs/context.py``); ``infer`` and
 ``generate`` are trace roots when the caller carries no context, and take
-the tail verdict at their close from the reply's status. The reference's
-chaos injection points are queue item A15 (its item 4) of the port.
+the tail verdict at their close from the reply's status. Chaos:
+``chaos.rpc`` can drop, delay or duplicate a frame at exact occurrence
+counts (``MXNET_CHAOS_RPC``); a duplicated stream's echo is drained so
+the socket stays frame-aligned.
 """
 from __future__ import annotations
 
@@ -20,14 +22,14 @@ import json
 import os
 import socket
 import struct
-import threading
 import time
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .. import obs
+from .. import obs, tsan
+from ..chaos import rpc as chaos_rpc
 from ..base import capped_backoff, configure_socket_keepalive
 from ..obs import context as obs_context
 from ..kvstore.ps_server import (_pack_arrays, _recv_msg, _send_msg,
@@ -75,7 +77,7 @@ class ServeClient:
         self._retries = max(1, int(retries))
         self._retry_interval = retry_interval
         self._retry_max_interval = retry_max_interval
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("serve.client")
         self._sock: Optional[socket.socket] = None  # the first RPC dials
 
     # ------------------------------------------------------------------
@@ -130,8 +132,14 @@ class ServeClient:
                         # old wire format byte for byte
                         key = obs_context.inject_key(
                             "", obs_context.current())
+                        dup = chaos_rpc.on_send(opcode, "")
                         _send_msg(self._sock, opcode, key, payload)  # lint: disable=blocking-call-under-lock
+                        if dup == "dup":
+                            _send_msg(self._sock, opcode, key, payload)  # lint: disable=blocking-call-under-lock
                         reply = _recv_msg(self._sock)  # lint: disable=blocking-call-under-lock
+                        if dup == "dup":
+                            reply = _recv_msg(self._sock)  # lint: disable=blocking-call-under-lock
+                        chaos_rpc.on_reply(opcode, "")
                     if rec:
                         obs.observe(f"serve.client.{opname}_seconds",
                                     time.monotonic() - t0)
@@ -261,6 +269,7 @@ class ServeClient:
     def _generate_stream(self, payload: bytes, ctx, deadline, timeout):
         opname = SERVE_OP_NAMES.get(OP_INFER_STREAM, "infer_stream")
         with self._lock:
+            dup = None
             last_err = None
             for attempt in range(self._retries):
                 if deadline is not None and time.monotonic() >= deadline:
@@ -274,8 +283,11 @@ class ServeClient:
                         self._sock.settimeout(timeout)
                     # the lock spans the stream's send and its receive loop:
                     # the wire is serial per socket
-                    _send_msg(self._sock, OP_INFER_STREAM,  # lint: disable=blocking-call-under-lock
-                              obs_context.inject_key("", ctx), payload)
+                    key = obs_context.inject_key("", ctx)
+                    dup = chaos_rpc.on_send(OP_INFER_STREAM, "")
+                    _send_msg(self._sock, OP_INFER_STREAM, key, payload)  # lint: disable=blocking-call-under-lock
+                    if dup == "dup":
+                        _send_msg(self._sock, OP_INFER_STREAM, key, payload)  # lint: disable=blocking-call-under-lock
                     break
                 except (ConnectionError, OSError) as e:
                     last_err = e
@@ -299,6 +311,7 @@ class ServeClient:
             try:
                 while True:
                     opcode, _key, chunk = _recv_msg(self._sock)  # lint: disable=blocking-call-under-lock
+                    chaos_rpc.on_reply(opcode, "")
                     if opcode == OP_STREAM_TOKEN:
                         n += 1
                         tok, _idx = _TOKEN_FRAME.unpack_from(chunk, 0)
@@ -316,6 +329,10 @@ class ServeClient:
                         self._drop_sock()
                         raise ServeError(
                             f"unexpected opcode {opcode} in stream reply")
+                # terminal frame seen: after draining a duplicated frame's
+                # echo the wire is frame-aligned and the socket reusable
+                if dup == "dup":
+                    self._drain_echo()  # lint: disable=blocking-call-under-lock
                 if timeout is not None:
                     self._sock.settimeout(self._timeout)
             except GeneratorExit:
@@ -333,6 +350,16 @@ class ServeClient:
                     obs.inc("serve.client.stream_tokens", n)
             if err is not None:
                 raise err
+
+    def _drain_echo(self) -> None:
+        """Consume one whole chunk sequence, the server's answer to a
+        duplicated INFER_STREAM frame, so the socket is frame-aligned for
+        the next RPC. Called under the connection lock."""
+        while True:
+            opcode, _key, _chunk = _recv_msg(self._sock)  # lint: disable=blocking-call-under-lock
+            chaos_rpc.on_reply(opcode, "")
+            if opcode in (OP_STREAM_END, OP_STREAM_ERROR):
+                return
 
     def health(self) -> bool:
         """Liveness probe (True = the process answers)."""

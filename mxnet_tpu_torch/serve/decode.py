@@ -64,7 +64,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import obs
+from .. import copytrack, obs, tsan
 from .. import progcache as _progcache
 from .._env import env_float, env_int
 from ..context import as_device
@@ -191,7 +191,7 @@ class DecodeEngine:
         self._sig_cost: Dict[tuple, dict] = {}  # device-plane records
         self.cache_hits = 0
         self.exec_count = 0
-        self._stat_lock = threading.Lock()
+        self._stat_lock = tsan.lock("serve.decode.stats")
 
         self._progcache = (_progcache.ProgramCache(progcache_dir)
                            if progcache_dir else _progcache.cache())
@@ -325,6 +325,10 @@ class DecodeEngine:
                 toks = self._fresh_run(entry, sig, label, fn, dev, pk)
             else:
                 toks = fn(*dev)
+            # the step's tokens are the wire payload: this read is the one
+            # accounted sync of the decode hot path
+            if toks.is_cuda:
+                copytrack.TRACKER.host_sync("serve.decode.tokens")
             host = toks.cpu().numpy()
             cost = self._sig_cost.get(sig) if rec else None
             if cost:  # after the host read: the span covers the work
@@ -564,7 +568,7 @@ class DecodeScheduler:
         self.max_new_tokens = int(
             max_new_tokens if max_new_tokens is not None
             else env_int("MXNET_DECODE_MAX_NEW", 64))
-        self._cv = threading.Condition()
+        self._cv = tsan.condition("serve.decode.cv")
         self._lanes: List[List[_Gen]] = [[] for _ in range(int(lanes))]
         self._slots: List[Optional[_Gen]] = [None] * engine.slots
         self._running = True

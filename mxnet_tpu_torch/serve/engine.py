@@ -78,7 +78,6 @@ record counts the leader's own ops, its shard of the work.
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -86,7 +85,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import obs
+from .. import copytrack, obs, tsan
 from .. import progcache as _progcache
 from ..base import MXNetError, dtype_name
 from ..ndarray.serialization import host_array
@@ -319,7 +318,7 @@ class InferenceEngine:
         self._replicated = all(is_replicated(sh.placements)
                                for sh in self._param_sh.values())
 
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("serve.engine")
         self._staged: Optional[_ParamSet] = None  # prepared, not serving
         args = [_to_device(arg_params[n], self.device)
                 for n in self._param_names]
@@ -343,7 +342,7 @@ class InferenceEngine:
         self._n_args = len(arg_names)
 
         self._programs: Dict[tuple, int] = {}   # sig -> execution count
-        self._stat_lock = threading.Lock()
+        self._stat_lock = tsan.lock("serve.engine.stats")
         self.compile_log: List[dict] = []
         self._sig_cost: Dict[tuple, dict] = {}  # device-plane records
         self._free_cache: Dict[tuple, tuple] = {}
@@ -644,7 +643,10 @@ class InferenceEngine:
                                            snapshot, on_mesh)
                 else:
                     outs = self._forward(tensors, snapshot, bucket, on_mesh)
-            # on the host (numpy, or CPU bfloat16): the batch's one wait
+            # on the host (numpy, or CPU bfloat16): the batch's one wait,
+            # the accounted device-to-host hop of a card batch
+            if any(isinstance(o, torch.Tensor) and o.is_cuda for o in outs):
+                copytrack.TRACKER.host_sync("serve.engine.host_array")
             host = [host_array(o) for o in outs]  # lint: disable=host-sync-on-hot-path
             cost = self._sig_cost.get(sig) if rec and entry is None \
                 else None

@@ -62,9 +62,11 @@ and emits the membership events (``fleet.replica_*``, ``fleet.reload``,
 bundles there. ``ProcReplica(progcache_dir=)`` pins the child's program
 cache (``MXNET_PROGCACHE_DIR``; otherwise the parent's ``MXNET_PROGCACHE*``
 rides the inherited environment), so a restart or an autoscaler's
-scale-out warms its programs and kernels from disk. The reference's
-``MXNET_CHAOS_KILL_REPLICA<i>`` kill points are queue item A15 of the
-port (its item 4) and raise naming it.
+scale-out warms its programs and kernels from disk. Per-replica chaos:
+``MXNET_CHAOS_KILL_REPLICA<i>`` (in ``env=`` or the parent's environment)
+reaches replica *i*'s child as its ``MXNET_CHAOS_KILL``, and the router's
+two-phase reload has the kill points ``fleet:post_prepare`` and
+``fleet:pre_commit``.
 ``ReplicaPool.sharded``
 takes a picklable ``make_server`` (a module-level function or a
 ``functools.partial`` of one): it runs in every rank of each group.
@@ -86,8 +88,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import obs
+from .. import obs, tsan
 from ..base import MXNetError, capped_backoff
+from ..chaos.proc import kill_point
 from .batcher import Future
 from .client import ServeClient
 from .engine import (DeadlineExceeded, Draining, RequestRejected, ServeError)
@@ -122,7 +125,7 @@ class CircuitBreaker:
         # was being turned away from this replica
         self.open_seconds = 0.0
         self._not_closed_since: Optional[float] = None
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("serve.breaker")
 
     @property
     def state(self) -> str:
@@ -255,18 +258,15 @@ class ProcReplica:
     inherited environment. Every start of the replica (a restart after a
     kill included) warms from that cache.
 
-    The reference's per-replica chaos (``MXNET_CHAOS_KILL_REPLICA<i>``)
-    is queue item A15 of the port (its item 4) and raises when given."""
+    Per-replica chaos: ``MXNET_CHAOS_KILL_REPLICA<i>`` (``i`` the pool's
+    index of this replica, from ``env`` or the parent's environment) is
+    passed to the child as its ``MXNET_CHAOS_KILL``, so one variable
+    SIGKILLs exactly one member of a fleet at a named kill point."""
 
     def __init__(self, model: str, *, args: Sequence[str] = (),
                  env: Optional[dict] = None, log_path: Optional[str] = None,
                  obs_dir: Optional[str] = None,
                  progcache_dir: Optional[str] = None):
-        chaos = [k for k in list(env or {}) + list(os.environ)
-                 if k.startswith("MXNET_CHAOS_KILL_REPLICA")]
-        if chaos:
-            raise MXNetError(f"{chaos[0]}: the chaos kill points are queue "
-                             "item A15 of the port")
         self.model = model
         self._args = list(args)
         self._env = dict(env or {})
@@ -280,6 +280,10 @@ class ProcReplica:
         port = _free_port()
         env = _job_env()
         env.update(self._env)
+        chaos = env.pop(f"MXNET_CHAOS_KILL_REPLICA{self.idx}",
+                        os.environ.get(f"MXNET_CHAOS_KILL_REPLICA{self.idx}"))
+        if chaos:
+            env["MXNET_CHAOS_KILL"] = chaos
         if self._progcache_dir:
             env["MXNET_PROGCACHE_DIR"] = str(self._progcache_dir)
         if obs.enabled() and self._obs_dir:
@@ -536,7 +540,7 @@ class ReplicaPool:
         self.ready_timeout = float(ready_timeout)
         self.probe_timeout = float(probe_timeout)
         self._target: Optional[Tuple[str, Optional[int], str, int]] = None
-        self._lock = threading.RLock()
+        self._lock = tsan.rlock("serve.pool")
         self._pool_id = int.from_bytes(os.urandom(8), "little")
         self._resync_seq = 0
         self._stop_evt = threading.Event()
@@ -1021,7 +1025,7 @@ class _ConnPool:
         self._addr = addr
         self._timeout = timeout
         self._free: List[ServeClient] = []
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("serve.connpool")
 
     def acquire(self) -> ServeClient:
         with self._lock:
@@ -1061,16 +1065,16 @@ class Router:
                                                 breaker_cooldown)
                           for m in pool.members()}
         self._pools: dict = {}
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("serve.router")
         self._rr = 0
         # intake gate: cleared only for the phase-two flip window
         self._gate = threading.Event()
         self._gate.set()
-        self._cv = threading.Condition()
+        self._cv = tsan.condition("serve.router.inflight")
         self._inflight = 0
         tgt = pool.target
         self._fleet_version = tgt[3] if tgt else 0
-        self._reload_lock = threading.Lock()
+        self._reload_lock = tsan.lock("serve.router.reload")
         self._controller_id = int.from_bytes(os.urandom(8), "little")
         self._reload_epoch = 0
         self._commit_hook: Optional[Callable] = None  # test injection point
@@ -1575,6 +1579,7 @@ class Router:
                                 replicas=len(members)):
                 self._prepare_all(members, token, path, epoch, prefix,
                                   new_version)
+                kill_point("fleet:post_prepare")
                 # holding _reload_lock across the flip drain is the POINT
                 # (reloads are serialized fleet-wide) and the drain is
                 # bounded by flip_timeout
@@ -1630,6 +1635,7 @@ class Router:
             # land on the new generation even if every commit RPC dies.
             self._pool.set_target(path, epoch, prefix, version)
             for m in members:
+                kill_point("fleet:pre_commit")
                 if self._commit_hook is not None:
                     self._commit_hook(m)  # chaos injection for tests
                 try:

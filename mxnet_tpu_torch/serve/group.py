@@ -57,6 +57,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tsan
 from ..base import MXNetError
 
 __all__ = ["Channel", "PeerExit", "spawn_peers", "watch_parent",
@@ -108,7 +109,7 @@ class Channel:
         self.leader = int(mesh.ranks.flat[0])
         self.is_leader = dist.get_rank() == self.leader
         self.device = device
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("serve.group.channel")
         self.broken: Optional[str] = None
 
     # -- collectives ------------------------------------------------------

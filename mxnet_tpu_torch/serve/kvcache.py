@@ -18,9 +18,9 @@ A pool of ``P`` pages of ``page_size`` positions serves at most
 """
 from __future__ import annotations
 
-import threading
 from typing import Dict, List
 
+from .. import tsan
 from .engine import RequestRejected, ServeError
 
 __all__ = ["PagePool", "PageLeakError", "PagesExhausted", "pages_for",
@@ -64,7 +64,7 @@ class PagePool:
             raise ValueError("page_size must be >= 1")
         self.num_pages = num_pages
         self.page_size = page_size
-        self._lock = threading.Lock()
+        self._lock = tsan.lock("serve.kvcache.pool")
         # LIFO free list (page 0 excluded): reusing the most recently freed
         # page keeps the device pool's working set compact
         self._free: List[int] = list(range(num_pages - 1, 0, -1))

@@ -44,8 +44,10 @@ A request key may carry a ``\\x1f``-suffixed W3C traceparent
 (``obs/context.py``): the handler strips it before anything reads the key
 and runs the request under it; an INFER or INFER_STREAM without one is a
 new root here when telemetry records (``serve.rpc`` span, tail verdict at
-its close). The reference's ``chaos`` kill points are queue item A15 (its
-item 4) of the port.
+its close). Chaos: ``MXNET_CHAOS_RPC`` rules on the client match these
+opcodes by name, and ``MXNET_CHAOS_KILL`` SIGKILLs the server at its kill
+points (``serve:post_recv``, ``serve:pre_reply``, ``serve:pre_commit``,
+``serve:mid_stream``, ``serve:infer_pre_reply``).
 
 Graceful degradation: a deadline-expired or shed request gets an explicit
 status, never a hang; ``drain()`` flips readiness, finishes in-flight
@@ -65,7 +67,9 @@ from typing import Optional
 
 import numpy as np
 
-from .. import obs
+from .. import obs, tsan
+from ..chaos import rpc as _chaos_rpc
+from ..chaos.proc import kill_point
 from ..kvstore.ps_server import (_pack_arrays, _recv_msg, _send_msg,
                                  _unpack_arrays)
 from ..obs import context as obs_context
@@ -92,6 +96,10 @@ __all__ = ["ServeServer", "OP_INFER", "OP_HEALTH", "OP_READY", "OP_RELOAD",
     "stream_error")
 
 SERVE_OP_NAMES = dict(SERVE_WIRE.names())
+
+# one source of chaos rule names: MXNET_CHAOS_RPC rules match these ops
+# once the serving plane is imported (the client imports this module)
+_chaos_rpc.OP_NAMES.update(SERVE_OP_NAMES)
 
 (STATUS_OK, STATUS_REJECTED, STATUS_DEADLINE, STATUS_BAD_REQUEST,
  STATUS_DRAINING, STATUS_INTERNAL, STATUS_NOT_READY) = range(7)
@@ -138,13 +146,13 @@ class ServeServer:
         # two-phase reload: the staged token and the committed-token LRU
         # (a retried COMMIT re-acks, never re-flips); one lock serializes
         # prepare/commit/abort and the single-replica reload
-        self._reload_lock = threading.Lock()
+        self._reload_lock = tsan.lock("serve.server.reload")
         self._staged_token = None
         self._committed_tokens: "OrderedDict" = OrderedDict()
         # exactly-once telemetry drains: a retried collection token
         # re-serves the cached reply instead of draining again
         self._telemetry_tokens: "OrderedDict" = OrderedDict()
-        self._telemetry_lock = threading.Lock()
+        self._telemetry_lock = tsan.lock("serve.server.telemetry")
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -361,6 +369,7 @@ class ServeServer:
         try:
             while True:
                 opcode, key, payload = _recv_msg(conn)
+                kill_point("serve:post_recv")  # chaos: die with work read
                 # strip the wire's trace context before anything reads
                 # the key; a context-less INFER is a new root here
                 key, wctx = obs_context.extract_key(key)
@@ -395,6 +404,7 @@ class ServeServer:
             return
 
     def _reply(self, conn, opcode: int, payload):
+        kill_point("serve:pre_reply")  # chaos: server dies before the ack
         _send_msg(conn, opcode, "", payload)
 
     def _handle_one(self, conn, opcode: int, key: str, payload) -> bool:
@@ -453,6 +463,7 @@ class ServeServer:
             try:
                 token = struct.unpack_from("<QQ", payload, 0) \
                     if len(payload) >= 16 else None
+                kill_point("serve:pre_commit")  # chaos: die mid-phase-2
                 version = self.commit_reload(token)
                 self._reply(conn, OP_COMMIT_RELOAD,
                             struct.pack("<BI", STATUS_OK, version))
@@ -583,6 +594,9 @@ class ServeServer:
             try:
                 for tok in gen:
                     n += 1
+                    # chaos: die with tokens streamed but the generation
+                    # still resident (the page-reclaim proof's kill point)
+                    kill_point("serve:mid_stream")
                     _send_msg(conn, OP_STREAM_TOKEN, "",
                               _TOKEN_FRAME.pack(int(tok) & 0xFFFFFFFF, n))
                 _send_msg(conn, OP_STREAM_END, "",
@@ -652,8 +666,12 @@ class ServeServer:
             return _err_payload(STATUS_INTERNAL, str(e))
         with obs.trace.span("serve.serialize", outputs=len(outs)):
             # status header and arrays travel as separate parts
-            return [struct.pack("<BI", STATUS_OK, version),
-                    _pack_arrays(outs)]
+            reply = [struct.pack("<BI", STATUS_OK, version),
+                     _pack_arrays(outs)]
+        # chaos: die with the answer computed but unsent (the INFER twin of
+        # serve:pre_reply, which also fires on probe replies)
+        kill_point("serve:infer_pre_reply")
+        return reply
 
 
 def _serve_context():
@@ -692,6 +710,13 @@ def main(argv=None):  # pragma: no cover - CLI shim
                          "overrides MXNET_PROGCACHE_DIR: warmup loads the "
                          "bucket programs and their kernels from it "
                          "instead of building and counting them")
+    ap.add_argument("--decode-lm", type=str, default=None, metavar="JSON",
+                    help="serve greedy and sampled streams "
+                         "(OP_INFER_STREAM) of models.transformer_lm(**JSON)"
+                         ": the model path is then that LM's Gluon "
+                         "parameter file (save_parameters), served through "
+                         "a DecodeScheduler over a DecodeEngine (its pool: "
+                         "MXNET_DECODE_SLOTS, _PAGE_SIZE, _PAGES)")
     ap.add_argument("--tp", type=int, default=0,
                     help="tensor-parallel engine over N ranks (mesh axis "
                          "'tp', parameters replicated on the CLI path): "
@@ -707,6 +732,9 @@ def main(argv=None):  # pragma: no cover - CLI shim
     from . import load
 
     ctx = _serve_context()
+    if args.decode_lm is not None:
+        _serve_decode(args, ctx)
+        return
     engine_kw = {"ctx": ctx}
     if args.tp:
         engine_kw["mesh"] = _tp_mesh(args.tp, ctx, argv)
@@ -722,6 +750,24 @@ def main(argv=None):  # pragma: no cover - CLI shim
     print(f"ServeServer listening on :{srv.port}", flush=True)
     srv.serve_forever()
     engine.close()
+
+
+def _serve_decode(args, ctx) -> None:
+    """``--decode-lm``: stream the LM whose parameters ``args.model``
+    holds, warmed up before the port is announced."""
+    from ..models import transformer_lm
+    from .decode import DecodeEngine, DecodeScheduler
+
+    with ctx:
+        net = transformer_lm(**json.loads(args.decode_lm))
+        net.load_parameters(args.model, ctx=ctx)
+    engine = DecodeEngine(net, device=ctx)
+    engine.warmup()
+    sched = DecodeScheduler(engine, default_timeout=600.0)
+    srv = ServeServer(decode=sched, port=args.port)
+    print(f"ServeServer listening on :{srv.port}", flush=True)
+    srv.serve_forever()
+    sched.close()
 
 
 def _tp_mesh(tp: int, ctx, argv):

@@ -156,9 +156,11 @@ def main(argv=None) -> int:
         return 0
     import torch
 
-    if not torch.cuda.is_available():
-        print("decode_chunks: no CUDA device available", file=sys.stderr)
-        return 2
+    # the first touch of the card, under the platform watchdog: a hung
+    # or missing card exits with one parseable artifact line
+    from mxnet_tpu_torch import platform
+
+    platform.devices_or_exit(what="mxnet_tpu_torch/tools/decode_chunks.py")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip(),

@@ -89,16 +89,18 @@ def run_elastic_bench(workers: int = 3, ops: int = 200, segments: int = 5,
 
         # -- steady reduce loop, then a SIGKILL-shaped death -------------
         arr = np.ones(1024, np.float32)
-        stop = threading.Event()
         victim_stop = threading.Event()
         counts = [0] * workers
         stamps = [0.0] * workers
+        # the survivors stop after the same round (a round needs them all:
+        # one stopping on its own would strand the other in a reduce)
+        stop_at = [None]
 
         def _loop(i):
             s = sessions[i]
-            own_stop = victim_stop if i == workers - 1 else stop
             try:
-                while not (stop.is_set() or own_stop.is_set()):
+                while not (i == workers - 1 and victim_stop.is_set()) \
+                        and (stop_at[0] is None or counts[i] < stop_at[0]):
                     s.allreduce("bench_g", arr, timeout=30)
                     counts[i] += 1
                     stamps[i] = time.perf_counter()
@@ -124,7 +126,7 @@ def run_elastic_bench(workers: int = 3, ops: int = 200, segments: int = 5,
                 recovery = max(stamps[:workers - 1]) - t_kill
                 break
             time.sleep(0.01)
-        stop.set()
+        stop_at[0] = max(counts[:workers - 1]) + 1
         join_all(threads, 30, "elastic workers")
 
         # -- rejoin: quarantined join → boundary activation --------------

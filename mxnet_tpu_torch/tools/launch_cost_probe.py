@@ -176,9 +176,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("launch_cost_probe: no CUDA device", file=sys.stderr)
-        return 2
+    # the first touch of the card, under the platform watchdog: a hung
+    # or missing card exits with one parseable artifact line
+    from mxnet_tpu_torch import platform
+
+    platform.devices_or_exit(what="mxnet_tpu_torch/tools/launch_cost_probe.py")
     print(json.dumps(run(args.reps)), flush=True)
     return 0
 

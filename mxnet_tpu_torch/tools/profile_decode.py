@@ -59,9 +59,11 @@ def main(argv=None) -> int:
     from mxnet_tpu_torch.serve import DecodeEngine
     from mxnet_tpu_torch.serve.kvcache import pages_for
 
-    if not torch.cuda.is_available():
-        print("profile_decode: no CUDA device available", file=sys.stderr)
-        return 2
+    # the first touch of the card, under the platform watchdog: a hung
+    # or missing card exits with one parseable artifact line
+    from mxnet_tpu_torch import platform
+
+    platform.devices_or_exit(what="mxnet_tpu_torch/tools/profile_decode.py")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

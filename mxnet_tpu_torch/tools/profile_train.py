@@ -64,9 +64,11 @@ def main(argv=None) -> int:
     from mxnet_tpu_torch.models import transformer_lm
     from mxnet_tpu_torch.parallel import ShardedTrainer, make_mesh
 
-    if not torch.cuda.is_available():
-        print("profile_train: no CUDA device available", file=sys.stderr)
-        return 2
+    # the first touch of the card, under the platform watchdog: a hung
+    # or missing card exits with one parseable artifact line
+    from mxnet_tpu_torch import platform
+
+    platform.devices_or_exit(what="mxnet_tpu_torch/tools/profile_train.py")
     os.environ["MXNET_ATTENTION_IMPL"] = args.impl
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

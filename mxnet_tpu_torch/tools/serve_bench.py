@@ -39,9 +39,9 @@ head-sample rate ``--sample`` and reports the qps delta;
 ``--prof-overhead`` interleaves three configurations (off, recording
 everything, recording into the tail plane's buffers with the sampling
 profiler at ``--hz``) and reports what the tail plane and the profiler
-add; ``--wire-hop`` reports the client p50 less the mean execute time
-(the copy counts of the reference's copy tracker are queue item A15, its
-item 4, of the port: those keys are None).
+add; ``--wire-hop`` reports the client p50 less the mean execute time and,
+from the copy tracker (``copytrack.py``), the bytes copied, serialize
+calls and host syncs per request.
 
 Every leg runs on the card unless ``--device cpu`` is given; without a
 card and without it, building the engine raises.
@@ -820,18 +820,21 @@ def run_wire_hop(model="mlp", duration=4.0, clients=4, max_batch_size=8,
                  request_rows=1, device="gpu"):
     """The wire hop: a closed-loop serve run's p50 client latency less
     the mean per-request execute time (``hop_ms_p50``: queueing, framing,
-    copies). The reference's copy-tracker counts (bytes copied, serialize
-    calls, host syncs per request) are queue item A15 (item 4) of the
-    port: those keys are None."""
-    from .. import obs
+    copies), and the copy tracker's bytes copied, serialize calls and host
+    syncs per request (client and server share this process, so both
+    sides of the wire are counted)."""
+    from .. import copytrack, obs
 
     was_on = obs.enabled()
     prev_rate = obs.context.sample_rate()
     prev_stream = obs.trace.tracer.stream_path
+    track_was_on = copytrack.enabled()
     obs.disable()
     try:
         obs.context.set_sample_rate(0.0)  # spans off; metrics are enough
         obs.enable()
+        copytrack.enable()
+        copytrack.reset()
         before = obs.metrics.snapshot()["histograms"].get(
             "serve.execute_seconds", {})
         res = run_bench(model=model, mode="closed", duration=duration,
@@ -839,7 +842,10 @@ def run_wire_hop(model="mlp", duration=4.0, clients=4, max_batch_size=8,
                         request_rows=request_rows, device=device)
         after = obs.metrics.snapshot()["histograms"].get(
             "serve.execute_seconds", {})
+        track = copytrack.snapshot()
     finally:
+        if not track_was_on:
+            copytrack.disable()
         obs.disable()
         obs.context.set_sample_rate(prev_rate)
         if was_on:
@@ -850,17 +856,22 @@ def run_wire_hop(model="mlp", duration=4.0, clients=4, max_batch_size=8,
     exec_s = after.get("sum", 0.0) - before.get("sum", 0.0)
     exec_ms_per_req = 1e3 * exec_s / n
     p50 = res["p50_ms"] or 0.0
+    sync_sites = track.get("hotpath.sync_sites", {})
     return {
         "model": model, "duration_s": duration, "clients": clients,
         "request_rows": request_rows, "completed": res["completed"],
         "qps": res["qps"], "p50_ms": p50, "p99_ms": res["p99_ms"],
         "execute_ms_per_request": round(exec_ms_per_req, 3),
         "hop_ms_p50": round(max(p50 - exec_ms_per_req, 0.0), 3),
-        "bytes_copied_per_request": None,
-        "serialize_calls_per_request": None,
-        "host_syncs_per_request": None,
-        "sync_sites": None,
-        "bytes_copied_total": None,
+        "bytes_copied_per_request":
+            round(track.get("wire.bytes_copied", 0) / n, 1),
+        "serialize_calls_per_request":
+            round(track.get("wire.serialize_calls", 0) / n, 3),
+        "host_syncs_per_request":
+            round(track.get("hotpath.host_syncs", 0) / n, 3),
+        "sync_sites": dict(sorted(sync_sites.items(),
+                                  key=lambda kv: -kv[1])[:8]),
+        "bytes_copied_total": track.get("wire.bytes_copied", 0),
     }
 
 
@@ -1218,6 +1229,15 @@ def main(argv=None):
                     help="profiler rate for --prof-overhead (default "
                          "MXNET_OBS_PROF_HZ, 67)")
     args = ap.parse_args(argv)
+
+    if not args.connect:
+        # an in-process stack touches the card first: a hung or missing
+        # card costs one watchdog budget and one parseable artifact line
+        from .. import platform
+
+        platform.devices_or_exit(
+            what="mxnet_tpu_torch/tools/serve_bench.py",
+            backend="cpu" if args.device == "cpu" else None)
 
     if args.scale:
         res = run_scale_bench(model=args.model, tp=args.tp,

@@ -485,10 +485,8 @@ def test_lazy_module_names_match_reference(name, target):
 # the top-level, context and base surfaces (queue C's C2)
 # ---------------------------------------------------------------------------
 
-# deliberate differences: the TPU's names; the module of queue item
-# A15(g), which raises naming it
+# deliberate differences: the TPU's names
 _SURFACE_DELIBERATE = {"tpu", "num_tpus"}
-_SURFACE_LATER = {"platform"}
 
 
 @pytest.mark.parametrize("where", ["top", "context", "base"])
@@ -496,10 +494,8 @@ def test_reference_surface_resolves_on_the_port(where):
     """Every public name of ``mxnet_tpu`` (its lazy submodules included)
     and every name of the ``__all__`` of ``mxnet_tpu.context`` and
     ``mxnet_tpu.base`` resolves on the port,
-    but the listed deliberate ones; A15(g)'s module raises naming it."""
+    but the listed deliberate ones; ``mx.platform`` is the port's."""
     import importlib
-
-    from mxnet_tpu_torch.base import MXNetError
 
     if where == "top":
         # a fresh import's names (what other tests imported since would
@@ -524,16 +520,15 @@ def test_reference_surface_resolves_on_the_port(where):
         dst = importlib.import_module(f"mxnet_tpu_torch.{where}")
     missing = []
     for name in names:
-        if name in _SURFACE_DELIBERATE or (where == "top"
-                                           and name in _SURFACE_LATER):
+        if name in _SURFACE_DELIBERATE:
             continue
         if not hasattr(dst, name):
             missing.append(name)
     assert not missing, missing
     if where == "top":
-        for name in _SURFACE_LATER:
-            with pytest.raises(MXNetError, match="A15"):
-                getattr(mx, name)
+        from mxnet_tpu_torch import platform
+
+        assert mx.platform is platform
 
 
 def test_c2_values_match_the_reference():

@@ -246,11 +246,22 @@ def test_manager_background_write_error_surfaces(tmp_path):
 
 
 def test_manager_refuses_chaos_kill_points(tmp_path, monkeypatch):
-    """The reference's chaos kill points belong to the host planes: with
-    MXNET_CHAOS_KILL set the port's manager refuses to start."""
-    monkeypatch.setenv("MXNET_CHAOS_KILL", "ckpt:pre_rename=1")
-    with pytest.raises(MXNetError, match="A15"):
-        CheckpointManager(str(tmp_path))
+    """The chaos kill points are ported: with ``MXNET_CHAOS_KILL`` naming
+    a point the writer never reaches, the manager starts and commits as
+    usual (the SIGKILL cases are in tests/test_torch_chaos.py)."""
+    from mxnet_tpu_torch.chaos import proc
+
+    monkeypatch.setenv("MXNET_CHAOS_KILL", "ckpt:never_reached@1")
+    proc.reset_kill_points()
+    try:
+        mgr = CheckpointManager(str(tmp_path), async_write=False)
+        mgr.save(TrainingState({"arg:w": np.ones(2, np.float32)},
+                               {"format": 1}), 1)
+        mgr.close()
+        assert mgr.list_steps() == [1]
+    finally:
+        monkeypatch.delenv("MXNET_CHAOS_KILL")
+        proc.reset_kill_points()
 
 
 # ---------------------------------------------------------------------------

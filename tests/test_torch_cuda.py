@@ -26,7 +26,10 @@ cost records of a decode engine on the card equal those on the CPU. A
 ``Module.fit`` with the training-fleet plane on books the card's
 forward+backward time as compute. The paged kernel loads from its
 program-cache entry with no ``nvcc`` run, bitwise the built library, and
-a truncated entry is rejected and rebuilt.
+a truncated entry is rejected and rebuilt. ``mx.platform`` guards the
+first touch of the card, ``mx.profiler``'s chrome trace holds the flash
+kernels' device events at their wrappers' launch counts, and the copy
+tracker counts one host read a card batch.
 """
 import contextlib
 import math
@@ -2000,3 +2003,91 @@ def test_lint_error_preflight_and_program_bounds_on_the_card(cuda_device):
     assert sorted(e["kind"] for e in eng.compile_log) == [
         "prefill", "prefill", "step"]
     assert TraceLinter().check_decode_engine(eng) == []
+
+
+def test_platform_guards_the_first_touch_of_the_card(cuda_device):
+    """``mx.platform`` on the card: ``devices()`` names it, ``device_put``
+    lands a tensor on it, and under an injected hang the first touch
+    fails within its budget instead of carrying on anywhere."""
+    import os
+    import time
+
+    from mxnet_tpu_torch import platform
+
+    devs = platform.devices(timeout=60)
+    assert devs[0] == cuda_device and len(devs) == torch.cuda.device_count()
+    t = platform.device_put(np.arange(3, dtype=np.float32), timeout=60)
+    assert t.device == cuda_device and t.cpu().tolist() == [0.0, 1.0, 2.0]
+    os.environ["MXNET_CHAOS_TUNNEL_HANG"] = "cuda.devices"
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(platform.PlatformUnavailable) as ei:
+            platform.devices(timeout=0.5)
+        assert time.monotonic() - t0 < 5.0
+        assert ei.value.kind == "platform_unavailable"
+        # an untargeted guard point passes
+        assert platform.device_put(np.ones(2, np.float32),
+                                   timeout=60).is_cuda
+    finally:
+        del os.environ["MXNET_CHAOS_TUNNEL_HANG"]
+
+
+def test_mx_profiler_traces_the_flash_kernels(cuda_device, tmp_path):
+    """``mx.profiler`` around two f32 flash forward+backward calls: the
+    chrome trace holds each kernel's device events, by its CUDA symbol,
+    as many as its wrapper counted, inside the ``scope`` ranges."""
+    import json
+
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.ops.attention import fused_attention
+
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 256, 64), generator=gen,
+                           device=cuda_device, requires_grad=True)
+               for _ in range(3))
+    path = str(tmp_path / "trace.json")
+    f0, b0 = tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd.launches
+    with profiler.Profiler(filename=path):
+        for _ in range(2):
+            with profiler.scope("flash_step"):
+                out = fused_attention(q, k, v, causal=True, impl="flash")
+                out.sum().backward()
+            torch.cuda.synchronize()
+    launched = (tfa.flash_attention_fwd.launches - f0,
+                tfa.flash_attention_bwd.launches - b0)
+    events = json.load(open(path))["traceEvents"]
+    kernels = [str(e.get("name", "")) for e in events
+               if e.get("cat") == "kernel"]
+    in_trace = (sum("flash_fwd_ffma_kernel" in n for n in kernels),
+                sum("flash_bwd_ffma_kernel" in n for n in kernels))
+    assert launched == (2, 2) and in_trace == launched
+    assert sum(e.get("name") == "flash_step"
+               and e.get("cat") == "user_annotation" for e in events) == 2
+
+
+def test_engine_counts_one_host_sync_a_card_batch(cuda_device):
+    """The copy tracker on the card: an engine batch's outputs are read to
+    the host once (``serve.engine.host_array``), a decode step's tokens
+    once (``serve.decode.tokens``); the tracker is NULL after."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import copytrack, serve, symbol as sym
+
+    net = sym.FullyConnected(sym.Variable("data"), num_hidden=4,
+                             no_bias=True, name="fc")
+    eng = serve.InferenceEngine(net, {"fc_weight": np.eye(4,
+                                                          dtype=np.float32)},
+                                max_batch_size=4, lint="off",
+                                ctx=mx.gpu(0))
+    copytrack.enable()
+    copytrack.reset()
+    try:
+        for _ in range(3):
+            outs, _v = eng.infer([np.ones((2, 4), np.float32)])
+        snap = copytrack.snapshot()
+    finally:
+        copytrack.disable()
+    assert copytrack.TRACKER is copytrack.NULL
+    np.testing.assert_array_equal(outs[0], np.ones((2, 4), np.float32))
+    assert snap["hotpath.host_syncs"] == 3
+    assert snap["hotpath.sync_sites"] == {"serve.engine.host_array": 3}

@@ -529,9 +529,11 @@ def test_sharded_pool_and_telemetry_name_their_items(tmp_path):
     # ported: the child's program cache is pinned, restarts included
     rep = ProcReplica(prefix, progcache_dir=str(tmp_path))
     assert rep._progcache_dir == str(tmp_path)
-    for kw in ({"env": {"MXNET_CHAOS_KILL_REPLICA0": "serve:post_recv@1"}},):
-        with pytest.raises(MXNetError, match="A15"):
-            ProcReplica(prefix, **kw)
+    # ported: replica 0's kill spec reaches its child as MXNET_CHAOS_KILL
+    # (the subprocess case is in tests/test_torch_chaos.py)
+    rep = ProcReplica(prefix, env={"MXNET_CHAOS_KILL_REPLICA0":
+                                   "serve:post_recv@1"})
+    assert rep._env == {"MXNET_CHAOS_KILL_REPLICA0": "serve:post_recv@1"}
 
 
 # ---------------------------------------------------------------------------

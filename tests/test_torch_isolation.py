@@ -97,7 +97,12 @@ def test_import_loads_neither_jax_nor_reference():
             "mxnet_tpu_torch.analysis, mxnet_tpu_torch.analysis.cli, "
             "mxnet_tpu_torch.analysis.repo_lint, mxnet_tpu_torch.runtime, "
             "mxnet_tpu_torch.tools.lint_repo, "
-            "mxnet_tpu_torch.tools.graph_lint\n"
+            "mxnet_tpu_torch.tools.graph_lint, mxnet_tpu_torch.tsan, "
+            "mxnet_tpu_torch.copytrack, mxnet_tpu_torch.platform, "
+            "mxnet_tpu_torch.chaos.rpc, mxnet_tpu_torch.chaos.proc, "
+            "mxnet_tpu_torch.chaos.platform, "
+            "mxnet_tpu_torch.tools.chaos_kill, "
+            "mxnet_tpu_torch.tools.tsan_bench\n"
             "import mxnet_tpu_torch as mx\n"
             "assert mx.np.linalg and mx.npx.relu and mx.util.get_gpu_count "
             "and mx.operator.CustomOp and mx.nd.sparse.csr_matrix\n"

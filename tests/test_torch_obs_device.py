@@ -280,6 +280,35 @@ def test_capture_counts_a_kernel_wrapper_once_and_hides_its_body():
     assert math.isfinite(float(out.sum()))
 
 
+def test_card_capture_peak_is_the_bytes_requested(monkeypatch):
+    # the caching allocator hands out a cached block whole when what is
+    # left of it is 1 MiB or less, so the allocated bytes depend on the
+    # process's earlier allocations; the record takes the bytes asked for
+    mib = 2 ** 20
+    stats = {"requested_bytes.all.current": 5 * mib,
+             "requested_bytes.all.peak": 9 * mib}
+
+    def reset(device=None):
+        stats["requested_bytes.all.peak"] = stats[
+            "requested_bytes.all.current"]
+
+    def program():
+        stats["requested_bytes.all.peak"] += 3 * mib
+        return torch.ones(4)
+
+    monkeypatch.setattr(torch.cuda, "memory_stats",
+                        lambda device=None: dict(stats))
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", reset)
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device=None: 5 * mib)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda device=None: 9 * mib)
+    _, cost = tdev.capture(program, (), site="t", label="card",
+                           device="cuda", arg_tensors=())
+    assert cost["device"] == "cuda"
+    assert cost["temp_bytes"] == cost["peak_hbm_bytes"] == 3 * mib
+
+
 def test_training_capture_sites_name_a15():
     # the training capture sites are ported (below), as are the training
     # planes of A15 (health, regress, fleetstats), and

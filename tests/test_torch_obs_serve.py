@@ -518,6 +518,7 @@ def test_serve_bench_legs_return_the_reference_keys():
         assert set(got) == set(want)
     obs_leg, hop, prof = (p[0] for p in pairs)
     assert obs_leg["qps_off"] > 0 and obs_leg["qps_on"] > 0
-    assert hop["completed"] > 0 and hop["bytes_copied_per_request"] is None
+    assert hop["completed"] > 0 and hop["bytes_copied_per_request"] > 0
+    assert hop["serialize_calls_per_request"] > 0
     assert prof["prof_samples"] > 0 and prof["segments"] == 2
     assert not tobs.enabled() and not tobs.profile.enabled()

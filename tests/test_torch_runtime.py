@@ -15,16 +15,12 @@ from mxnet_tpu_torch import runtime
 
 # the reference's knobs that exist for JAX alone (a jax platform pin, the
 # XLA compile cache, buffer donation, matmul precision, the numpy
-# delegate warning) or belong to modules the port has not yet ported
-# (queue items A15(f) and A15(g)); the test suite's seed is read by the
-# reference's conftest, not by either package
+# delegate warning, the serve and PS platform pins' JAX forms); the test
+# suite's seed is read by the reference's conftest, not by either package
 _NOT_PORTED = {"MXNET_FORCE_PLATFORM", "MXNET_COMPILE_CACHE",
                "MXNET_COMPILE_CACHE_DIR", "MXNET_FUSED_DONATE",
                "MXNET_MATMUL_PRECISION", "MXNET_NP_SILENT_FALLBACK",
                "MXNET_SERVE_WARMUP_THREADS", "MXNET_PS_PLATFORM",
-               "MXNET_TSAN", "MXNET_TSAN_RAISE", "MXNET_TSAN_STALL_S",
-               "MXNET_COPYTRACK", "MXNET_CHAOS_RPC",
-               "MXNET_CHAOS_TUNNEL_HANG", "MXNET_PLATFORM_TIMEOUT",
                "MXNET_TEST_SEED"}
 
 
