@@ -324,6 +324,16 @@ under deterministic algorithms, resumed parameters byte-identical; (d)
 tunnel hang out within 8 s with one artifact line; (e) a seeded
 inversion raising under ``set_strict`` and ``tools/tsan_bench``'s per-op
 costs (host numbers).
+Then ``example_path``: the copies of the reference's examples
+(``example_torch/``), each script's own ``main`` on the card at the
+reference's default widths with only the steps cut (BERT-base 32 x 128 on
+``--mesh dp=-1``, ResNet-50 through ``Module`` at 128 x 224², the word LM
+200 x 200 x 2, the Transformer NMT at 128 units, SSD-300 at 8 x 128²),
+every loss the reference's regex reads finite; and ``consistency_path``:
+the op sweep (``mxnet_tpu_torch/tools/check_consistency.py``) on the card
+against the CPU, all 278 cases matching, its ``grad_flash`` case launching
+the f32 flash forward and backward kernels (counted in the kernels line).
+Those four phases run in a thread beside ``mesh_path``.
 
 Between 3 and 4 it also holds the flash kernels against their plain
 versions at other head dims (D 8, 48, 80, 96, 256, 320, 512; f32 and bf16;
@@ -385,9 +395,10 @@ def check(cond, msg):
 import threading as _threading  # noqa: E402
 
 _EMIT_LOCK = _threading.Lock()
-# set by main(): progcache_path and chaos_path run beside mesh_path
-BESIDE_MESH = ("progcache_path and chaos_path ran in a thread beside "
-               "mesh_path's jobs")
+# set by main(): progcache_path, chaos_path, example_path and
+# consistency_path run beside mesh_path
+BESIDE_MESH = ("progcache_path, chaos_path, example_path and "
+               "consistency_path ran in a thread beside mesh_path's jobs")
 _BESIDE = []
 
 
@@ -7901,6 +7912,169 @@ NP_SEED = 3
 NP_TOL = 1e-4              # card vs CPU, relative to each tensor's max
 
 
+# example_path: each copy of the reference's examples (example_torch/) at
+# the reference's default widths, only the steps cut; the log regexes are
+# the reference's (tests/test_examples_run.py)
+_LOSS_RE = r"step \d+ loss ([\d.eE+-]+|nan|inf)"
+EXAMPLE_RUNS = [
+    ("bert", "bert/pretrain.py", ["--steps", "3", "--mesh", "dp=-1"],
+     _LOSS_RE),
+    ("imagenet_module", "image-classification/train_imagenet.py",
+     ["--max-batches", "3"], r"Train-accuracy=([\d.eE+-]+|nan)"),
+    ("word_lm", "rnn/word_lm/train.py", [],
+     r"epoch \d+ done: loss ([\d.eE+-]+|nan|inf)"),
+    ("transformer", "transformer/train.py", ["--steps", "10"], _LOSS_RE),
+    ("ssd", "ssd/train.py", ["--steps", "5"], _LOSS_RE),
+]
+
+
+class _ThreadOutput:
+    """``sys.stdout`` stand-in that keeps what one thread prints (and what
+    the root logger records on it) and passes every other thread's writes
+    through: a phase beside ``mesh_path`` captures only its own output."""
+
+    def __init__(self, real):
+        import io
+        import threading
+
+        self.real, self.owner = real, threading.get_ident()
+        self.buf = io.StringIO()
+
+    def write(self, s):
+        import threading
+
+        if threading.get_ident() == self.owner:
+            return self.buf.write(s)
+        return self.real.write(s)
+
+    def flush(self):
+        self.real.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def _captured(fn):
+    """``fn()``'s value and the text its thread printed or logged."""
+    import logging
+    import threading
+
+    out = _ThreadOutput(sys.stdout)
+    handler = logging.StreamHandler(out.buf)
+    handler.addFilter(lambda r: r.thread == out.owner)
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    sys.stdout = out
+    try:
+        return fn(), out.buf.getvalue()
+    finally:
+        sys.stdout = out.real
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def _load_example(path, tag):
+    import importlib.util
+
+    saved = list(sys.path)
+    spec = importlib.util.spec_from_file_location(f"example_torch_{tag}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = saved
+    return mod
+
+
+def phase_example_path(torch, dev, smi):
+    """The copies of the reference's examples (``example_torch/``), each
+    script's own ``main`` in this process on the card (its default
+    device) at the reference's default widths, only the steps cut:
+    BERT-base (32 x 128, Adam, ``--mesh dp=-1``), ResNet-50 through
+    ``Module`` (128 x 224², 3 batches), the word LM (200 x 200 x 2 LSTM
+    on cuDNN, one epoch of its synthetic corpus), the Transformer NMT
+    (128 units, then beam search) and SSD-300 (8 x 128², then NMS and
+    VOC07 mAP). Every loss line the reference's regex finds must hold a
+    finite value. None launches a kernel of the port (S 128 and below run
+    plain attention)."""
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_decode_attention)
+
+    own = (flash_attention_fwd, flash_attention_bwd, flash_decode_attention)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example_torch")
+    before = [k.launches for k in own]
+    res, logs = {}, {}
+    for name, script, argv, loss_re in EXAMPLE_RUNS:
+        mod = _load_example(os.path.join(root, script), name)
+        saved = list(sys.path)
+        t0 = time.perf_counter()
+        try:
+            rc, text = _captured(lambda: mod.main(list(argv)))
+        finally:
+            sys.path[:] = saved
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logs[name] = text
+        losses = [float(m) for m in re.findall(loss_re, text)]
+        check(rc in (None, 0), f"example_path {name}: main returned {rc}")
+        check(losses, f"example_path {name}: no line matches {loss_re!r}:"
+              f"\n{text[-2000:]}")
+        check(all(math.isfinite(v) for v in losses),
+              f"example_path {name}: non-finite loss in {losses}")
+        res[name] = {"argv": argv, "losses": losses, "wall_s": wall}
+        torch.cuda.empty_cache()
+    check([k.launches for k in own] == before,
+          "example_path launched an attention kernel of the port")
+    with open(os.path.join(_out_dir(), "example_path.log"), "w") as f:
+        for name, text in logs.items():
+            f.write(f"=== {name}\n{text}\n")
+    emit({"phase": "example_path", "card": smi, "device": str(dev),
+          "examples": res})
+
+
+def phase_consistency_path(torch, dev, smi):
+    """The op consistency sweep (``tools/check_consistency.py``, the
+    counterpart of ``tools/check_tpu_consistency.py``) on the card against
+    the CPU: all 278 cases must match at their own tolerances (exit 0);
+    its ``grad_flash`` case runs the f32 flash forward and backward
+    kernels (B 1, H 2, S 256, D 64, causal), whose launches in this phase
+    it returns (the counts set to 0 just before, read just after)."""
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_decode_attention)
+    from mxnet_tpu_torch.tools import check_consistency
+
+    path = os.path.join(_out_dir(), "consistency_path.json")
+    for k in (flash_attention_fwd, flash_attention_bwd,
+              flash_decode_attention):
+        k.launches = 0
+    rc, text = _captured(lambda: check_consistency.main(["--json", path]))
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    with open(os.path.join(_out_dir(), "consistency_path.log"), "w") as f:
+        f.write(text)
+    with open(path) as f:
+        doc = json.load(f)
+    failed = [f"{r['group']}/{r['op']}: {r['error'][:160]}"
+              for r in doc["results"] if not r["ok"]]
+    emit({"phase": "consistency_path", "card": smi, "device": doc["device"],
+          "n_ok": doc["n_ok"], "n_cases": doc["n_cases"],
+          "worst_max_rel_err_by_group": doc["worst_by_group"],
+          "failed": failed, "launches": launches})
+    check(rc == 0 and doc["n_ok"] == doc["n_cases"] == 278,
+          f"consistency_path: exit {rc}, {doc['n_ok']}/{doc['n_cases']} "
+          f"cases match; failed: {failed}")
+    check(flash_decode_attention.launches == 0,
+          "consistency_path launched the paged kernel")
+    check(launches["flash_attention_fwd"] >= 1
+          and launches["flash_attention_bwd"] >= 1,
+          f"consistency_path: grad_flash launched {launches}")
+    return launches
+
+
 def phase_np_path(torch, dev, smi):
     """The front ends that register no op, on the card: an MLP step in
     ``mx.np``/``mx.npx`` under ``autograd.record`` with a ``Custom`` op in
@@ -8067,8 +8241,9 @@ def main() -> int:
     observed = run(phase_obs_path, torch, dev, smi, zoo_ckpt)
     dist = run(phase_dist_path, torch, dev, smi)
     # progcache_path, then chaos_path (its (c) child started first, beside
-    # progcache's children) run in a thread beside mesh_path, whose ranks
-    # wait on gloo's host round trips most of their time (idle ~0.9)
+    # progcache's children), example_path and consistency_path run in a
+    # thread beside mesh_path, whose ranks wait on gloo's host round trips
+    # most of their time (idle ~0.9)
     _BESIDE.append(BESIDE_MESH)
     _MESH_ENV_PIN.update({k: os.environ.get(k, "") for k in (
         "MXNET_DEVICE_COST", "MXNET_PROGCACHE", "MXNET_PROGCACHE_DIR")})
@@ -8080,6 +8255,9 @@ def main() -> int:
             beside["chaos"] = run(phase_chaos_path, torch, dev, smi,
                                   beside["cached"]["cache_dir"],
                                   beside["kill_run"])
+            run(phase_example_path, torch, dev, smi)
+            beside["consistency"] = run(phase_consistency_path, torch, dev,
+                                        smi)
         except BaseException as e:  # raised again by the main thread
             beside["error"] = e
             _chaos_stop(beside["kill_run"])
@@ -8095,6 +8273,7 @@ def main() -> int:
     if "error" in beside:
         raise beside["error"]
     cached, chaos = beside["cached"], beside["chaos"]
+    consistency = beside["consistency"]
     serve_mesh = run(phase_serve_mesh_path, torch, dev, smi, zoo_ckpt)
     train_fleet = run(phase_train_fleet_path, torch, dev, smi)
     before = [k.launches for k in own]
@@ -8108,6 +8287,7 @@ def main() -> int:
                       + module_launches[k] + served[k] + fleet[k]
                       + observed[k] + dist[k] + mesh[k] + serve_mesh[k]
                       + train_fleet[k] + cached.get(k, 0) + chaos[k]
+                      + consistency[k]
                       for k in train_launches}
     bound_ms, bound_by = probe.pop("bound")
     src = "mxnet_tpu_torch/csrc/"
@@ -8130,8 +8310,9 @@ def main() -> int:
         # path's ranks' (ring blocks, f32 and bf16), the sharded
         # serving path's tp-2 ranks' (f32, 6 of 12 heads each), the
         # training-fleet path's six elastic workers' (f32), the program
-        # cache path's own and its cold and warm children's (f32) and the
-        # chaos path's gradient backwards (f32); the main
+        # cache path's own and its cold and warm children's (f32), the
+        # chaos path's gradient backwards (f32) and the consistency
+        # sweep's grad_flash case (f32); the main
         # fields are the bf16 kernels', the f32_* fields the FFMA kernels'
         # (the default dtype of the nd, gluon and module paths)
         _kernel_entry("flash_attention_fwd", src + "flash_attention_fwd.cu",

@@ -17,8 +17,11 @@ leaves either the previous set of valid checkpoints, or the previous set
 plus one fully valid new one — never a half-written one that parses.
 The writer brackets its commit with the chaos kill points
 ``ckpt:post_arrays``, ``ckpt:pre_rename`` and ``ckpt:post_rename``
-(``chaos/proc.py``, ``MXNET_CHAOS_KILL``). The reference's obs counters
-and spans of the writer are left out.
+(``chaos/proc.py``, ``MXNET_CHAOS_KILL``). The writer records the
+reference's telemetry: the ``checkpoint.saves``/``.coalesced``/
+``.write_errors``/``.writer_thread_leaked`` counters, the ``.queue_depth``
+gauge, the ``checkpoint.write`` span and the array-write, fsync, commit
+and whole-write histograms.
 
 Validation on load checks the manifest parses, arrays.bin's footer CRC, and
 every per-array CRC; ``load_latest`` walks newest→oldest and silently skips
@@ -37,10 +40,12 @@ import re
 import shutil
 import signal
 import threading
+import time
 from typing import List, Optional
 
 import torch
 
+from .. import obs
 from .atomic import atomic_write_json, crc32_bytes, fsync_dir, read_json
 from .state import FORMAT_VERSION, TrainingState
 
@@ -159,9 +164,12 @@ class CheckpointManager:
                 if stale is None:  # close() sentinel: not ours to eat
                     self._queue.put(None)
                     break
+                obs.inc("checkpoint.coalesced")
             self._queue.put((int(step), state))
+            obs.set_gauge("checkpoint.queue_depth", self._queue.qsize())
         else:
             self._write(int(step), state)
+        obs.inc("checkpoint.saves")
 
     def flush(self):
         """Block until every queued save has hit disk; re-raise write errors."""
@@ -176,8 +184,9 @@ class CheckpointManager:
             self._queue.join()
             self._writer.join(timeout=10)
             if self._writer.is_alive():
-                log.warning("checkpoint writer thread did not stop within "
-                            "10 s")
+                obs.inc("checkpoint.writer_thread_leaked")
+                obs.event("checkpoint.writer_thread_leaked",
+                          join_timeout_s=10)
             self._writer = None
         self.restore_signal_handlers()
 
@@ -207,16 +216,20 @@ class CheckpointManager:
                     self._write(step, state)
                 except BaseException as e:
                     # a silently lost checkpoint is a resume-time disaster:
-                    # log ONCE per failure with the traceback and keep the
-                    # error pending — the next save()/flush()/close()
-                    # re-raises it as CheckpointError
+                    # log ONCE per failure with the traceback, count it
+                    # (even with telemetry off), and keep the error
+                    # pending — the next save()/flush()/close() re-raises
+                    # it as CheckpointError
                     log.error("background checkpoint %d write failed "
                               "(will re-raise on next save/close): %s",
                               step, e, exc_info=True)
+                    obs.metrics.registry.counter(
+                        "checkpoint.write_errors").inc()
                     with self._lock:
                         self._write_error = e
             finally:
                 self._queue.task_done()
+                obs.set_gauge("checkpoint.queue_depth", self._queue.qsize())
 
     def _write(self, step: int, state: TrainingState):
         from ..chaos.proc import kill_point
@@ -232,44 +245,63 @@ class CheckpointManager:
         if os.path.exists(staging):
             shutil.rmtree(staging, ignore_errors=True)
         os.makedirs(staging)
+        rec = obs.enabled()
+        t_start = time.monotonic() if rec else 0.0
         try:
-            names = sorted(state.arrays)
-            arrays = [state.arrays[n] for n in names]
-            save_nd(os.path.join(staging, _ARRAYS_FILE), arrays, names)
-            kill_point("ckpt:post_arrays")  # chaos: die, no manifest
-            manifest = {
-                "format": FORMAT_VERSION,
-                "step": step,
-                "meta": state.meta,
-                "arrays": {
-                    n: {"crc32": crc32_bytes(raw_bytes(a)),
-                        "shape": list(a.shape), "dtype": _dtype_str(a)}
-                    for n, a in zip(names, arrays)},
-            }
-            atomic_write_json(os.path.join(staging, _MANIFEST_FILE),
-                              manifest)
-            fsync_dir(staging)
-            kill_point("ckpt:pre_rename")  # chaos: die mid-commit
-            if os.path.exists(final):
-                # same-step rewrite (epoch-end on top of a batch-period
-                # save): both snapshots resume identically, so keep the
-                # committed one — deleting it first would open a crash
-                # window with NO valid checkpoint at this step
-                shutil.rmtree(staging, ignore_errors=True)
-            else:
-                try:
-                    os.rename(staging, final)
-                except OSError:
-                    if not os.path.exists(final):
-                        raise
-                    # lost a same-step commit race: keep the winner
+            with obs.trace.span("checkpoint.write", step=step):
+                names = sorted(state.arrays)
+                arrays = [state.arrays[n] for n in names]
+                t0 = time.monotonic() if rec else 0.0
+                save_nd(os.path.join(staging, _ARRAYS_FILE), arrays, names)
+                if rec:
+                    obs.observe("checkpoint.array_write_seconds",
+                                time.monotonic() - t0)
+                kill_point("ckpt:post_arrays")  # chaos: die, no manifest
+                manifest = {
+                    "format": FORMAT_VERSION,
+                    "step": step,
+                    "meta": state.meta,
+                    "arrays": {
+                        n: {"crc32": crc32_bytes(raw_bytes(a)),
+                            "shape": list(a.shape), "dtype": _dtype_str(a)}
+                        for n, a in zip(names, arrays)},
+                }
+                atomic_write_json(os.path.join(staging, _MANIFEST_FILE),
+                                  manifest)
+                t0 = time.monotonic() if rec else 0.0
+                fsync_dir(staging)
+                if rec:
+                    obs.observe("checkpoint.fsync_seconds",
+                                time.monotonic() - t0)
+                kill_point("ckpt:pre_rename")  # chaos: die mid-commit
+                t0 = time.monotonic() if rec else 0.0
+                if os.path.exists(final):
+                    # same-step rewrite (epoch-end on top of a batch-period
+                    # save): both snapshots resume identically, so keep the
+                    # committed one — deleting it first would open a crash
+                    # window with NO valid checkpoint at this step
                     shutil.rmtree(staging, ignore_errors=True)
                 else:
-                    fsync_dir(self.directory)
-            kill_point("ckpt:post_rename")
+                    try:
+                        os.rename(staging, final)
+                    except OSError:
+                        if not os.path.exists(final):
+                            raise
+                        # lost a same-step commit race: keep the winner
+                        shutil.rmtree(staging, ignore_errors=True)
+                    else:
+                        fsync_dir(self.directory)
+                if rec:
+                    # commit = rename + parent fsync (the atomicity tax)
+                    obs.observe("checkpoint.commit_seconds",
+                                time.monotonic() - t0)
+                kill_point("ckpt:post_rename")
         except BaseException:
             shutil.rmtree(staging, ignore_errors=True)
             raise
+        if rec:
+            obs.observe("checkpoint.write_seconds",
+                        time.monotonic() - t_start)
         self._gc()
 
     def _gc(self):

@@ -24,6 +24,7 @@ steps it samples and feeds it.
 """
 from __future__ import annotations
 
+from .. import obs
 from ..base import MXNetError
 from ..checkpoint.atomic import atomic_write_bytes
 from ..optimizer import Updater, create as opt_create
@@ -95,8 +96,10 @@ class Trainer:
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
+        with obs.trace.span("allreduce"):
+            self._allreduce_grads()
+        with obs.trace.span("update"):
+            self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
         if not self._kv_initialized:

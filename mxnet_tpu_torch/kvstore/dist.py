@@ -369,6 +369,7 @@ class DistKVStore(KVStore):
                 raise
             except elastic_mod.ElasticError:
                 obs.inc("kvstore.hier.fallbacks")
+                obs.event("kvstore.hier.fallback", key=key, round=rid)
         return self._elastic.allreduce(key, flat)
 
     def allreduce_mean(self, arrays):

@@ -514,9 +514,11 @@ class PSServer:
             else:
                 pushes.append((kind, cid, seq, key, payload))
 
-        self._wal.replay(_births_first)
+        replayed = self._wal.replay(_births_first)
         for rec in pushes:
             self._replay_push(*rec)
+        if replayed:
+            obs.event("elastic.ps_wal_replayed", records=replayed)
         self._wal.rotate(self._snap_step)
         if self._snapshot_period > 0:
             self._snap_thread = threading.Thread(
@@ -583,7 +585,8 @@ class PSServer:
         with self._snap_lock:
             state = elastic_mod.capture_server_state(self)
             step, self._snap_step = self._snap_step, self._snap_step + 1
-            self._snap_mgr.save(state, step, block=True)
+            with obs.trace.span("elastic.ps_snapshot", step=step):
+                self._snap_mgr.save(state, step, block=True)
             if self._wal is not None:
                 # pushes after this snapshot land in the fresh log; older
                 # logs are covered by it and collected
@@ -883,7 +886,7 @@ class PSServer:
             cid, rank, step, stale, wait = struct.unpack_from(
                 "<QQQQd", payload, 0)
             deadline = time.monotonic() + max(0.0, min(float(wait), 3600.0))
-            st = ST_OK
+            st, blocked = ST_OK, False
             with self._clock_cv:
                 while True:
                     floor, maxc, widen = self._clock_bounds_locked()
@@ -894,7 +897,10 @@ class PSServer:
                         st = ST_ERROR
                         obs.inc("kvstore.async.gate_timeouts")
                         break
+                    blocked = True
                     self._clock_cv.wait(timeout=remaining)
+            if blocked:
+                obs.inc("kvstore.async.gate_blocks")
             if st != ST_OK:
                 _send_msg(conn, OP_PULL_STALE, key,
                           struct.pack("<BQQ", st, floor, maxc))
@@ -1098,7 +1104,7 @@ class PSServer:
     def _barrier_timeout_detail(self) -> bytes:
         """The straggler report after the \\x01 status: which ranks are
         missing and how old their heartbeats are (only the counts without
-        a membership plane)."""
+        a membership plane); also a ``kvstore.barrier_timeout`` event."""
         detail = {"expected": self._required_workers(),
                   "arrived": self._barrier_count}
         if self._elastic is not None:
@@ -1110,6 +1116,9 @@ class PSServer:
                 for rank, cid, state, age in self._elastic.liveness_table()
                 if state == "active" and cid not in arrived_cids]
             detail["missing"] = sorted(missing, key=lambda m: m["rank"])
+        obs.event("kvstore.barrier_timeout", **{
+            k: v for k, v in detail.items() if k != "missing"},
+            missing_ranks=[m["rank"] for m in detail.get("missing", [])])
         obs.inc("kvstore.barrier_timeouts")
         return json.dumps(detail).encode()
 

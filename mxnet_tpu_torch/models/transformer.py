@@ -405,7 +405,10 @@ def embed_ids(tokens, vocab):
     (``params["embed"][tokens]`` in JAX): a negative id counts from the
     end, and an id still outside [0, vocab) is clamped to the nearest
     row. Torch indexing would raise instead, and on CUDA assert on the
-    device."""
+    device. A host array (numpy, a list) is taken as the reference takes
+    one."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(np.asarray(tokens))
     tokens = tokens.long()
     tokens = torch.where(tokens < 0, tokens + vocab, tokens)
     return tokens.clamp(0, vocab - 1)
@@ -452,10 +455,14 @@ def decode_layer(cfg, lp, x, attend):
 
 
 def lm_prefill(cfg, params, tokens):
-    """Causal forward over a prompt batch. tokens (B, S) integer tensor.
+    """Causal forward over a prompt batch. tokens (B, S) integer tensor
+    or host array (moved to the parameters' device).
 
     Returns (logits (B, S, V), k (L, B, S, H, D), v (L, B, S, H, D)).
     Padded positions are harmless: row i only sees columns <= i."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(np.asarray(tokens),
+                                 device=params["embed"].device)
     s = tokens.shape[1]
     x = params["embed"][embed_ids(tokens, cfg["vocab"])] + params["pos"][:s]
     causal = torch.ones((s, s), dtype=torch.bool,

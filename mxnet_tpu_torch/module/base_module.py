@@ -288,8 +288,9 @@ class BaseModule:
             # every co-starting active (gradient sync never re-syncs
             # weights; a straggler's broadcast is answered from the
             # released round with the root's values)
-            self._elastic_broadcast_params(
-                kvstore, root=elastic_info.part_index == 0)
+            with obs.trace.span("elastic.bcast_params"):
+                self._elastic_broadcast_params(
+                    kvstore, root=elastic_info.part_index == 0)
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         validation_metric = validation_metric or eval_metric
@@ -424,9 +425,12 @@ class BaseModule:
                         # can be resumed exactly, so fall back to the last
                         # epoch-end checkpoint (cost: at most one interval)
                         if can_position:
-                            manager.save(self._capture_training_state(
-                                epoch, nbatch, global_step, train_data),
-                                global_step, block=True)
+                            with obs.trace.span("checkpoint",
+                                                step=global_step,
+                                                preemption=True):
+                                manager.save(self._capture_training_state(
+                                    epoch, nbatch, global_step, train_data),
+                                    global_step, block=True)
                         manager.flush()
                         self.logger.info(
                             "preempted at epoch %d batch %d — final "
@@ -462,8 +466,11 @@ class BaseModule:
                     # shuffle order before the next epoch's in-place
                     # reshuffle. Skipped when the batch-period save above
                     # already committed this exact step
-                    manager.save(self._capture_training_state(
-                        epoch, None, global_step, train_data), global_step)
+                    with obs.trace.span("checkpoint", step=global_step,
+                                        epoch_end=True):
+                        manager.save(self._capture_training_state(
+                            epoch, None, global_step, train_data),
+                            global_step)
                 if elastic is not None:
                     if manager is not None:
                         # the boundary snapshot is durable before the

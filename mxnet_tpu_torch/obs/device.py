@@ -69,6 +69,7 @@ executable) has no counterpart: there is no compiled executable to ask.
 """
 from __future__ import annotations
 
+import gc
 import os
 import threading
 import weakref
@@ -429,6 +430,10 @@ def capture(fn, args: tuple = (), site: str = None, label: str = None,
     arg_bytes = _storage_bytes((args, kwargs or {}) if arg_tensors is None
                                else arg_tensors)
     if cuda:
+        # collect the process's pending cycles first: one collected inside
+        # the window (in this thread or another) would free card memory
+        # allocated before it and lower the program's peak below base
+        gc.collect()
         base = _requested(torch, device, "current")
         torch.cuda.reset_peak_memory_stats(device)
     prev = getattr(_tls, "capture", None)

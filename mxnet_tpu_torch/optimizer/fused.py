@@ -575,7 +575,11 @@ class FusedUpdateEngine:
         entry.update(cost or {})
         self._sig_cost[sig] = cost or {}
         self.compile_log.append(entry)
+        # every first run counts; one after the first is a retrace
+        # (something static churned)
         obs.inc("update.cache_hit" if hit is not None else "update.compile")
+        if len(self.compile_log) > 1:
+            obs.inc("update.retrace")
         return entry
 
     def apply(self, indices, weights, grads, states, loss_scaler=None,

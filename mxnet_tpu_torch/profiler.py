@@ -35,7 +35,10 @@ sends to the device:
 
 ``compiled``, ``h2d`` and ``d2h`` live in the obs metrics registry
 (``dispatch.*`` counters) as in the reference, so a region is a delta over
-them and, with telemetry on, the counters accumulate globally.
+them and, with telemetry on, the counters accumulate globally. A thread's
+outermost region adds its ``eager_ops`` to ``dispatch.eager_ops`` when it
+exits, so the registry holds every counted operator as the reference's
+holds every program.
 """
 from __future__ import annotations
 
@@ -260,6 +263,7 @@ class DispatchCounts:
 
 _open_regions = 0  # count_dispatches() nesting depth
 _lock = threading.Lock()
+_region_depth = threading.local()  # this thread's open regions
 
 
 def counting_dispatches() -> bool:
@@ -299,10 +303,14 @@ def count_dispatches():
 
     The yielded counts are final when the region exits. Operators are
     counted on the thread that opened the region (and the autograd
-    engine's, which inherits its mode)."""
+    engine's, which inherits its mode); the outermost region of a thread
+    adds its operators to the registry's ``dispatch.eager_ops`` when it
+    exits (a nested region's are already in its parent's count)."""
     global _open_regions
     c = DispatchCounts()
     before = _dispatch_totals()
+    depth = getattr(_region_depth, "n", 0)
+    _region_depth.n = depth + 1
     with _lock:
         _open_regions += 1
     try:
@@ -311,7 +319,10 @@ def count_dispatches():
     finally:
         with _lock:
             _open_regions -= 1
+        _region_depth.n = depth
         after = _dispatch_totals()
         for k, v in after.items():
             setattr(c, k, v - before[k])
+        if depth == 0:
+            count_dispatch("eager_ops", c.eager_ops)
 

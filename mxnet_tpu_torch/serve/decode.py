@@ -67,7 +67,7 @@ import torch
 from .. import copytrack, obs, tsan
 from .. import progcache as _progcache
 from .._env import env_float, env_int
-from ..context import as_device
+from ..context import as_device, current_context
 from ..obs import context as obs_context
 from .engine import DeadlineExceeded, Draining, RequestRejected, ServeError
 from .kvcache import SCRATCH_PAGE, PagePool, PagesExhausted, pages_for
@@ -94,9 +94,10 @@ def default_decode_buckets(max_prompt: int, page_size: int) -> List[int]:
     return out
 
 
-def _device_scope(device: torch.device):
-    """Make ``device`` current in the calling thread (CUDA only)."""
-    if device.type == "cuda":
+def _device_scope(device: Optional[torch.device]):
+    """Make ``device`` current in the calling thread (CUDA only; None, an
+    engine that names no device, enters nothing)."""
+    if device is not None and device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
 
@@ -125,8 +126,9 @@ class DecodeEngine:
         Prefill pad targets; defaults to ``default_decode_buckets`` over
         the model's max_length (capped at the pool's capacity).
     device : str or torch.device, optional
-        Where the parameters and the KV pool live. Default ``cuda:0``;
-        with no card it raises. Pass ``"cpu"`` to run on the CPU.
+        Where the parameters and the KV pool live. Default the enclosing
+        context (``with mx.cpu():``), else ``cuda:0``; with neither a
+        scope nor a card it raises. Pass ``"cpu"`` to run on the CPU.
     progcache_dir : str, optional
         Explicit persistent program cache; default the process-wide
         ``progcache.cache()`` (``MXNET_PROGCACHE_DIR``).
@@ -139,7 +141,8 @@ class DecodeEngine:
                  device=None, progcache_dir: Optional[str] = None):
         from ..models.transformer import decode_config, decode_params
 
-        self.device = as_device(device)
+        self.device = (as_device(device) if device is not None
+                       else current_context().torch_device())
         if params is None:
             self.cfg = decode_config(lm)
             params = decode_params(lm)
@@ -586,6 +589,7 @@ class DecodeScheduler:
         self.tokens_out = 0
         self._occupancy = 0.0
         self.stopped_clean = True
+        self._died: Optional[BaseException] = None  # why the loop ended
         self._thread = threading.Thread(target=self._loop,
                                         name="mxnet-decode-sched",
                                         daemon=True)
@@ -627,6 +631,9 @@ class DecodeScheduler:
         lane = max(0, min(int(priority), len(self._lanes) - 1))
         handle = StreamHandle(capacity=max_new + 2)
         with self._cv:
+            if self._died is not None:
+                raise ServeError(f"decode scheduler died: {self._died!r}") \
+                    from self._died
             if not self._running or self._draining:
                 self._shed("draining", Draining("decode scheduler draining"))
             if self._qsize() >= self.max_queue:
@@ -681,7 +688,9 @@ class DecodeScheduler:
 
     def _loop(self):
         try:
-            with _device_scope(self.engine.device):
+            # the engine contract names no device: a duck-typed engine
+            # without one runs in no device scope
+            with _device_scope(getattr(self.engine, "device", None)):
                 while True:
                     with self._cv:
                         while (self._running and self._qsize() == 0
@@ -690,10 +699,18 @@ class DecodeScheduler:
                         if not self._running:
                             return
                     self.step()
+        except BaseException as e:
+            # a dead loop refuses later submissions, naming why
+            with self._cv:
+                self._died = e
+                self._running = False
+            raise
         finally:
             # whatever ends this thread, nothing may keep pages: retire
             # every resident generation and flush the queue
-            self._abort_all(ServeError("decode scheduler stopped"))
+            self._abort_all(ServeError(
+                "decode scheduler stopped" if self._died is None
+                else f"decode scheduler died: {self._died!r}"))
 
     def step(self) -> int:
         """One continuous-batch step: admit → decode → distribute →

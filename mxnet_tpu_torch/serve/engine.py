@@ -655,9 +655,15 @@ class InferenceEngine:
                                          time.monotonic() - t0, cost)
         if rec:
             dt = time.monotonic() - t0
-            if entry is not None:
+            if entry is not None and not entry["cache_hit"]:
                 obs.inc("serve.compile")
                 obs.observe("serve.compile_seconds", dt)
+            elif entry is not None:
+                # a cache hit is no fresh first run: counted apart, and
+                # its time (the record's read included) stays out of the
+                # steady-state execute histogram
+                obs.inc("serve.cache_hit")
+                obs.observe("serve.deserialize_seconds", dt)
             else:
                 obs.observe("serve.execute_seconds", dt)
             obs.inc("serve.rows_executed", n_valid)

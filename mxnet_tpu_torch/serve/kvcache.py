@@ -20,7 +20,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from .. import tsan
+from .. import obs, tsan
 from .engine import RequestRejected, ServeError
 
 __all__ = ["PagePool", "PageLeakError", "PagesExhausted", "pages_for",
@@ -108,13 +108,16 @@ class PagePool:
         with self._lock:
             if len(self._free) < n:
                 self.exhausted += 1
+                obs.inc("decode.pages_exhausted")
                 raise PagesExhausted(
                     f"kv page pool exhausted ({len(self._free)} free, "
                     f"{n} requested of {self.capacity()})")
             pages = [self._free.pop() for _ in range(n)]
             self._tables.setdefault(seq, []).extend(pages)
             self.alloc_count += n
-            self._peak = max(self._peak, self.capacity() - len(self._free))
+            used = self.capacity() - len(self._free)
+            self._peak = max(self._peak, used)
+        obs.set_gauge("decode.kv_pages_used", used)
         return pages
 
     def free(self, seq) -> int:
@@ -133,6 +136,8 @@ class PagePool:
                         f"sequence {seq!r} table held illegal page {p}")
             self._free.extend(reversed(pages))
             self.free_count += len(pages)
+            used = self.capacity() - len(self._free)
+        obs.set_gauge("decode.kv_pages_used", used)
         return len(pages)
 
     def assert_baseline(self, baseline: int = 0) -> None:

@@ -1,5 +1,6 @@
-"""The PyTorch/CUDA port stands alone: ``mxnet_tpu_torch`` and
-``chip_smoke.py`` import neither JAX nor anything of the JAX package."""
+"""The PyTorch/CUDA port stands alone: ``mxnet_tpu_torch``, the example
+copies under ``example_torch/`` and ``chip_smoke.py`` import neither JAX
+nor anything of the JAX package."""
 import os
 import re
 import subprocess
@@ -9,6 +10,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "mxnet_tpu_torch")
+EXAMPLES = os.path.join(REPO, "example_torch")
 
 _IMPORT_JAX = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
 _REF_PKG = re.compile(r"\bmxnet_tpu(?!_torch)\b")
@@ -16,9 +18,10 @@ _REF_PKG = re.compile(r"\bmxnet_tpu(?!_torch)\b")
 
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _dirs, files in os.walk(PKG):
-        out += [os.path.join(root, f) for f in files
-                if f.endswith((".py", ".cu", ".cuh"))]
+    for top in (PKG, EXAMPLES):
+        for root, _dirs, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files
+                    if f.endswith((".py", ".cu", ".cuh"))]
     return sorted(out)
 
 
@@ -160,3 +163,41 @@ def test_fleet_obs_bench_and_test_utils_import_alone():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "clean"
+
+
+def test_examples_and_sweep_load_and_run_without_jax():
+    """Every example copy loads, one trains a step on the CPU, and the op
+    sweep runs a group, with neither JAX nor the reference loaded."""
+    scripts = sorted(os.path.join(root, f)
+                     for root, _d, files in os.walk(EXAMPLES)
+                     for f in files if f.endswith(".py"))
+    assert len(scripts) == 11  # the nine of example/ and two __init__.py
+    code = ("import importlib.util, os, sys\n"
+            f"scripts = {scripts!r}\n"
+            "mods = {}\n"
+            "for path in scripts:\n"
+            "    sys.path.insert(0, os.path.dirname(path))\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        'ex_' + str(len(mods)), path)\n"
+            "    mod = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(mod)\n"
+            "    mods[path] = mod\n"
+            "main = [m for p, m in mods.items()\n"
+            "        if p.endswith('transformer/train.py')][0].main\n"
+            "main(['--units', '16', '--hidden', '32', '--layers', '1',\n"
+            "      '--heads', '2', '--vocab-size', '20', '--batch-size', '2',\n"
+            "      '--seq-len', '4', '--steps', '1', '--beam-size', '2',\n"
+            "      '--device', 'cpu'])\n"
+            "from mxnet_tpu_torch.tools import check_consistency\n"
+            "assert check_consistency.main(['--self-check', '--ops',\n"
+            "                               'grad_nn']) == 0\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'mxnet_tpu' or "
+            "m.startswith('mxnet_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd="/",
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "clean"

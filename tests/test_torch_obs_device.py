@@ -309,6 +309,42 @@ def test_card_capture_peak_is_the_bytes_requested(monkeypatch):
     assert cost["temp_bytes"] == cost["peak_hbm_bytes"] == 3 * mib
 
 
+def test_card_capture_peak_ignores_earlier_garbage(monkeypatch):
+    # a reference cycle that holds card memory from before the window and
+    # is collected inside it (the collector runs in whichever thread
+    # allocates) must not lower the program's peak: capture collects first
+    import gc
+
+    mib = 2 ** 20
+    stats = {"requested_bytes.all.current": 5 * mib,
+             "requested_bytes.all.peak": 5 * mib}
+
+    class _Held:
+        def __del__(self):  # its 4 MiB on the card go back
+            stats["requested_bytes.all.current"] -= 4 * mib
+
+    def reset(device=None):
+        stats["requested_bytes.all.peak"] = stats[
+            "requested_bytes.all.current"]
+
+    def program():
+        gc.collect()  # as a collection inside the window would
+        stats["requested_bytes.all.peak"] = max(
+            stats["requested_bytes.all.peak"],
+            stats["requested_bytes.all.current"] + 3 * mib)
+        return torch.ones(4)
+
+    monkeypatch.setattr(torch.cuda, "memory_stats",
+                        lambda device=None: dict(stats))
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", reset)
+    held = _Held()
+    held.cycle = held
+    del held
+    _, cost = tdev.capture(program, (), site="t", label="garbage",
+                           device="cuda", arg_tensors=())
+    assert cost["temp_bytes"] == cost["peak_hbm_bytes"] == 3 * mib
+
+
 def test_training_capture_sites_name_a15():
     # the training capture sites are ported (below), as are the training
     # planes of A15 (health, regress, fleetstats), and
